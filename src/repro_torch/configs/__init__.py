@@ -1,0 +1,65 @@
+"""Config registry: ``get_config(arch, variant)`` + ``build(cfg)`` → Model.
+
+Only the dense GQA + GLU-MLP family is ported; every other architecture of
+the reference registry raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import TYPE_CHECKING
+
+import torch
+
+from .base import ModelConfig, TTConfig
+
+if TYPE_CHECKING:                      # avoid configs ↔ models import cycle
+    from repro_torch.models.model import Model
+
+PORTED = ("deepseek_7b",)
+
+# architectures of the reference registry that are not ported yet
+PENDING = (
+    "qwen3_32b", "gemma3_4b", "granite_8b", "jamba_v0_1_52b",
+    "deepseek_v2_lite_16b", "mixtral_8x7b", "internvl2_2b", "mamba2_2p7b",
+    "seamless_m4t_large_v2",
+)
+
+_PENDING_MSG = ("architecture {!r} is not ported yet (ROADMAP.md Queue 1 "
+                "item 10: remaining families)")
+
+# external ids (--arch flag) → module names
+ALIASES = {a.replace("_", "-"): a for a in PORTED + PENDING}
+ALIASES.update({"jamba-v0.1-52b": "jamba_v0_1_52b",
+                "mamba2-2.7b": "mamba2_2p7b"})
+
+
+def get_config(arch: str, variant: str = "full",
+               tt: TTConfig | None = None) -> ModelConfig:
+    name = ALIASES.get(arch, arch)
+    if name in PENDING:
+        raise NotImplementedError(_PENDING_MSG.format(arch))
+    if name not in PORTED:
+        raise ValueError(f"unknown architecture {arch!r}")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    cfg: ModelConfig = {"full": mod.FULL, "smoke": mod.SMOKE}[variant]
+    if tt is not None:
+        cfg = dataclasses.replace(cfg, tt=tt)
+    return cfg
+
+
+def make_layer_plan(cfg: ModelConfig) -> list:
+    """Groups ``[(period, count)]`` of the decoder stack (dense branch of
+    the reference's ``make_layer_plan``)."""
+    from repro_torch.models.transformer import BlockDef
+    if cfg.family != "dense":
+        raise NotImplementedError(_PENDING_MSG.format(cfg.name))
+    return [((BlockDef("gqa", ffn="mlp"),), cfg.num_layers)]
+
+
+def build(cfg: ModelConfig, param_dtype=torch.float32,
+          device: str | torch.device | None = None) -> "Model":
+    """The model for ``cfg``; ``device=None`` means the GPU."""
+    from repro_torch.models.model import Model
+    return Model(cfg, make_layer_plan(cfg), param_dtype, device)

@@ -20,6 +20,8 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute subprocess tests (forced multi-device meshes, "
         "full decode loops); run in tier-1, deselectable with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skipped where there is none")
 
 
 @pytest.fixture(autouse=True)
