@@ -5,20 +5,37 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit; build the hand-written kernels from
-     ``src/repro_torch/kernels/csrc`` into ``build/`` and time the build;
-  2. hold every kernel against its plain PyTorch version at the main
-     path's full-width shapes (256 and 4 rows; fp32, bf16, int8 cores);
-  3. time each kernel beside its plain version, one dense ``torch.matmul``
-     computing the same layer, and the least time the card could take;
+     ``src/repro_torch/kernels/csrc`` into ``build/`` (one ``nvcc`` per
+     source, all started together) and time the build;
+  2. hold every kernel against its plain PyTorch version at the
+     full-width deepseek-7b shapes its main path gives it (256 and 4 rows;
+     fp32, bf16, int8 cores): fused2 at the length-2 shapes, the fused
+     chain at the length-3 shapes, the step kernel on every step of both;
+  3. time each kernel beside its plain version, one PyTorch call computing
+     the same function (``library_ms``) and the least time the card could
+     take;
   4. check the port on a small input: the deepseek-7b SMOKE model on the
-     card against the same weights on the CPU (plain versions);
-  5. the main path: full-width deepseek-7b (bf16, TT on ffn+attn at rank
-     16, backend auto) serves 4 rows × 32 tokens through
-     ``launch.serve``, with fp and then int8 cores, and every TT
-     projection must have gone through the kernel.
+     card against the same weights on the CPU (plain versions), at length 2
+     (fused2), at length 3 (fused chain) and at length 3 through the step
+     kernel, fp32 and int8 cores;
+  5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
+     16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
+     fp and then int8 cores, at length 2 with backend auto (fused2, built
+     from the CLI flags as ``launch.serve.main`` builds it), at length 3
+     with backend auto (fused chain, built through ``get_config``/``build``:
+     the CLI has no length flag) and at length 2 with ``--tt-backend
+     cuda_step``; every TT projection of each run must have gone through
+     its kernel; with fp cores one more warm run of the model just served
+     is traced (``launch.profile_serve``: device busy share, kernels per
+     pass).
+Kernel, plain and library times are device times of 50 calls enqueued
+while a spin kernel holds the stream (no host time between the calls),
+after two seconds of dense products have brought the card's clocks up;
+the eager back-to-back time of each kernel is recorded beside them.  Every
+record of phases 2 and 3 is also written to ``build/chip_smoke.json``.
 The last three lines are ``{"kernels": [...]}``, the card's name and power
-limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
-Without a CUDA card it exits non-zero and prints no result.
+limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
+{...}}``.  Without a CUDA card it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -37,40 +54,57 @@ import torch  # noqa: E402
 from repro_torch.configs import build, get_config  # noqa: E402
 from repro_torch.configs.base import TTConfig  # noqa: E402
 from repro_torch.core import hw  # noqa: E402
-from repro_torch.core.packing import pack_core  # noqa: E402
+from repro_torch.core.packing import (chain_state_sizes,  # noqa: E402
+                                      chain_weight_elems, pack_core)
 from repro_torch.core.quant import dequantize_cores, quantize_core  # noqa: E402
 from repro_torch.core.tt import tt_reconstruct  # noqa: E402
 from repro_torch.kernels import ref, tt_contract  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import profile_serve, serve  # noqa: E402
 from repro_torch.models.spec import map_tree  # noqa: E402
 
-# (n1, n2, m1, m2, r1) of deepseek-7b's TT projections at rank 16, and how
-# many of each one decoder layer runs
-SHAPES = {
-    "attn q/k/v/o 4096->4096": ((8, 512, 512, 8, 16), 4),
-    "ffn gate/up 4096->11008": ((8, 512, 1376, 8, 16), 2),
-    "ffn down 11008->4096": ((8, 1376, 512, 8, 16), 1),
+# (ns, ms, ranks) of deepseek-7b's TT projections at rank 16, and how many
+# of each one decoder layer runs; length 2 (fused2, step) and length 3
+# (fused chain, step)
+SHAPES2 = {
+    "attn q/k/v/o 4096->4096": (((8, 512), (512, 8), (1, 16, 1)), 4),
+    "ffn gate/up 4096->11008": (((8, 512), (1376, 8), (1, 16, 1)), 2),
+    "ffn down 11008->4096": (((8, 1376), (512, 8), (1, 16, 1)), 1),
+}
+SHAPES3 = {
+    "attn q/k/v/o 4096->4096": (((8, 8, 64), (64, 8, 8), (1, 16, 16, 1)), 4),
+    "ffn gate/up 4096->11008": (((8, 8, 64), (172, 8, 8), (1, 16, 16, 1)),
+                                2),
+    "ffn down 11008->4096": (((8, 8, 172), (64, 8, 8), (1, 16, 16, 1)), 1),
 }
 ROWS = (256, 4)          # prefill (batch 4 × prompt 64) and decode (batch 4)
 LAYERS, PASSES = 30, 32  # full depth; 1 prefill + 31 decode forward passes
-# (kernel, activation dtype); the main path runs bf16 activations
-CASES = (("tt_fused2", torch.float32), ("tt_fused2", torch.bfloat16),
-         ("tt_fused2_int8", torch.float32), ("tt_fused2_int8", torch.bfloat16))
+PROJ = 7                 # TT projections per decoder layer
+# (int8 cores, activation dtype); the main path runs bf16 activations
+CASES = ((False, torch.float32), (False, torch.bfloat16),
+         (True, torch.float32), (True, torch.bfloat16))
 # max |kernel − plain| / max |plain|: fp32 differs only in summation order;
-# a bf16 output is rounded to 8 significant bits on both sides
+# a bf16 output is rounded to 8 significant bits on both sides.  The step
+# kernel's output is fp32 for every input dtype.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-REPLACES = {"tt_fused2": "src/repro/kernels/tt_contract.py:287",
-            "tt_fused2_int8": "src/repro/kernels/tt_contract.py:310"}
-SOURCE = "src/repro_torch/kernels/csrc/tt_fused2.cu"
+TT_FILE = "src/repro/kernels/tt_contract.py"
+KERNELS = {   # name → (source, TPU kernel it replaces)
+    "tt_fused2": ("tt_fused2.cu", 287),
+    "tt_fused2_int8": ("tt_fused2.cu", 310),
+    "tt_fused_chain": ("tt_chain.cu", 446),
+    "tt_fused_chain_int8": ("tt_chain.cu", 478),
+    "tt_step": ("tt_step.cu", 178),
+    "tt_step_int8": ("tt_step.cu", 193),
+}
 SERVE_ARGS = ["--arch", "deepseek-7b", "--variant", "full", "--batch", "4",
               "--prompt-len", "64", "--steps", str(PASSES), "--tt",
-              "ffn,attn", "--tt-rank", "16", "--tt-backend", "auto",
-              "--seed", "0"]
+              "ffn,attn", "--tt-rank", "16", "--seed", "0"]
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
 def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
-    """Mean milliseconds per call from CUDA events, after warm-up."""
+    """Mean milliseconds per call from CUDA events over back-to-back eager
+    calls, after warm-up: the device time, or the host's when launching
+    takes longer than the work."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -83,128 +117,252 @@ def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def layer_inputs(dims, rows, kernel, act, gen):
-    """x and packed cores at one shape, the kernel and plain callables, and
-    the dense weight a dense layer would use."""
-    n1, n2, m1, m2, r1 = dims
-    # the model's TT init: the implied dense W has std sqrt(2/(M+N))
-    sigma = (2.0 / (m1 * m2 + n1 * n2) / r1) ** 0.25
-    dev = "cuda"
-    G1 = torch.randn((1, n1, m1, r1), generator=gen, device=dev) * sigma
-    G2 = torch.randn((r1, n2, m2, 1), generator=gen, device=dev) * sigma
-    x = torch.randn((rows, n1 * n2), generator=gen, device=dev).to(act)
-    if kernel == "tt_fused2_int8":
-        (q1, s1), (q2, s2) = quantize_core(G1), quantize_core(G2)
-        p2, p1 = pack_core(q2), pack_core(q1)
-        scales = torch.stack([s2, s1]).float()
-        dense = tt_reconstruct(dequantize_cores([q1, q2], [s1, s2],
-                                                torch.float32))
-        run = lambda: tt_contract.tt_fused2_int8(x, p2, p1, scales, dims)  # noqa: E731
-        plain = lambda: ref.tt_fused2_ref(x, p2, p1, dims, scales)  # noqa: E731
-        weight_bytes = p2.numel() + p1.numel() + scales.numel() * 4
+def device_ms(fn, iters: int = 50) -> float:
+    """Mean device milliseconds per call: a spin kernel holds the stream
+    while the host enqueues ``iters`` calls, which then run back to back
+    with no host time between them.  The hold grows until it outlasts the
+    enqueueing."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 10_000_000
+    while True:
+        hold, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        hold.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if hold.elapsed_time(start) > enqueue_ms:
+            return start.elapsed_time(end) / iters
+        if cycles > 10 ** 11:
+            raise RuntimeError("the host never got ahead of the device")
+        cycles *= 4
+
+
+def random_cores(dims, act, int8, gen):
+    """The model's TT init (the implied dense W has std sqrt(2/(M+N))):
+    (cores in ``act`` or int8, their scales or None, the dense W [M, N])."""
+    ns, ms, ranks = dims
+    d = len(ns)
+    rank_prod = int(np.prod(ranks[1:-1]))
+    sigma = (2.0 / (np.prod(ms) + np.prod(ns)) / rank_prod) ** (1 / (2 * d))
+    cores = [torch.randn((ranks[t], ns[t], ms[t], ranks[t + 1]),
+                         generator=gen, device="cuda") * sigma
+             for t in range(d)]
+    if int8:
+        qs = [quantize_core(G) for G in cores]
+        q, s = [a for a, _ in qs], [b for _, b in qs]
+        return q, s, tt_reconstruct(dequantize_cores(q, s, torch.float32))
+    cores = [G.to(act) for G in cores]
+    return cores, None, tt_reconstruct([G.float() for G in cores])
+
+
+def layer_cases(dims, rows, int8, act, gen):
+    """Whole-layer kernels at one shape: (kernel, run, plain, library,
+    bytes, flops) for fused2 (d=2) or the fused chain (d=3), with the dense
+    ``torch.matmul`` of the layer it replaces as the library call."""
+    ns, ms, ranks = dims
+    cores, scales, dense = random_cores(dims, act, int8, gen)
+    x = torch.randn((rows, int(np.prod(ns))), generator=gen,
+                    device="cuda").to(act)
+    packed = [pack_core(G) for G in reversed(cores)]
+    if len(ns) == 2:
+        kernel = "tt_fused2"
+        d2 = (ns[0], ns[1], ms[0], ms[1], ranks[1])
+        if int8:
+            s = torch.stack([scales[1], scales[0]]).float()
+            run = lambda: tt_contract.tt_fused2_int8(x, *packed, s, d2)  # noqa: E731
+            plain = lambda: ref.tt_fused2_ref(x, *packed, d2, s)  # noqa: E731
+        else:
+            run = lambda: tt_contract.tt_fused2(x, *packed, d2)  # noqa: E731
+            plain = lambda: ref.tt_fused2_ref(x, *packed, d2)  # noqa: E731
     else:
-        G1, G2 = G1.to(act), G2.to(act)
-        p2, p1 = pack_core(G2), pack_core(G1)
-        dense = tt_reconstruct([G1.float(), G2.float()])
-        run = lambda: tt_contract.tt_fused2(x, p2, p1, dims)  # noqa: E731
-        plain = lambda: ref.tt_fused2_ref(x, p2, p1, dims)  # noqa: E731
-        weight_bytes = (p2.numel() + p1.numel()) * p2.element_size()
+        kernel = "tt_fused_chain"
+        if int8:
+            s = torch.stack(scales[::-1]).float()
+            run = lambda: tt_contract.tt_fused_chain_int8(x, packed, s, dims)  # noqa: E731
+            plain = lambda: ref.tt_fused_chain_ref(x, packed, dims, s)  # noqa: E731
+        else:
+            run = lambda: tt_contract.tt_fused_chain(x, packed, dims)  # noqa: E731
+            plain = lambda: ref.tt_fused_chain_ref(x, packed, dims)  # noqa: E731
     w_dense = dense.T.contiguous().to(act)                   # [N, M]
     library = lambda: torch.matmul(x, w_dense)  # noqa: E731
-    moved = (x.numel() * x.element_size() + weight_bytes
-             + rows * m1 * m2 * x.element_size())
-    flops = 2 * rows * (n1 * n2 * m2 * r1 + m2 * n1 * r1 * m1)
-    return run, plain, library, moved, flops
+    weight_bytes = chain_weight_elems(ns, ms, ranks) * (
+        packed[0].element_size()) + (4 * len(ns) if int8 else 0)
+    sizes = chain_state_sizes(ns, ms, ranks)
+    macs = sum(sizes[j] * ms[t] * ranks[t] for j, t in
+               enumerate(range(len(ns) - 1, -1, -1)))
+    moved = (x.numel() + rows * sizes[-1]) * x.element_size() + weight_bytes
+    return (kernel + ("_int8" if int8 else ""), run, plain, library, moved,
+            2 * rows * macs, x, cores, scales)
+
+
+def step_cases(x, cores, scales, int8, act):
+    """The step kernel on every step of a chain, each on the state the
+    plain steps before it produced (cast to ``act`` between steps, as the
+    executor does).  The library call is one ``torch.matmul`` of
+    ``X [b, n·r1]`` by the packed core (dequantized for int8 cores)."""
+    out = []
+    state = x.reshape(-1)
+    for t in range(len(cores) - 1, -1, -1):
+        G = cores[t]
+        r0, n, m, r1 = G.shape
+        X = state.reshape(-1, n, r1)
+        if int8:
+            s = scales[t].reshape(1).float()
+            run = lambda G=G, X=X, s=s: tt_contract.tt_step_int8(G, X, s)  # noqa: E731
+            plain = lambda G=G, X=X, s=s: ref.tt_step_ref(G, X, s)  # noqa: E731
+            P = pack_core(G.float() * s).to(act)
+        else:
+            run = lambda G=G, X=X: tt_contract.tt_step(G, X)  # noqa: E731
+            plain = lambda G=G, X=X: ref.tt_step_ref(G, X)  # noqa: E731
+            P = pack_core(G)
+        X2 = X.reshape(X.shape[0], n * r1)
+        library = lambda X2=X2, P=P: torch.matmul(X2, P)  # noqa: E731
+        b = X.shape[0]
+        moved = (G.numel() * G.element_size() + X.numel() * X.element_size()
+                 + m * b * r0 * 4 + (4 if int8 else 0))
+        out.append((f"step {len(cores) - t}/{len(cores)}", run, plain,
+                    library, moved, 2 * m * b * r0 * n * r1))
+        state = plain().reshape(-1).to(act)
+    return out
+
+
+def measure(kernel, label, rows, act, per_layer, run, plain, library,
+            moved, flops, tol, spec) -> dict:
+    """Compare one kernel call with its plain version, then time kernel,
+    plain and library; fails when the error exceeds ``tol``."""
+    y, y_ref = run(), plain()
+    torch.cuda.synchronize()
+    assert y.shape == y_ref.shape and y.dtype == y_ref.dtype
+    err = float((y.float() - y_ref.float()).abs().max())
+    rel = err / float(y_ref.float().abs().max())
+    ok = bool(torch.isfinite(y).all()) and rel <= tol
+    bound_s, bound_by = hw.bound_seconds(moved, flops, DT_NAME[act], spec)
+    rec = dict(label=label, rows=rows, kernel=kernel, act=DT_NAME[act],
+               per_layer=per_layer, max_abs_err=err, max_rel_err=rel,
+               tol=tol, eager_ms=cuda_ms(run), ms=device_ms(run),
+               plain_ms=device_ms(plain), library_ms=device_ms(library),
+               bound_ms=bound_s * 1e3, bound_by=bound_by, bytes=moved,
+               flops=flops)
+    print(f"{kernel:19s} {DT_NAME[act]:8s} {label:36s} rows={rows:3d} "
+          f"abs={err:.2e} rel={rel:.2e} (tol {tol:g}) "
+          f"kernel={rec['ms']:.4f} (eager {rec['eager_ms']:.4f}) "
+          f"plain={rec['plain_ms']:.4f} library={rec['library_ms']:.4f} "
+          f"bound={rec['bound_ms']:.5f} ms ({bound_by})", flush=True)
+    if not ok:
+        raise AssertionError(f"{kernel} {DT_NAME[act]} {label} rows={rows}: "
+                             f"max relative error {rel:.3e} > {tol:g}")
+    return rec
+
+
+def warm_card(seconds: float = 2.0) -> None:
+    """Hold the card busy with dense bf16 products for ``seconds`` of wall
+    time, so that the first records timed do not run at idle clocks."""
+    a = torch.randn((4096, 4096), device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            torch.matmul(a, a)
+        torch.cuda.synchronize()
 
 
 def check_and_time(gen) -> list[dict]:
-    """Phases 2 and 3: one record per (shape, rows, kernel, dtype)."""
+    """Phases 2 and 3: one record per (kernel, shape, step, rows, case).
+    Steps are checked and timed at both lengths; the kernel line reports
+    them at length 2, their main path.  The card is warmed first."""
     spec = hw.device_spec(torch.device("cuda"))
+    warm_card()
     recs = []
-    for label, (dims, per_layer) in SHAPES.items():
-        for rows in ROWS:
-            for kernel, act in CASES:
-                run, plain, library, moved, flops = layer_inputs(
-                    dims, rows, kernel, act, gen)
-                y, y_ref = run(), plain()
-                torch.cuda.synchronize()
-                assert y.shape == y_ref.shape and y.dtype == y_ref.dtype
-                err = float((y.float() - y_ref.float()).abs().max())
-                scale = float(y_ref.float().abs().max())
-                rel = err / scale
-                ok = bool(torch.isfinite(y).all()) and rel <= TOL[act]
-                bound_s, bound_by = hw.bound_seconds(moved, flops,
-                                                     DT_NAME[act], spec)
-                rec = dict(label=label, rows=rows, kernel=kernel,
-                           act=DT_NAME[act], per_layer=per_layer,
-                           max_abs_err=err, max_rel_err=rel, tol=TOL[act],
-                           ms=cuda_ms(run), plain_ms=cuda_ms(plain),
-                           library_ms=cuda_ms(library),
-                           bound_ms=bound_s * 1e3, bound_by=bound_by,
-                           bytes=moved, flops=flops)
-                recs.append(rec)
-                print(f"{kernel:15s} {DT_NAME[act]:8s} {label:24s} "
-                      f"rows={rows:3d} max_abs={err:.3e} rel={rel:.3e} "
-                      f"(tol {TOL[act]:g}) kernel={rec['ms']:.4f}ms "
-                      f"plain={rec['plain_ms']:.4f}ms "
-                      f"dense_matmul={rec['library_ms']:.4f}ms "
-                      f"bound={rec['bound_ms']:.5f}ms ({bound_by})",
-                      flush=True)
-                if not ok:
-                    raise AssertionError(
-                        f"{kernel} {DT_NAME[act]} {label} rows={rows}: "
-                        f"max relative error {rel:.3e} > {TOL[act]:g}")
+    for length, shapes in ((2, SHAPES2), (3, SHAPES3)):
+        for label, (dims, per_layer) in shapes.items():
+            for rows in ROWS:
+                for int8, act in CASES:
+                    kernel, run, plain, library, moved, flops, x, cores, \
+                        scales = layer_cases(dims, rows, int8, act, gen)
+                    batch = [measure(kernel, label, rows, act, per_layer,
+                                     run, plain, library, moved, flops,
+                                     TOL[act], spec)]
+                    for step, *rest in step_cases(x, cores, scales, int8,
+                                                  act):
+                        batch.append(measure(
+                            "tt_step_int8" if int8 else "tt_step",
+                            f"{label} d={length} {step}", rows, act,
+                            per_layer, *rest, TOL[torch.float32], spec))
+                    for rec in batch:
+                        rec["length"] = length
+                    recs += batch
     return recs
 
 
 def small_input_check() -> None:
     """Phase 4: SMOKE deepseek-7b through the kernels on the card against
     the plain versions on the CPU, same weights, teacher-forced, in fp32
-    and int8; logits within 1e-4 (summation order)."""
-    for weights in ("fp32", "int8"):
-        cfg = get_config("deepseek-7b", "smoke", tt=TTConfig(
-            enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
-            backend="auto", weights=weights))
-        gpu, cpu = build(cfg, device="cuda"), build(cfg, device="cpu")
-        p_gpu = gpu.init(0)
-        if weights == "int8":
-            p_gpu = gpu.quantize_params(p_gpu)
-        p_cpu = map_tree(lambda t: t.cpu(), p_gpu)
-        tokens = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (2, 16), dtype=np.int64))
-        batch = {"tokens": tokens, "cache_len": 16 + 8}
-        lg, cg = gpu.prefill(p_gpu, batch)
-        lc, cc = cpu.prefill(p_cpu, batch)
-        worst = float((lg.cpu() - lc).abs().max())
-        for _ in range(8):
-            tok = lc[:, -1].argmax(-1, keepdim=True)
-            lg, cg = gpu.decode_step(p_gpu, cg, tok)
-            lc, cc = cpu.decode_step(p_cpu, cc, tok)
-            worst = max(worst, float((lg.cpu() - lc).abs().max()))
-        print(f"small input ({weights}): SMOKE logits card vs cpu max abs "
-              f"diff {worst:.3e} (tol 1e-4)", flush=True)
-        if not worst <= 1e-4:
-            raise AssertionError(f"SMOKE {weights}: card and cpu logits "
-                                 f"differ by {worst:.3e}")
+    and int8, at each (length, backend) of the main paths; logits within
+    1e-4 (summation order).  Each run must launch only its kernel."""
+    for length, backend, kernel in ((2, "auto", "tt_fused2"),
+                                    (3, "auto", "tt_fused_chain"),
+                                    (3, "cuda_step", "tt_step")):
+        for weights in ("fp32", "int8"):
+            cfg = get_config("deepseek-7b", "smoke", tt=TTConfig(
+                enabled=True, families=("ffn", "attn"), rank=4,
+                min_factor=2, length=length, backend=backend,
+                weights=weights))
+            gpu, cpu = build(cfg, device="cuda"), build(cfg, device="cpu")
+            p_gpu = gpu.init(0)
+            if weights == "int8":
+                p_gpu = gpu.quantize_params(p_gpu)
+            p_cpu = map_tree(lambda t: t.cpu(), p_gpu)
+            tokens = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (2, 16), dtype=np.int64))
+            batch = {"tokens": tokens, "cache_len": 16 + 8}
+            tt_contract.reset_launch_counts()
+            lg, cg = gpu.prefill(p_gpu, batch)
+            lc, cc = cpu.prefill(p_cpu, batch)
+            worst = float((lg.cpu() - lc).abs().max())
+            for _ in range(8):
+                tok = lc[:, -1].argmax(-1, keepdim=True)
+                lg, cg = gpu.decode_step(p_gpu, cg, tok)
+                lc, cc = cpu.decode_step(p_cpu, cc, tok)
+                worst = max(worst, float((lg.cpu() - lc).abs().max()))
+            counts = tt_contract.launch_counts()
+            want = kernel + ("_int8" if weights == "int8" else "")
+            print(f"small input (length {length}, {backend}, {weights}): "
+                  f"SMOKE logits card vs cpu max abs diff {worst:.3e} (tol "
+                  f"1e-4); launches {counts}", flush=True)
+            if not worst <= 1e-4:
+                raise AssertionError(f"SMOKE {weights} length {length}: card "
+                                     f"and cpu logits differ by {worst:.3e}")
+            if set(counts) != {want}:
+                raise AssertionError(f"SMOKE length {length} {backend}: "
+                                     f"expected only {want}, got {counts}")
 
 
-def main_path(weights: str) -> tuple[dict, int]:
-    """Phase 5 for one weight mode; returns serve's result and the
-    kernel's launch count over the whole call (cold + warm run)."""
-    kernel = "tt_fused2_int8" if weights == "int8" else "tt_fused2"
+def drive(label: str, kernel: str, per_run: int, model, params,
+          args) -> tuple[dict, int]:
+    """One main path: launch counts set to 0 just before
+    ``launch.serve.fixed`` serves ``model`` (a cold and a warm run) and
+    read just after; the warm run must launch exactly ``per_run`` of
+    ``kernel`` and no other kernel, and resolve no plan.  Returns serve's
+    result and the kernel's launches over the whole call."""
     tt_contract.reset_launch_counts()
-    out = serve.main(SERVE_ARGS + ["--tt-weights", weights])
+    out = serve.fixed(model, params, args)
     counts = tt_contract.launch_counts()
-    per_run = 7 * LAYERS * PASSES
-    print(f"main path ({weights}): launches {counts}; peak memory "
+    print(f"main path ({label}): launches {counts}; peak memory "
           f"{out['peak_bytes'] / 2**30:.3f} GiB; {out['tok_per_s']:.1f} "
-          f"tok/s", flush=True)
-    if counts.get(kernel, 0) != 2 * per_run or out["launches"].get(
-            kernel) != per_run or len(counts) != 1:
+          f"tok/s; warm run {out['warm_s']:.3f} s", flush=True)
+    if counts != {kernel: 2 * per_run} or out["launches"] != {
+            kernel: per_run} or out["replans"] != 0:
         raise AssertionError(
-            f"expected {per_run} {kernel} launches per run (7 projections × "
-            f"{LAYERS} layers × {PASSES} passes), cold + warm; got {counts}, "
-            f"warm run {out['launches']}")
+            f"{label}: expected {per_run} {kernel} launches per run, cold + "
+            f"warm, and no plan resolution; got {counts}, warm run "
+            f"{out['launches']}, {out['replans']} resolutions")
     toks = out["tokens"]
     if tuple(toks.shape) != (4, PASSES) or int(toks.min()) < 0 or \
             int(toks.max()) >= 102400 or \
@@ -213,25 +371,84 @@ def main_path(weights: str) -> tuple[dict, int]:
     return out, counts[kernel]
 
 
+def cli_model(argv):
+    """(model, params, serve flags) as ``launch.serve.main`` builds them
+    before it calls ``serve.fixed``."""
+    args = serve.parse_args(argv)
+    return (*serve.setup(args), args)
+
+
+def length3_model(weights: str):
+    """(model, params, serve flags) of full-width deepseek-7b at TT length
+    3, backend auto, built through ``get_config``/``build``/``init`` with
+    the flags of the other main paths (the CLI has no length flag)."""
+    args = serve.parse_args(SERVE_ARGS + ["--tt-weights", weights])
+    cfg = get_config("deepseek-7b", "full", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=16, length=3,
+        min_factor=8, backend="auto", weights=weights))
+    model = build(cfg, param_dtype=torch.bfloat16)
+    params = model.init(args.seed)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params, args
+
+
+def main_paths() -> dict[str, int]:
+    """Phase 5: every main path with fp then int8 cores; returns each
+    kernel's launches over its path's call.  With fp cores one more warm
+    run of the model just served is traced, after its launches were
+    read."""
+    per_run = PROJ * LAYERS * PASSES
+    launches = {}
+    for weights in ("fp32", "int8"):
+        sfx = "_int8" if weights == "int8" else ""
+        cli = {b: SERVE_ARGS + ["--tt-backend", b, "--tt-weights", weights]
+               for b in ("auto", "cuda_step")}
+        paths = (
+            ("length 2, auto", "tt_fused2", per_run,
+             lambda: cli_model(cli["auto"])),
+            ("length 3, auto", "tt_fused_chain", per_run,
+             lambda: length3_model(weights)),
+            ("length 2, cuda_step", "tt_step", 2 * per_run,
+             lambda: cli_model(cli["cuda_step"])),
+        )
+        for label, kernel, n, built in paths:
+            model, params, args = built()
+            _, launches[kernel + sfx] = drive(f"{label}, {weights}",
+                                              kernel + sfx, n, model,
+                                              params, args)
+            if weights == "fp32":
+                print(f"profile ({label}, {weights}):", flush=True)
+                profile_serve.profile_fixed(model, params, args)
+            del model, params
+    return launches
+
+
 def kernel_line(recs, launches) -> dict:
     """One entry per kernel: one decoder layer's launches of it (7
     projections, summed) at the decode batch in bf16, the main path's
-    dominant case; errors are the worst over every compared case."""
+    dominant case, at the length of its main path (fused chain: 3; fused2
+    and step: 2); errors are the worst over every compared case."""
+    spec = hw.device_spec(torch.device("cuda"))
     out = []
-    for kernel in ("tt_fused2", "tt_fused2_int8"):
+    for kernel, (source, line) in KERNELS.items():
+        length = 3 if kernel.startswith("tt_fused_chain") else 2
         mine = [r for r in recs if r["kernel"] == kernel]
-        main = [r for r in mine if r["rows"] == 4 and r["act"] == "bfloat16"]
+        main = [r for r in mine if r["rows"] == 4 and r["act"] == "bfloat16"
+                and r["length"] == length]
         tot = {k: sum(r[k] * r["per_layer"] for r in main)
-               for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
-        bound_s, bound_by = hw.bound_seconds(
-            tot["bytes"], tot["flops"], "bfloat16",
-            hw.device_spec(torch.device("cuda")))
+               for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bytes",
+                         "flops")}
+        bound_s, bound_by = hw.bound_seconds(tot["bytes"], tot["flops"],
+                                             "bfloat16", spec)
         out.append(dict(
-            name=kernel, route="cuda", source=SOURCE,
-            replaces=REPLACES[kernel], launches=launches[kernel],
+            name=kernel, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=f"{TT_FILE}:{line}", launches=launches[kernel],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bound_s * 1e3,
             bound_by=bound_by, library_ms=tot["library_ms"],
+            eager_ms=tot["eager_ms"],
             measured_at="one layer's 7 projections, 4 rows, bf16"))
     return {"kernels": out}
 
@@ -250,7 +467,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib, log = tt_contract.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f}s -> "
           f"{os.path.relpath(lib, ROOT)}", flush=True)
@@ -261,17 +478,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     recs = check_and_time(gen)
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump({"card": smi, "records": recs}, f, indent=1)
     small_input_check()
-    launches = {}
-    for weights in ("fp32", "int8"):
-        _, launches["tt_fused2_int8" if weights == "int8"
-                    else "tt_fused2"] = main_path(weights)
+    launches = main_paths()
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s",
+          flush=True)
 
     print(json.dumps(kernel_line(recs, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

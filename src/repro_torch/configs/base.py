@@ -19,16 +19,20 @@ class TTConfig:
     ``families``: which projection families are TT-factorized.  The DSE
     (``core.dse.explore``) picks the factorization shape at build time.
     ``backend`` names the port's backends: ``einsum`` (the torch einsum
-    chain), ``cuda_fused2`` (the hand-written Hopper d=2 kernel) or
-    ``auto``.  ``weights`` is the resident core dtype: ``int8`` serves
-    quantized cores through the int8 kernel.
+    chain), ``cuda_fused2`` (the hand-written Hopper d=2 kernel),
+    ``cuda_fused`` (the whole chain of any depth in one launch),
+    ``cuda_step`` (one step kernel per core) or ``auto``.  ``length`` is
+    the preferred TT length d the DSE picks shapes for.  ``weights`` is the
+    resident core dtype: ``int8`` serves quantized cores through the int8
+    kernels.
     """
     enabled: bool = False
     families: tuple[str, ...] = ("ffn",)     # of: ffn, attn, lm_head
     rank: int = 16
     length: int = 2                          # paper §6.4 deploys length-2
     min_factor: int = 8
-    backend: str = "einsum"                  # einsum | cuda_fused2 | auto
+    backend: str = "einsum"                  # einsum | cuda_fused2 |
+                                             # cuda_fused | cuda_step | auto
     weights: str = "fp32"                    # fp32 | int8
 
     @property

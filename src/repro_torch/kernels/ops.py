@@ -6,6 +6,11 @@ Executes a resolved :class:`kernels.plan.TTExecutionPlan`:
                   ``xla`` backend); a baseline, not a kernel
   'cuda_fused2' — the hand-written Hopper d=2 kernel
                   (``kernels.tt_contract.tt_fused2[_int8]``)
+  'cuda_fused'  — the whole chain of any depth d≥2 in one launch
+                  (``kernels.tt_contract.tt_fused_chain[_int8]``)
+  'cuda_step'   — one step kernel launch per core
+                  (``kernels.tt_contract.tt_step[_int8]``), the state cast
+                  to the activation dtype between steps
 
 ``plan.weights == 'int8'`` serves stored int8 cores with their per-core
 ``scales`` (the layout of ``models.layers.quantize_tt_params``); float
@@ -22,7 +27,29 @@ from repro_torch.core.packing import pack_core
 from repro_torch.core.quant import dequantize_cores
 from repro_torch.core.tt import tt_apply
 from .plan import TTExecutionPlan, chain_signature, resolve_plan
-from .tt_contract import tt_fused2, tt_fused2_int8
+from .tt_contract import (tt_fused2, tt_fused2_int8, tt_fused_chain,
+                          tt_fused_chain_int8, tt_step, tt_step_int8)
+
+
+def _chain_with_step_kernel(cores: Sequence[torch.Tensor], x: torch.Tensor,
+                            scales=None) -> torch.Tensor:
+    """The paper's chain with each einsum in the step kernel
+    (``repro.kernels.ops._chain_with_step_kernel``).  Layout between steps
+    follows the paper exactly: reshapes only, and the state is cast to
+    ``x.dtype`` after every step.  With ``scales`` the cores are int8 codes
+    (one launch of the int8 step kernel per core)."""
+    B = x.shape[0]
+    state = x.reshape(-1)
+    for t in range(len(cores) - 1, -1, -1):
+        G = cores[t]
+        _, nt, _, r1 = G.shape
+        st = state.reshape(state.numel() // (nt * r1), nt, r1)
+        if scales is not None:
+            out = tt_step_int8(G, st, scales[t].reshape(1))
+        else:
+            out = tt_step(G, st)
+        state = out.reshape(-1).to(x.dtype)       # [m, b, r0] flattened
+    return state.reshape(-1, B).T
 
 
 def tt_forward(cores: Sequence[torch.Tensor], x: torch.Tensor,
@@ -89,6 +116,16 @@ def tt_forward(cores: Sequence[torch.Tensor], x: torch.Tensor,
                                s, dims)
         else:
             y = tt_fused2(x2, pack_core(cores[1]), pack_core(cores[0]), dims)
+    elif plan.backend == "cuda_fused":
+        packed = [pack_core(G) for G in reversed(cores)]
+        x2 = x2.contiguous()
+        if plan.weights == "int8":
+            s = torch.stack(list(scales)[::-1]).float()
+            y = tt_fused_chain_int8(x2, packed, s, (ns, ms, ranks))
+        else:
+            y = tt_fused_chain(x2, packed, (ns, ms, ranks))
+    elif plan.backend == "cuda_step":
+        y = _chain_with_step_kernel(cores, x2, scales)
     else:
         raise ValueError(f"plan resolved to unknown backend {plan.backend!r}")
     if bias is not None:

@@ -13,9 +13,12 @@ decides nothing.  Three levels, outermost first:
 
 Backends (the reference's names in brackets): ``einsum`` [xla] — the
 torch einsum chain; ``cuda_fused2`` [pallas_fused2] — the hand-written
-Hopper d=2 kernel; ``auto`` routes d=1 to ``einsum`` and d=2 to
-``cuda_fused2``.  Chains of d≥3 (the reference's fused chain and step
-kernels) are not ported yet.
+Hopper d=2 kernel; ``cuda_fused`` [pallas_fused] — the whole chain of any
+depth d≥2 in one launch; ``cuda_step`` [pallas_step] — one launch per core,
+the state round-tripping through device memory; ``auto`` routes d=1 to
+``einsum``, d=2 to ``cuda_fused2`` and d≥3 to ``cuda_fused`` when one row
+of the chain's state fits a block's shared memory, else to ``cuda_step``
+(the reference's rule, ``repro.kernels.plan``, priced for the card).
 """
 from __future__ import annotations
 
@@ -25,14 +28,12 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import hw
-from .tt_contract import check_fused2_fits
+from .tt_contract import (check_fused2_fits, chain_row_bytes,
+                          fused_chain_batch_tile)
 
-BACKENDS = ("einsum", "cuda_fused2", "auto")
+BACKENDS = ("einsum", "cuda_fused2", "cuda_fused", "cuda_step", "auto")
 
 WEIGHT_ALIASES = {"fp": "fp", "fp32": "fp", "int8": "int8"}
-
-_DEEP_CHAIN_MSG = ("TT chains of length d={} are not ported yet (ROADMAP.md "
-                   "Queue 2: the fused-chain and step kernels)")
 
 # number of plan resolutions actually executed (memo/PlanBook hits do not
 # count).  Serving asserts this stays flat across a decode run.
@@ -55,12 +56,13 @@ def normalize_weights(weights: str | None) -> str | None:
 @dataclasses.dataclass(frozen=True)
 class TTExecutionPlan:
     """Fully resolved execution recipe for one TT chain; ``backend`` is
-    always concrete, never ``auto``.  The fused2 row tile is the launch's
-    business (``kernels.tt_contract``), not the plan's."""
+    always concrete, never ``auto``.  Row tiles are the launch's business
+    (``kernels.tt_contract``), not the plan's."""
     ns: tuple[int, ...]            # input factors (core order, t = 1..d)
     ms: tuple[int, ...]            # output factors
     ranks: tuple[int, ...]         # r_0 .. r_d
-    backend: str                   # 'einsum' | 'cuda_fused2'
+    backend: str                   # 'einsum' | 'cuda_fused2' |
+                                   # 'cuda_fused' | 'cuda_step'
     weights: str                   # 'fp' | 'int8'
 
 
@@ -70,10 +72,12 @@ def plan_tt_forward(ns: Sequence[int], ms: Sequence[int],
                     smem_bytes: int | None = None) -> TTExecutionPlan:
     """Resolve ONE execution plan for the chain ``(ns, ms, ranks)``.
 
-    ``auto`` sends d=1 to the einsum chain and d=2 to the fused2 kernel.
-    A d=2 chain whose fp32 intermediate for one row does not fit one
-    block's shared memory raises here rather than falling back.
-    ``smem_bytes`` overrides the card's shared memory per block (tests)."""
+    ``auto`` sends d=1 to the einsum chain, d=2 to the fused2 kernel and
+    d≥3 to the fused chain when one row of its fp32 state fits one block's
+    shared memory, else to the step kernel.  An explicit fused backend
+    whose state for one row does not fit raises here rather than falling
+    back.  ``smem_bytes`` overrides the card's shared memory per block
+    (tests)."""
     global PLAN_RESOLUTIONS
     ns, ms, ranks = (tuple(int(v) for v in a) for a in (ns, ms, ranks))
     d = len(ns)
@@ -84,6 +88,8 @@ def plan_tt_forward(ns: Sequence[int], ms: Sequence[int],
         raise ValueError(f"unknown backend {backend!r}: expected one of "
                          f"{BACKENDS}")
     weights = normalize_weights(weights) or "fp"
+    smem = hw.device_spec().smem_per_block if smem_bytes is None \
+        else smem_bytes
 
     resolved = backend
     if backend == "auto":
@@ -91,15 +97,19 @@ def plan_tt_forward(ns: Sequence[int], ms: Sequence[int],
             resolved = "einsum"      # a single core is a plain matmul
         elif d == 2:
             resolved = "cuda_fused2"
+        elif chain_row_bytes(ns, ms, ranks) <= smem:
+            resolved = "cuda_fused"
         else:
-            raise NotImplementedError(_DEEP_CHAIN_MSG.format(d))
+            resolved = "cuda_step"
     elif backend == "cuda_fused2" and d != 2:
         raise ValueError(f"cuda_fused2 requires a length-2 plan, got d={d}")
+    elif backend == "cuda_fused":
+        if d < 2:
+            raise ValueError(f"cuda_fused requires d >= 2, got d={d}")
+        fused_chain_batch_tile(ns, ms, ranks, smem)   # raises: no fit
 
     if resolved == "cuda_fused2":
-        check_fused2_fits(ns[0], ms[1], ranks[1],
-                          hw.device_spec().smem_per_block
-                          if smem_bytes is None else smem_bytes)
+        check_fused2_fits(ns[0], ms[1], ranks[1], smem)
     PLAN_RESOLUTIONS += 1
     return TTExecutionPlan(ns=ns, ms=ms, ranks=ranks, backend=resolved,
                            weights=weights)

@@ -1,10 +1,18 @@
 """Hand-written Hopper kernels for the TT chain, bound with ctypes.
 
-``tt_fused2`` and ``tt_fused2_int8`` run the whole d=2 TT layer in one
-launch of ``csrc/tt_fused2.cu`` (they replace ``tt_fused2_pallas`` and
-``tt_fused2_int8_pallas`` of ``repro.kernels.tt_contract``).  The source is
-compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
-root at first use, keyed by a hash of the sources, and loaded with ctypes.
+Each wrapper replaces one Pallas kernel of ``repro.kernels.tt_contract``:
+
+``tt_fused2[_int8]``       the whole d=2 layer in one launch
+                           (``csrc/tt_fused2.cu``; ``tt_fused2[_int8]_pallas``)
+``tt_fused_chain[_int8]``  the whole chain of any depth d ≥ 2 in one launch
+                           (``csrc/tt_chain.cu``;
+                           ``tt_fused_chain[_int8]_pallas``)
+``tt_step[_int8]``         one step on the raw core, one launch per core
+                           (``csrc/tt_step.cu``; ``tt_step[_int8]_pallas``)
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one library
+under ``build/`` at the repository root at first use, keyed by a hash of
+the sources, and loaded with ctypes.
 
 A wrapper given CPU tensors runs the kernel's plain version
 (``kernels.ref``); given CUDA tensors it launches the kernel or raises.
@@ -25,19 +33,28 @@ import threading
 import torch
 
 from repro_torch.core import hw
-from .ref import tt_fused2_ref
+from repro_torch.core.packing import chain_state_sizes
+from .ref import tt_fused2_ref, tt_fused_chain_ref, tt_step_ref
 
 # kernel launches per kernel name; the CPU plain path does not count
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("tt_fused2.cu",)
+SOURCES = ("tt_fused2.cu", "tt_chain.cu", "tt_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# fused2 row-tile cap: the largest tile any batch is cut into
+# fused2 and fused-chain row-tile cap: the largest tile any batch is cut
+# into
 MAX_FUSED2_TILE = 32
+MAX_CHAIN_TILE = 32
+# step kernel: threads per block (one (b, r0) pair each), m values per
+# block (csrc/tt_step.cu's kM) and the shared memory its two staged
+# operands aim for
+STEP_THREADS = 256
+STEP_M_TILE = 8
+STEP_SMEM_TARGET = 48 * 1024
 
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
@@ -70,7 +87,8 @@ def source_hash() -> str:
 
 
 def build() -> tuple[pathlib.Path, str]:
-    """Compile the kernels into ``build/<hash>/`` unless already built.
+    """Compile the kernels into ``build/<hash>/`` unless already built:
+    one ``nvcc`` per source, all started together, then one link.
     Returns (library path, compiler log).  The library is written under a
     temporary name and renamed, so a concurrent build never loads a
     partial file."""
@@ -80,17 +98,27 @@ def build() -> tuple[pathlib.Path, str]:
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / name) for name in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
-    log.write_text(text)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        objs = [os.path.join(work, name + ".o") for name in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        text = "".join(outs)
+        failed = [name for name, proc in zip(SOURCES, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{text}")
+        tmp = os.path.join(work, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        text += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{text}")
+        log.write_text(text)
+        os.replace(tmp, lib)
     return lib, text
 
 
@@ -108,6 +136,26 @@ def _lib() -> ctypes.CDLL:
             for name in ("tt_fused2_int8_f32", "tt_fused2_int8_bf16"):
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, p, p] + [i] * 8 + [p]
+                fn.restype = i
+            # x, packed (host void*[d]), ns, ms, ranks (host int[]), d,
+            # [scales,] y, B, bb, splits, stream
+            for name in ("tt_fused_chain_f32", "tt_fused_chain_bf16"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p, p, i, p, i, i, i, p]
+                fn.restype = i
+            for name in ("tt_fused_chain_int8_f32",
+                         "tt_fused_chain_int8_bf16"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p, p, i, p, p, i, i, i, p]
+                fn.restype = i
+            # G, X, [scale,] out, r0, n, m, r1, b, tb, rc, nc, stream
+            for name in ("tt_step_f32", "tt_step_bf16"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p] + [i] * 8 + [p]
+                fn.restype = i
+            for name in ("tt_step_int8_f32", "tt_step_int8_bf16"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p] + [i] * 8 + [p]
                 fn.restype = i
             _LIB = lib
         return _LIB
@@ -153,38 +201,45 @@ def launch_geometry(B: int, m1: int, max_tile: int, sm_count: int
     return bb, splits
 
 
+def _check_device(x, named) -> None:
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_scales(scales, x, n: int, what: str) -> None:
+    if scales.device != x.device:
+        raise ValueError(f"scales are on {scales.device}, x on {x.device}")
+    if scales.dtype != torch.float32 or scales.numel() != n:
+        raise ValueError(f"scales must be float32 with {n} value(s) "
+                         f"({what}), got {scales.dtype} "
+                         f"{tuple(scales.shape)}")
+    if not scales.is_contiguous():
+        raise ValueError("scales must be contiguous")
+
+
 def _check(x, p2, p1, dims, weight_dtype, scales=None) -> None:
     n1, n2, m1, m2, r1 = (int(v) for v in dims)
     if x.dtype not in _ACT_SUFFIX:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     want = x.dtype if weight_dtype is None else weight_dtype
-    for name, t, shape in (("x", x, None), ("p2", p2, (n2, m2 * r1)),
+    _check_device(x, [("x", x), ("p2", p2), ("p1", p1)])
+    for name, t, shape in (("p2", p2, (n2, m2 * r1)),
                            ("p1", p1, (n1 * r1, m1))):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if shape is not None:
-            if tuple(t.shape) != shape:
-                raise ValueError(
-                    f"{name} has shape {tuple(t.shape)}, expected {shape} "
-                    f"for dims {tuple(dims)}")
-            if t.dtype != want:
-                raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name} has shape {tuple(t.shape)}, expected {shape} "
+                f"for dims {tuple(dims)}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
     if x.dim() != 2 or x.shape[1] != n1 * n2:
         raise ValueError(
             f"x must be [B, {n1 * n2}] for dims {tuple(dims)}, got "
             f"{tuple(x.shape)}")
     if scales is not None:
-        if scales.device != x.device:
-            raise ValueError(f"scales are on {scales.device}, x on "
-                             f"{x.device}")
-        if scales.dtype != torch.float32 or tuple(scales.shape) != (2,):
-            raise ValueError(
-                f"scales must be float32 [2] ([s2, s1]), got "
-                f"{scales.dtype} {tuple(scales.shape)}")
-        if not scales.is_contiguous():
-            raise ValueError("scales must be contiguous")
+        _check_scales(scales, x, 2, "[s2, s1]")
 
 
 def _launch_fused2(name: str, x, p2, p1, scales, dims):
@@ -242,3 +297,221 @@ def tt_fused2_int8(x: torch.Tensor, p2: torch.Tensor, p1: torch.Tensor,
         raise ValueError(f"tt_fused2_int8 runs on cuda or cpu, not "
                          f"{x.device}")
     return _launch_fused2("tt_fused2_int8", x, p2, p1, scales, dims)
+
+
+# ---------------------------------------------------------------------------
+# fused chain of any depth d >= 2
+# ---------------------------------------------------------------------------
+
+# deepest chain one launch of csrc/tt_chain.cu takes (its kMaxD)
+MAX_CHAIN_DEPTH = 8
+
+
+def chain_row_bytes(ns, ms, ranks) -> int:
+    """Shared memory one row of the fused chain needs: its fp32 states
+    s_1 … s_{d-1} in two ping-pong buffers (one for d=2), each as large as
+    the largest of them."""
+    if len(ns) < 2:
+        raise ValueError(f"the fused chain needs d >= 2, got d={len(ns)}")
+    inner = chain_state_sizes(ns, ms, ranks)[1:-1]
+    return min(2, len(inner)) * max(inner) * 4
+
+
+def fused_chain_batch_tile(ns, ms, ranks, smem_bytes: int) -> int:
+    """Largest row tile (≤ ``MAX_CHAIN_TILE``) whose fp32 states fit one
+    block's shared memory: the one place the chain's tile is chosen, for
+    the plan's eligibility check and for the launch.  Raises when even one
+    row does not fit."""
+    row = chain_row_bytes(ns, ms, ranks)
+    if row > smem_bytes:
+        raise ValueError(
+            f"fused chain state of {row} bytes per row (ns={tuple(ns)}, "
+            f"ms={tuple(ms)}, ranks={tuple(ranks)}) exceeds {smem_bytes} "
+            f"bytes of shared memory per block")
+    return min(MAX_CHAIN_TILE, smem_bytes // row)
+
+
+def _check_chain(x, packed, dims, weight_dtype, scales=None) -> None:
+    ns, ms, ranks = dims
+    d = len(ns)
+    if len(ms) != d or len(ranks) != d + 1:
+        raise ValueError(f"inconsistent chain dims {dims}")
+    if not 2 <= d <= MAX_CHAIN_DEPTH or len(packed) != d:
+        raise ValueError(
+            f"the fused chain takes 2 <= d <= {MAX_CHAIN_DEPTH} packed "
+            f"cores matching dims; got {len(packed)} cores for d={d}")
+    if x.dtype not in _ACT_SUFFIX:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    N = 1
+    for n in ns:
+        N *= int(n)
+    if x.dim() != 2 or x.shape[1] != N:
+        raise ValueError(f"x must be [B, {N}] for ns={tuple(ns)}, got "
+                         f"{tuple(x.shape)}")
+    _check_device(x, [("x", x)] + [(f"packed[{j}]", p)
+                                   for j, p in enumerate(packed)])
+    want = x.dtype if weight_dtype is None else weight_dtype
+    for j, p in enumerate(packed):
+        t = d - 1 - j
+        shape = (ns[t] * ranks[t + 1], ms[t] * ranks[t])
+        if tuple(p.shape) != shape:
+            raise ValueError(
+                f"packed[{j}] (core {t + 1}) has shape {tuple(p.shape)}, "
+                f"expected {shape}")
+        if p.dtype != want:
+            raise TypeError(f"packed[{j}] must be {want}, got {p.dtype}")
+    if scales is not None:
+        _check_scales(scales, x, d, "execution order")
+
+
+def _launch_chain(name: str, x, packed, scales, dims):
+    ns, ms, ranks = (tuple(int(v) for v in a) for a in dims)
+    d = len(ns)
+    M = 1
+    for m in ms:
+        M *= m
+    B = x.shape[0]
+    y = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return y
+    spec = hw.device_spec(x.device)
+    bb, splits = launch_geometry(
+        B, ms[0] * ranks[0],
+        fused_chain_batch_tile(ns, ms, ranks, spec.smem_per_block),
+        spec.sm_count)
+    fn = getattr(_lib(), f"{name}_{_ACT_SUFFIX[x.dtype]}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ints = ctypes.c_int * (d + 1)
+    args = [x.data_ptr(), (ctypes.c_void_p * d)(*[p.data_ptr()
+                                                  for p in packed]),
+            ints(*ns), ints(*ms), ints(*ranks), d]
+    if scales is not None:
+        args.append(scales.data_ptr())
+    with torch.cuda.device(x.device):
+        err = fn(*args, y.data_ptr(), B, bb, splits, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCH_COUNTS[name] += 1
+    return y
+
+
+def tt_fused_chain(x: torch.Tensor, packed, dims) -> torch.Tensor:
+    """Fused TT chain of any depth d ≥ 2 in one launch.  ``x [B, N]`` →
+    ``y [B, M]`` in ``x.dtype`` (float32 or bfloat16).
+
+    ``packed[j] = P_{d-j}`` are the packed cores in execution order (core d
+    first), each ``[n_t·r_t, m_t·r_{t-1}]`` in ``x.dtype``; ``dims = (ns,
+    ms, ranks)``.  The row tile is the largest that the card's shared
+    memory holds (``fused_chain_batch_tile``)."""
+    _check_chain(x, packed, dims, None)
+    if x.device.type == "cpu":
+        return tt_fused_chain_ref(x, packed, dims)
+    if x.device.type != "cuda":
+        raise ValueError(f"tt_fused_chain runs on cuda or cpu, not "
+                         f"{x.device}")
+    return _launch_chain("tt_fused_chain", x, packed, None, dims)
+
+
+def tt_fused_chain_int8(x: torch.Tensor, packed, scales: torch.Tensor,
+                        dims) -> torch.Tensor:
+    """int8 fused TT chain: ``packed`` are int8 packed cores in execution
+    order and ``scales [d]`` their fp32 scales in the same order, a device
+    tensor on ``x``'s device.  Each step's fp32 output is multiplied by its
+    core's scale."""
+    _check_chain(x, packed, dims, torch.int8, scales)
+    if x.device.type == "cpu":
+        return tt_fused_chain_ref(x, packed, dims, scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"tt_fused_chain_int8 runs on cuda or cpu, not "
+                         f"{x.device}")
+    return _launch_chain("tt_fused_chain_int8", x, packed, scales, dims)
+
+
+# ---------------------------------------------------------------------------
+# one step on the raw core
+# ---------------------------------------------------------------------------
+
+def step_geometry(r0: int, n: int, r1: int, b: int, smem_bytes: int
+                  ) -> tuple[int, int, int]:
+    """(b tile, r0 chunk, n chunk) of one step launch.  A block's thread
+    owns one (b, r0) pair for ``STEP_M_TILE`` values of m (``tb·rc ≤
+    STEP_THREADS``) and stages ``nc`` n-values of X and G per round, as
+    many as keep both staged operands near ``STEP_SMEM_TARGET``.  Raises
+    when even one n-value does not fit the card's shared memory."""
+    rc = min(r0, STEP_THREADS)
+    tb = max(1, min(b, STEP_THREADS // rc))
+    rows = tb + STEP_M_TILE * rc
+    floats = STEP_SMEM_TARGET // 4 // rows
+    nc = max(1, min(n, (floats - 1) // r1))
+    need = rows * ((nc * r1) | 1) * 4
+    if need > smem_bytes:
+        raise ValueError(
+            f"step operands of {need} bytes (r0={r0}, r1={r1}) exceed "
+            f"{smem_bytes} bytes of shared memory per block")
+    return tb, rc, nc
+
+
+def _check_step(G, X, weight_dtype, scale=None) -> None:
+    if X.dtype not in _ACT_SUFFIX:
+        raise TypeError(f"X must be float32 or bfloat16, got {X.dtype}")
+    if G.dim() != 4 or X.dim() != 3 or X.shape[1] != G.shape[1] or \
+            X.shape[2] != G.shape[3]:
+        raise ValueError(
+            f"expected G [r0, n, m, r1] and X [b, n, r1], got "
+            f"{tuple(G.shape)} and {tuple(X.shape)}")
+    want = X.dtype if weight_dtype is None else weight_dtype
+    if G.dtype != want:
+        raise TypeError(f"G must be {want}, got {G.dtype}")
+    _check_device(X, [("X", X), ("G", G)])
+    if scale is not None:
+        _check_scales(scale, X, 1, "the core's scale")
+
+
+def _launch_step(name: str, G, X, scale):
+    r0, n, m, r1 = (int(v) for v in G.shape)
+    b = X.shape[0]
+    out = torch.empty((m, b, r0), dtype=torch.float32, device=X.device)
+    if out.numel() == 0:
+        return out
+    if -(-m // STEP_M_TILE) > 65535 or r0 > 65535 * STEP_THREADS:
+        raise ValueError(f"{name}: m={m}, r0={r0} exceed the grid's 65535 "
+                         f"blocks per axis")
+    tb, rc, nc = step_geometry(r0, n, r1, b,
+                               hw.device_spec(X.device).smem_per_block)
+    fn = getattr(_lib(), f"{name}_{_ACT_SUFFIX[X.dtype]}")
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    ptrs = [G.data_ptr(), X.data_ptr()]
+    if scale is not None:
+        ptrs.append(scale.data_ptr())
+    with torch.cuda.device(X.device):
+        err = fn(*ptrs, out.data_ptr(), r0, n, m, r1, b, tb, rc, nc, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCH_COUNTS[name] += 1
+    return out
+
+
+def tt_step(G: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """One TT step on the raw core: ``out[m, b, r0] = Σ_{n, r1}
+    G[r0, n, m, r1]·X[b, n, r1]``, fp32 out.  ``G`` is the core as stored,
+    in ``X.dtype`` (float32 or bfloat16)."""
+    _check_step(G, X, None)
+    if X.device.type == "cpu":
+        return tt_step_ref(G, X)
+    if X.device.type != "cuda":
+        raise ValueError(f"tt_step runs on cuda or cpu, not {X.device}")
+    return _launch_step("tt_step", G, X, None)
+
+
+def tt_step_int8(G: torch.Tensor, X: torch.Tensor, scale: torch.Tensor
+                 ) -> torch.Tensor:
+    """int8 TT step: ``G`` holds int8 codes and ``scale`` (one fp32 value,
+    a device tensor on ``X``'s device) its scale; the sum is multiplied by
+    it."""
+    _check_step(G, X, torch.int8, scale)
+    if X.device.type == "cpu":
+        return tt_step_ref(G, X, scale)
+    if X.device.type != "cuda":
+        raise ValueError(f"tt_step_int8 runs on cuda or cpu, not "
+                         f"{X.device}")
+    return _launch_step("tt_step_int8", G, X, scale)

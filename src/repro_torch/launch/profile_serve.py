@@ -2,13 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [serve flags]
 
-Takes ``launch.serve``'s flags, runs ``generate_fixed`` once cold, then
+Takes ``launch.serve``'s flags (or, through ``profile_fixed``, a model
+built by the caller), runs ``generate_fixed`` once cold, then
 once more under ``torch.profiler`` and prints the wall time, the device
 time of every kernel name (largest first), the number of device kernels
 per forward pass, and the device busy share of the wall time (the sum of
 kernel times over the wall time; kernels of one stream do not overlap).
-On the CPU only host operators are recorded and the device lines read
-"not measured".
+On a card only device kernels are traced; on the CPU only host operators
+are recorded and the device lines read "not measured".
 """
 from __future__ import annotations
 
@@ -24,6 +25,12 @@ from repro_torch.serving.engine import generate_fixed
 def main(argv=None, top: int = 12) -> dict:
     args = serve.parse_args(argv)
     model, params = serve.setup(args)
+    return profile_fixed(model, params, args, top)
+
+
+def profile_fixed(model, params, args, top: int = 12) -> dict:
+    """Profile one warm ``generate_fixed`` run of ``model`` with the batch,
+    prompt and steps of the serve flags ``args``."""
     cuda = model.device.type == "cuda"
     batch = serve.prompt_batch(model, args)
 
@@ -33,7 +40,9 @@ def main(argv=None, top: int = 12) -> dict:
             torch.cuda.synchronize(model.device)
 
     run()                                              # cold: set-up
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    # on a card only the device is traced: host tracing would slow the
+    # host-bound loop it measures, and its events take long to summarise
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()

@@ -4,8 +4,11 @@
         --variant full --batch 4 --prompt-len 64 --steps 32 --tt ffn,attn \\
         --tt-rank 16 --tt-backend auto [--tt-weights int8] [--device cpu]
 
-Builds the model with random weights from ``--seed``, draws the prompt
-tokens from a numpy generator seeded with ``--seed``, and runs
+``--tt-backend`` is one of ``kernels.plan.BACKENDS``: ``auto`` (d=2
+layers through the fused2 kernel), ``cuda_fused2``, ``cuda_fused`` (the
+whole chain in one launch), ``cuda_step`` (one step kernel per core) or
+``einsum``.  Builds the model with random weights from ``--seed``, draws
+the prompt tokens from a numpy generator seeded with ``--seed``, and runs
 ``generate_fixed`` twice: a cold run (kernel build, first-call set-up)
 and a warm run that is timed and must resolve no TT plan.
 """

@@ -123,8 +123,9 @@ def test_plan_routes_d2_to_fused2_and_rejects_oversized_intermediate():
     with pytest.raises(ValueError, match="shared memory"):
         tplan.plan_tt_forward((8, 512), (1376, 8), (1, 16, 1),
                               smem_bytes=4095)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tplan.plan_tt_forward((2, 2, 2), (2, 2, 2), (1, 2, 2, 1))
+    # d≥3 chains go to the fused chain (tests/test_torch_plan_chain.py)
+    assert tplan.plan_tt_forward((2, 2, 2), (2, 2, 2),
+                                 (1, 2, 2, 1)).backend == "cuda_fused"
 
 
 @pytest.mark.parametrize("smem,want", [

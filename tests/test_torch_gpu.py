@@ -9,12 +9,15 @@ card without them; ``tests/conftest.py`` imports JAX, hence::
 
 Without a card every test skips.
 """
+import math
+
 import pytest
 import torch
 
 from repro_torch.core.packing import pack_core
 from repro_torch.core.quant import quantize_core
 from repro_torch.kernels import ref, tt_contract
+from repro_torch.kernels.ops import tt_forward
 
 pytestmark = pytest.mark.gpu
 
@@ -76,3 +79,104 @@ def test_fused2_kernel_rejects_cores_on_another_device(cuda):
     x, p2, p1, _ = _inputs((2, 8, 4, 2, 3), 5, torch.float32, False, cuda)
     with pytest.raises(ValueError, match="is on"):
         tt_contract.tt_fused2(x, p2.cpu(), p1, (2, 8, 4, 2, 3))
+
+
+# (ns, ms, ranks, B) of fused chains: d = 2, 3, 4; modes 43 and 172 = 4·43;
+# the two full-width deepseek-7b length-3 shapes with the most work; row
+# counts that are not a multiple of any tile
+CHAIN_CASES = [
+    ((2, 86), (43, 2), (1, 4, 1), 5),
+    ((2, 3, 43), (5, 2, 3), (1, 3, 4, 1), 13),
+    ((2, 2, 3, 2), (3, 2, 2, 2), (1, 2, 3, 2, 1), 7),
+    ((8, 8, 64), (172, 8, 8), (1, 16, 16, 1), 4),
+    ((8, 8, 172), (64, 8, 8), (1, 16, 16, 1), 37),
+]
+
+
+def _chain_inputs(ns, ms, ranks, B, act, int8, device, seed=0):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    cores = [torch.randn((ranks[t], ns[t], ms[t], ranks[t + 1]),
+                         generator=gen, device=device) * 0.3
+             for t in range(len(ns))]
+    x = torch.randn((B, math.prod(ns)), generator=gen, device=device).to(act)
+    if int8:
+        qs = [quantize_core(G) for G in cores]
+        return x, [q for q, _ in qs], torch.stack([s for _, s in qs]).float()
+    return x, [G.to(act) for G in cores], None
+
+
+def _close(y, want, act):
+    assert y.shape == want.shape and y.dtype == want.dtype
+    assert bool(torch.isfinite(y).all())
+    err = float((y.float() - want.float()).abs().max())
+    assert err <= TOL[act] * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ns,ms,ranks,B", CHAIN_CASES)
+def test_fused_chain_kernel_matches_plain(cuda, ns, ms, ranks, B, act,
+                                          int8):
+    x, cores, scales = _chain_inputs(ns, ms, ranks, B, act, int8, cuda)
+    packed = [pack_core(G) for G in reversed(cores)]
+    dims = (ns, ms, ranks)
+    name = "tt_fused_chain_int8" if int8 else "tt_fused_chain"
+    before = tt_contract.launch_counts().get(name, 0)
+    if int8:
+        s = scales.flip(0).contiguous()
+        y = tt_contract.tt_fused_chain_int8(x, packed, s, dims)
+        want = ref.tt_fused_chain_ref(x, packed, dims, s)
+    else:
+        y = tt_contract.tt_fused_chain(x, packed, dims)
+        want = ref.tt_fused_chain_ref(x, packed, dims)
+    assert tt_contract.launch_counts()[name] == before + 1
+    _close(y, want, act)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ns,ms,ranks,B", CHAIN_CASES)
+def test_step_kernel_matches_plain(cuda, ns, ms, ranks, B, act, int8):
+    """Every step of the chain, each on the state the plain steps before
+    it produced."""
+    x, cores, scales = _chain_inputs(ns, ms, ranks, B, act, int8, cuda)
+    name = "tt_step_int8" if int8 else "tt_step"
+    state = x.reshape(-1)
+    for t in range(len(cores) - 1, -1, -1):
+        G = cores[t]
+        st = state.reshape(-1, G.shape[1], G.shape[3])
+        before = tt_contract.launch_counts().get(name, 0)
+        if int8:
+            s = scales[t].reshape(1)
+            y = tt_contract.tt_step_int8(G, st, s)
+            want = ref.tt_step_ref(G, st, s)
+        else:
+            y = tt_contract.tt_step(G, st)
+            want = ref.tt_step_ref(G, st)
+        assert tt_contract.launch_counts()[name] == before + 1
+        _close(y, want, torch.float32)
+        state = want.reshape(-1).to(act)
+
+
+@pytest.mark.parametrize("backend", ["cuda_fused", "cuda_step"])
+def test_tt_forward_d3_on_the_card_matches_the_cpu(cuda, backend):
+    ns, ms, ranks, B = CHAIN_CASES[1]
+    x, cores, _ = _chain_inputs(ns, ms, ranks, B, torch.float32, False, cuda)
+    y = tt_forward(cores, x, backend=backend)
+    want = tt_forward([G.cpu() for G in cores], x.cpu(), backend=backend)
+    _close(y.cpu(), want, torch.float32)
+
+
+def test_chain_and_step_kernels_reject_cores_on_another_device(cuda):
+    ns, ms, ranks, B = CHAIN_CASES[1]
+    x, cores, _ = _chain_inputs(ns, ms, ranks, B, torch.float32, False, cuda)
+    packed = [pack_core(G) for G in reversed(cores)]
+    packed[1] = packed[1].cpu()
+    with pytest.raises(ValueError, match="is on"):
+        tt_contract.tt_fused_chain(x, packed, (ns, ms, ranks))
+    G = cores[-1]
+    with pytest.raises(ValueError, match="is on"):
+        tt_contract.tt_step(G.cpu(), x.reshape(-1, G.shape[1], G.shape[3]))
