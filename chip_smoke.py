@@ -13,11 +13,13 @@ Phases, each fatal on failure:
      chain at the length-3 shapes, the step kernel on every step of both;
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
-     take;
+     take; fused2 also with its cores evicted from L2 before each call
+     (``cold_ms``);
   4. check the port on a small input: the deepseek-7b SMOKE model on the
      card against the same weights on the CPU (plain versions), at length 2
      (fused2), at length 3 (fused chain) and at length 3 through the step
-     kernel, fp32 and int8 cores;
+     kernel, fp32 and int8 cores over fp32 parameters, and at length 2 with
+     bf16 parameters as the full-width paths run;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -86,6 +88,14 @@ CASES = ((False, torch.float32), (False, torch.bfloat16),
 # a bf16 output is rounded to 8 significant bits on both sides.  The step
 # kernel's output is fp32 for every input dtype.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# SMOKE logits, card against cpu: with fp32 parameters only the summation
+# order differs (absolute); with bf16 parameters the two sides round to
+# bf16 at other places (cuBLAS against the CPU's kernels, the fused2 kernel
+# against its plain version), so a few bf16 ulps: relative to the largest
+# |logit|, as in tests/test_torch_model_bf16.py
+SMOKE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bytes written between two cold-L2 calls: 2.5× the H100's 50 MB L2
+FLUSH_BYTES = 128 * 2 ** 20
 TT_FILE = "src/repro/kernels/tt_contract.py"
 KERNELS = {   # name → (source, TPU kernel it replaces)
     "tt_fused2": ("tt_fused2.cu", 287),
@@ -143,6 +153,14 @@ def device_ms(fn, iters: int = 50) -> float:
         if cycles > 10 ** 11:
             raise RuntimeError("the host never got ahead of the device")
         cycles *= 4
+
+
+def cold_device_ms(fn, flush, iters: int = 50) -> float:
+    """Device milliseconds per call of ``fn`` with L2 evicted before each
+    call: ``flush`` (a write of ``FLUSH_BYTES``) then ``fn``, back to back,
+    less ``flush`` timed alone."""
+    both = device_ms(lambda: (flush(), fn()), iters)
+    return both - device_ms(flush, iters)
 
 
 def random_cores(dims, act, int8, gen):
@@ -235,9 +253,10 @@ def step_cases(x, cores, scales, int8, act):
 
 
 def measure(kernel, label, rows, act, per_layer, run, plain, library,
-            moved, flops, tol, spec) -> dict:
+            moved, flops, tol, spec, flush=None) -> dict:
     """Compare one kernel call with its plain version, then time kernel,
-    plain and library; fails when the error exceeds ``tol``."""
+    plain and library, and with ``flush`` the kernel with L2 evicted
+    before each call; fails when the error exceeds ``tol``."""
     y, y_ref = run(), plain()
     torch.cuda.synchronize()
     assert y.shape == y_ref.shape and y.dtype == y_ref.dtype
@@ -251,9 +270,13 @@ def measure(kernel, label, rows, act, per_layer, run, plain, library,
                plain_ms=device_ms(plain), library_ms=device_ms(library),
                bound_ms=bound_s * 1e3, bound_by=bound_by, bytes=moved,
                flops=flops)
+    cold = ""
+    if flush is not None:
+        rec["cold_ms"] = cold_device_ms(run, flush)
+        cold = f" cold-L2 {rec['cold_ms']:.4f}"
     print(f"{kernel:19s} {DT_NAME[act]:8s} {label:36s} rows={rows:3d} "
           f"abs={err:.2e} rel={rel:.2e} (tol {tol:g}) "
-          f"kernel={rec['ms']:.4f} (eager {rec['eager_ms']:.4f}) "
+          f"kernel={rec['ms']:.4f}{cold} (eager {rec['eager_ms']:.4f}) "
           f"plain={rec['plain_ms']:.4f} library={rec['library_ms']:.4f} "
           f"bound={rec['bound_ms']:.5f} ms ({bound_by})", flush=True)
     if not ok:
@@ -279,6 +302,8 @@ def check_and_time(gen) -> list[dict]:
     them at length 2, their main path.  The card is warmed first."""
     spec = hw.device_spec(torch.device("cuda"))
     warm_card()
+    buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = buf.zero_
     recs = []
     for length, shapes in ((2, SHAPES2), (3, SHAPES3)):
         for label, (dims, per_layer) in shapes.items():
@@ -288,7 +313,8 @@ def check_and_time(gen) -> list[dict]:
                         scales = layer_cases(dims, rows, int8, act, gen)
                     batch = [measure(kernel, label, rows, act, per_layer,
                                      run, plain, library, moved, flops,
-                                     TOL[act], spec)]
+                                     TOL[act], spec, flush if length == 2
+                                     else None)]
                     for step, *rest in step_cases(x, cores, scales, int8,
                                                   act):
                         batch.append(measure(
@@ -303,45 +329,56 @@ def check_and_time(gen) -> list[dict]:
 
 def small_input_check() -> None:
     """Phase 4: SMOKE deepseek-7b through the kernels on the card against
-    the plain versions on the CPU, same weights, teacher-forced, in fp32
-    and int8, at each (length, backend) of the main paths; logits within
-    1e-4 (summation order).  Each run must launch only its kernel."""
-    for length, backend, kernel in ((2, "auto", "tt_fused2"),
-                                    (3, "auto", "tt_fused_chain"),
-                                    (3, "cuda_step", "tt_step")):
-        for weights in ("fp32", "int8"):
-            cfg = get_config("deepseek-7b", "smoke", tt=TTConfig(
-                enabled=True, families=("ffn", "attn"), rank=4,
-                min_factor=2, length=length, backend=backend,
-                weights=weights))
-            gpu, cpu = build(cfg, device="cuda"), build(cfg, device="cpu")
-            p_gpu = gpu.init(0)
-            if weights == "int8":
-                p_gpu = gpu.quantize_params(p_gpu)
-            p_cpu = map_tree(lambda t: t.cpu(), p_gpu)
-            tokens = torch.from_numpy(np.random.default_rng(0).integers(
-                0, cfg.vocab_size, (2, 16), dtype=np.int64))
-            batch = {"tokens": tokens, "cache_len": 16 + 8}
-            tt_contract.reset_launch_counts()
-            lg, cg = gpu.prefill(p_gpu, batch)
-            lc, cc = cpu.prefill(p_cpu, batch)
-            worst = float((lg.cpu() - lc).abs().max())
-            for _ in range(8):
-                tok = lc[:, -1].argmax(-1, keepdim=True)
-                lg, cg = gpu.decode_step(p_gpu, cg, tok)
-                lc, cc = cpu.decode_step(p_cpu, cc, tok)
-                worst = max(worst, float((lg.cpu() - lc).abs().max()))
-            counts = tt_contract.launch_counts()
-            want = kernel + ("_int8" if weights == "int8" else "")
-            print(f"small input (length {length}, {backend}, {weights}): "
-                  f"SMOKE logits card vs cpu max abs diff {worst:.3e} (tol "
-                  f"1e-4); launches {counts}", flush=True)
-            if not worst <= 1e-4:
-                raise AssertionError(f"SMOKE {weights} length {length}: card "
-                                     f"and cpu logits differ by {worst:.3e}")
-            if set(counts) != {want}:
-                raise AssertionError(f"SMOKE length {length} {backend}: "
-                                     f"expected only {want}, got {counts}")
+    the plain versions on the CPU, same weights, teacher-forced: fp32 and
+    int8 cores over fp32 parameters at each (length, backend) of the main
+    paths, logits within 1e-4 (summation order); and length 2 with bf16
+    parameters, as the full-width paths run, within ``SMOKE_TOL``.  Each
+    run must launch only its kernel."""
+    cases = [(length, backend, kernel, weights, torch.float32)
+             for length, backend, kernel in ((2, "auto", "tt_fused2"),
+                                             (3, "auto", "tt_fused_chain"),
+                                             (3, "cuda_step", "tt_step"))
+             for weights in ("fp32", "int8")]
+    cases.append((2, "auto", "tt_fused2", "fp32", torch.bfloat16))
+    for length, backend, kernel, weights, pdt in cases:
+        cfg = get_config("deepseek-7b", "smoke", tt=TTConfig(
+            enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+            length=length, backend=backend, weights=weights))
+        gpu = build(cfg, param_dtype=pdt, device="cuda")
+        cpu = build(cfg, param_dtype=pdt, device="cpu")
+        p_gpu = gpu.init(0)
+        if weights == "int8":
+            p_gpu = gpu.quantize_params(p_gpu)
+        p_cpu = map_tree(lambda t: t.cpu(), p_gpu)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 16), dtype=np.int64))
+        batch = {"tokens": tokens, "cache_len": 16 + 8}
+        tt_contract.reset_launch_counts()
+        lg, cg = gpu.prefill(p_gpu, batch)
+        lc, cc = cpu.prefill(p_cpu, batch)
+        worst = float((lg.cpu().float() - lc.float()).abs().max())
+        top = float(lc.float().abs().max())
+        for _ in range(8):
+            tok = lc[:, -1].argmax(-1, keepdim=True)
+            lg, cg = gpu.decode_step(p_gpu, cg, tok)
+            lc, cc = cpu.decode_step(p_cpu, cc, tok)
+            worst = max(worst, float((lg.cpu().float() -
+                                      lc.float()).abs().max()))
+            top = max(top, float(lc.float().abs().max()))
+        counts = tt_contract.launch_counts()
+        want = kernel + ("_int8" if weights == "int8" else "")
+        tol = SMOKE_TOL[pdt] * (top if pdt == torch.bfloat16 else 1.0)
+        print(f"small input (length {length}, {backend}, {weights} cores, "
+              f"{DT_NAME[pdt]} params): SMOKE logits card vs cpu max abs "
+              f"diff {worst:.3e} (tol {tol:.3e}, max |logit| {top:.3f}); "
+              f"launches {counts}", flush=True)
+        if not worst <= tol:
+            raise AssertionError(
+                f"SMOKE {weights} {DT_NAME[pdt]} length {length}: card and "
+                f"cpu logits differ by {worst:.3e} > {tol:.3e}")
+        if set(counts) != {want}:
+            raise AssertionError(f"SMOKE length {length} {backend}: "
+                                 f"expected only {want}, got {counts}")
 
 
 def drive(label: str, kernel: str, per_run: int, model, params,
@@ -436,9 +473,10 @@ def kernel_line(recs, launches) -> dict:
         mine = [r for r in recs if r["kernel"] == kernel]
         main = [r for r in mine if r["rows"] == 4 and r["act"] == "bfloat16"
                 and r["length"] == length]
-        tot = {k: sum(r[k] * r["per_layer"] for r in main)
-               for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bytes",
-                         "flops")}
+        keys = ["ms", "eager_ms", "plain_ms", "library_ms", "bytes", "flops"]
+        if all("cold_ms" in r for r in main):
+            keys.append("cold_ms")
+        tot = {k: sum(r[k] * r["per_layer"] for r in main) for k in keys}
         bound_s, bound_by = hw.bound_seconds(tot["bytes"], tot["flops"],
                                              "bfloat16", spec)
         out.append(dict(
@@ -449,6 +487,7 @@ def kernel_line(recs, launches) -> dict:
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bound_s * 1e3,
             bound_by=bound_by, library_ms=tot["library_ms"],
             eager_ms=tot["eager_ms"],
+            **({"cold_ms": tot["cold_ms"]} if "cold_ms" in tot else {}),
             measured_at="one layer's 7 projections, 4 rows, bf16"))
     return {"kernels": out}
 

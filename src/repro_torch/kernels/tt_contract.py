@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import pathlib
@@ -45,9 +47,20 @@ SOURCES = ("tt_fused2.cu", "tt_chain.cu", "tt_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# fused2 and fused-chain row-tile cap: the largest tile any batch is cut
-# into
-MAX_FUSED2_TILE = 32
+# fused2 (csrc/tt_fused2.cu): the ring depths of its two stages (the
+# source's kStages1, kStages2), the stage-1 rows a block aims for (8
+# tensor-core row tiles), the stage-1 ring's shared-memory budget, the
+# widest stage-2 column chunk, the block's warps (kThreads / 32), and the
+# most outputs one stage's block tile may hold by activation bytes: bf16,
+# 16 warps × 2 accumulator tiles of 16×16; fp32, 512 threads × 8 (kMaxAcc,
+# kMaxOut)
+FUSED2_STAGES = (4, 2)
+FUSED2_ROWS1 = 128
+FUSED2_RING1 = 80 * 1024
+FUSED2_NCT = 256
+FUSED2_WARPS = 16
+FUSED2_MAX_TILE = {2: 8192, 4: 4096}
+# fused-chain row-tile cap: the largest tile any batch is cut into
 MAX_CHAIN_TILE = 32
 # step kernel: threads per block (one (b, r0) pair each), m values per
 # block (csrc/tt_step.cu's kM) and the shared memory its two staged
@@ -129,13 +142,15 @@ def _lib() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
+            # x, p2, p1, [scales,] y, B, n1, n2, m1, m2, r1, bb, g, nc,
+            # kc, nct, smem, stream
             for name in ("tt_fused2_f32", "tt_fused2_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p] + [i] * 8 + [p]
+                fn.argtypes = [p, p, p, p] + [i] * 12 + [p]
                 fn.restype = i
             for name in ("tt_fused2_int8_f32", "tt_fused2_int8_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, p] + [i] * 8 + [p]
+                fn.argtypes = [p, p, p, p, p] + [i] * 12 + [p]
                 fn.restype = i
             # x, packed (host void*[d]), ns, ms, ranks (host int[]), d,
             # [scales,] y, B, bb, splits, stream
@@ -168,33 +183,202 @@ def _lib() -> ctypes.CDLL:
 _ACT_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def check_fused2_fits(n1: int, m2: int, r1: int, smem_bytes: int) -> None:
-    """Raise when the fp32 intermediate of one row, ``n1·m2·r1·4`` bytes,
-    does not fit one block's shared memory."""
-    row = n1 * m2 * r1 * 4
-    if row > smem_bytes:
+def _up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _ksplit(tiles: int) -> int:
+    """Warps sharing one 16×16 tile's k-steps (the source's ``ksplit``):
+    the largest power of two that ``tiles`` leave room for."""
+    split = 1
+    while 2 * split * tiles <= FUSED2_WARPS:
+        split *= 2
+    return split
+
+
+def _pow2_at_least(a: int, lo: int) -> int:
+    p = lo
+    while p < a:
+        p *= 2
+    return p
+
+
+def _stage1_width(g: int, r1: int, act_bytes: int) -> int:
+    """Stage 1's padded tile width: a multiple of 16 (one tensor-core
+    tile) for bf16; for fp32 a power of two, so that each thread owns one
+    column (the source's ``N1p``)."""
+    return _up(g * r1, 16) if act_bytes == 2 else _pow2_at_least(g * r1, 16)
+
+
+def fused2_group(m2: int, r1: int) -> int:
+    """i2 values per block: enough that stage 1's ``g·r1`` columns fill
+    one 16-wide tensor-core tile, where m2 has that many."""
+    return min(m2, -(-16 // r1))
+
+
+def fused2_smem_bytes(n1: int, r1: int, bb: int, g: int, kc: int, nct: int,
+                      act_bytes: int, w_bytes: int) -> int:
+    """Shared memory of one fused2 block: the stage-2 left operand A (a
+    bf16 high and low part, or fp32), the ring of ``FUSED2_STAGES[1]`` P1
+    column chunks, and one region that holds first the ring of
+    ``FUSED2_STAGES[0]`` (x, P2) chunks, then stage 1's and stage 2's
+    fp32 partial sums.  The layout of ``csrc/tt_fused2.cu``'s
+    ``make_geo``, which refuses a launch whose byte count differs."""
+    tc = act_bytes == 2                       # bf16: tensor cores
+    conv = tc and w_bytes == 1                # int8 cores widened to bf16
+    s1, s2 = FUSED2_STAGES
+    M1p, N1p = _up(bb * n1, 16), _stage1_width(g, r1, act_bytes)
+    K2p, M2p = _up(n1 * r1, 16), _up(g * bb, 16)
+    ldA = K2p + (8 if tc else 4)
+    ldp1 = nct + 16 // w_bytes
+    a_part = _up(M2p * ldA * (2 if tc else 4), 128)
+    ring2 = s2 * _up(K2p * ldp1 * w_bytes, 128) + (
+        _up(K2p * (nct + 8) * 2, 128) if conv else 0)
+    slot1 = (_up(M1p * (kc + 16 // act_bytes) * act_bytes, 128)
+             + _up(kc * (N1p + 16 // w_bytes) * w_bytes, 128))
+    ring1 = s1 * slot1 + (_up(kc * (N1p + 8) * 2, 128) if conv else 0)
+    split1 = _ksplit(M1p // 16 * (N1p // 16)) if tc else 1
+    split2 = _ksplit(M2p // 16 * (nct // 16)) if tc else 1
+    region = max(ring1, split1 * M1p * (N1p + 4) * 4,
+                 split2 * M2p * (nct + 4) * 4)
+    return (2 if tc else 1) * a_part + ring2 + _up(region, 128)
+
+
+def _fused2_block_fits(n1: int, r1: int, g: int, bb: int, smem_bytes: int,
+                       act_bytes: int, w_bytes: int) -> bool:
+    """Whether a block of ``bb`` rows and ``g`` i2 values fits at the
+    smallest chunks (16 n2 values, 16 columns): its stage tiles within
+    ``FUSED2_MAX_TILE`` outputs and its shared memory within
+    ``smem_bytes``."""
+    most = FUSED2_MAX_TILE[act_bytes]
+    return (_up(bb * n1, 16) * _stage1_width(g, r1, act_bytes) <= most
+            and _up(g * bb, 16) * 16 <= most
+            and fused2_smem_bytes(n1, r1, bb, g, 16, 16, act_bytes,
+                                  w_bytes) <= smem_bytes)
+
+
+def check_fused2_fits(n1: int, m2: int, r1: int, smem_bytes: int,
+                      act_bytes: int = 4, w_bytes: int = 4) -> None:
+    """Raise when a block of one row does not fit (``_fused2_block_fits``;
+    by default priced for fp32 activations and cores, the largest)."""
+    g = fused2_group(m2, r1)
+    if not _fused2_block_fits(n1, r1, g, 1, smem_bytes, act_bytes, w_bytes):
+        need = fused2_smem_bytes(n1, r1, 1, g, 16, 16, act_bytes, w_bytes)
         raise ValueError(
-            f"fused2 intermediate of {row} bytes per row (n1={n1}, m2={m2}, "
-            f"r1={r1}) exceeds {smem_bytes} bytes of shared memory per block")
+            f"a fused2 block of one row (n1={n1}, m2={m2}, r1={r1}) needs "
+            f"{need} bytes of shared memory per block, {smem_bytes} "
+            f"available, and at most {FUSED2_MAX_TILE[act_bytes]} outputs "
+            f"per stage tile")
 
 
-def fused2_batch_tile(n1: int, m2: int, r1: int, smem_bytes: int) -> int:
-    """Largest power-of-two row tile (≤ ``MAX_FUSED2_TILE``) whose fp32
-    intermediate ``bb·n1·m2·r1·4`` bytes fits one block's shared memory.
-    Raises when even one row does not fit."""
-    check_fused2_fits(n1, m2, r1, smem_bytes)
-    bb = MAX_FUSED2_TILE
-    while bb * n1 * m2 * r1 * 4 > smem_bytes:
-        bb //= 2
+def fused2_batch_tile(n1: int, m2: int, r1: int, smem_bytes: int,
+                      act_bytes: int = 4, w_bytes: int = 4) -> int:
+    """Largest row tile, up to the ``FUSED2_ROWS1 // n1`` rows that give
+    stage 1 its 128 rows, of which one block fits
+    (``_fused2_block_fits``).  Raises when even one row does not fit."""
+    check_fused2_fits(n1, m2, r1, smem_bytes, act_bytes, w_bytes)
+    g = fused2_group(m2, r1)
+    bb = max(1, FUSED2_ROWS1 // n1)
+    while not _fused2_block_fits(n1, r1, g, bb, smem_bytes, act_bytes,
+                                 w_bytes):
+        bb -= 1
     return bb
+
+
+@dataclasses.dataclass(frozen=True)
+class Fused2Geometry:
+    """One fused2 launch: rows per block, i2 per block, i1 per block,
+    n2 values per stage-1 chunk, columns per stage-2 chunk, shared memory
+    per block and the grid (row tiles, i2 groups, i1 slices)."""
+    bb: int
+    g: int
+    nc: int
+    kc: int
+    nct: int
+    smem: int
+    grid: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def fused2_geometry(B: int, dims: tuple, act_bytes: int, w_bytes: int,
+                    sm_count: int, smem_bytes: int) -> Fused2Geometry:
+    """Tiles of one fused2 launch (memoized: a decode step asks for the
+    same few every time); stage 1 is never recomputed across i2
+    groups.
+
+    * Many rows (prefill): the widest i2 group g (a divisor of m2) whose
+      blocks of 16 // g rows, one 16-row stage-2 tile each, still give
+      90% of the SMs a block without cutting m1.  At 256 rows that is
+      g = m2 = 8 and 2 rows: 128 blocks, each reading only its own rows
+      of x, and writing y's rows in whole runs of m2 outputs.
+    * Otherwise i2 groups of ``fused2_group`` values (stage 1 one
+      tensor-core tile wide) and row tiles of up to ``fused2_batch_tile``
+      rows (16 at n1 = 8: 128 stage-1 rows), never more than B.  When
+      row tiles × i2 groups leave SMs idle (decode: 4 rows give 1 × 8
+      blocks), m1 is cut into ``sm_count // blocks`` slices of a multiple
+      of 16 columns, each block recomputing its stage 1: that costs
+      ``bb·n1·n2·g·r1`` MACs per block on the tensor cores, against the
+      120–128 SMs the split puts to work.
+    * Stage 2 loops over chunks of up to ``FUSED2_NCT`` columns (for fp32
+      a power of two, one column per thread); stage 1 over chunks of
+      ``kc`` n2 values, as wide as the stage-1 ring's budget
+      (``FUSED2_RING1``) allows, up to the width at which the 3 chunks
+      issued before the first wait cover n2: at decode all of x and the P2
+      slice are in flight at once.  Chunks shrink until the block fits
+      ``smem_bytes``."""
+    n1, n2, m1, m2, r1 = (int(v) for v in dims)
+    g = fused2_group(m2, r1)
+    bb = min(B, fused2_batch_tile(n1, m2, r1, smem_bytes, act_bytes,
+                                  w_bytes))
+    for wide in range(m2, g, -1):
+        rows = min(B, max(1, 16 // wide))
+        if m2 % wide == 0 and -(-B // rows) * (m2 // wide) >= \
+                sm_count * 9 // 10 and _fused2_block_fits(
+                    n1, r1, wide, rows, smem_bytes, act_bytes, w_bytes):
+            g, bb = wide, rows
+            break
+    blocks = -(-B // bb) * -(-m2 // g)
+    splits = max(1, min(sm_count // blocks, -(-m1 // 16)))
+    nc = _up(-(-m1 // splits), 16)
+    M1p, M2p = _up(bb * n1, 16), _up(g * bb, 16)
+    N1p = _stage1_width(g, r1, act_bytes)
+
+    def narrower(nct: int) -> int:
+        return nct - 16 if act_bytes == 2 else nct // 2
+
+    nct = min(nc, FUSED2_NCT)
+    if act_bytes == 4:
+        nct = 1 << (nct.bit_length() - 1)
+    while M2p * nct > FUSED2_MAX_TILE[act_bytes]:
+        nct = narrower(nct)
+    s1 = FUSED2_STAGES[0]
+    budget = FUSED2_RING1 // s1 // (M1p * act_bytes + N1p * w_bytes)
+    kc = max(16, min(_up(-(-n2 // (s1 - 1)), 16), budget // 16 * 16))
+    while True:
+        smem = fused2_smem_bytes(n1, r1, bb, g, kc, nct, act_bytes, w_bytes)
+        if smem <= smem_bytes:
+            break
+        if kc > 32:
+            kc -= 16
+        elif nct > 64:
+            nct = narrower(nct)
+        elif kc > 16:
+            kc -= 16
+        else:
+            nct = narrower(nct)  # ≥ 16: fused2_batch_tile fit at 16
+    grid = (-(-B // bb), -(-m2 // g), -(-m1 // nc))
+    if max(grid[1:]) > 65535:
+        raise ValueError(f"fused2 grid {grid} exceeds 65535 blocks per axis")
+    return Fused2Geometry(bb, g, nc, kc, nct, smem, grid)
 
 
 def launch_geometry(B: int, m1: int, max_tile: int, sm_count: int
                     ) -> tuple[int, int]:
-    """(row tile, m1 splits) of one launch.  Rows are cut finer than
-    ``max_tile`` (what shared memory holds) until the row tiles cover the
-    SMs; when there are fewer row tiles than SMs, stage 2's columns are
-    split across blocks (at least 32 columns per block)."""
+    """(row tile, splits of the last step's ``m1`` columns) of one fused
+    chain launch.  Rows are cut finer than ``max_tile`` (what shared
+    memory holds) until the row tiles cover the SMs; when there are fewer
+    row tiles than SMs, the last step's columns are split across blocks
+    (at least 32 columns per block)."""
     bb = max(1, min(max_tile, -(-B // sm_count)))
     tiles = -(-B // bb)
     splits = max(1, min(sm_count // tiles, -(-m1 // 32)))
@@ -249,17 +433,17 @@ def _launch_fused2(name: str, x, p2, p1, scales, dims):
     if B == 0:
         return y
     spec = hw.device_spec(x.device)
-    bb, splits = launch_geometry(
-        B, m1, fused2_batch_tile(n1, m2, r1, spec.smem_per_block),
-        spec.sm_count)
+    geo = fused2_geometry(B, (n1, n2, m1, m2, r1), x.element_size(),
+                          p2.element_size(), spec.sm_count,
+                          spec.smem_per_block)
     fn = getattr(_lib(), f"{name}_{_ACT_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [x.data_ptr(), p2.data_ptr(), p1.data_ptr()]
     if scales is not None:
         ptrs.append(scales.data_ptr())
     with torch.cuda.device(x.device):
-        err = fn(*ptrs, y.data_ptr(), B, n1, n2, m1, m2, r1, bb, splits,
-                 stream)
+        err = fn(*ptrs, y.data_ptr(), B, n1, n2, m1, m2, r1, geo.bb, geo.g,
+                 geo.nc, geo.kc, geo.nct, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCH_COUNTS[name] += 1
@@ -273,8 +457,7 @@ def tt_fused2(x: torch.Tensor, p2: torch.Tensor, p1: torch.Tensor,
 
     ``p2 [n2, m2·r1]`` and ``p1 [n1·r1, m1]`` are the packed cores
     (``core.packing.pack_core``) in ``x.dtype``; ``dims = (n1, n2, m1, m2,
-    r1)``.  The row tile is the largest that the card's shared memory
-    holds (``fused2_batch_tile``)."""
+    r1)``.  The tiles of the launch come from ``fused2_geometry``."""
     _check(x, p2, p1, dims, None)
     if x.device.type == "cpu":
         return tt_fused2_ref(x, p2, p1, dims)

@@ -27,6 +27,11 @@ CASES = [
     (2, 86, 43, 2, 4, 13),
     (8, 512, 1376, 8, 16, 37),
 ]
+# every full-width deepseek-7b length-2 shape at rank 16 (attn q/k/v/o,
+# ffn gate/up, ffn down) at the decode and prefill row counts
+FULL_WIDTH = [(8, 512, 512, 8, 16, B) for B in (4, 256)] + [
+    (8, 512, 1376, 8, 16, B) for B in (4, 256)] + [
+    (8, 1376, 512, 8, 16, B) for B in (4, 256)]
 # max |kernel − plain| / max |plain|: fp32 differs only in summation order;
 # a bf16 output is rounded to 8 significant bits on both sides
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -56,7 +61,7 @@ def _inputs(dims, B, act, int8, device, seed=0):
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("n1,n2,m1,m2,r1,B", CASES)
+@pytest.mark.parametrize("n1,n2,m1,m2,r1,B", CASES + FULL_WIDTH)
 def test_fused2_kernel_matches_plain(cuda, n1, n2, m1, m2, r1, B, act,
                                      int8):
     dims = (n1, n2, m1, m2, r1)
