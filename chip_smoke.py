@@ -13,8 +13,8 @@ Phases, each fatal on failure:
      chain at the length-3 shapes, the step kernel on every step of both;
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
-     take; fused2 also with its cores evicted from L2 before each call
-     (``cold_ms``);
+     take; fused2 and the length-2 steps also with L2 evicted before each
+     call (``cold_ms``); each step's own time per decoder layer;
   4. check the port on a small input: the deepseek-7b SMOKE model on the
      card against the same weights on the CPU (plain versions), at length 2
      (fused2), at length 3 (fused chain) and at length 3 through the step
@@ -320,11 +320,42 @@ def check_and_time(gen) -> list[dict]:
                         batch.append(measure(
                             "tt_step_int8" if int8 else "tt_step",
                             f"{label} d={length} {step}", rows, act,
-                            per_layer, *rest, TOL[torch.float32], spec))
+                            per_layer, *rest, TOL[torch.float32], spec,
+                            flush if length == 2 else None))
+                        batch[-1]["step"] = step
                     for rec in batch:
                         rec["length"] = length
                     recs += batch
     return recs
+
+
+def step_breakdown(recs) -> list[dict]:
+    """Each step's own device time, summed over one decoder layer's
+    projections (bf16 activations), per step kernel, length and row count:
+    which step of the chain leads."""
+    out = []
+    for kernel in ("tt_step", "tt_step_int8"):
+        for length in (2, 3):
+            for rows in ROWS:
+                mine = [r for r in recs if r["kernel"] == kernel and
+                        r["length"] == length and r["rows"] == rows and
+                        r["act"] == "bfloat16"]
+                for step in sorted({r["step"] for r in mine}):
+                    rs = [r for r in mine if r["step"] == step]
+                    row = dict(kernel=kernel, length=length, rows=rows,
+                               step=step)
+                    for key in ("ms", "cold_ms", "library_ms", "bound_ms"):
+                        if all(key in r for r in rs):
+                            row[key] = sum(r[key] * r["per_layer"]
+                                           for r in rs)
+                    out.append(row)
+                    cold = (f" cold-L2 {row['cold_ms']:.4f}"
+                            if "cold_ms" in row else "")
+                    print(f"{kernel:12s} length {length} rows={rows:3d} "
+                          f"{step}: {row['ms']:.4f} ms per layer{cold} "
+                          f"(matmul {row['library_ms']:.4f}, bound "
+                          f"{row['bound_ms']:.5f})", flush=True)
+    return out
 
 
 def small_input_check() -> None:
@@ -517,10 +548,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     recs = check_and_time(gen)
+    steps = step_breakdown(recs)
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "records": recs}, f, indent=1)
+        json.dump({"card": smi, "records": recs, "steps": steps}, f,
+                  indent=1)
     small_input_check()
     launches = main_paths()
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s",

@@ -62,12 +62,16 @@ FUSED2_WARPS = 16
 FUSED2_MAX_TILE = {2: 8192, 4: 4096}
 # fused-chain row-tile cap: the largest tile any batch is cut into
 MAX_CHAIN_TILE = 32
-# step kernel: threads per block (one (b, r0) pair each), m values per
-# block (csrc/tt_step.cu's kM) and the shared memory its two staged
-# operands aim for
+# step kernel (csrc/tt_step.cu): threads per block (kThreads), b rows and
+# output columns of one thread's register tile (kRB, kRJ), the ring depth
+# (kStages), the sizes a block tile's rows and columns are chosen from, and
+# the bytes one ring slot (a chunk of G and of X) aims for
 STEP_THREADS = 256
-STEP_M_TILE = 8
-STEP_SMEM_TARGET = 48 * 1024
+STEP_RB = 4
+STEP_RJ = 4
+STEP_STAGES = 2
+STEP_TILES = (64, 32, 16, 8, 4)
+STEP_SLOT_BYTES = 48 * 1024
 
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
@@ -163,14 +167,15 @@ def _lib() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, p, p, i, p, p, i, i, i, p]
                 fn.restype = i
-            # G, X, [scale,] out, r0, n, m, r1, b, tb, rc, nc, stream
+            # G, X, [scale,] out, r0, n, m, r1, b, tb, tm, tr, nc, kv,
+            # smem, stream
             for name in ("tt_step_f32", "tt_step_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p] + [i] * 8 + [p]
+                fn.argtypes = [p, p, p] + [i] * 11 + [p]
                 fn.restype = i
             for name in ("tt_step_int8_f32", "tt_step_int8_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p] + [i] * 8 + [p]
+                fn.argtypes = [p, p, p, p] + [i] * 11 + [p]
                 fn.restype = i
             _LIB = lib
         return _LIB
@@ -614,24 +619,136 @@ def tt_fused_chain_int8(x: torch.Tensor, packed, scales: torch.Tensor,
 # one step on the raw core
 # ---------------------------------------------------------------------------
 
-def step_geometry(r0: int, n: int, r1: int, b: int, smem_bytes: int
-                  ) -> tuple[int, int, int]:
-    """(b tile, r0 chunk, n chunk) of one step launch.  A block's thread
-    owns one (b, r0) pair for ``STEP_M_TILE`` values of m (``tb·rc ≤
-    STEP_THREADS``) and stages ``nc`` n-values of X and G per round, as
-    many as keep both staged operands near ``STEP_SMEM_TARGET``.  Raises
-    when even one n-value does not fit the card's shared memory."""
-    rc = min(r0, STEP_THREADS)
-    tb = max(1, min(b, STEP_THREADS // rc))
-    rows = tb + STEP_M_TILE * rc
-    floats = STEP_SMEM_TARGET // 4 // rows
-    nc = max(1, min(n, (floats - 1) // r1))
-    need = rows * ((nc * r1) | 1) * 4
-    if need > smem_bytes:
+def _odd_units(length: int, nbytes: int) -> int:
+    """Elements of a row stride of at least ``length`` elements of
+    ``nbytes`` each: an odd number of 16-byte units (the source's
+    ``odd_units``)."""
+    q = -(-length * nbytes // 16)
+    return (q if q % 2 else q + 1) * 16 // nbytes
+
+
+def step_kv(n: int, r1: int, tm: int, act_bytes: int) -> int:
+    """The step kernel's inner product (the source's ``KV``): r1 values of
+    X and G per shared load, a 16-byte vector of activations, when r1 is a
+    multiple of it; 2 when r1 = 1 (two n values of X per load, ``STEP_RJ``
+    consecutive m of G per load), which needs whole groups of them in the
+    tile and an even n; else 1."""
+    kv = 16 // act_bytes
+    if r1 % kv == 0:
+        return kv
+    return 2 if r1 == 1 and tm % STEP_RJ == 0 and n % 2 == 0 else 1
+
+
+def _step_slot(r1: int, tb: int, tm: int, tr: int, nc: int, kv: int,
+               act_bytes: int, w_bytes: int) -> int:
+    """Bytes of one ring slot of the step kernel: G's chunk ``[tr][nc]
+    [tm]`` of padded columns (``kv > 2``) or of dense runs with 8 (int8:
+    16) values between r0 values, then X's chunk ``[tb][ldx]``."""
+    if kv > 2:
+        s2 = nc * tm * _odd_units(r1, w_bytes)
+    else:
+        s2 = _up(nc * tm * r1, 16 // w_bytes) + max(8, 16 // w_bytes)
+    slot_g = _up(tr * s2 * w_bytes, 128)
+    ldx = _odd_units(nc * r1, act_bytes)
+    return slot_g + _up(tb * ldx * act_bytes, 128)
+
+
+def step_smem_bytes(n: int, r1: int, tb: int, tm: int, tr: int, nc: int,
+                    kv: int, act_bytes: int, w_bytes: int) -> int:
+    """Shared memory of one step block: a ring of ``STEP_STAGES`` slots
+    (fewer when n has fewer chunks), whose bytes then hold the partial
+    output tiles of the reduction groups, at most one per warp (a warp
+    adds its own groups by shuffles).  The layout of ``csrc/tt_step.cu``'s
+    ``make_geo``, which refuses a launch whose byte count differs."""
+    slot = _step_slot(r1, tb, tm, tr, nc, kv, act_bytes, w_bytes)
+    TB = tb // STEP_RB
+    TJ = _pow2_at_least(-(-tm * tr // STEP_RJ), 1)
+    groups = min(max(1, STEP_THREADS // (TB * TJ)), STEP_THREADS // 32)
+    return max(min(STEP_STAGES, -(-n // nc)) * slot,
+               groups * tb * tm * tr * 4)
+
+
+def _step_columns(m: int, r0: int, tj: int) -> tuple[int, int]:
+    """(m values, r0 values) of a block tile about ``tj`` columns wide:
+    as much of m as fits (its runs are contiguous in the core), then r0."""
+    tm = min(m, tj)
+    return tm, min(r0, max(1, tj // tm))
+
+
+@dataclasses.dataclass(frozen=True)
+class StepGeometry:
+    """One step launch: the block tile (b rows, m values, r0 values), n
+    values per staged chunk, r1 values per shared load, shared memory per
+    block and the grid (column tiles, b tiles)."""
+    tb: int
+    tm: int
+    tr: int
+    nc: int
+    kv: int
+    smem: int
+    grid: tuple[int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def step_geometry(r0: int, n: int, m: int, r1: int, b: int, act_bytes: int,
+                  w_bytes: int, sm_count: int, smem_bytes: int
+                  ) -> StepGeometry:
+    """Tiles of one step launch (memoized: a decode step asks for the same
+    few every time).
+
+    * The block tile is tb rows of b by tm·tr columns (``_step_columns``),
+      tb and the column width each one of ``STEP_TILES`` (tb at most the
+      power of two covering b).  It is the largest tile whose grid still
+      gives 90% of the SMs a block (ties: the wider one, so that G's runs
+      are longer); when no tile does, the one with the most blocks.  At 4
+      rows that is 128–344 blocks for every full-width step; at prefill
+      32×64 or 64×64 tiles.
+    * The block's threads are (tb/4)×(columns/4) register tiles of 4×4;
+      the rest of its 256 threads split the reduction.
+    * The inner product (``step_kv``) follows from r1 and the tile.
+    * n is staged in chunks of nc values: all of n when one ring slot of
+      it stays within ``STEP_SLOT_BYTES``, else the largest multiple of 16
+      that does; then smaller until the block fits ``smem_bytes`` (kept
+      even under ``kv = 2``).  Raises when even the smallest chunk does
+      not fit, or when the b tiles exceed the grid's 65535."""
+    target = sm_count * 9 // 10
+    best = None
+    for tb in STEP_TILES:
+        if tb > _pow2_at_least(b, STEP_RB):
+            continue
+        for tj in STEP_TILES:
+            if tj > _pow2_at_least(m * r0, STEP_RJ):
+                continue
+            tm, tr = _step_columns(m, r0, tj)
+            blocks = -(-b // tb) * -(-m // tm) * -(-r0 // tr)
+            tile = tb * tm * tr
+            key = ((True, tile, tm * tr) if blocks >= target
+                   else (False, blocks, tile))
+            if best is None or key > best[0]:
+                best = (key, tb, tm, tr)
+    _, tb, tm, tr = best
+    kv = step_kv(n, r1, tm, act_bytes)
+
+    def price(nc: int) -> int:
+        return step_smem_bytes(n, r1, tb, tm, tr, nc, kv, act_bytes,
+                               w_bytes)
+
+    nc = n
+    while nc > 16 and _step_slot(r1, tb, tm, tr, nc, kv, act_bytes,
+                                 w_bytes) > STEP_SLOT_BYTES:
+        nc = (nc - 1) // 16 * 16
+    least = 2 if kv == 2 else 1
+    while nc > least and price(nc) > smem_bytes:
+        nc = nc - 16 if nc > 16 else nc - least
+    if price(nc) > smem_bytes:
         raise ValueError(
-            f"step operands of {need} bytes (r0={r0}, r1={r1}) exceed "
-            f"{smem_bytes} bytes of shared memory per block")
-    return tb, rc, nc
+            f"a step block of {nc} n value(s) (r0={r0}, m={m}, r1={r1}) "
+            f"needs {price(nc)} bytes of shared memory, {smem_bytes} "
+            f"available")
+    grid = (-(-m // tm) * -(-r0 // tr), -(-b // tb))
+    if grid[1] > 65535:
+        raise ValueError(f"step grid {grid} exceeds 65535 blocks in b")
+    return StepGeometry(tb, tm, tr, nc, kv, price(nc), grid)
 
 
 def _check_step(G, X, weight_dtype, scale=None) -> None:
@@ -656,18 +773,20 @@ def _launch_step(name: str, G, X, scale):
     out = torch.empty((m, b, r0), dtype=torch.float32, device=X.device)
     if out.numel() == 0:
         return out
-    if -(-m // STEP_M_TILE) > 65535 or r0 > 65535 * STEP_THREADS:
-        raise ValueError(f"{name}: m={m}, r0={r0} exceed the grid's 65535 "
-                         f"blocks per axis")
-    tb, rc, nc = step_geometry(r0, n, r1, b,
-                               hw.device_spec(X.device).smem_per_block)
+    if max(G.numel(), X.numel(), out.numel()) >= 2 ** 31:
+        raise ValueError(f"{name}: G, X and out must each hold fewer than "
+                         f"2^31 values (the kernel's offsets are int)")
+    spec = hw.device_spec(X.device)
+    geo = step_geometry(r0, n, m, r1, b, X.element_size(), G.element_size(),
+                        spec.sm_count, spec.smem_per_block)
     fn = getattr(_lib(), f"{name}_{_ACT_SUFFIX[X.dtype]}")
     stream = torch.cuda.current_stream(X.device).cuda_stream
     ptrs = [G.data_ptr(), X.data_ptr()]
     if scale is not None:
         ptrs.append(scale.data_ptr())
     with torch.cuda.device(X.device):
-        err = fn(*ptrs, out.data_ptr(), r0, n, m, r1, b, tb, rc, nc, stream)
+        err = fn(*ptrs, out.data_ptr(), r0, n, m, r1, b, geo.tb, geo.tm,
+                 geo.tr, geo.nc, geo.kv, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCH_COUNTS[name] += 1

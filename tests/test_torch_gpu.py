@@ -185,3 +185,75 @@ def test_chain_and_step_kernels_reject_cores_on_another_device(cuda):
     G = cores[-1]
     with pytest.raises(ValueError, match="is on"):
         tt_contract.tt_step(G.cpu(), x.reshape(-1, G.shape[1], G.shape[3]))
+
+
+# (r0, n, m, r1) of every step of deepseek-7b's TT projections at rank 16
+# and the b rows one row of x gives it: length 2, then length 3
+FULL_WIDTH_STEPS = [
+    ((16, 512, 8, 1), 8), ((16, 1376, 8, 1), 8),
+    ((1, 8, 512, 16), 8), ((1, 8, 1376, 16), 8),
+    ((16, 64, 8, 1), 64), ((16, 172, 8, 1), 64), ((16, 8, 8, 16), 64),
+    ((1, 8, 64, 16), 64), ((1, 8, 172, 16), 64),
+]
+
+
+def _step_inputs(shape, b, act, int8, device, seed=0, offset=0):
+    """G, X (a view ``offset`` elements into its buffer) and the scale."""
+    r0, n, m, r1 = shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    G = torch.randn((r0, n, m, r1), generator=gen, device=device) * 0.3
+    buf = torch.randn(offset + b * n * r1, generator=gen,
+                      device=device).to(act)
+    X = buf[offset:].view(b, n, r1)
+    if int8:
+        q, s = quantize_core(G)
+        return q, X, s.reshape(1).float()
+    return G.to(act), X, None
+
+
+def _step(G, X, s):
+    if s is None:
+        return tt_contract.tt_step(G, X), ref.tt_step_ref(G, X)
+    return tt_contract.tt_step_int8(G, X, s), ref.tt_step_ref(G, X, s)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [4, 256])
+@pytest.mark.parametrize("shape,per_row", FULL_WIDTH_STEPS,
+                         ids=lambda v: str(v))
+def test_step_kernel_at_full_width(cuda, shape, per_row, rows, act, int8):
+    G, X, s = _step_inputs(shape, rows * per_row, act, int8, cuda)
+    name = "tt_step_int8" if int8 else "tt_step"
+    before = tt_contract.launch_counts().get(name, 0)
+    y, want = _step(G, X, s)
+    assert tt_contract.launch_counts()[name] == before + 1
+    # fp32 output, fp32 sums on both sides: only the order differs
+    _close(y, want, torch.float32)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,b", [((16, 512, 8, 1), 32),
+                                     ((1, 8, 512, 16), 2048),
+                                     ((16, 8, 8, 16), 37)])
+def test_step_kernel_takes_x_at_an_odd_offset(cuda, shape, b, act, int8):
+    """X one element into its buffer is not 16-byte aligned: staged by the
+    kernel's scalar loop."""
+    G, X, s = _step_inputs(shape, b, act, int8, cuda, offset=1)
+    assert X.is_contiguous() and X.data_ptr() % 16 != 0
+    y, want = _step(G, X, s)
+    _close(y, want, torch.float32)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("shape,b", [((16, 1376, 8, 1), 32),
+                                     ((1, 8, 1376, 16), 2048)])
+def test_step_kernel_is_deterministic(cuda, shape, b, int8):
+    G, X, s = _step_inputs(shape, b, torch.bfloat16, int8, cuda)
+    y1, _ = _step(G, X, s)
+    y2, _ = _step(G, X, s)
+    assert torch.equal(y1, y2)

@@ -179,28 +179,54 @@ def test_the_step_launch_geometry(fake_launch):
     assert out.shape == (1376, 32, 1) and out.dtype == torch.float32
     (name, args), = fake_launch.calls
     assert name == "tt_step_bf16"
-    # r0 = 1: 32 b rows per block (all of b), 8 n-values (all of n)
-    assert args[3:-1] == (1, 8, 1376, 16, 32, 32, 1, 8)
+    assert args[:3] == (G.data_ptr(), X.data_ptr(), out.data_ptr())
+    # decode, step 2/2 of ffn gate/up: 4 rows by 64 m values per block
+    # (8 × 22 = 176 blocks), all 8 n values in one chunk, 8 r1 values per
+    # shared load
+    geo = tt_contract.step_geometry(1, 8, 1376, 16, 32, 2, 2,
+                                    hw.H100_SXM.sm_count,
+                                    hw.H100_SXM.smem_per_block)
+    assert args[3:-1] == (1, 8, 1376, 16, 32, 4, 64, 1, 8, 8, geo.smem)
+    assert geo.grid == (22, 8)
     tt_contract.reset_launch_counts()
 
 
-@pytest.mark.parametrize("r0,n,r1,b,want", [
-    (16, 512, 1, 32, (16, 16, 84)),      # d=2 step 1 at decode
-    (1, 8, 16, 2048, (256, 1, 2)),       # d=2 step 2 at prefill
-    (300, 4, 2, 10, (1, 256, 2)),        # r0 above one block's threads
+def test_the_int8_step_launch_passes_the_scale(fake_launch):
+    G = torch.zeros(16, 512, 8, 1, dtype=torch.int8)
+    X = torch.zeros(32, 512, 1, dtype=torch.float32)
+    s = torch.ones(1)
+    tt_contract._launch_step("tt_step_int8", G, X, s)
+    (name, args), = fake_launch.calls
+    assert name == "tt_step_int8_f32"
+    assert args[2] == s.data_ptr()
+    # decode, step 1/2: 4 rows by all 8 m values of one r0 per block
+    # (16 × 8 = 128 blocks); r1 = 1: two n values per load of X
+    assert args[4:13] == (16, 512, 8, 1, 32, 4, 8, 1, 512)
+    assert args[13] == 2
+    tt_contract.reset_launch_counts()
+
+
+@pytest.mark.parametrize("r0,n,m,r1,b,want", [
+    (16, 512, 8, 1, 32, (4, 8, 1, 512, 2)),      # d=2 step 1 at decode
+    (1, 8, 512, 16, 2048, (64, 64, 1, 8, 8)),    # d=2 step 2 at prefill
+    (300, 4, 3, 2, 10, (8, 3, 5, 4, 1)),         # r0 above a block's tile
 ])
-def test_step_geometry(r0, n, r1, b, want):
-    tb, rc, nc = tt_contract.step_geometry(r0, n, r1, b, 232_448)
-    assert (tb, rc, nc) == want
-    assert tb * rc <= tt_contract.STEP_THREADS
-    need = (tb + tt_contract.STEP_M_TILE * rc) * ((nc * r1) | 1) * 4
-    assert need <= 232_448
+def test_step_geometry(r0, n, m, r1, b, want):
+    geo = tt_contract.step_geometry(r0, n, m, r1, b, 2, 2, 132, 232_448)
+    assert (geo.tb, geo.tm, geo.tr, geo.nc, geo.kv) == want
+    assert geo.tb % tt_contract.STEP_RB == 0
+    assert geo.smem == tt_contract.step_smem_bytes(
+        n, r1, geo.tb, geo.tm, geo.tr, geo.nc, geo.kv, 2, 2) <= 232_448
+    # when one n value of the chosen tile does not fit, it raises
+    least = tt_contract.step_smem_bytes(n, r1, geo.tb, geo.tm, geo.tr, 1,
+                                        geo.kv, 2, 2)
     with pytest.raises(ValueError, match="shared memory"):
-        tt_contract.step_geometry(r0, n, r1, b, need - 1)
+        tt_contract.step_geometry(r0, n, m, r1, b, 2, 2, 132, least - 1)
 
 
 def test_step_launch_needs_shapes_the_grid_holds(fake_launch):
-    G = torch.zeros(1, 1, 8 * 65536, 1)
-    X = torch.zeros(2, 1, 1)
+    # 64 rows per block at most: one row more than 65535 tiles of 64
+    G = torch.zeros(1, 1, 1, 1)
+    X = torch.zeros(64 * 65535 + 1, 1, 1)
     with pytest.raises(ValueError, match="65535"):
         tt_contract._launch_step("tt_step", G, X, None)
