@@ -13,8 +13,10 @@ Phases, each fatal on failure:
      chain at the length-3 shapes, the step kernel on every step of both;
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
-     take; fused2 and the length-2 steps also with L2 evicted before each
-     call (``cold_ms``); each step's own time per decoder layer;
+     take; fused2, the fused chain and the length-2 steps also with L2
+     evicted before each call (``cold_ms``); the fused chain's launch
+     geometry per shape and row count; per decoder layer, each whole-layer
+     kernel's device, cold-L2 and eager times and each step's own time;
   4. check the port on a small input: the deepseek-7b SMOKE model on the
      card against the same weights on the CPU (plain versions), at length 2
      (fused2), at length 3 (fused chain) and at length 3 through the step
@@ -181,6 +183,20 @@ def random_cores(dims, act, int8, gen):
     return cores, None, tt_reconstruct([G.float() for G in cores])
 
 
+def chain_geometry(dims, rows, int8, act, spec) -> dict:
+    """The fused chain's launch geometry (``tt_contract.chain_geometry``)
+    at one shape, printed."""
+    act_bytes = torch.finfo(act).bits // 8
+    geo = tt_contract.chain_geometry(rows, dims, act_bytes,
+                                     1 if int8 else act_bytes, spec.sm_count,
+                                     spec.smem_per_block)
+    out = dict(bb=geo.bb, g=geo.g, g2=geo.g2, ncc=geo.ncc, stages=geo.stages,
+               smem=geo.smem, grid=list(geo.grid))
+    print(f"  tt_fused_chain geometry rows={rows:3d} {DT_NAME[act]:8s} "
+          f"{'int8' if int8 else 'fp'}: {out}", flush=True)
+    return out
+
+
 def layer_cases(dims, rows, int8, act, gen):
     """Whole-layer kernels at one shape: (kernel, run, plain, library,
     bytes, flops) for fused2 (d=2) or the fused chain (d=3), with the dense
@@ -313,8 +329,10 @@ def check_and_time(gen) -> list[dict]:
                         scales = layer_cases(dims, rows, int8, act, gen)
                     batch = [measure(kernel, label, rows, act, per_layer,
                                      run, plain, library, moved, flops,
-                                     TOL[act], spec, flush if length == 2
-                                     else None)]
+                                     TOL[act], spec, flush)]
+                    if length == 3:
+                        batch[0]["geometry"] = chain_geometry(
+                            dims, rows, int8, act, spec)
                     for step, *rest in step_cases(x, cores, scales, int8,
                                                   act):
                         batch.append(measure(
@@ -327,6 +345,30 @@ def check_and_time(gen) -> list[dict]:
                         rec["length"] = length
                     recs += batch
     return recs
+
+
+def layer_summary(recs) -> list[dict]:
+    """Each whole-layer kernel's times summed over one decoder layer's
+    projections (bf16 activations), per row count: device, cold-L2, eager
+    (back-to-back calls, the host's time where it is longer), plain,
+    ``torch.matmul`` and the bound."""
+    out = []
+    for kernel in ("tt_fused2", "tt_fused2_int8", "tt_fused_chain",
+                   "tt_fused_chain_int8"):
+        for rows in ROWS:
+            rs = [r for r in recs if r["kernel"] == kernel and
+                  r["rows"] == rows and r["act"] == "bfloat16"]
+            row = dict(kernel=kernel, rows=rows)
+            for key in ("ms", "cold_ms", "eager_ms", "plain_ms",
+                        "library_ms", "bound_ms"):
+                row[key] = sum(r[key] * r["per_layer"] for r in rs)
+            out.append(row)
+            print(f"{kernel:19s} rows={rows:3d} per layer: device "
+                  f"{row['ms']:.4f} cold-L2 {row['cold_ms']:.4f} eager "
+                  f"{row['eager_ms']:.4f} plain {row['plain_ms']:.4f} "
+                  f"matmul {row['library_ms']:.4f} bound "
+                  f"{row['bound_ms']:.5f} ms", flush=True)
+    return out
 
 
 def step_breakdown(recs) -> list[dict]:
@@ -548,12 +590,13 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     recs = check_and_time(gen)
+    layers = layer_summary(recs)
     steps = step_breakdown(recs)
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "records": recs, "steps": steps}, f,
-                  indent=1)
+        json.dump({"card": smi, "records": recs, "layers": layers,
+                   "steps": steps}, f, indent=1)
     small_input_check()
     launches = main_paths()
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s",

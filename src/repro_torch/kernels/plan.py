@@ -28,8 +28,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import hw
-from .tt_contract import (check_fused2_fits, chain_row_bytes,
-                          fused_chain_batch_tile)
+from .tt_contract import (check_chain_fits, check_fused2_fits,
+                          chain_row_bytes)
 
 BACKENDS = ("einsum", "cuda_fused2", "cuda_fused", "cuda_step", "auto")
 
@@ -106,7 +106,7 @@ def plan_tt_forward(ns: Sequence[int], ms: Sequence[int],
     elif backend == "cuda_fused":
         if d < 2:
             raise ValueError(f"cuda_fused requires d >= 2, got d={d}")
-        fused_chain_batch_tile(ns, ms, ranks, smem)   # raises: no fit
+        check_chain_fits(ns, ms, ranks, smem)
 
     if resolved == "cuda_fused2":
         check_fused2_fits(ns[0], ms[1], ranks[1], smem)

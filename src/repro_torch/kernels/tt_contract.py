@@ -60,7 +60,7 @@ FUSED2_RING1 = 80 * 1024
 FUSED2_NCT = 256
 FUSED2_WARPS = 16
 FUSED2_MAX_TILE = {2: 8192, 4: 4096}
-# fused-chain row-tile cap: the largest tile any batch is cut into
+# fused chain (csrc/tt_chain.cu): the most rows one block takes
 MAX_CHAIN_TILE = 32
 # step kernel (csrc/tt_step.cu): threads per block (kThreads), b rows and
 # output columns of one thread's register tile (kRB, kRJ), the ring depth
@@ -157,15 +157,15 @@ def _lib() -> ctypes.CDLL:
                 fn.argtypes = [p, p, p, p, p] + [i] * 12 + [p]
                 fn.restype = i
             # x, packed (host void*[d]), ns, ms, ranks (host int[]), d,
-            # [scales,] y, B, bb, splits, stream
+            # [scales,] tables, y, B, bb, g, g2, ncc, stages, smem, stream
             for name in ("tt_fused_chain_f32", "tt_fused_chain_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, p, i, p, i, i, i, p]
+                fn.argtypes = [p, p, p, p, p, i, p, p] + [i] * 7 + [p]
                 fn.restype = i
             for name in ("tt_fused_chain_int8_f32",
                          "tt_fused_chain_int8_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, p, i, p, p, i, i, i, p]
+                fn.argtypes = [p, p, p, p, p, i, p, p, p] + [i] * 7 + [p]
                 fn.restype = i
             # G, X, [scale,] out, r0, n, m, r1, b, tb, tm, tr, nc, kv,
             # smem, stream
@@ -377,19 +377,6 @@ def fused2_geometry(B: int, dims: tuple, act_bytes: int, w_bytes: int,
     return Fused2Geometry(bb, g, nc, kc, nct, smem, grid)
 
 
-def launch_geometry(B: int, m1: int, max_tile: int, sm_count: int
-                    ) -> tuple[int, int]:
-    """(row tile, splits of the last step's ``m1`` columns) of one fused
-    chain launch.  Rows are cut finer than ``max_tile`` (what shared
-    memory holds) until the row tiles cover the SMs; when there are fewer
-    row tiles than SMs, the last step's columns are split across blocks
-    (at least 32 columns per block)."""
-    bb = max(1, min(max_tile, -(-B // sm_count)))
-    tiles = -(-B // bb)
-    splits = max(1, min(sm_count // tiles, -(-m1 // 32)))
-    return bb, splits
-
-
 def _check_device(x, named) -> None:
     for name, t in named:
         if t.device != x.device:
@@ -496,27 +483,232 @@ MAX_CHAIN_DEPTH = 8
 
 
 def chain_row_bytes(ns, ms, ranks) -> int:
-    """Shared memory one row of the fused chain needs: its fp32 states
-    s_1 … s_{d-1} in two ping-pong buffers (one for d=2), each as large as
-    the largest of them."""
+    """Shared memory one row of the fused chain's states takes: s_1 …
+    s_{d-1} in fp32, in two ping-pong buffers (one for d=2), each as large
+    as the largest of them.  The plan's eligibility rule."""
     if len(ns) < 2:
         raise ValueError(f"the fused chain needs d >= 2, got d={len(ns)}")
     inner = chain_state_sizes(ns, ms, ranks)[1:-1]
     return min(2, len(inner)) * max(inner) * 4
 
 
-def fused_chain_batch_tile(ns, ms, ranks, smem_bytes: int) -> int:
-    """Largest row tile (≤ ``MAX_CHAIN_TILE``) whose fp32 states fit one
-    block's shared memory: the one place the chain's tile is chosen, for
-    the plan's eligibility check and for the launch.  Raises when even one
-    row does not fit."""
+def check_chain_fits(ns, ms, ranks, smem_bytes: int) -> None:
+    """Raise when one row of the chain's states (``chain_row_bytes``) does
+    not fit one block's shared memory."""
     row = chain_row_bytes(ns, ms, ranks)
     if row > smem_bytes:
         raise ValueError(
             f"fused chain state of {row} bytes per row (ns={tuple(ns)}, "
             f"ms={tuple(ms)}, ranks={tuple(ranks)}) exceeds {smem_bytes} "
             f"bytes of shared memory per block")
-    return min(MAX_CHAIN_TILE, smem_bytes // row)
+
+
+def _chain_steps(ns, ms, ranks, g: int, g2: int):
+    """Per step j (execution order, core t = d-1-j): (K, R, m values the
+    block takes, n of the next core).  A block takes g values of the first
+    step's mode m_{d-1}, g2 of the second step's m_{d-2}, all of the
+    others."""
+    d = len(ns)
+    for j in range(d):
+        t = d - 1 - j
+        mloc = g if j == 0 else g2 if j == 1 else ms[t]
+        yield ns[t] * ranks[t + 1], ranks[t], mloc, ns[t - 1] if t else 1
+
+
+def chain_tables(dims, bb: int, g: int, g2: int, act_bytes: int
+                 ) -> list[int]:
+    """The fused chain's address tables (``csrc/tt_chain.cu``) for a block
+    of ``bb`` rows, ``g`` m_{d-1} and ``g2`` m_{d-2} values, in four
+    variants v = (its g group is the last, ragged one) + 2·(its g2 group
+    is): per variant and step j, a row table of ``_up(bb·b_j, 16)``
+    entries (b_j the block's b rows per row of x at full groups), then a
+    column table of ``_up(g_j·R_j, 16)`` entries (g_j the m values the
+    block takes).  Output (r, c) of step j goes to row[r] + col[c]: into
+    the next step's left operand (row (b, i // n), column (i % n, rank),
+    n the next core's n, row stride K padded to 16 plus 8 bf16 or 4 fp32
+    values), or at the last step into y, relative to the block's first
+    output.  Entries past a variant's own rows or columns are 0."""
+    ns, ms, ranks = dims
+    d = len(ns)
+    M = 1
+    for m in ms:
+        M *= m
+    full = list(_chain_steps(ns, ms, ranks, g, g2))
+    ld = [_up(K, 16) + (8 if act_bytes == 2 else 4) for K, _, _, _ in full]
+    out = []
+    for v in range(4):
+        gn = ms[-1] - (-(-ms[-1] // g) - 1) * g if v & 1 else g
+        g2n = ms[-2] - (-(-ms[-2] // g2) - 1) * g2 if v & 2 else g2
+        bl = 1
+        for n in ns[:-1]:
+            bl *= n
+        bl_full = bl
+        for j, (_, R, mloc, nn) in enumerate(_chain_steps(ns, ms, ranks, gn,
+                                                           g2n)):
+            rows = torch.zeros(_up(bb * bl_full, 16), dtype=torch.int64)
+            cols = torch.zeros(_up(full[j][2] * R, 16), dtype=torch.int64)
+            r = torch.arange(bb * bl)
+            b, i = r // bl, r % bl
+            c = torch.arange(mloc * R)
+            if j < d - 1:
+                rows[:r.numel()] = ((b * (mloc * bl // nn) + i // nn)
+                                    * ld[j + 1] + (i % nn) * R)
+                cols[:c.numel()] = (c // R) * (bl // nn) * ld[j + 1] + c % R
+            else:
+                if d == 2:
+                    yo = i
+                else:
+                    t1 = i // gn
+                    yo = ((t1 // g2n) * ms[-2] + t1 % g2n) * ms[-1] + i % gn
+                rows[:r.numel()] = b * M + yo
+                cols[:c.numel()] = c * (ms[1] if d == 2 else M // ms[0])
+            out += rows.tolist() + cols.tolist()
+            bl_full = full[j][2] * bl_full // nn
+            bl = mloc * bl // nn
+    return out
+
+
+_CHAIN_TABLES: dict = {}
+
+
+def _chain_tables_on(device, dims, geo: "ChainGeometry", act_bytes: int
+                     ) -> torch.Tensor:
+    """``chain_tables`` as an int32 tensor on ``device``, made once per
+    launch geometry."""
+    key = (device, dims, geo.bb, geo.g, geo.g2, act_bytes)
+    tab = _CHAIN_TABLES.get(key)
+    if tab is None:
+        tab = torch.tensor(chain_tables(dims, geo.bb, geo.g, geo.g2,
+                                        act_bytes), dtype=torch.int32,
+                           device=device)
+        _CHAIN_TABLES[key] = tab
+    return tab
+
+
+def chain_smem_bytes(ns, ms, ranks, bb: int, g: int, g2: int, ncc: int,
+                     stages: int, act_bytes: int, w_bytes: int) -> int:
+    """Shared memory of one fused-chain block of ``bb`` rows, ``g``
+    m_{d-1} and ``g2`` m_{d-2} values, core columns staged in chunks of at
+    most ``ncc``: two buffers for the steps' left operands (the even steps'
+    in one, x's row tile first; the odd steps' in the other), each
+    ``[bb·b rows, K padded to 16]`` with a 16-byte pad per row, in x's
+    type at step 0 and as fp32 (bf16 high and low parts, or fp32) after;
+    ``stages`` ring slots, each one column chunk of a core ``[K padded,
+    chunk]`` with a 16-byte pad per row; for int8 cores under bf16
+    activations one chunk widened to bf16; every step's int32 address
+    tables of its rows and columns.  The layout of ``csrc/tt_chain.cu``'s ``make_geo``, which
+    refuses a launch whose byte count differs."""
+    tc = act_bytes == 2
+    conv = tc and w_bytes == 1
+    bl = 1
+    for n in ns[:-1]:
+        bl *= n
+    buf, slot, cbuf, tab = [0, 0], 0, 0, 0
+    for j, (K, R, mloc, nn) in enumerate(_chain_steps(ns, ms, ranks, g, g2)):
+        Kp = _up(K, 16)
+        cc = min(_up(mloc * R, 16), ncc)
+        ldA = Kp + (8 if tc else 4)
+        buf[j % 2] = max(buf[j % 2], _up(bb * bl, 16) * ldA *
+                         (act_bytes if j == 0 else 4))
+        slot = max(slot, Kp * (cc + 16 // w_bytes) * w_bytes)
+        if conv:
+            cbuf = max(cbuf, Kp * (cc + 8) * 2)
+        tab += _up(bb * bl, 16) + _up(mloc * R, 16)
+        bl = mloc * bl // nn
+    return (_up(buf[0], 128) + _up(buf[1], 128) + stages * _up(slot, 128)
+            + _up(cbuf, 128) + _up(tab * 4, 128))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainGeometry:
+    """One fused-chain launch: rows per block, m_{d-1} values per block
+    (g), m_{d-2} values per block (g2), the widest column chunk of a staged
+    core, shared memory per block, the grid (row tiles, g groups, g2
+    groups), and ns, ms and ranks as the C arrays the launch passes;
+    ``stages`` ring slots (1: no chunk staged ahead)."""
+    bb: int
+    g: int
+    g2: int
+    ncc: int
+    stages: int
+    smem: int
+    grid: tuple[int, int, int]
+    c_dims: tuple = dataclasses.field(compare=False, repr=False)
+
+
+def _group_sizes(m: int) -> list[int]:
+    """Group sizes that cut m into 1, 2, … groups (balanced), largest
+    first."""
+    return sorted({-(-m // c) for c in range(1, m + 1)}, reverse=True)
+
+
+@functools.lru_cache(maxsize=None)
+def chain_geometry(B: int, dims: tuple, act_bytes: int, w_bytes: int,
+                   sm_count: int, smem_bytes: int) -> ChainGeometry:
+    """Tiles of one fused-chain launch (memoized: a decode step asks for
+    the same few every time, and the C arrays of its dims are built once).
+
+    A block owns a tile of bb rows and a group of g values of the first
+    step's mode m_{d-1}, with no recompute; where those blocks leave SMs
+    idle it also takes a group of g2 values of m_{d-2}, and every block of
+    the same rows and g group then recomputes the first step.  Of the
+    tiles whose grid gives 90% of the SMs a block and whose block fits
+    ``smem_bytes``, it takes the fewest g2 groups (the least recompute),
+    then the widest g (y written in longer runs), then the most rows (each
+    core slice read once for more rows).  At 256 rows that is g = m_{d-1},
+    g2 = m_{d-2} and 2 rows (128 blocks); at 4 rows, 1 row, g = 1 and g2 =
+    2 (128 blocks).  When no tile reaches 90%, the smallest (1, 1, 1).
+    Core columns are staged in chunks of at most ncc columns, the widest
+    core slice cut into as few even chunks as fit (a whole slice per chunk
+    wherever it does), in a ring of two slots, or of one where two do not
+    fit even at 16 columns.  Raises when even the smallest block does not
+    fit."""
+    ns, ms, ranks = (tuple(int(v) for v in a) for a in dims)
+    target = sm_count * 9 // 10
+
+    def chunking(bb: int, g: int, g2: int) -> tuple[int, int] | None:
+        """(chunk width, ring slots) at which the block fits, or None: two
+        slots before one; the widest core slice cut into 1, 2, … chunks of
+        a multiple of 16 columns."""
+        widest = max(mloc * R for _, R, mloc, _ in
+                     _chain_steps(ns, ms, ranks, g, g2))
+        for stages in (2, 1):
+            for cuts in range(1, -(-widest // 16) + 1):
+                ncc = _up(-(-widest // cuts), 16)
+                if chain_smem_bytes(ns, ms, ranks, bb, g, g2, ncc, stages,
+                                    act_bytes, w_bytes) <= smem_bytes:
+                    return ncc, stages
+        return None
+
+    def tiles():
+        for g2 in _group_sizes(ms[-2]):
+            for g in _group_sizes(ms[-1]):
+                groups = -(-ms[-1] // g) * -(-ms[-2] // g2)
+                for bb in range(min(B, MAX_CHAIN_TILE), 0, -1):
+                    if -(-B // bb) * groups >= target:
+                        yield bb, g, g2
+        yield 1, 1, 1
+
+    for bb, g, g2 in tiles():
+        fit = chunking(bb, g, g2)
+        if fit:
+            break
+    else:
+        need = chain_smem_bytes(ns, ms, ranks, 1, 1, 1, 16, 1, act_bytes,
+                                w_bytes)
+        raise ValueError(
+            f"a fused-chain block of one row (ns={ns}, ms={ms}, "
+            f"ranks={ranks}) needs {need} bytes of shared memory, "
+            f"{smem_bytes} available")
+    grid = (-(-B // bb), -(-ms[-1] // g), -(-ms[-2] // g2))
+    if max(grid[1:]) > 65535:
+        raise ValueError(f"fused-chain grid {grid} exceeds 65535 blocks "
+                         f"per axis")
+    ncc, stages = fit
+    ints = ctypes.c_int * (len(ns) + 1)
+    return ChainGeometry(bb, g, g2, ncc, stages, chain_smem_bytes(
+        ns, ms, ranks, bb, g, g2, ncc, stages, act_bytes, w_bytes), grid,
+        (ints(*ns), ints(*ms), ints(*ranks)))
 
 
 def _check_chain(x, packed, dims, weight_dtype, scales=None) -> None:
@@ -524,6 +716,9 @@ def _check_chain(x, packed, dims, weight_dtype, scales=None) -> None:
     d = len(ns)
     if len(ms) != d or len(ranks) != d + 1:
         raise ValueError(f"inconsistent chain dims {dims}")
+    if ranks[0] != 1 or ranks[-1] != 1:
+        raise ValueError(f"the chain's boundary ranks must be 1, got "
+                         f"{tuple(ranks)}")
     if not 2 <= d <= MAX_CHAIN_DEPTH or len(packed) != d:
         raise ValueError(
             f"the fused chain takes 2 <= d <= {MAX_CHAIN_DEPTH} packed "
@@ -555,28 +750,32 @@ def _check_chain(x, packed, dims, weight_dtype, scales=None) -> None:
 def _launch_chain(name: str, x, packed, scales, dims):
     ns, ms, ranks = (tuple(int(v) for v in a) for a in dims)
     d = len(ns)
+    B = x.shape[0]
     M = 1
     for m in ms:
         M *= m
-    B = x.shape[0]
     y = torch.empty((B, M), dtype=x.dtype, device=x.device)
     if B == 0:
         return y
+    if max(x.numel(), y.numel()) >= 2 ** 31:
+        raise ValueError(f"{name}: x and y must each hold fewer than 2^31 "
+                         f"values (the kernel's offsets are int)")
     spec = hw.device_spec(x.device)
-    bb, splits = launch_geometry(
-        B, ms[0] * ranks[0],
-        fused_chain_batch_tile(ns, ms, ranks, spec.smem_per_block),
-        spec.sm_count)
+    geo = chain_geometry(B, (ns, ms, ranks), x.element_size(),
+                         packed[0].element_size(), spec.sm_count,
+                         spec.smem_per_block)
+    tables = _chain_tables_on(x.device, (ns, ms, ranks), geo,
+                              x.element_size())
     fn = getattr(_lib(), f"{name}_{_ACT_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ints = ctypes.c_int * (d + 1)
     args = [x.data_ptr(), (ctypes.c_void_p * d)(*[p.data_ptr()
                                                   for p in packed]),
-            ints(*ns), ints(*ms), ints(*ranks), d]
+            *geo.c_dims, d]
     if scales is not None:
         args.append(scales.data_ptr())
     with torch.cuda.device(x.device):
-        err = fn(*args, y.data_ptr(), B, bb, splits, stream)
+        err = fn(*args, tables.data_ptr(), y.data_ptr(), B, geo.bb, geo.g,
+                 geo.g2, geo.ncc, geo.stages, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCH_COUNTS[name] += 1
@@ -589,8 +788,8 @@ def tt_fused_chain(x: torch.Tensor, packed, dims) -> torch.Tensor:
 
     ``packed[j] = P_{d-j}`` are the packed cores in execution order (core d
     first), each ``[n_t·r_t, m_t·r_{t-1}]`` in ``x.dtype``; ``dims = (ns,
-    ms, ranks)``.  The row tile is the largest that the card's shared
-    memory holds (``fused_chain_batch_tile``)."""
+    ms, ranks)``.  The tiles of the launch come from
+    ``chain_geometry``."""
     _check_chain(x, packed, dims, None)
     if x.device.type == "cpu":
         return tt_fused_chain_ref(x, packed, dims)

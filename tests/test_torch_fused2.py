@@ -231,15 +231,26 @@ def test_fused2_group_fills_one_tensor_core_tile(r1, m2, want):
     assert tt_contract.fused2_group(m2, r1) == want
 
 
-@pytest.mark.parametrize("B,m1,want", [
-    (4, 1376, (1, 33)),        # decode: 4 row tiles, columns split
-    (256, 1376, (2, 1)),       # prefill: 128 row tiles fill the SMs
-    (4, 40, (1, 2)),           # at least 32 columns per block
-    (10_000, 512, (32, 1)),    # shared memory caps the rows per block
+@pytest.mark.parametrize("B,dims,want", [
+    # decode, ffn gate/up at length 3: m_2 in pairs, 4 × 8 × 4 blocks
+    (4, ((8, 8, 64), (172, 8, 8), (1, 16, 16, 1)), (1, 1, 2, 176, (4, 8, 4))),
+    # prefill: whole modes, 2 rows a block, 128 blocks
+    (256, ((8, 8, 64), (172, 8, 8), (1, 16, 16, 1)),
+     (2, 8, 8, 96, (128, 1, 1))),
+    # d = 2 through the chain, ffn gate/up at length 2: one m2 value and a
+    # quarter of m1 = 1376 a block, 4 × 8 × 4 blocks
+    (4, ((8, 512), (1376, 8), (1, 16, 1)), (1, 1, 344, 352, (4, 8, 4))),
+    # shared memory caps the rows per block (and cuts the cores' columns)
+    (10_000, ((8, 8, 64), (64, 8, 8), (1, 16, 16, 1)),
+     (3, 8, 8, 16, (3334, 1, 1))),
 ])
-def test_chain_launch_geometry(B, m1, want):
-    """The fused chain's (row tile, last-step column splits)."""
-    assert tt_contract.launch_geometry(B, m1, 32, 132) == want
+def test_chain_launch_geometry(B, dims, want):
+    """The fused chain's (rows, m_{d-1} group, m_{d-2} group, column chunk,
+    grid) in bf16."""
+    geo = tt_contract.chain_geometry(B, dims, 2, 2, 132, 232_448)
+    assert (geo.bb, geo.g, geo.g2, geo.ncc, geo.grid) == want
+    assert geo.smem == tt_contract.chain_smem_bytes(
+        *dims, geo.bb, geo.g, geo.g2, geo.ncc, geo.stages, 2, 2) <= 232_448
 
 
 class _FakeLib:

@@ -87,24 +87,35 @@ def test_fused2_kernel_rejects_cores_on_another_device(cuda):
 
 
 # (ns, ms, ranks, B) of fused chains: d = 2, 3, 4; modes 43 and 172 = 4·43;
-# the two full-width deepseek-7b length-3 shapes with the most work; row
-# counts that are not a multiple of any tile
+# the three full-width deepseek-7b length-3 shapes; row counts that are not
+# a multiple of any tile
 CHAIN_CASES = [
     ((2, 86), (43, 2), (1, 4, 1), 5),
     ((2, 3, 43), (5, 2, 3), (1, 3, 4, 1), 13),
     ((2, 2, 3, 2), (3, 2, 2, 2), (1, 2, 3, 2, 1), 7),
     ((8, 8, 64), (172, 8, 8), (1, 16, 16, 1), 4),
     ((8, 8, 172), (64, 8, 8), (1, 16, 16, 1), 37),
+    ((8, 8, 64), (64, 8, 8), (1, 16, 16, 1), 3),
+    # d = 2, ffn down at length 2: in fp32 one ring slot, no chunk ahead
+    ((8, 1376), (512, 8), (1, 16, 1), 4),
 ]
+# the full-width length-3 shapes (attn q/k/v/o, ffn gate/up, ffn down)
+FULL_WIDTH_CHAINS = [((8, 8, 64), (64, 8, 8), (1, 16, 16, 1)),
+                     ((8, 8, 64), (172, 8, 8), (1, 16, 16, 1)),
+                     ((8, 8, 172), (64, 8, 8), (1, 16, 16, 1))]
 
 
-def _chain_inputs(ns, ms, ranks, B, act, int8, device, seed=0):
+def _chain_inputs(ns, ms, ranks, B, act, int8, device, seed=0, offset=0):
+    """x (a view ``offset`` elements into its buffer), the cores and, for
+    int8 cores, their scales in core order."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     cores = [torch.randn((ranks[t], ns[t], ms[t], ranks[t + 1]),
                          generator=gen, device=device) * 0.3
              for t in range(len(ns))]
-    x = torch.randn((B, math.prod(ns)), generator=gen, device=device).to(act)
+    N = math.prod(ns)
+    buf = torch.randn(offset + B * N, generator=gen, device=device).to(act)
+    x = buf[offset:].view(B, N)
     if int8:
         qs = [quantize_core(G) for G in cores]
         return x, [q for q, _ in qs], torch.stack([s for _, s in qs]).float()
@@ -118,6 +129,17 @@ def _close(y, want, act):
     assert err <= TOL[act] * float(want.float().abs().max())
 
 
+def _chain(x, cores, scales, dims):
+    """(kernel, plain) outputs of the fused chain on x."""
+    packed = [pack_core(G) for G in reversed(cores)]
+    if scales is None:
+        return (tt_contract.tt_fused_chain(x, packed, dims),
+                ref.tt_fused_chain_ref(x, packed, dims))
+    s = scales.flip(0).contiguous()
+    return (tt_contract.tt_fused_chain_int8(x, packed, s, dims),
+            ref.tt_fused_chain_ref(x, packed, dims, s))
+
+
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -125,19 +147,61 @@ def _close(y, want, act):
 def test_fused_chain_kernel_matches_plain(cuda, ns, ms, ranks, B, act,
                                           int8):
     x, cores, scales = _chain_inputs(ns, ms, ranks, B, act, int8, cuda)
-    packed = [pack_core(G) for G in reversed(cores)]
-    dims = (ns, ms, ranks)
     name = "tt_fused_chain_int8" if int8 else "tt_fused_chain"
     before = tt_contract.launch_counts().get(name, 0)
-    if int8:
-        s = scales.flip(0).contiguous()
-        y = tt_contract.tt_fused_chain_int8(x, packed, s, dims)
-        want = ref.tt_fused_chain_ref(x, packed, dims, s)
-    else:
-        y = tt_contract.tt_fused_chain(x, packed, dims)
-        want = ref.tt_fused_chain_ref(x, packed, dims)
+    y, want = _chain(x, cores, scales, (ns, ms, ranks))
     assert tt_contract.launch_counts()[name] == before + 1
     _close(y, want, act)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [4, 256])
+@pytest.mark.parametrize("dims", FULL_WIDTH_CHAINS, ids=["attn", "gate_up",
+                                                         "down"])
+def test_fused_chain_kernel_at_full_width(cuda, dims, rows, act, int8):
+    x, cores, scales = _chain_inputs(*dims, rows, act, int8, cuda)
+    y, want = _chain(x, cores, scales, dims)
+    _close(y, want, act)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dims,B", [(CHAIN_CASES[1][:3], 13),
+                                    (FULL_WIDTH_CHAINS[2], 4),
+                                    (FULL_WIDTH_CHAINS[1], 256)])
+def test_fused_chain_kernel_takes_x_at_an_odd_offset(cuda, dims, B, act,
+                                                     int8):
+    """x one element into its buffer is not 16-byte aligned: staged by
+    narrower copies (fp32) or the kernel's scalar loop (bf16)."""
+    x, cores, scales = _chain_inputs(*dims, B, act, int8, cuda, offset=1)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    y, want = _chain(x, cores, scales, dims)
+    _close(y, want, act)
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_chain_kernel_with_many_rows(cuda, act):
+    """2,050 rows: shared memory caps the rows per block (3 in bf16), the
+    cores are staged in narrow column chunks, the last row tile is
+    ragged."""
+    x, cores, scales = _chain_inputs(*FULL_WIDTH_CHAINS[1], 2050, act, False,
+                                     cuda)
+    y, want = _chain(x, cores, scales, FULL_WIDTH_CHAINS[1])
+    _close(y, want, act)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("rows", [4, 256])
+def test_fused_chain_kernel_is_deterministic(cuda, rows, int8):
+    x, cores, scales = _chain_inputs(*FULL_WIDTH_CHAINS[1], rows,
+                                     torch.bfloat16, int8, cuda)
+    y1, _ = _chain(x, cores, scales, FULL_WIDTH_CHAINS[1])
+    y2, _ = _chain(x, cores, scales, FULL_WIDTH_CHAINS[1])
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])

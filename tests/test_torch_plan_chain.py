@@ -1,7 +1,7 @@
 """The port's planner at TT length 3: the DSE picks the reference's shapes,
 ``auto`` routes d≥3 chains to the fused chain or, when one row of its state
 does not fit a block's shared memory, to the step kernel; and the fused
-chain's row tile is chosen in one place, ``fused_chain_batch_tile``."""
+chain's launch takes its tiles from ``chain_geometry``."""
 import contextlib
 import ctypes
 import dataclasses
@@ -92,23 +92,28 @@ def test_explicit_backends_that_cannot_run_raise():
 
 
 @pytest.mark.parametrize("smem,want", [
-    (232_448, 3),              # H100: 3 rows of 64 KB
-    (ROW, 1),                  # exactly one row
-    (10 * ROW, 10),
-    (100 * ROW, 32),           # the cap
+    (232_448, (3, 8, 8)),      # H100: whole modes, 3 rows a block
+    (ROW, (1, 4, 8)),          # one row's states: half of m_3 a block
+    (10 * ROW, (9, 8, 8)),
+    (100 * ROW, (32, 8, 8)),   # the cap
 ])
-def test_fused_chain_batch_tile_is_what_shared_memory_holds(smem, want):
-    assert tt_contract.fused_chain_batch_tile(*GATE_UP, smem) == want
+def test_chain_geometry_fits_what_shared_memory_holds(smem, want):
+    """With many rows in fp32 the chain's block takes as many rows, then
+    as much of m_3, as fit ``smem`` bytes."""
+    geo = tt_contract.chain_geometry(10_000, GATE_UP, 4, 4, 132, smem)
+    assert (geo.bb, geo.g, geo.g2) == want
+    assert geo.smem <= smem
 
 
-def test_fused_chain_batch_tile_prices_one_buffer_at_d2():
+def test_chain_row_bytes_prices_one_buffer_at_d2():
     # d=2 keeps only s1 = n1·m2·r1 = 8·8·16 floats
     assert tt_contract.chain_row_bytes((8, 512), (1376, 8), (1, 16, 1)) == \
         8 * 8 * 16 * 4
     with pytest.raises(ValueError, match="d >= 2"):
         tt_contract.chain_row_bytes((6,), (4,), (1, 1))
     with pytest.raises(ValueError, match="shared memory"):
-        tt_contract.fused_chain_batch_tile(*GATE_UP, ROW - 1)
+        tt_contract.check_chain_fits(*GATE_UP, ROW - 1)
+    tt_contract.check_chain_fits(*GATE_UP, ROW)
 
 
 def test_the_plan_carries_no_tile():
@@ -142,33 +147,45 @@ def fake_launch(monkeypatch):
     return lib
 
 
-def test_the_launch_takes_its_tile_from_fused_chain_batch_tile(
-        fake_launch, monkeypatch):
-    seen = []
-    real = tt_contract.fused_chain_batch_tile
-
-    def spy(*args):
-        seen.append(args)
-        return real(*args)
-
-    monkeypatch.setattr(tt_contract, "fused_chain_batch_tile", spy)
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B", [4, 256])
+def test_the_launch_passes_chain_geometrys_tiles(fake_launch, B, int8):
     ns, ms, ranks = GATE_UP
-    x = torch.zeros(4, 4096, dtype=torch.bfloat16)
-    packed = [torch.zeros(ns[t] * ranks[t + 1], ms[t] * ranks[t],
-                          dtype=torch.bfloat16) for t in (2, 1, 0)]
-    y = tt_contract._launch_chain("tt_fused_chain", x, packed, None,
-                                  GATE_UP)
-    assert y.shape == (4, 11008) and y.dtype == torch.bfloat16
-    assert seen == [(ns, ms, ranks, hw.H100_SXM.smem_per_block)]
-    (name, args), = fake_launch.calls
-    assert name == "tt_fused_chain_bf16"
+    wd = torch.int8 if int8 else torch.bfloat16
+    x = torch.zeros(B, 4096, dtype=torch.bfloat16)
+    packed = [torch.zeros(ns[t] * ranks[t + 1], ms[t] * ranks[t], dtype=wd)
+              for t in (2, 1, 0)]
+    scales = torch.ones(3) if int8 else None
+    name = "tt_fused_chain_int8" if int8 else "tt_fused_chain"
+    y = tt_contract._launch_chain(name, x, packed, scales, GATE_UP)
+    assert y.shape == (B, 11008) and y.dtype == torch.bfloat16
+    (fn, args), = fake_launch.calls
+    assert fn == name + "_bf16"
     d = ctypes.cast(args[1], ctypes.POINTER(ctypes.c_void_p))
+    assert args[0] == x.data_ptr()
     assert [d[j] for j in range(3)] == [p.data_ptr() for p in packed]
     ints = [ctypes.cast(a, ctypes.POINTER(ctypes.c_int)) for a in args[2:5]]
     assert [[a[t] for t in range(n)] for a, n in zip(ints, (3, 3, 4))] == [
         list(ns), list(ms), list(ranks)]
-    # decode: one row per block, the last step's 172 columns in 6 splits
-    assert args[5] == 3 and args[7:10] == (4, 1, 6)
+    assert args[5] == 3
+    rest = args[6:]
+    if int8:
+        assert rest[0] == scales.data_ptr()
+        rest = rest[1:]
+    geo = tt_contract.chain_geometry(B, GATE_UP, 2, 2 - int8,
+                                     hw.H100_SXM.sm_count,
+                                     hw.H100_SXM.smem_per_block)
+    # the address tables: built once per geometry, on x's device
+    tables = tt_contract._chain_tables_on(x.device, GATE_UP, geo, 2)
+    assert rest[0] == tables.data_ptr() and tables.dtype == torch.int32
+    assert tables.tolist() == tt_contract.chain_tables(GATE_UP, geo.bb,
+                                                       geo.g, geo.g2, 2)
+    assert rest[1:] == (y.data_ptr(), B, geo.bb, geo.g, geo.g2, geo.ncc,
+                        geo.stages, geo.smem, 0)
+    # the C arrays of the dims are the memoized geometry's, built once
+    assert args[2:5] == geo.c_dims
+    if B == 4:   # decode: one row, one m_3 value, two m_2 values a block
+        assert (geo.bb, geo.g, geo.g2, geo.grid) == (1, 1, 2, (4, 8, 4))
     tt_contract.reset_launch_counts()
 
 
