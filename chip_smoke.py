@@ -20,29 +20,35 @@ Phases, each fatal on failure:
   4. check the port on a small input: the deepseek-7b SMOKE model on the
      card against the same weights on the CPU (plain versions), at length 2
      (fused2), at length 3 (fused chain) and at length 3 through the step
-     kernel, fp32 and int8 cores over fp32 parameters, and at length 2 with
-     bf16 parameters as the full-width paths run;
+     kernel, fp32 and int8 cores over fp32 parameters, decoded eagerly and
+     through the captured decode step (``Model.graphed_decode_step``), and
+     at length 2 with bf16 parameters as the full-width paths run;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
      from the CLI flags as ``launch.serve.main`` builds it), at length 3
      with backend auto (fused chain, built through ``get_config``/``build``:
      the CLI has no length flag) and at length 2 with ``--tt-backend
-     cuda_step``; every TT projection of each run must have gone through
-     its kernel; with fp cores one more warm run of the model just served
-     is traced (``launch.profile_serve``: device busy share, kernels per
-     pass).
+     cuda_step``; each decode step is a replay of the step captured in the
+     cold run, and every TT projection must have gone through its kernel
+     (the launches the wrappers counted, plus one capture's for each
+     replay); beside each path one eager warm run (tok/s, decode step ms
+     and peak memory, graph against eager; the first decode step's logits
+     bit for bit and the greedy tokens) and one more traced warm run of the
+     graph (``launch.profile_serve``: device busy share, kernels per pass,
+     the TT kernels in the trace against the launches expected).
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
 the eager back-to-back time of each kernel is recorded beside them.  Every
-record of phases 2 and 3 is also written to ``build/chip_smoke.json``.
+record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``.
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -54,6 +60,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import build, get_config  # noqa: E402
 from repro_torch.configs.base import TTConfig  # noqa: E402
@@ -64,7 +71,9 @@ from repro_torch.core.quant import dequantize_cores, quantize_core  # noqa: E402
 from repro_torch.core.tt import tt_reconstruct  # noqa: E402
 from repro_torch.kernels import ref, tt_contract  # noqa: E402
 from repro_torch.launch import profile_serve, serve  # noqa: E402
+from repro_torch.models.graph import WARMUP_STEPS  # noqa: E402
 from repro_torch.models.spec import map_tree  # noqa: E402
+from repro_torch.serving.engine import generate_fixed  # noqa: E402
 
 # (ns, ms, ranks) of deepseek-7b's TT projections at rank 16, and how many
 # of each one decoder layer runs; length 2 (fused2, step) and length 3
@@ -82,6 +91,7 @@ SHAPES3 = {
 }
 ROWS = (256, 4)          # prefill (batch 4 × prompt 64) and decode (batch 4)
 LAYERS, PASSES = 30, 32  # full depth; 1 prefill + 31 decode forward passes
+REPLAYS = 8              # decode steps traced alone
 PROJ = 7                 # TT projections per decoder layer
 # (int8 cores, activation dtype); the main path runs bf16 activations
 CASES = ((False, torch.float32), (False, torch.bfloat16),
@@ -404,9 +414,11 @@ def small_input_check() -> None:
     """Phase 4: SMOKE deepseek-7b through the kernels on the card against
     the plain versions on the CPU, same weights, teacher-forced: fp32 and
     int8 cores over fp32 parameters at each (length, backend) of the main
-    paths, logits within 1e-4 (summation order); and length 2 with bf16
-    parameters, as the full-width paths run, within ``SMOKE_TOL``.  Each
-    run must launch only its kernel."""
+    paths, logits within 1e-4 (summation order), decoded eagerly and then
+    through the captured decode step (``Model.graphed_decode_step``), whose
+    greedy tokens through ``generate_fixed`` must be the CPU's; and length 2
+    with bf16 parameters, as the full-width paths run, within
+    ``SMOKE_TOL``, eagerly.  Each run must launch only its kernel."""
     cases = [(length, backend, kernel, weights, torch.float32)
              for length, backend, kernel in ((2, "auto", "tt_fused2"),
                                              (3, "auto", "tt_fused_chain"),
@@ -426,59 +438,240 @@ def small_input_check() -> None:
         tokens = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (2, 16), dtype=np.int64))
         batch = {"tokens": tokens, "cache_len": 16 + 8}
-        tt_contract.reset_launch_counts()
-        lg, cg = gpu.prefill(p_gpu, batch)
+        # the CPU's teacher-forced logits: prefill, then 8 decode steps fed
+        # the CPU's own greedy tokens
         lc, cc = cpu.prefill(p_cpu, batch)
-        worst = float((lg.cpu().float() - lc.float()).abs().max())
-        top = float(lc.float().abs().max())
+        want, forced = [lc], []
         for _ in range(8):
-            tok = lc[:, -1].argmax(-1, keepdim=True)
-            lg, cg = gpu.decode_step(p_gpu, cg, tok)
-            lc, cc = cpu.decode_step(p_cpu, cc, tok)
-            worst = max(worst, float((lg.cpu().float() -
-                                      lc.float()).abs().max()))
-            top = max(top, float(lc.float().abs().max()))
-        counts = tt_contract.launch_counts()
-        want = kernel + ("_int8" if weights == "int8" else "")
+            forced.append(want[-1][:, -1].argmax(-1, keepdim=True))
+            lc, cc = cpu.decode_step(p_cpu, cc, forced[-1])
+            want.append(lc)
+        top = max(float(w.float().abs().max()) for w in want)
         tol = SMOKE_TOL[pdt] * (top if pdt == torch.bfloat16 else 1.0)
-        print(f"small input (length {length}, {backend}, {weights} cores, "
-              f"{DT_NAME[pdt]} params): SMOKE logits card vs cpu max abs "
-              f"diff {worst:.3e} (tol {tol:.3e}, max |logit| {top:.3f}); "
-              f"launches {counts}", flush=True)
-        if not worst <= tol:
-            raise AssertionError(
-                f"SMOKE {weights} {DT_NAME[pdt]} length {length}: card and "
-                f"cpu logits differ by {worst:.3e} > {tol:.3e}")
-        if set(counts) != {want}:
-            raise AssertionError(f"SMOKE length {length} {backend}: "
-                                 f"expected only {want}, got {counts}")
+        runs = ("eager", "graph") if pdt == torch.float32 else ("eager",)
+        for how in runs:
+            tt_contract.reset_launch_counts()
+            captured0 = tt_contract.capture_counts()
+            lg, cg = gpu.prefill(p_gpu, batch)
+            if how == "graph":
+                step = gpu.graphed_decode_step(2, 16 + 8)
+                step.load(p_gpu, cg, 16)
+            got = [lg]
+            for tok in forced:
+                if how == "graph":
+                    got.append(step(tok.cuda()).clone())
+                else:
+                    lg, cg = gpu.decode_step(p_gpu, cg, tok)
+                    got.append(lg)
+            worst = max(float((g.cpu().float() - w.float()).abs().max())
+                        for g, w in zip(got, want))
+            counts = set(tt_contract.launch_counts()) | set(
+                k for k, v in tt_contract.capture_counts().items()
+                if v != captured0.get(k, 0))
+            wanted = kernel + ("_int8" if weights == "int8" else "")
+            print(f"small input (length {length}, {backend}, {weights} "
+                  f"cores, {DT_NAME[pdt]} params, {how} decode): SMOKE "
+                  f"logits card vs cpu max abs diff {worst:.3e} (tol "
+                  f"{tol:.3e}, max |logit| {top:.3f}); kernels {counts}",
+                  flush=True)
+            if not worst <= tol:
+                raise AssertionError(
+                    f"SMOKE {weights} {DT_NAME[pdt]} length {length} {how}: "
+                    f"card and cpu logits differ by {worst:.3e} > {tol:.3e}")
+            if counts != {wanted}:
+                raise AssertionError(f"SMOKE length {length} {backend} "
+                                     f"{how}: expected only {wanted}, got "
+                                     f"{counts}")
+        if pdt == torch.float32:
+            g_toks = generate_fixed(gpu, p_gpu, batch, 8).tokens.cpu()
+            c_toks = generate_fixed(cpu, p_cpu, batch, 8).tokens
+            print(f"small input (length {length}, {backend}, {weights} "
+                  f"cores): greedy tokens through the graph on the card "
+                  f"{'=' if torch.equal(g_toks, c_toks) else '!='} the "
+                  f"cpu's; {gpu.graph_captures} capture", flush=True)
+            if not torch.equal(g_toks, c_toks) or gpu.graph_captures != 1:
+                raise AssertionError(
+                    f"SMOKE length {length} {backend} {weights}: greedy "
+                    f"tokens card {g_toks.tolist()} cpu {c_toks.tolist()}, "
+                    f"{gpu.graph_captures} captures")
 
 
-def drive(label: str, kernel: str, per_run: int, model, params,
+def drive(label: str, kernel: str, per_pass: int, model, params,
           args) -> tuple[dict, int]:
     """One main path: launch counts set to 0 just before
-    ``launch.serve.fixed`` serves ``model`` (a cold and a warm run) and
-    read just after; the warm run must launch exactly ``per_run`` of
-    ``kernel`` and no other kernel, and resolve no plan.  Returns serve's
-    result and the kernel's launches over the whole call."""
+    ``launch.serve.fixed`` serves ``model`` (a cold run that captures the
+    decode step, and a warm run of replays) and read just after.  The
+    capture must record ``per_pass`` launches of ``kernel`` and nothing
+    else; the warm run must make ``per_pass`` × ``PASSES`` of them (the
+    prefill's, counted by the wrapper, and one capture's per replay),
+    capture nothing and resolve no plan.  Returns serve's result and the
+    kernel's launches over the whole call, counted and replayed."""
     tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
     out = serve.fixed(model, params, args)
-    counts = tt_contract.launch_counts()
-    print(f"main path ({label}): launches {counts}; peak memory "
-          f"{out['peak_bytes'] / 2**30:.3f} GiB; {out['tok_per_s']:.1f} "
-          f"tok/s; warm run {out['warm_s']:.3f} s", flush=True)
-    if counts != {kernel: 2 * per_run} or out["launches"] != {
-            kernel: per_run} or out["replans"] != 0:
-        raise AssertionError(
-            f"{label}: expected {per_run} {kernel} launches per run, cold + "
-            f"warm, and no plan resolution; got {counts}, warm run "
-            f"{out['launches']}, {out['replans']} resolutions")
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    graph = model.decode_graphs[(args.batch, args.prompt_len + args.steps)]
+    per_run = per_pass * PASSES
+    print(f"main path ({label}): launches counted {counted}, by graph "
+          f"replays {replayed} (one capture: {graph.captured}); peak "
+          f"memory {out['peak_bytes'] / 2**30:.3f} GiB allocated, "
+          f"{out['peak_reserved_bytes'] / 2**30:.3f} GiB reserved; "
+          f"{out['tok_per_s']:.1f} tok/s; warm run {out['warm_s']:.3f} s",
+          flush=True)
+    want = {
+        "capture": ({kernel: per_pass}, graph.captured),
+        "warm run": ({kernel: per_run}, out["launches"]),
+        "cold run": ({kernel: per_run + WARMUP_STEPS * per_pass},
+                     out["cold_launches"]),
+        "counted": ({kernel: (2 + WARMUP_STEPS) * per_pass}, counted),
+        "replayed": ({kernel: 2 * (PASSES - 1) * per_pass}, replayed),
+        "captures cold, warm": ((1, 0), (out["cold_captures"],
+                                         out["captures"])),
+        "plan resolutions": (0, out["replans"]),
+    }
+    bad = {k: v for k, v in want.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"{label}: (expected, got) {bad}")
     toks = out["tokens"]
     if tuple(toks.shape) != (4, PASSES) or int(toks.min()) < 0 or \
             int(toks.max()) >= 102400 or \
             not bool(torch.isfinite(out["logprobs"]).all()):
         raise AssertionError(f"bad generation: {tuple(toks.shape)}")
-    return out, counts[kernel]
+    return out, counted[kernel] + replayed[kernel]
+
+
+def decode_steps(model, params, batch, graph: bool, n: int = 16):
+    """Prefill ``batch``, then 1 + ``n`` greedy decode steps, eager or
+    replayed: (the first step's logits, the mean host-clock ms of the
+    ``n`` later steps, each with its greedy pick, to the device's end)."""
+    B, S = batch["tokens"].shape
+    logits, cache = model.prefill(params, batch)
+    if graph:
+        step = model.graphed_decode_step(B, batch["cache_len"])
+        step.load(params, cache, S)
+    else:
+        def step(tok):
+            nonlocal cache
+            out, cache = model.decode_step(params, cache, tok)
+            return out
+    first = step(logits[:, -1].argmax(-1, keepdim=True)).clone()
+    tok = first[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tok = step(tok)[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    return first, (time.perf_counter() - t0) * 1e3 / n
+
+
+def eager_runs(model, params, args) -> dict:
+    """Before the graph exists: a cold and a warm eager run of the served
+    prompts; the warm one's tok/s, peak memory and tokens."""
+    batch = serve.prompt_batch(model, args)
+    serve.timed_run(model, params, batch, args, graph=False)
+    torch.cuda.reset_peak_memory_stats()
+    res, warm = serve.timed_run(model, params, batch, args, graph=False)
+    out = dict(tok_per_s=args.batch * args.steps / warm, warm_s=warm,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+               tokens=res.tokens)
+    # the graph's pool is measured on its own
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_against_eager(label: str, model, params, args, out: dict,
+                        eager: dict, smi: str) -> dict:
+    """Phase 5 beside each served path: the graph's warm run (``out``)
+    against the eager one (``eager``): tok/s, peak memory, greedy tokens
+    identical; then the first decode step's logits graph against eager bit
+    for bit, and each decode step's time."""
+    batch = serve.prompt_batch(model, args)
+    captures = model.graph_captures
+    g_first, g_ms = decode_steps(model, params, batch, graph=True)
+    e_first, e_ms = decode_steps(model, params, batch, graph=False)
+    diff = float((g_first - e_first).abs().max())
+    same_tokens = torch.equal(eager["tokens"], out["tokens"])
+    rec = dict(graph_tok_per_s=out["tok_per_s"],
+               eager_tok_per_s=eager["tok_per_s"],
+               graph_step_ms=g_ms, eager_step_ms=e_ms,
+               graph_peak_bytes=out["peak_bytes"],
+               graph_reserved_bytes=out["peak_reserved_bytes"],
+               eager_peak_bytes=eager["peak_bytes"],
+               eager_reserved_bytes=eager["peak_reserved_bytes"],
+               first_step_max_abs_diff=diff, tokens_identical=same_tokens)
+    gib = 2 ** 30
+    print(f"graph vs eager ({label}; {smi}): {rec['graph_tok_per_s']:.1f} "
+          f"vs {rec['eager_tok_per_s']:.1f} tok/s (warm run, prefill "
+          f"included); decode step {g_ms:.3f} vs {e_ms:.3f} ms; peak "
+          f"allocated {out['peak_bytes'] / gib:.3f} vs "
+          f"{eager['peak_bytes'] / gib:.3f} GiB (reserved "
+          f"{out['peak_reserved_bytes'] / gib:.3f} vs "
+          f"{eager['peak_reserved_bytes'] / gib:.3f}); first decode step's "
+          f"logits max abs diff {diff:.3e}; greedy tokens "
+          f"{'identical' if same_tokens else 'DIFFER'}", flush=True)
+    if diff != 0 or not same_tokens or model.graph_captures != captures:
+        raise AssertionError(f"{label}: graph and eager differ (first step "
+                             f"{diff:.3e}, tokens identical {same_tokens}, "
+                             f"{model.graph_captures - captures} captures)")
+    return rec
+
+
+def traced(label: str, kernel: str, per_pass: int, model, params,
+           args) -> dict:
+    """Trace one more warm run (``launch.profile_serve``): the TT kernels
+    found in the device trace must be the launches expected, the
+    prefill's and ``per_pass`` for each replay; then ``REPLAYS`` replays
+    alone (device kernels, busy and wall time per replay)."""
+    print(f"profile ({label}):", flush=True)
+    prof = profile_serve.profile_fixed(model, params, args)
+    source = {"tt_fused2": "tt_fused2_kernel",
+              "tt_fused_chain": "tt_chain_kernel",
+              "tt_step": "tt_step_kernel"}[kernel.removesuffix("_int8")]
+    tt = prof["tt_kernels"].get(source, {"found": 0, "expected": None})
+    per_replay = (tt["found"] - per_pass) / (PASSES - 1)
+    print(f"profile ({label}): {source} in the trace {tt['found']} of "
+          f"{tt['expected']} expected; {per_replay:g} per replay of "
+          f"{per_pass}", flush=True)
+    if tt["found"] != tt["expected"] or tt["found"] != per_pass * PASSES:
+        raise AssertionError(f"{label}: {tt} {source} kernels in the trace, "
+                             f"expected {per_pass * PASSES}")
+    # replays alone, after a prefill outside the trace
+    batch = serve.prompt_batch(model, args)
+    logits, cache = model.prefill(params, batch)
+    step = model.graphed_decode_step(args.batch, batch["cache_len"])
+    step.load(params, cache, args.prompt_len)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as alone:
+        t0 = time.perf_counter()
+        for _ in range(REPLAYS):
+            step(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(profile_serve.RECORDS_S)
+    ks = [e for e in alone.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    rec = dict(busy_s=prof["busy_s"], wall_s=prof["wall_s"],
+               busy_share=prof["busy_s"] / prof["wall_s"],
+               kernels_per_pass=prof["launches"] / PASSES,
+               tt_found=tt["found"], tt_expected=tt["expected"],
+               tt_per_replay=per_replay,
+               replay_kernels=sum(e.count for e in ks) / REPLAYS,
+               replay_tt=sum(e.count for e in ks if source in e.key)
+               / REPLAYS,
+               replay_busy_ms=sum(e.self_device_time_total for e in ks)
+               / 1e3 / REPLAYS,
+               replay_wall_ms=wall * 1e3 / REPLAYS)
+    print(f"profile ({label}): {REPLAYS} replays alone: "
+          f"{rec['replay_kernels']:g} device kernels, {rec['replay_tt']:g} "
+          f"{source}, {rec['replay_busy_ms']:.3f} ms busy, "
+          f"{rec['replay_wall_ms']:.3f} ms wall per replay", flush=True)
+    if rec["replay_tt"] != per_pass:
+        raise AssertionError(f"{label}: {rec['replay_tt']} {source} per "
+                             f"replay traced alone, expected {per_pass}")
+    return rec
 
 
 def cli_model(argv):
@@ -503,35 +696,44 @@ def length3_model(weights: str):
     return model, params, args
 
 
-def main_paths() -> dict[str, int]:
-    """Phase 5: every main path with fp then int8 cores; returns each
-    kernel's launches over its path's call.  With fp cores one more warm
-    run of the model just served is traced, after its launches were
+def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
+    """Phase 5: every main path with fp then int8 cores, each decoding
+    through its captured graph; returns each kernel's launches over its
+    path's call, and per path the graph against an eager warm run (made
+    before the capture, so that each has its own peak memory) and the
+    trace of one more warm run of the graph, after the launches were
     read."""
-    per_run = PROJ * LAYERS * PASSES
-    launches = {}
+    per_pass = PROJ * LAYERS
+    launches, recs = {}, []
     for weights in ("fp32", "int8"):
         sfx = "_int8" if weights == "int8" else ""
         cli = {b: SERVE_ARGS + ["--tt-backend", b, "--tt-weights", weights]
                for b in ("auto", "cuda_step")}
         paths = (
-            ("length 2, auto", "tt_fused2", per_run,
+            ("length 2, auto", "tt_fused2", per_pass,
              lambda: cli_model(cli["auto"])),
-            ("length 3, auto", "tt_fused_chain", per_run,
+            ("length 3, auto", "tt_fused_chain", per_pass,
              lambda: length3_model(weights)),
-            ("length 2, cuda_step", "tt_step", 2 * per_run,
+            ("length 2, cuda_step", "tt_step", 2 * per_pass,
              lambda: cli_model(cli["cuda_step"])),
         )
         for label, kernel, n, built in paths:
             model, params, args = built()
-            _, launches[kernel + sfx] = drive(f"{label}, {weights}",
-                                              kernel + sfx, n, model,
-                                              params, args)
-            if weights == "fp32":
-                print(f"profile ({label}, {weights}):", flush=True)
-                profile_serve.profile_fixed(model, params, args)
-            del model, params
-    return launches
+            label = f"{label}, {weights}"
+            eager = eager_runs(model, params, args)
+            out, launches[kernel + sfx] = drive(label, kernel + sfx, n,
+                                                model, params, args)
+            rec = dict(path=label, kernel=kernel + sfx,
+                       launches=launches[kernel + sfx], card=smi)
+            rec.update(graph_against_eager(label, model, params, args, out,
+                                           eager, smi))
+            rec.update(traced(label, kernel + sfx, n, model, params, args))
+            recs.append(rec)
+            # the model and its graphs refer to each other
+            del model, params, out
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches, recs
 
 
 def kernel_line(recs, launches) -> dict:
@@ -598,7 +800,10 @@ def main() -> int:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps}, f, indent=1)
     small_input_check()
-    launches = main_paths()
+    launches, graph_recs = main_paths(smi)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump({"card": smi, "records": recs, "layers": layers,
+                   "steps": steps, "graph": graph_recs}, f, indent=1)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s",
           flush=True)
 

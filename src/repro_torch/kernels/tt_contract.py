@@ -16,7 +16,8 @@ the sources, and loaded with ctypes.
 
 A wrapper given CPU tensors runs the kernel's plain version
 (``kernels.ref``); given CUDA tensors it launches the kernel or raises.
-``LAUNCH_COUNTS`` counts kernel launches only.
+``LAUNCH_COUNTS`` counts kernel launches only; a launch made while the
+stream captures a CUDA graph is counted in ``CAPTURE_COUNTS`` instead.
 """
 from __future__ import annotations
 
@@ -40,6 +41,10 @@ from .ref import tt_fused2_ref, tt_fused_chain_ref, tt_step_ref
 
 # kernel launches per kernel name; the CPU plain path does not count
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+# launches recorded into a CUDA graph under capture, per kernel name: they
+# run at every replay of the graph, where no wrapper runs
+# (``models.graph.DecodeGraph`` multiplies its share by its replays)
+CAPTURE_COUNTS: collections.Counter = collections.Counter()
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -83,6 +88,19 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCH_COUNTS)
+
+
+def capture_counts() -> dict[str, int]:
+    return dict(CAPTURE_COUNTS)
+
+
+def _count(name: str) -> None:
+    """One launch of ``name`` on the current stream: a launch, or a node of
+    the graph that the stream is capturing."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        CAPTURE_COUNTS[name] += 1
+    else:
+        LAUNCH_COUNTS[name] += 1
 
 
 def _nvcc() -> str:
@@ -438,7 +456,7 @@ def _launch_fused2(name: str, x, p2, p1, scales, dims):
                  geo.nc, geo.kc, geo.nct, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCH_COUNTS[name] += 1
+    _count(name)
     return y
 
 
@@ -778,7 +796,7 @@ def _launch_chain(name: str, x, packed, scales, dims):
                  geo.g2, geo.ncc, geo.stages, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCH_COUNTS[name] += 1
+    _count(name)
     return y
 
 
@@ -988,7 +1006,7 @@ def _launch_step(name: str, G, X, scale):
                  geo.tr, geo.nc, geo.kv, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCH_COUNTS[name] += 1
+    _count(name)
     return out
 
 

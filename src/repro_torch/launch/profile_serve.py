@@ -6,8 +6,10 @@ Takes ``launch.serve``'s flags (or, through ``profile_fixed``, a model
 built by the caller), runs ``generate_fixed`` once cold, then
 once more under ``torch.profiler`` and prints the wall time, the device
 time of every kernel name (largest first), the number of device kernels
-per forward pass, and the device busy share of the wall time (the sum of
-kernel times over the wall time; kernels of one stream do not overlap).
+per forward pass, the device busy share of the wall time (the sum of
+kernel times over the wall time; kernels of one stream do not overlap),
+and the TT kernels found in the trace against the launches expected.  On
+a card the decode steps are replays of the captured CUDA graph.
 On a card only device kernels are traced; on the CPU only host operators
 are recorded and the device lines read "not measured".
 """
@@ -28,9 +30,21 @@ def main(argv=None, top: int = 12) -> dict:
     return profile_fixed(model, params, args, top)
 
 
+# seconds the trace stays open after the traced run has ended
+RECORDS_S = 0.5
+# the device kernel of each source, by the wrappers that launch it
+TT_KERNELS = {"tt_fused2_kernel": ("tt_fused2", "tt_fused2_int8"),
+              "tt_chain_kernel": ("tt_fused_chain", "tt_fused_chain_int8"),
+              "tt_step_kernel": ("tt_step", "tt_step_int8")}
+
+
 def profile_fixed(model, params, args, top: int = 12) -> dict:
     """Profile one warm ``generate_fixed`` run of ``model`` with the batch,
-    prompt and steps of the serve flags ``args``."""
+    prompt and steps of the serve flags ``args``: on a card the decode
+    steps are replays of the captured graph, and the TT kernels found in
+    the trace are held against the launches expected (counted by the
+    wrappers at prefill, plus those one capture recorded times the
+    replays)."""
     cuda = model.device.type == "cuda"
     batch = serve.prompt_batch(model, args)
 
@@ -43,10 +57,16 @@ def profile_fixed(model, params, args, top: int = 12) -> dict:
     # on a card only the device is traced: host tracing would slow the
     # host-bound loop it measures, and its events take long to summarise
     acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+    before = serve.tally(model)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
+        if cuda:
+            # the device's records of the last kernels reach the profiler
+            # after the kernels end; let them arrive before it stops
+            time.sleep(RECORDS_S)
+    expected = serve.launches_between(before, serve.tally(model))
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6   # seconds
@@ -64,7 +84,15 @@ def profile_fixed(model, params, args, top: int = 12) -> dict:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.self_device_time_total / 1e6 / wall:6.1%} x{e.count:<6d} "
               f"{e.key[:90]}")
+    tt = {}
+    for kernel, names in TT_KERNELS.items():
+        found = sum(e.count for e in kernels if kernel in e.key)
+        want = sum(expected.get(n, 0) for n in names)
+        if found or want:
+            tt[kernel] = {"found": found, "expected": want}
+            print(f"{kernel} in the trace: {found} of {want} expected")
     return {"wall_s": wall, "busy_s": busy, "launches": launches,
+            "tt_kernels": tt,
             "kernels": {e.key: e.self_device_time_total / 1e6
                         for e in kernels}}
 

@@ -9,8 +9,11 @@ layers through the fused2 kernel), ``cuda_fused2``, ``cuda_fused`` (the
 whole chain in one launch), ``cuda_step`` (one step kernel per core) or
 ``einsum``.  Builds the model with random weights from ``--seed``, draws
 the prompt tokens from a numpy generator seeded with ``--seed``, and runs
-``generate_fixed`` twice: a cold run (kernel build, first-call set-up)
-and a warm run that is timed and must resolve no TT plan.
+``generate_fixed`` twice: a cold run (kernel build, first-call set-up,
+the capture of the decode step's CUDA graph on a card) and a warm run that
+is timed and must capture nothing and resolve no TT plan.  TT launches are
+those the kernel wrappers counted plus those the graph replays made (the
+launches one capture recorded, times the replays).
 """
 from __future__ import annotations
 
@@ -42,50 +45,94 @@ def prompt_batch(model, args) -> dict:
             "cache_len": args.prompt_len + args.steps}
 
 
+def timed_run(model, params, batch: dict, args, gen=None,
+              graph: bool = True):
+    """One ``generate_fixed`` run with the serve flags ``args``, timed on
+    the host clock to its end on the device: (result, seconds).
+    ``graph=False`` decodes eagerly on the card."""
+    if gen is not None:
+        gen.manual_seed(args.seed + 1)
+    t0 = time.perf_counter()
+    res = generate_fixed(model, params, batch, steps=args.steps,
+                         temperature=args.temperature, generator=gen,
+                         graph=graph)
+    _sync(model.device)
+    return res, time.perf_counter() - t0
+
+
+def since(before: dict, after: dict) -> dict:
+    """The counts that grew from ``before`` to ``after``, by how much."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def tally(model) -> dict:
+    """What a run is checked by, so far: TT launches counted by the kernel
+    wrappers, TT launches made by replays of the model's captured decode
+    steps, the captures and the plan resolutions."""
+    return {"counted": tt_contract.launch_counts(),
+            "replayed": dict(model.replayed_launches),
+            "captures": model.graph_captures,
+            "plans": ttplan.plan_resolutions()}
+
+
+def launches_between(a: dict, b: dict) -> dict:
+    """TT launches from tally ``a`` to tally ``b``, counted and replayed."""
+    out = since(a["counted"], b["counted"])
+    for k, v in since(a["replayed"], b["replayed"]).items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
 def fixed(model, params, args) -> dict:
+    """Serve the prompts of ``args`` twice: a cold run (kernel build, plan
+    and geometry memos, the decode step's capture on a card) and a warm
+    run that is timed and must capture nothing and resolve no TT plan."""
     batch = prompt_batch(model, args)
     gen = None
     if args.temperature:
         gen = torch.Generator(device=model.device)
+    cuda = model.device.type == "cuda"
 
-    def run():
-        if gen is not None:
-            gen.manual_seed(args.seed + 1)
-        t0 = time.perf_counter()
-        res = generate_fixed(model, params, batch, steps=args.steps,
-                             temperature=args.temperature, generator=gen)
-        _sync(model.device)
-        return res, time.perf_counter() - t0
-
-    res, cold = run()
-    plans0 = ttplan.plan_resolutions()
-    launches0 = tt_contract.launch_counts()
-    if model.device.type == "cuda":
+    t0 = tally(model)
+    res, cold = timed_run(model, params, batch, args, gen)
+    t1 = tally(model)
+    if cuda:
         torch.cuda.reset_peak_memory_stats(model.device)
-    res, warm = run()
-    replans = ttplan.plan_resolutions() - plans0
-    launches = {k: v - launches0.get(k, 0)
-                for k, v in tt_contract.launch_counts().items()}
-    peak = (torch.cuda.max_memory_allocated(model.device)
-            if model.device.type == "cuda" else None)
+    res, warm = timed_run(model, params, batch, args, gen)
+    t2 = tally(model)
+    replans = t2["plans"] - t1["plans"]
+    captures = t2["captures"] - t1["captures"]
+    launches = launches_between(t1, t2)
+    peak = torch.cuda.max_memory_allocated(model.device) if cuda else None
+    reserved = torch.cuda.max_memory_reserved(model.device) if cuda else None
 
     toks = args.batch * args.steps
     print(f"arch={model.cfg.name} device={model.device} batch={args.batch} "
-          f"prompt={args.prompt_len} decode={args.steps}")
+          f"prompt={args.prompt_len} decode={args.steps} "
+          f"decode step: {'CUDA graph' if cuda else 'eager'}")
     print(f"cold run {cold:.3f}s, warm run {warm:.3f}s: {toks} tokens "
           f"({toks / warm:.1f} tok/s incl. prefill)")
     print("sample tokens[0]:", res.tokens[0].tolist())
-    print(f"plan resolutions during warm run: {replans} "
-          f"(model plans: {len(model.plan_book)}); kernel launches during "
-          f"warm run: {launches}; peak device memory: "
-          f"{'n/a on cpu' if peak is None else f'{peak / 2**30:.3f} GiB'}")
-    if replans:
-        raise AssertionError(f"{replans} TT plan resolutions during the warm "
-                             "run: serving must execute build-time plans only")
+    print(f"warm run: {replans} plan resolutions (model plans: "
+          f"{len(model.plan_book)}), {captures} graph captures (cold run: "
+          f"{t1['captures'] - t0['captures']}); TT launches {launches} "
+          f"(counted {since(t1['counted'], t2['counted'])}, by graph "
+          f"replays {since(t1['replayed'], t2['replayed'])}); peak device "
+          f"memory: " + ("n/a on cpu" if peak is None else
+                         f"{peak / 2**30:.3f} GiB allocated, "
+                         f"{reserved / 2**30:.3f} GiB reserved"))
+    if replans or captures:
+        raise AssertionError(
+            f"{replans} TT plan resolutions and {captures} graph captures "
+            f"during the warm run: serving must execute build-time plans "
+            f"and the decode step captured in the cold run")
     return {"tokens": res.tokens, "logprobs": res.logprobs,
             "tok_per_s": toks / warm, "warm_s": warm, "cold_s": cold,
-            "replans": replans, "launches": launches,
-            "peak_bytes": peak}
+            "replans": replans, "captures": captures,
+            "cold_captures": t1["captures"] - t0["captures"],
+            "launches": launches, "cold_launches": launches_between(t0, t1),
+            "peak_bytes": peak, "peak_reserved_bytes": reserved}
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -5,7 +5,7 @@ technique applies to q/k/v/o ("attn" family).  Scores and the softmax are
 fp32, as in ``repro.models.attention``.
 
 Cache contract: k, v [B, S_max, KV, hd]; decode writes the new position
-in place.
+in place, at a position held on the device.
 """
 from __future__ import annotations
 
@@ -60,23 +60,36 @@ def gqa_self_attn(p, cfg: ModelConfig, x, positions, *, backend="einsum"):
     return linear_apply(p["o"], ctx, backend), (k, v)
 
 
-def gqa_decode_attn(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
-                    backend="einsum"):
-    """One-token decode against a full cache at the scalar position
-    ``pos`` shared by the whole batch.
+def gqa_decode_attn(p, cfg: ModelConfig, x, cache_k, cache_v,
+                    pos: torch.Tensor, *, backend="einsum"):
+    """One-token decode against a full cache.
 
-    x [B,1,d]; cache_k/v [B, T, KV, hd].  The new k/v are written into the
-    cache IN PLACE at ``pos`` (the reference returns an updated copy).
+    x [B,1,d]; cache_k/v [B, T, KV, hd]; ``pos`` an integer tensor on the
+    cache's device: 0-d, the position shared by the whole batch, or [B],
+    one depth per row (the reference's per-slot branch; a row at a
+    position ≥ T writes nothing).  The new k/v are written into the cache
+    IN PLACE (the reference returns an updated copy).  Nothing here reads
+    a device value on the host, so the step can be captured in a CUDA
+    graph and replayed at every position; a scalar position outside the
+    cache is refused by the caller that holds it on the host
+    (``serving.engine.generate_fixed``, ``models.graph.DecodeGraph``).
     Returns (y [B,1,d], cache_k, cache_v).
     """
     B, T = x.shape[0], cache_k.shape[1]
-    if not 0 <= pos < T:
-        raise ValueError(f"decode position {pos} outside the cache of {T}")
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    per_row = pos.dim() == 1
+    positions = pos[:, None] if per_row else pos.reshape(1, 1).expand(B, 1)
     q, k, v = _qkv(p, cfg, x, positions, backend)
-    cache_k[:, pos] = k[:, 0]
-    cache_v[:, pos] = v[:, 0]
-    valid = torch.arange(T, device=x.device) <= pos
+    idx = torch.arange(T, device=x.device)
+    if per_row:
+        wr = (idx[None, :] == pos[:, None])[:, :, None, None]    # [B,T,1,1]
+        torch.where(wr, k, cache_k, out=cache_k)
+        torch.where(wr, v, cache_v, out=cache_v)
+        valid = (idx[None, :] <= pos[:, None])[:, None, None, None, :]
+    else:
+        at = pos.reshape(1).long()
+        cache_k.index_copy_(1, at, k)
+        cache_v.index_copy_(1, at, v)
+        valid = idx <= pos
     ctx = _gqa_scores_ctx(q, cache_k, cache_v, valid,
                           1.0 / np.sqrt(cfg.head_dim))
     return linear_apply(p["o"], ctx, backend), cache_k, cache_v

@@ -1,5 +1,6 @@
 """Model facade: parameter specs and init, ``prefill``, ``decode_step``,
-``init_cache`` and ``quantize_params`` for the dense decoder.
+``graphed_decode_step``, ``init_cache`` and ``quantize_params`` for the
+dense decoder.
 
 Parameters are a dict tree of tensors: ``embed``, ``final_norm``,
 ``lm_head`` and one list per layer group ``g{gi}`` holding a dict
@@ -8,15 +9,22 @@ this tree from the reference's stacked one.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.plan import PlanBook
+from .graph import DecodeGraph
 from .layers import (embed_apply, embed_spec, linear_apply, linear_spec,
                      quantize_tt_params, rmsnorm_apply, rmsnorm_spec)
 from .spec import init_tree
 from .transformer import Group, group_decode, group_fwd, group_spec
+
+
+# captured decode steps a model keeps (the reference's jit_cache_size)
+GRAPH_CACHE_SIZE = 8
 
 
 class Model:
@@ -35,6 +43,14 @@ class Model:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self._plan_book: PlanBook | None = None
+        # captured decode steps per (batch, cache length), least recently
+        # used first; the captures made (the reference counts
+        # ``prefill_builds``) and the TT launches the replays made, by
+        # kernel name (no wrapper runs on a replay)
+        self.decode_graphs: collections.OrderedDict = \
+            collections.OrderedDict()
+        self.graph_captures = 0
+        self.replayed_launches: collections.Counter = collections.Counter()
 
     @property
     def plan_book(self) -> PlanBook:
@@ -79,13 +95,15 @@ class Model:
     def prefill(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
         """Process the prompt ``batch["tokens"] [B,S]``; return
         (last-token logits [B,1,V] fp32, cache).  ``batch["cache_len"]``
-        (default S) sizes the cache; ``cache["pos"]`` is a Python int."""
+        (default S) sizes the cache; ``cache["pos"]`` is S as a 0-d int32
+        tensor on the model's device."""
         tokens = batch["tokens"].to(self.device)
         x = embed_apply(params["embed"], tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         T = batch.get("cache_len", S)
-        cache: dict = {"pos": S}
+        cache: dict = {"pos": torch.full((), S, dtype=torch.int32,
+                                         device=self.device)}
         for gi, g in enumerate(self.groups):
             x, cache[f"g{gi}"] = group_fwd(
                 params[f"g{gi}"], g, self.cfg, x, positions, want_cache=True,
@@ -95,8 +113,14 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, cache: dict, token: torch.Tensor
                     ) -> tuple[torch.Tensor, dict]:
-        """token [B,1] → (logits [B,1,V] fp32, cache at ``pos + 1``).  The
-        KV tensors of ``cache`` are updated in place."""
+        """token [B,1] → (logits [B,1,V] fp32, cache at ``pos + 1``).
+
+        ``cache["pos"]`` is an int32 tensor on the model's device: 0-d (the
+        fixed batch, every row at one depth) or [B] (one depth per row; a
+        row at a position ≥ the cache length writes nothing).  It advances
+        on the device, and the KV tensors of ``cache`` are updated in place:
+        the step reads no device value on the host, so it can be captured
+        (``graphed_decode_step``)."""
         pos = cache["pos"]
         x = embed_apply(params["embed"], token.to(self.device))
         new_cache: dict = {"pos": pos + 1}
@@ -110,7 +134,8 @@ class Model:
         """Zeroed decode cache for ``B`` rows and ``T`` positions."""
         cfg = self.cfg
         shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
-        cache: dict = {"pos": 0}
+        cache: dict = {"pos": torch.zeros((), dtype=torch.int32,
+                                          device=self.device)}
         for gi, (period, count) in enumerate(self.groups):
             cache[f"g{gi}"] = [
                 {f"b{i}": {n: torch.zeros(shape, dtype=dtype,
@@ -120,3 +145,16 @@ class Model:
                 for _ in range(count)]
         return cache
 
+    def graphed_decode_step(self, B: int, T: int) -> DecodeGraph:
+        """The decode step of a ``B``-row batch over a cache of ``T``
+        positions as a CUDA graph (``models.graph.DecodeGraph``), made once
+        per model and shape and kept for the ``GRAPH_CACHE_SIZE`` shapes
+        used last, as the reference keeps its jitted steps.  It captures
+        at its first ``load``."""
+        graph = self.decode_graphs.get((B, T))
+        if graph is None:
+            graph = self.decode_graphs[(B, T)] = DecodeGraph(self, B, T)
+            while len(self.decode_graphs) > GRAPH_CACHE_SIZE:
+                self.decode_graphs.popitem(last=False)
+        self.decode_graphs.move_to_end((B, T))
+        return graph

@@ -68,8 +68,10 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
 
 
 def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
-                 pos: int, plans=None):
-    """Single-token block; the cache's k/v are updated in place."""
+                 pos: torch.Tensor, plans=None):
+    """Single-token block at the device position ``pos`` (0-d or [B],
+    see ``attention.gqa_decode_attn``); the cache's k/v are updated in
+    place."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y, nk, nv = gqa_decode_attn(p["attn"], cfg, h, cache["k"], cache["v"],
                                 pos, backend=plans)
@@ -94,7 +96,7 @@ def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
 
 
 def group_decode(params: list, group: Group, cfg: ModelConfig, x,
-                 caches: list, pos: int, plans=None):
+                 caches: list, pos: torch.Tensor, plans=None):
     period, _ = group
     new = []
     for layer, lc in zip(params, caches):

@@ -14,10 +14,13 @@ import math
 import pytest
 import torch
 
+from repro_torch.configs import build, get_config
+from repro_torch.configs.base import TTConfig
 from repro_torch.core.packing import pack_core
 from repro_torch.core.quant import quantize_core
 from repro_torch.kernels import ref, tt_contract
 from repro_torch.kernels.ops import tt_forward
+from repro_torch.serving.engine import generate_fixed
 
 pytestmark = pytest.mark.gpu
 
@@ -321,3 +324,123 @@ def test_step_kernel_is_deterministic(cuda, shape, b, int8):
     y1, _ = _step(G, X, s)
     y2, _ = _step(G, X, s)
     assert torch.equal(y1, y2)
+
+
+# ---------------------------------------------------------------------------
+# The decode step captured as a CUDA graph (models.graph), on deepseek-7b
+# SMOKE through each main path's kernel: a replay must give the eager step's
+# logits bit for bit (the same ops on the same inputs).
+# ---------------------------------------------------------------------------
+
+# path → (TT length, backend, the kernel it launches)
+GRAPH_PATHS = {"fused2": (2, "auto", "tt_fused2"),
+               "chain": (3, "auto", "tt_fused_chain"),
+               "step": (2, "cuda_step", "tt_step")}
+
+
+def _smoke(path, weights, device):
+    length, backend, _ = GRAPH_PATHS[path]
+    cfg = get_config("deepseek-7b", "smoke", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+        length=length, backend=backend, weights=weights))
+    model = build(cfg, device=device)
+    params = model.init(0)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params
+
+
+def _prompt(model, seed, B=2, S=8, T=16):
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, S), generator=gen)
+    return {"tokens": tokens.to(model.device), "cache_len": T}
+
+
+@pytest.mark.parametrize("weights", ["fp32", "int8"])
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graph_replays_the_eager_step_bit_for_bit(cuda, path, weights):
+    model, params = _smoke(path, weights, cuda)
+    name = GRAPH_PATHS[path][2] + ("_int8" if weights == "int8" else "")
+    batch = _prompt(model, 0)
+    logits, eager_cache = model.prefill(params, batch)
+    _, graph_cache = model.prefill(params, batch)
+    step = model.graphed_decode_step(2, 16)
+    step.load(params, graph_cache, 8)
+    assert model.graph_captures == 1
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    for t in range(4):
+        before = tt_contract.launch_counts()
+        want, eager_cache = model.decode_step(params, eager_cache, tok)
+        eager = {k: v - before.get(k, 0)
+                 for k, v in tt_contract.launch_counts().items()
+                 if v != before.get(k, 0)}
+        got = step(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    assert step.captured == eager and set(eager) == {name}
+    assert model.replayed_launches == {name: 4 * eager[name]}
+    assert int(eager_cache["pos"]) == int(step.cache["pos"]) == step.pos == 12
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_second_generate_captures_nothing_and_gives_eager_tokens(cuda, path):
+    model, params = _smoke(path, "fp32", cuda)
+    for seed in (0, 1):
+        batch = _prompt(model, seed)
+        graph = generate_fixed(model, params, batch, 8)
+        eager = generate_fixed(model, params, batch, 8, graph=False)
+        assert torch.equal(graph.tokens, eager.tokens)
+        assert torch.equal(graph.logprobs, eager.logprobs)
+        assert model.graph_captures == 1 and len(model.decode_graphs) == 1
+
+
+def test_replay_outside_the_cache_raises(cuda):
+    model, params = _smoke("fused2", "fp32", cuda)
+    logits, cache = model.prefill(params, _prompt(model, 0, T=10))
+    step = model.graphed_decode_step(2, 10)
+    step.load(params, cache, 8)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    step(tok)
+    step(tok)
+    with pytest.raises(ValueError, match="position 10 outside the cache"):
+        step(tok)
+    with pytest.raises(ValueError, match="outside the cache of 10"):
+        generate_fixed(model, params, _prompt(model, 0, T=10), 4)
+
+
+def test_a_capture_that_fails_raises(cuda, monkeypatch):
+    """A stand-in library that refuses every launch under capture (CUDA's
+    error for an operation a capture does not permit): the capture raises,
+    nothing is cached as captured, and no eager step stands in."""
+    model, params = _smoke("fused2", "fp32", cuda)
+    real = tt_contract._lib()
+
+    class NoCapture:
+        def __getattr__(self, name):
+            fn = getattr(real, name)
+
+            def call(*args):
+                if torch.cuda.is_current_stream_capturing():
+                    return 900            # cudaErrorStreamCaptureUnsupported
+                return fn(*args)
+            return call
+
+    monkeypatch.setattr(tt_contract, "_lib", NoCapture)
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        generate_fixed(model, params, _prompt(model, 0), 4)
+    assert model.graph_captures == 0
+    assert model.decode_graphs[(2, 16)].graph is None
+
+
+def test_a_model_keeps_the_graphs_of_its_last_shapes(cuda):
+    from repro_torch.models.model import GRAPH_CACHE_SIZE
+    model, _ = _smoke("fused2", "fp32", cuda)
+    first = model.graphed_decode_step(2, 16)
+    for T in range(17, 17 + GRAPH_CACHE_SIZE - 1):
+        model.graphed_decode_step(2, T)
+    assert model.graphed_decode_step(2, 16) is first      # used last now
+    model.graphed_decode_step(2, 99)
+    assert len(model.decode_graphs) == GRAPH_CACHE_SIZE
+    assert (2, 17) not in model.decode_graphs and (2, 16) in model.decode_graphs
