@@ -22,7 +22,10 @@ Phases, each fatal on failure:
      (fused2), at length 3 (fused chain) and at length 3 through the step
      kernel, fp32 and int8 cores over fp32 parameters, decoded eagerly and
      through the captured decode step (``Model.graphed_decode_step``), and
-     at length 2 with bf16 parameters as the full-width paths run;
+     at length 2 with bf16 parameters as the full-width paths run; then
+     the continuous-batching scheduler on a staggered schedule (2 slots,
+     3 requests), card (slot-pool graph) against CPU, at lengths 2 and 3
+     with fp32 cores and at length 2 with int8 cores;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -36,12 +39,22 @@ Phases, each fatal on failure:
      and peak memory, graph against eager; the first decode step's logits
      bit for bit and the greedy tokens) and one more traced warm run of the
      graph (``launch.profile_serve``: device busy share, kernels per pass,
-     the TT kernels in the trace against the launches expected).
+     the TT kernels in the trace against the launches expected); then
+     continuous batching at length 2, auto, fp cores on one slot-pool
+     graph of 4 slots × 96 positions: the arrival mode through
+     ``launch.serve.simulate`` (16 requests at 50/s; 0 captures and 0 plan
+     resolutions in the steady state, ``tt_fused2`` launched 210 times per
+     admission and per decode step), a step-indexed staggered run of 12
+     requests through the graph and eagerly (bit-identical), and a traced
+     arrival run (``launch.profile_serve.profile_arrivals``: device busy
+     share, the admissions' share of the wall, the per-row KV writes).
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
 the eager back-to-back time of each kernel is recorded beside them.  Every
-record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``.
+record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
+the kernel line's ``tt_fused2`` launches are those of the fixed-batch and
+the arrival-mode calls together.
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits non-zero and prints no result.
@@ -74,6 +87,7 @@ from repro_torch.launch import profile_serve, serve  # noqa: E402
 from repro_torch.models.graph import WARMUP_STEPS  # noqa: E402
 from repro_torch.models.spec import map_tree  # noqa: E402
 from repro_torch.serving.engine import generate_fixed  # noqa: E402
+from repro_torch.serving.scheduler import Request, Scheduler  # noqa: E402
 
 # (ns, ms, ranks) of deepseek-7b's TT projections at rank 16, and how many
 # of each one decoder layer runs; length 2 (fused2, step) and length 3
@@ -120,6 +134,13 @@ KERNELS = {   # name → (source, TPU kernel it replaces)
 SERVE_ARGS = ["--arch", "deepseek-7b", "--variant", "full", "--batch", "4",
               "--prompt-len", "64", "--steps", str(PASSES), "--tt",
               "ffn,attn", "--tt-rank", "16", "--seed", "0"]
+# the arrival mode on the slot pool's graph (4 slots × 96 positions): 16
+# requests at 50/s saturate the pool, so requests queue and slots are reused
+ARRIVAL_ARGS = SERVE_ARGS + ["--tt-backend", "auto", "--slots", "4",
+                             "--max-requests", "16", "--arrival-rate", "50",
+                             "--assert-no-replan"]
+# the step-indexed staggered run: requests, prompt lengths, budgets
+STAGGER_N, STAGGER_LENS, STAGGER_BUDGETS = 12, (16, 64), (8, 32)
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
@@ -496,6 +517,70 @@ def small_input_check() -> None:
                     f"{gpu.graph_captures} captures")
 
 
+def staggered_smoke(model, params, prompts) -> dict:
+    """The staggered schedule of ``tests/test_torch_scheduler.py``: 2 slots
+    over 16 positions; r0 (budget 6) is admitted and decodes one step, r1
+    (3) joins, r2 (5) queues until a slot frees.  {uid: FinishedRequest}."""
+    sched = Scheduler(model, params, num_slots=2, cache_len=16)
+    for uid, budget in enumerate((6, 3, 5)):
+        sched.submit(Request(uid=uid, inputs={"tokens": prompts[uid:uid + 1]},
+                             max_new_tokens=budget))
+        if uid < 2:
+            sched.step()
+    sched.run()
+    return {f.uid: f for f in sched.finished}, sched
+
+
+def small_scheduler_check() -> None:
+    """Phase 4, the scheduler: the staggered schedule on SMOKE through the
+    scheduler on the card (every decode step a replay of the slot-pool
+    graph) and on the CPU (plain versions), same weights: at length 2 and
+    3 ``auto`` with fp32 cores and at length 2 with int8 cores.  Greedy
+    tokens identical, logprobs within 1e-4; the card launches only the
+    path's kernel, per pass at each admission and the capture's warm-up
+    step (counted) and at each replay (replayed)."""
+    for length, kernel, weights in ((2, "tt_fused2", "fp32"),
+                                    (3, "tt_fused_chain", "fp32"),
+                                    (2, "tt_fused2", "int8")):
+        cfg = get_config("deepseek-7b", "smoke", tt=TTConfig(
+            enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+            length=length, backend="auto", weights=weights))
+        gpu = build(cfg, device="cuda")
+        cpu = build(cfg, device="cpu")
+        p_gpu = gpu.init(0)
+        if weights == "int8":
+            p_gpu = gpu.quantize_params(p_gpu)
+        p_cpu = map_tree(lambda t: t.cpu(), p_gpu)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (3, 8), dtype=np.int64))
+        want, _ = staggered_smoke(cpu, p_cpu, prompts)
+        tt_contract.reset_launch_counts()
+        got, sched = staggered_smoke(gpu, p_gpu, prompts)
+        name = kernel + ("_int8" if weights == "int8" else "")
+        per_pass = sched.graph.captured.get(name, 0)
+        counted = tt_contract.launch_counts()
+        replayed = dict(gpu.replayed_launches)
+        same = all(np.array_equal(got[u].tokens, want[u].tokens)
+                   for u in want)
+        worst = max(float(np.abs(got[u].logprobs - want[u].logprobs).max())
+                    for u in want)
+        print(f"small input, scheduler (length {length}, auto, {weights} "
+              f"cores): greedy tokens card {'=' if same else '!='} cpu, "
+              f"logprobs max abs diff {worst:.3e} (tol 1e-4); "
+              f"{sched.admissions} admissions, {sched.steps_run} steps, "
+              f"{gpu.graph_captures} capture; launches counted {counted}, "
+              f"replayed {replayed} ({per_pass} per pass)", flush=True)
+        want_counts = ({name: per_pass * (sched.admissions + WARMUP_STEPS)},
+                       {name: per_pass * sched.steps_run}, 1)
+        if not same or not worst <= 1e-4 or per_pass == 0 or (
+                counted, replayed, gpu.graph_captures) != want_counts:
+            raise AssertionError(
+                f"SMOKE scheduler length {length} {weights}: tokens same "
+                f"{same}, logprobs {worst:.3e}; (counted, replayed, "
+                f"captures) {(counted, replayed, gpu.graph_captures)} != "
+                f"{want_counts}")
+
+
 def drive(label: str, kernel: str, per_pass: int, model, params,
           args) -> tuple[dict, int]:
     """One main path: launch counts set to 0 just before
@@ -511,7 +596,8 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
     out = serve.fixed(model, params, args)
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
-    graph = model.decode_graphs[(args.batch, args.prompt_len + args.steps)]
+    graph = model.decode_graphs[(args.batch, args.prompt_len + args.steps,
+                                 False)]
     per_run = per_pass * PASSES
     print(f"main path ({label}): launches counted {counted}, by graph "
           f"replays {replayed} (one capture: {graph.captured}); peak "
@@ -645,14 +731,14 @@ def traced(label: str, kernel: str, per_pass: int, model, params,
     tok = logits[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as alone:
+        profile_serve.preroll()
         t0 = time.perf_counter()
         for _ in range(REPLAYS):
             step(tok)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(profile_serve.RECORDS_S)
-    ks = [e for e in alone.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    ks = profile_serve.device_kernels(alone)
     rec = dict(busy_s=prof["busy_s"], wall_s=prof["wall_s"],
                busy_share=prof["busy_s"] / prof["wall_s"],
                kernels_per_pass=prof["launches"] / PASSES,
@@ -736,6 +822,144 @@ def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
     return launches, recs
 
 
+def staggered_full(model, params, graph: bool) -> tuple[dict, dict]:
+    """The step-indexed staggered run at full width: ``STAGGER_N`` requests
+    with prompt lengths and budgets drawn by numpy from seed 0 through a
+    4-slot pool over prompt + steps positions; four are submitted before
+    the first ``step()``, then one before every third.  ({uid: finished},
+    the scheduler's stats with the wall seconds)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(STAGGER_LENS[0], STAGGER_LENS[1] + 1, STAGGER_N)
+    budgets = rng.integers(STAGGER_BUDGETS[0], STAGGER_BUDGETS[1] + 1,
+                           STAGGER_N)
+    prompts = [torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, n),
+                                             dtype=np.int64)) for n in lens]
+    sched = Scheduler(model, params, num_slots=4, cache_len=64 + PASSES,
+                      graph=graph)
+
+    def submit(i):
+        sched.submit(Request(uid=i, inputs={"tokens": prompts[i]},
+                             max_new_tokens=int(budgets[i])))
+
+    t0 = time.perf_counter()
+    for i in range(4):
+        submit(i)
+    nxt, k = 4, 0
+    while nxt < STAGGER_N or not sched.idle:
+        if nxt < STAGGER_N and k and k % 3 == 0:
+            submit(nxt)
+            nxt += 1
+        sched.step()
+        k += 1
+    torch.cuda.synchronize()
+    stats = dict(sched.stats(), wall_s=time.perf_counter() - t0)
+    return {f.uid: f for f in sched.finished}, stats
+
+
+def scheduler_path(smi: str) -> tuple[int, dict]:
+    """Phase 5, continuous batching: full-width deepseek-7b at length 2
+    ``auto`` (fp cores, bf16 params) built from the serve flags, on one
+    slot-pool graph of 4 slots × 96 positions.  The arrival mode through
+    ``launch.serve.simulate`` (launch counts set to 0 just before, read
+    just after): 0 captures and 0 plan resolutions in the steady state,
+    and ``tt_fused2`` launched 210 times per admission prefill (counted)
+    plus 210 per decode step (replayed).  Then the step-indexed staggered
+    run through the graph and eagerly (``graph=False``): every token and
+    logprob bit for bit, no capture.  Then a trace of one more arrival run
+    (``launch.profile_serve.profile_arrivals``): device busy share,
+    admissions' share of the wall, the per-row ``torch.where`` KV writes.
+    Returns ``tt_fused2``'s launches over the ``simulate`` call and the
+    record."""
+    per_pass = PROJ * LAYERS
+    args = serve.parse_args(ARRIVAL_ARGS)
+    model, params = serve.setup(args)
+    tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
+    out = serve.simulate(model, params, args)
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    launches = counted.get("tt_fused2", 0) + replayed.get("tt_fused2", 0)
+    graph = model.decode_graphs[(4, 64 + PASSES, True)]
+    fin = out["finished"]
+    print(f"main path (continuous batching, arrival mode; {smi}): "
+          f"{len(fin)} requests, {out['tokens_out']} tokens in "
+          f"{out['wall_s']:.3f} s = {out['tok_per_s']:.1f} tok/s; ttft "
+          f"p50/p95 {out['ttft_p50_s'] * 1e3:.1f}/"
+          f"{out['ttft_p95_s'] * 1e3:.1f} ms; inter-token p50/p95 "
+          f"{out['itl_p50_s'] * 1e3:.2f}/{out['itl_p95_s'] * 1e3:.2f} ms; "
+          f"latency p50/p95 {out['p50_s'] * 1e3:.1f}/"
+          f"{out['p95_s'] * 1e3:.1f} ms; {out['admissions']} admissions "
+          f"({out['admit_share']:.1%} of the wall), {out['steps_run']} "
+          f"decode steps; pool {out['kv_pool_bytes'] / 2**20:.1f} MiB, peak "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB allocated; launches over the "
+          f"call counted {counted}, replayed {replayed} (one capture: "
+          f"{graph.captured})", flush=True)
+    want = {
+        "steady launches": ({"tt_fused2": per_pass * (
+            out["admissions"] + out["steps_run"])}, out["launches"]),
+        "steady counted": ({"tt_fused2": per_pass * out["admissions"]},
+                           out["counted"]),
+        "steady replayed": ({"tt_fused2": per_pass * out["steps_run"]},
+                            out["replayed"]),
+        "capture": ({"tt_fused2": per_pass}, graph.captured),
+        "captures, plans": ((0, 0), (out["captures"], out["replans"])),
+        "captures of the model": (1, model.graph_captures),
+        "requests": (list(range(16)), sorted(f.uid for f in fin)),
+        "admissions": (16, out["admissions"]),
+    }
+    bad = {k: v for k, v in want.items() if v[0] != v[1]}
+    if bad or any(len(f.tokens) != PASSES or f.finish_reason != "length" or
+                  int(f.tokens.min()) < 0 or int(f.tokens.max()) >= 102400
+                  or not np.isfinite(f.logprobs).all() for f in fin):
+        raise AssertionError(f"continuous batching: (expected, got) {bad}")
+    rec = {k: v for k, v in out.items() if k != "finished"}
+    rec.update(card=smi, launches_total=launches,
+               latency_s=[f.finish_time - f.submit_time for f in fin])
+
+    g_done, g_stats = staggered_full(model, params, graph=True)
+    e_done, e_stats = staggered_full(model, params, graph=False)
+    same = sorted(g_done) == sorted(e_done) == list(range(STAGGER_N)) and all(
+        np.array_equal(g_done[u].tokens, e_done[u].tokens) and
+        np.array_equal(g_done[u].logprobs, e_done[u].logprobs)
+        for u in g_done)
+    print(f"staggered run ({STAGGER_N} requests, {g_stats['admissions']} "
+          f"admissions, {g_stats['steps_run']} steps; {smi}): graph "
+          f"{g_stats['wall_s']:.3f} s ({g_stats['tokens_out']} tokens) vs "
+          f"eager {e_stats['wall_s']:.3f} s; tokens and logprobs "
+          f"{'bit-identical' if same else 'DIFFER'}; captures "
+          f"{model.graph_captures}", flush=True)
+    if not same or model.graph_captures != 1 or \
+            g_stats["steps_run"] != e_stats["steps_run"]:
+        raise AssertionError(f"staggered run: graph and eager differ ({same})"
+                             f" or {model.graph_captures} captures")
+    rec.update(stagger_graph=g_stats, stagger_eager=e_stats)
+
+    print("profile (continuous batching, arrival mode):", flush=True)
+    prof = profile_serve.profile_arrivals(model, params, args)
+    tt = prof["tt_kernels"].get("tt_fused2_kernel",
+                                {"found": 0, "expected": None})
+    rec.update(traced=dict(
+        wall_s=prof["wall_s"], busy_s=prof["busy_s"],
+        busy_share=prof["busy_s"] / prof["wall_s"],
+        admit_share=prof["admit_share"], where_s=prof["where_s"],
+        where_count=prof["where_count"], steps_run=prof["steps_run"],
+        admissions=prof["admissions"], tt=tt))
+    print(f"profile (continuous batching; {smi}): device busy "
+          f"{prof['busy_s'] / prof['wall_s']:.1%} of {prof['wall_s']:.3f} s; "
+          f"admissions {prof['admit_share']:.1%} of the wall; per-row KV "
+          f"writes {prof['where_count']} kernels ({2 * LAYERS} per step "
+          f"expected: {2 * LAYERS * prof['steps_run']}), "
+          f"{prof['where_s'] * 1e3:.3f} ms; tt_fused2_kernel {tt}",
+          flush=True)
+    if tt["found"] != tt["expected"] or model.graph_captures != 1:
+        raise AssertionError(f"traced arrival run: {tt} tt_fused2_kernel, "
+                             f"{model.graph_captures} captures")
+    del model, params, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def kernel_line(recs, launches) -> dict:
     """One entry per kernel: one decoder layer's launches of it (7
     projections, summed) at the decode batch in bf16, the main path's
@@ -800,10 +1024,14 @@ def main() -> int:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps}, f, indent=1)
     small_input_check()
+    small_scheduler_check()
     launches, graph_recs = main_paths(smi)
+    fused2, sched_rec = scheduler_path(smi)
+    launches["tt_fused2"] += fused2
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
-                   "steps": steps, "graph": graph_recs}, f, indent=1)
+                   "steps": steps, "graph": graph_recs,
+                   "scheduler": sched_rec}, f, indent=1)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s",
           flush=True)
 

@@ -1,17 +1,21 @@
-"""Where a warm fixed-batch serving run spends its time.
+"""Where a warm serving run spends its time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [serve flags]
 
-Takes ``launch.serve``'s flags (or, through ``profile_fixed``, a model
-built by the caller), runs ``generate_fixed`` once cold, then
-once more under ``torch.profiler`` and prints the wall time, the device
-time of every kernel name (largest first), the number of device kernels
-per forward pass, the device busy share of the wall time (the sum of
-kernel times over the wall time; kernels of one stream do not overlap),
-and the TT kernels found in the trace against the launches expected.  On
-a card the decode steps are replays of the captured CUDA graph.
-On a card only device kernels are traced; on the CPU only host operators
-are recorded and the device lines read "not measured".
+Takes ``launch.serve``'s flags (or, through ``profile_fixed`` and
+``profile_arrivals``, a model built by the caller).  Fixed batch: runs
+``generate_fixed`` once cold, then once more under ``torch.profiler``.
+With ``--arrival-rate``: runs the arrival mode's warm-up request, then its
+timed arrivals under ``torch.profiler``.  Prints the wall time, the device
+time of every kernel name (largest first), the device busy share of the
+wall time (the sum of kernel times over the wall time; kernels of one
+stream do not overlap), and the TT kernels found in the trace against the
+launches expected; for the arrival mode also the admissions' share of the
+wall (host clock) and the device time of the decode step's per-row
+``torch.where`` KV writes.  On a card the decode steps are replays of the
+captured CUDA graph.  On a card only device kernels are traced; on the
+CPU only host operators are recorded and the device lines read "not
+measured".
 """
 from __future__ import annotations
 
@@ -27,15 +31,67 @@ from repro_torch.serving.engine import generate_fixed
 def main(argv=None, top: int = 12) -> dict:
     args = serve.parse_args(argv)
     model, params = serve.setup(args)
+    if args.arrival_rate:
+        return profile_arrivals(model, params, args, top)
     return profile_fixed(model, params, args, top)
 
 
 # seconds the trace stays open after the traced run has ended
 RECORDS_S = 0.5
+# spin kernels that open every trace on a card and are left out of its
+# report: the profiler drops the first records of a trace, one more with
+# each trace the process has taken, and these take that loss in place of
+# the traced run's own kernels
+PREROLL = 1024
+SPIN_KERNEL = "spin_kernel"
 # the device kernel of each source, by the wrappers that launch it
 TT_KERNELS = {"tt_fused2_kernel": ("tt_fused2", "tt_fused2_int8"),
               "tt_chain_kernel": ("tt_fused_chain", "tt_fused_chain_int8"),
               "tt_step_kernel": ("tt_step", "tt_step_int8")}
+# the device kernel of ``torch.where``: in serving, only the per-row KV
+# writes of the slot pool's decode step (two per layer and step)
+WHERE_KERNEL = "where_kernel"
+
+
+def preroll() -> None:
+    """Open a trace on a card with the ``PREROLL`` spin kernels."""
+    for _ in range(PREROLL):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def device_kernels(prof) -> list:
+    """The trace's device kernels but the pre-roll's, by name, largest
+    device time first."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and SPIN_KERNEL not in e.key]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return kernels
+
+
+def _report(kernels, wall: float, expected: dict, top: int) -> dict:
+    """Print the device busy share, the ``top`` kernels and the TT kernels
+    found against ``expected``; return them."""
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6   # seconds
+    launches = sum(e.count for e in kernels)
+    print(f"device busy {busy * 1e3:.3f} ms = {busy / wall:.1%} of wall; "
+          f"{launches} device kernels")
+    for e in kernels[:top]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{e.self_device_time_total / 1e6 / wall:6.1%} x{e.count:<6d} "
+              f"{e.key[:90]}")
+    tt = {}
+    for kernel, names in TT_KERNELS.items():
+        found = sum(e.count for e in kernels if kernel in e.key)
+        want = sum(expected.get(n, 0) for n in names)
+        if found or want:
+            tt[kernel] = {"found": found, "expected": want}
+            print(f"{kernel} in the trace: {found} of {want} expected")
+    return {"wall_s": wall, "busy_s": busy, "launches": launches,
+            "tt_kernels": tt,
+            "kernels": {e.key: e.self_device_time_total / 1e6
+                        for e in kernels}}
 
 
 def profile_fixed(model, params, args, top: int = 12) -> dict:
@@ -59,6 +115,8 @@ def profile_fixed(model, params, args, top: int = 12) -> dict:
     acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
     before = serve.tally(model)
     with profile(activities=acts) as prof:
+        if cuda:
+            preroll()
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
@@ -67,35 +125,50 @@ def profile_fixed(model, params, args, top: int = 12) -> dict:
             # after the kernels end; let them arrive before it stops
             time.sleep(RECORDS_S)
     expected = serve.launches_between(before, serve.tally(model))
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6   # seconds
-    launches = sum(e.count for e in kernels)
+    kernels = device_kernels(prof)
     print(f"profiled warm run: wall {wall * 1e3:.3f} ms for "
           f"{args.steps} forward passes of batch {args.batch}")
     if not kernels:
         print("device kernel time: not measured")
         return {"wall_s": wall, "busy_s": None, "kernels": {}}
-    print(f"device busy {busy * 1e3:.3f} ms = {busy / wall:.1%} of wall; "
-          f"{launches} device kernels ({launches / args.steps:.0f} per "
-          f"forward pass)")
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    for e in kernels[:top]:
-        print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
-              f"{e.self_device_time_total / 1e6 / wall:6.1%} x{e.count:<6d} "
-              f"{e.key[:90]}")
-    tt = {}
-    for kernel, names in TT_KERNELS.items():
-        found = sum(e.count for e in kernels if kernel in e.key)
-        want = sum(expected.get(n, 0) for n in names)
-        if found or want:
-            tt[kernel] = {"found": found, "expected": want}
-            print(f"{kernel} in the trace: {found} of {want} expected")
-    return {"wall_s": wall, "busy_s": busy, "launches": launches,
-            "tt_kernels": tt,
-            "kernels": {e.key: e.self_device_time_total / 1e6
-                        for e in kernels}}
+    out = _report(kernels, wall, expected, top)
+    print(f"{out['launches'] / args.steps:.0f} device kernels per forward "
+          f"pass")
+    return out
 
+
+def profile_arrivals(model, params, args, top: int = 12) -> dict:
+    """Profile the arrival mode's timed arrivals (``launch.serve.arrivals``)
+    after its warm-up request, on the serve flags ``args``: the device busy
+    share of their wall, the admissions' share of it (host clock), and the
+    device time and count of the per-row ``torch.where`` KV writes; the TT
+    kernels in the trace are held against the launches expected (counted at
+    the admission prefills, plus one capture's per replay)."""
+    cuda = model.device.type == "cuda"
+    sched, _ = serve.arrival_scheduler(model, params, args)
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        if cuda:
+            preroll()
+        run = serve.arrivals(sched, args)
+        if cuda:
+            time.sleep(RECORDS_S)
+    wall = run["wall_s"]
+    kernels = device_kernels(prof)
+    print(f"profiled arrivals: wall {wall * 1e3:.3f} ms, "
+          f"{run['admissions']} admissions ({run['admit_share']:.1%} of the "
+          f"wall), {run['steps_run']} decode steps")
+    if not kernels:
+        print("device kernel time: not measured")
+        return dict(run, busy_s=None, kernels={})
+    out = _report(kernels, wall, run["launches"], top)
+    where = [e for e in kernels if WHERE_KERNEL in e.key]
+    out.update(where_s=sum(e.self_device_time_total for e in where) / 1e6,
+               where_count=sum(e.count for e in where))
+    print(f"per-row KV writes ({WHERE_KERNEL}): {out['where_count']} "
+          f"kernels, {out['where_s'] * 1e3:.3f} ms of device time "
+          f"({out['where_s'] / out['busy_s']:.1%} of busy)")
+    return dict(run, **out)
 
 if __name__ == "__main__":
     main()

@@ -1,8 +1,10 @@
-"""Fixed-batch serving CLI for the port.
+"""Serving CLI for the port: the fixed batch, or Poisson arrivals through
+the continuous-batching scheduler.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
         --variant full --batch 4 --prompt-len 64 --steps 32 --tt ffn,attn \\
-        --tt-rank 16 --tt-backend auto [--tt-weights int8] [--device cpu]
+        --tt-rank 16 --tt-backend auto [--tt-weights int8] [--device cpu] \\
+        [--arrival-rate 50 --max-requests 16 --slots 4 --assert-no-replan]
 
 ``--tt-backend`` is one of ``kernels.plan.BACKENDS``: ``auto`` (d=2
 layers through the fused2 kernel), ``cuda_fused2``, ``cuda_fused`` (the
@@ -14,6 +16,17 @@ the capture of the decode step's CUDA graph on a card) and a warm run that
 is timed and must capture nothing and resolve no TT plan.  TT launches are
 those the kernel wrappers counted plus those the graph replays made (the
 launches one capture recorded, times the replays).
+
+With ``--arrival-rate`` it runs ``simulate`` instead, the reference's
+arrival mode: a ``Scheduler`` of ``--slots`` slots over ``--prompt-len`` +
+``--steps`` positions serves one warm-up request (uid -1), then
+``--max-requests`` requests of ``--prompt-len`` tokens and ``--steps`` new
+tokens each, submitted at Poisson arrival times (numpy, ``--seed``) on the
+wall clock.  It prints tok/s, per-request latency, time to first token and
+inter-token latency (p50/p95), the admissions' share of the wall, the KV
+pool's bytes, and the steady state's plan resolutions, graph captures and
+TT launches; ``--assert-no-replan`` fails on a plan resolution or a
+capture there.  An interrupt drains the scheduler with ``cancel``.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ from repro_torch.configs.base import TTConfig
 from repro_torch.kernels import plan as ttplan
 from repro_torch.kernels import tt_contract
 from repro_torch.serving.engine import generate_fixed
+from repro_torch.serving.scheduler import Request, Scheduler
 
 
 def _sync(device: torch.device) -> None:
@@ -135,6 +149,137 @@ def fixed(model, params, args) -> dict:
             "peak_bytes": peak, "peak_reserved_bytes": reserved}
 
 
+def _percentile(xs: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def arrival_request(model, args, uid: int, seed: int) -> Request:
+    """One request of the arrival mode: ``--prompt-len`` tokens drawn by a
+    numpy generator seeded with ``seed``, ``--steps`` new tokens."""
+    tokens = np.random.default_rng(seed).integers(
+        0, model.cfg.vocab_size, (1, args.prompt_len), dtype=np.int64)
+    return Request(uid=uid, inputs={"tokens": torch.from_numpy(tokens)},
+                   max_new_tokens=args.steps, temperature=args.temperature,
+                   top_k=args.top_k)
+
+
+def arrival_scheduler(model, params, args) -> tuple[Scheduler, float]:
+    """The arrival mode's scheduler after its warm-up request (uid -1),
+    which builds the kernels, captures the slot-pool decode step on a card
+    and fills the launch-geometry memos: (scheduler, warm-up seconds)."""
+    t0 = time.perf_counter()
+    sched = Scheduler(model, params, num_slots=args.slots or args.batch,
+                      cache_len=args.prompt_len + args.steps,
+                      eos_id=args.eos_id, seed=args.seed + 1)
+    sched.submit(arrival_request(model, args, -1, args.seed + 999))
+    sched.run()
+    _sync(model.device)
+    sched.reset_stats()
+    return sched, time.perf_counter() - t0
+
+
+def arrivals(sched: Scheduler, args) -> dict:
+    """The steady state of the arrival mode: ``--max-requests`` Poisson
+    arrivals at ``--arrival-rate`` per second through ``sched``, timed on
+    the wall clock, reported, and checked (``--assert-no-replan``) for
+    plan resolutions and graph captures."""
+    model = sched.model
+    cuda = model.device.type == "cuda"
+    rng = np.random.default_rng(args.seed)
+    times = np.cumsum(rng.exponential(1.0 / args.arrival_rate,
+                                      size=args.max_requests))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(model.device)
+    t0 = tally(model)
+    start = time.perf_counter()
+    i = 0
+    interrupted = False
+    try:
+        while i < args.max_requests or not sched.idle:
+            now = time.perf_counter() - start
+            while i < args.max_requests and times[i] <= now:
+                sched.submit(arrival_request(model, args, i, args.seed + i),
+                             submit_time=start + times[i])
+                i += 1
+            if sched.idle:                # ahead of the arrival process
+                time.sleep(max(0.0,
+                               times[i] - (time.perf_counter() - start)))
+                continue
+            sched.step()
+    except KeyboardInterrupt:
+        # drain: everything pending retires as cancelled, partial tokens
+        # kept, and the report below still prints
+        interrupted = True
+        for q in list(sched.queue):
+            sched.cancel(q.req.uid)
+        for s in list(sched.slots):
+            if s is not None:
+                sched.cancel(s.uid)
+    _sync(model.device)
+    wall = time.perf_counter() - start
+    t1 = tally(model)
+    finished = list(sched.finished)
+    st = sched.stats()
+    lats = [f.finish_time - f.submit_time for f in finished]
+    ttfts = [f.first_token_time - f.submit_time for f in finished
+             if f.first_token_time is not None]
+    itls = [(f.finish_time - f.first_token_time) / (len(f.tokens) - 1)
+            for f in finished
+            if f.first_token_time is not None and len(f.tokens) > 1]
+    replans = t1["plans"] - t0["plans"]
+    captures = t1["captures"] - t0["captures"]
+    launches = launches_between(t0, t1)
+    peak = torch.cuda.max_memory_allocated(model.device) if cuda else None
+    out = {"finished": finished, "wall_s": wall,
+           "tok_per_s": st["tokens_out"] / wall,
+           "p50_s": _percentile(lats, 50), "p95_s": _percentile(lats, 95),
+           "ttft_p50_s": _percentile(ttfts, 50),
+           "ttft_p95_s": _percentile(ttfts, 95),
+           "itl_p50_s": _percentile(itls, 50),
+           "itl_p95_s": _percentile(itls, 95),
+           "admit_share": st["admit_s"] / wall, "replans": replans,
+           "captures": captures, "launches": launches,
+           "counted": since(t0["counted"], t1["counted"]),
+           "replayed": since(t0["replayed"], t1["replayed"]),
+           "peak_bytes": peak, "interrupted": interrupted, **st}
+    print(f"arch={model.cfg.name} device={model.device} "
+          f"slots={sched.num_slots} arrival_rate={args.arrival_rate}/s "
+          f"requests={len(finished)} prompt={args.prompt_len} "
+          f"max_new={args.steps} decode step: "
+          f"{'CUDA graph' if sched.graph is not None else 'eager'}"
+          f"{' (PARTIAL: interrupted)' if interrupted else ''}")
+    print(f"steady state: {st['tokens_out']} tokens in {wall:.3f}s "
+          f"({out['tok_per_s']:.1f} tok/s), decode steps {st['steps_run']}, "
+          f"admissions {st['admissions']} ({st['admit_s']:.3f}s, "
+          f"{out['admit_share']:.1%} of the wall)")
+    print(f"per-request latency: p50={out['p50_s'] * 1e3:.1f}ms "
+          f"p95={out['p95_s'] * 1e3:.1f}ms")
+    print(f"ttft: p50={out['ttft_p50_s'] * 1e3:.1f}ms "
+          f"p95={out['ttft_p95_s'] * 1e3:.1f}ms | inter-token: "
+          f"p50={out['itl_p50_s'] * 1e3:.1f}ms "
+          f"p95={out['itl_p95_s'] * 1e3:.1f}ms")
+    print(f"kv pool: {st['kv_pool_bytes'] / 1e6:.2f} MB; peak device "
+          f"memory: " + ("n/a on cpu" if peak is None else
+                         f"{peak / 2**30:.3f} GiB allocated"))
+    print(f"steady state: {replans} plan resolutions (model plans: "
+          f"{len(model.plan_book)}), {captures} graph captures; TT launches "
+          f"{launches} (counted {out['counted']}, by graph replays "
+          f"{out['replayed']})")
+    if args.assert_no_replan and (replans or captures):
+        raise AssertionError(
+            f"{replans} TT plan resolutions and {captures} graph captures "
+            f"during the steady state: serving must execute build-time "
+            f"plans and the decode step captured at the warm-up")
+    return out
+
+
+def simulate(model, params, args) -> dict:
+    """The arrival mode: a warm-up request, then the timed arrivals."""
+    sched, warm = arrival_scheduler(model, params, args)
+    print(f"warm-up request: {warm:.3f}s (excluded below)")
+    return dict(arrivals(sched, args), warmup_s=warm)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
@@ -154,6 +299,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="per-request top-k sampling filter of the "
+                         "arrival mode (0 = off)")
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="Poisson arrival rate (requests/s); serves through "
+                         "the continuous-batching scheduler")
+    ap.add_argument("--max-requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=None,
+                    help="scheduler slots (default: --batch)")
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--assert-no-replan", action="store_true",
+                    help="fail on a TT plan resolution or a graph capture "
+                         "in the arrival mode's steady state")
     return ap.parse_args(argv)
 
 
@@ -178,6 +336,8 @@ def setup(args):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     model, params = setup(args)
+    if args.arrival_rate:
+        return simulate(model, params, args)
     return fixed(model, params, args)
 
 

@@ -61,27 +61,34 @@ def gqa_self_attn(p, cfg: ModelConfig, x, positions, *, backend="einsum"):
 
 
 def gqa_decode_attn(p, cfg: ModelConfig, x, cache_k, cache_v,
-                    pos: torch.Tensor, *, backend="einsum"):
+                    pos: torch.Tensor, *, backend="einsum", active=None):
     """One-token decode against a full cache.
 
     x [B,1,d]; cache_k/v [B, T, KV, hd]; ``pos`` an integer tensor on the
     cache's device: 0-d, the position shared by the whole batch, or [B],
     one depth per row (the reference's per-slot branch; a row at a
-    position ≥ T writes nothing).  The new k/v are written into the cache
-    IN PLACE (the reference returns an updated copy).  Nothing here reads
-    a device value on the host, so the step can be captured in a CUDA
-    graph and replayed at every position; a scalar position outside the
-    cache is refused by the caller that holds it on the host
-    (``serving.engine.generate_fixed``, ``models.graph.DecodeGraph``).
+    position ≥ T writes nothing).  ``active`` (optional [B] bool on the
+    device, vector position only) gates each row's write: an inactive
+    slot of the scheduler's pool keeps its k/v.  The new k/v are written
+    into the cache IN PLACE (the reference returns an updated copy).
+    Nothing here reads a device value on the host, so the step can be
+    captured in a CUDA graph and replayed at every position; a scalar
+    position outside the cache is refused by the caller that holds it on
+    the host (``serving.engine.generate_fixed``,
+    ``models.graph.DecodeGraph``).
     Returns (y [B,1,d], cache_k, cache_v).
     """
     B, T = x.shape[0], cache_k.shape[1]
     per_row = pos.dim() == 1
+    if active is not None and not per_row:
+        raise ValueError("an active mask needs a per-row position [B]")
     positions = pos[:, None] if per_row else pos.reshape(1, 1).expand(B, 1)
     q, k, v = _qkv(p, cfg, x, positions, backend)
     idx = torch.arange(T, device=x.device)
     if per_row:
         wr = (idx[None, :] == pos[:, None])[:, :, None, None]    # [B,T,1,1]
+        if active is not None:
+            wr = wr & active[:, None, None, None]
         torch.where(wr, k, cache_k, out=cache_k)
         torch.where(wr, v, cache_v, out=cache_v)
         valid = (idx[None, :] <= pos[:, None])[:, None, None, None, :]

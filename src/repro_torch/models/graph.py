@@ -1,15 +1,18 @@
-"""The fixed-batch decode step captured as a CUDA graph: the port's
-analogue of the reference's ``Model.jitted_decode_step``.
+"""The decode step captured as a CUDA graph: the port's analogue of the
+reference's ``Model.jitted_decode_step`` (fixed batch) and
+``jitted_decode_step_masked`` (the scheduler's slot pool).
 
-A :class:`DecodeGraph` belongs to one model and one (batch, cache length).
-It owns static buffers: the token [B,1], a KV cache with its position, and
-the logits [B,1,V] the captured step writes.  The graph holds one
+A :class:`DecodeGraph` belongs to one model, one (batch, cache length) and
+one mode.  It owns static buffers: the token [B,1], a KV cache with its
+position (in slot-pool mode also the ``active`` mask [B]), and the logits
+[B,1,V] the captured step writes.  The graph holds one
 ``Model.decode_step`` on those buffers followed by the position's advance,
 so a replay is one launch from the host, and the position moves on the
 device.  The step is the eager one, op for op, so a replay gives the eager
 step's logits bit for bit.
 
-Capture happens at the first ``load``: the step first runs once eagerly on
+Capture happens at the first ``load`` (fixed batch) or ``bind`` (slot
+pool, before any row is spliced): the step first runs once eagerly on
 a side stream at the same batch and cache length (this builds the kernel
 library, fills the launch-geometry memos and the chain's address tables,
 and opts each kernel into its shared memory), then it is captured.  A
@@ -22,12 +25,15 @@ model's ``replayed_launches`` at every replay.
 """
 from __future__ import annotations
 
+import gc
+import weakref
 from typing import TYPE_CHECKING
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import tt_contract
-from .spec import map_tree
+from .spec import map_tree, tree_leaves
 
 if TYPE_CHECKING:
     from .model import Model
@@ -36,28 +42,32 @@ if TYPE_CHECKING:
 WARMUP_STEPS = 1
 
 
-def _leaves(tree) -> list[torch.Tensor]:
-    out: list[torch.Tensor] = []
-    map_tree(out.append, tree)
-    return out
-
-
 class DecodeGraph:
     """The decode step of ``model`` for ``B`` rows over a cache of ``T``
     positions, captured once and replayed at every position.
 
-    ``load(params, cache, pos)`` copies a prefill's cache into the static
-    buffers (capturing first, or again when ``params`` is another tree);
-    each call ``graph(token)`` then decodes one token and returns the static
-    logits [B,1,V], which the next replay overwrites.  A host mirror of the
-    position refuses a replay outside the cache before it runs.
+    Fixed-batch mode: ``load(params, cache, pos)`` copies a prefill's cache
+    into the static buffers (capturing first, or again when ``params`` is
+    another tree); each call ``graph(token)`` then decodes one token and
+    returns the static logits [B,1,V], which the next replay overwrites.
+
+    Slot-pool mode (``masked``): the graph also owns an ``active`` [B]
+    bool buffer, its position is [B] int32, and its static KV cache is the
+    pool of the scheduler that holds it.  ``bind(owner, params)`` captures
+    (with the pool still empty) or takes over a graph whose holder has no
+    active row; ``splice(row_cache, slot, prompt_len)`` writes an admitted
+    row into the pool between replays; ``graph(token, active)`` decodes
+    one token for the active rows and leaves the others as they were.
+
+    A host mirror of the position (an int, or a numpy [B]) refuses a
+    replay outside the cache before it runs.
     """
 
-    def __init__(self, model: "Model", B: int, T: int):
+    def __init__(self, model: "Model", B: int, T: int, masked: bool = False):
         if model.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA model, not "
                              f"{model.device}: decode eagerly on the CPU")
-        self.model, self.B, self.T = model, B, T
+        self.model, self.B, self.T, self.masked = model, B, T, masked
         self.graph: torch.cuda.CUDAGraph | None = None
         # the captured step reads these parameters' memory at every replay,
         # so the graph keeps them alive
@@ -65,28 +75,41 @@ class DecodeGraph:
         self.cache: dict | None = None
         self.token = torch.zeros((B, 1), dtype=torch.int64,
                                  device=model.device)
+        self.active = (torch.zeros((B,), dtype=torch.bool,
+                                   device=model.device) if masked else None)
         self.logits: torch.Tensor | None = None
-        self.pos = 0                      # host mirror of cache["pos"]
+        # host mirror of cache["pos"]
+        self.pos: int | np.ndarray = np.zeros(B, np.int64) if masked else 0
+        # the scheduler that holds a slot-pool graph (weakly: a dropped
+        # scheduler frees it)
+        self.owner: weakref.ref | None = None
         # TT launches one replay makes, by kernel name
         self.captured: dict[str, int] = {}
 
     def _step(self) -> torch.Tensor:
         logits, new = self.model.decode_step(self.params, self.cache,
-                                             self.token)
+                                             self.token, self.active)
         self.cache["pos"].copy_(new["pos"])
         return logits
 
-    def _capture(self, params, like: dict) -> None:
+    def _capture(self, params, cache: dict) -> None:
+        """Capture the step over the static buffers ``cache`` (fresh zeros
+        the graph takes), after an eager warm-up step; in slot-pool mode
+        ``active`` is all False, so the warm-up writes no k/v and advances
+        no position."""
         dev = self.model.device
         self.graph = self.logits = None
-        self.params = params
-        self.cache = map_tree(torch.zeros_like, like)
+        self.params, self.cache = params, cache
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
                 self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
+        # a dropped model and its graph refer to each other, so only the
+        # cyclic collector frees them; if it ran during this capture, the
+        # freed graph's memory release would invalidate the capture
+        gc.collect()
         before = tt_contract.capture_counts()
         graph = torch.cuda.CUDAGraph()
         try:
@@ -106,34 +129,70 @@ class DecodeGraph:
     def load(self, params, cache: dict, pos: int) -> None:
         """Copy ``cache`` (a prefill's, at the scalar position whose host
         value is ``pos``) into the static buffers, capturing first when
-        there is no graph for ``params`` yet."""
-        if cache["pos"].dim() != 0:
+        there is no graph for ``params`` yet (fixed-batch mode)."""
+        if self.masked or cache["pos"].dim() != 0:
             raise ValueError("the fixed-batch graph decodes at one position "
                              "shared by the batch")
-        src = _leaves(cache)
+        src = tree_leaves(cache)
         if any(t.shape[:2] != (self.B, self.T) for t in src if t.dim()) or (
                 self.cache is not None and
-                [(t.shape, t.dtype) for t in _leaves(self.cache)] !=
+                [(t.shape, t.dtype) for t in tree_leaves(self.cache)] !=
                 [(t.shape, t.dtype) for t in src]):
             raise ValueError(f"the cache does not have the graph's shapes: "
                              f"{self.B} rows over {self.T} positions")
         if self.graph is None or params is not self.params:
-            self._capture(params, cache)
-        for d, s in zip(_leaves(self.cache), src):
+            self._capture(params, map_tree(torch.zeros_like, cache))
+        for d, s in zip(tree_leaves(self.cache), src):
             d.copy_(s)
         self.pos = pos
 
-    def __call__(self, token: torch.Tensor) -> torch.Tensor:
-        """Decode ``token [B,1]`` at the loaded position; returns the
+    def bind(self, owner, params) -> None:
+        """Hand the slot-pool graph to the scheduler ``owner`` (anything
+        with ``num_active``), capturing first when there is no graph for
+        ``params`` yet: the pool is then zeros, before any row is spliced.
+        Refused while the scheduler that holds the graph has active rows:
+        they live in the pool, which a recapture would zero."""
+        if not self.masked:
+            raise ValueError("only a slot-pool graph is bound to a scheduler")
+        held = self.owner() if self.owner is not None else None
+        if held is not None and held.num_active:
+            raise RuntimeError(
+                f"the decode graph of {self.B} slots over {self.T} positions "
+                f"is held by a scheduler with {held.num_active} active rows")
+        if self.graph is None or params is not self.params:
+            self._capture(params, self.model.init_cache(self.B, self.T,
+                                                        per_row=True))
+            self.pos[:] = 0
+        self.owner = weakref.ref(owner)
+
+    def splice(self, row_cache: dict, slot: int, prompt_len: int) -> None:
+        """Write a one-row prefill cache at ``prompt_len`` into row ``slot``
+        of the pool (``Model.splice_cache``), between replays."""
+        if self.graph is None:
+            raise RuntimeError("bind the graph before splicing into it")
+        self.model.splice_cache(self.cache, row_cache, slot)
+        self.pos[slot] = prompt_len
+
+    def __call__(self, token: torch.Tensor,
+                 active: np.ndarray | None = None) -> torch.Tensor:
+        """Decode ``token [B,1]`` at the loaded position (in slot-pool mode
+        for the rows ``active`` [B] bool, a host array, marks); returns the
         static logits [B,1,V]."""
         if self.graph is None:
             raise RuntimeError("load a cache before replaying the graph")
-        if not 0 <= self.pos < self.T:
+        if self.masked:
+            active = np.asarray(active, bool)
+            bad = np.flatnonzero(active & (self.pos >= self.T))
+            if bad.size:
+                raise ValueError(
+                    f"decode position {int(self.pos[bad[0]])} of row "
+                    f"{int(bad[0])} outside the cache of {self.T}")
+            self.active.copy_(torch.from_numpy(active))
+        elif not 0 <= self.pos < self.T:
             raise ValueError(f"decode position {self.pos} outside the cache "
                              f"of {self.T}")
         self.token.copy_(token)
         self.graph.replay()
-        self.pos += 1
+        self.pos += active if self.masked else 1
         self.model.replayed_launches.update(self.captured)
         return self.logits
-

@@ -1,6 +1,6 @@
 """Model facade: parameter specs and init, ``prefill``, ``decode_step``,
-``graphed_decode_step``, ``init_cache`` and ``quantize_params`` for the
-dense decoder.
+``splice_cache``, ``graphed_decode_step``, ``init_cache`` and
+``quantize_params`` for the dense decoder.
 
 Parameters are a dict tree of tensors: ``embed``, ``final_norm``,
 ``lm_head`` and one list per layer group ``g{gi}`` holding a dict
@@ -19,7 +19,7 @@ from repro_torch.kernels.plan import PlanBook
 from .graph import DecodeGraph
 from .layers import (embed_apply, embed_spec, linear_apply, linear_spec,
                      quantize_tt_params, rmsnorm_apply, rmsnorm_spec)
-from .spec import init_tree
+from .spec import init_tree, tree_leaves
 from .transformer import Group, group_decode, group_fwd, group_spec
 
 
@@ -43,8 +43,8 @@ class Model:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self._plan_book: PlanBook | None = None
-        # captured decode steps per (batch, cache length), least recently
-        # used first; the captures made (the reference counts
+        # captured decode steps per (batch, cache length, masked), least
+        # recently used first; the captures made (the reference counts
         # ``prefill_builds``) and the TT launches the replays made, by
         # kernel name (no wrapper runs on a replay)
         self.decode_graphs: collections.OrderedDict = \
@@ -111,30 +111,61 @@ class Model:
         return self._logits(params, x[:, -1:, :]), cache
 
     @torch.no_grad()
-    def decode_step(self, params, cache: dict, token: torch.Tensor
+    def decode_step(self, params, cache: dict, token: torch.Tensor,
+                    active: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, dict]:
-        """token [B,1] → (logits [B,1,V] fp32, cache at ``pos + 1``).
+        """token [B,1] → (logits [B,1,V] fp32, cache at ``pos + active``).
 
         ``cache["pos"]`` is an int32 tensor on the model's device: 0-d (the
-        fixed batch, every row at one depth) or [B] (one depth per row; a
-        row at a position ≥ the cache length writes nothing).  It advances
-        on the device, and the KV tensors of ``cache`` are updated in place:
-        the step reads no device value on the host, so it can be captured
-        (``graphed_decode_step``)."""
+        fixed batch, every row at one depth) or [B] (one depth per row, the
+        scheduler's slot pool; a row at a position ≥ the cache length
+        writes nothing).  ``active`` ([B] bool on the device, vector
+        position only) freezes the rows it leaves out: they write no k/v
+        and their position does not advance; without it every row advances
+        by one.  The position advances on the device, and the KV tensors of
+        ``cache`` are updated in place: the step reads no device value on
+        the host, so it can be captured (``graphed_decode_step``)."""
         pos = cache["pos"]
         x = embed_apply(params["embed"], token.to(self.device))
-        new_cache: dict = {"pos": pos + 1}
+        new_cache: dict = {"pos": pos + (1 if active is None
+                                         else active.to(pos.dtype))}
         for gi, g in enumerate(self.groups):
             x, new_cache[f"g{gi}"] = group_decode(
                 params[f"g{gi}"], g, self.cfg, x, cache[f"g{gi}"], pos,
-                plans=self.plan_book)
+                plans=self.plan_book, active=active)
         return self._logits(params, x), new_cache
 
-    def init_cache(self, B: int, T: int, dtype=torch.bfloat16) -> dict:
-        """Zeroed decode cache for ``B`` rows and ``T`` positions."""
+    @torch.no_grad()
+    def splice_cache(self, cache: dict, row_cache: dict, slot: int) -> None:
+        """Write a one-row prefill cache (``row_cache``, batch 1, the pool's
+        cache length) into row ``slot`` of the slot pool ``cache`` IN PLACE,
+        and set ``cache["pos"][slot]`` to the prompt length the prefill
+        left in ``row_cache["pos"]``: the scheduler's admission, the
+        reference's ``splice_cache`` (which returns an updated copy).  The
+        batch axis is axis 0 of every KV leaf."""
+        pool, rows = _kv_leaves(cache), _kv_leaves(row_cache)
+        if cache["pos"].dim() != 1 or [(t.shape[1:], t.dtype)
+                                       for t in pool] != [
+                (t.shape[1:], t.dtype) for t in rows] or any(
+                t.shape[0] != 1 for t in rows):
+            raise ValueError("splice_cache takes a one-row cache of the "
+                             "pool's layout into a pool with a per-row "
+                             "position")
+        for dst, src in zip(pool, rows):
+            dst[slot].copy_(src[0])
+        cache["pos"][slot].copy_(row_cache["pos"])
+
+    def init_cache(self, B: int, T: int, dtype: torch.dtype | None = None,
+                   per_row: bool = False) -> dict:
+        """Zeroed decode cache for ``B`` rows and ``T`` positions, k/v in
+        ``dtype`` (default: the parameters', which is what ``prefill``
+        writes).  ``per_row`` gives the scheduler's slot pool a position
+        per row ([B] int32); otherwise the position is 0-d."""
         cfg = self.cfg
+        dtype = self.param_dtype if dtype is None else dtype
         shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
-        cache: dict = {"pos": torch.zeros((), dtype=torch.int32,
+        cache: dict = {"pos": torch.zeros((B,) if per_row else (),
+                                          dtype=torch.int32,
                                           device=self.device)}
         for gi, (period, count) in enumerate(self.groups):
             cache[f"g{gi}"] = [
@@ -145,16 +176,26 @@ class Model:
                 for _ in range(count)]
         return cache
 
-    def graphed_decode_step(self, B: int, T: int) -> DecodeGraph:
+    def graphed_decode_step(self, B: int, T: int,
+                            masked: bool = False) -> DecodeGraph:
         """The decode step of a ``B``-row batch over a cache of ``T``
         positions as a CUDA graph (``models.graph.DecodeGraph``), made once
         per model and shape and kept for the ``GRAPH_CACHE_SIZE`` shapes
-        used last, as the reference keeps its jitted steps.  It captures
-        at its first ``load``."""
-        graph = self.decode_graphs.get((B, T))
+        used last, as the reference keeps its jitted steps.  ``masked``
+        gives the scheduler's slot-pool step (a position and an ``active``
+        flag per row), captured when a scheduler first binds it; otherwise
+        the fixed-batch step, captured at its first ``load``.  The two
+        never share an entry."""
+        key = (B, T, masked)
+        graph = self.decode_graphs.get(key)
         if graph is None:
-            graph = self.decode_graphs[(B, T)] = DecodeGraph(self, B, T)
+            graph = self.decode_graphs[key] = DecodeGraph(self, B, T, masked)
             while len(self.decode_graphs) > GRAPH_CACHE_SIZE:
                 self.decode_graphs.popitem(last=False)
-        self.decode_graphs.move_to_end((B, T))
+        self.decode_graphs.move_to_end(key)
         return graph
+
+
+def _kv_leaves(cache: dict) -> list[torch.Tensor]:
+    """A cache's k/v tensors in a fixed order (every leaf but ``pos``)."""
+    return tree_leaves({k: v for k, v in cache.items() if k != "pos"})

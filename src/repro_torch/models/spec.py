@@ -29,6 +29,13 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a dict/list tree, in ``map_tree``'s order."""
+    out: list = []
+    map_tree(out.append, tree)
+    return out
+
+
 def init_leaf(s: ParamSpec, generator: torch.Generator,
               device: torch.device) -> torch.Tensor:
     if s.init == "zeros":

@@ -68,13 +68,14 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
 
 
 def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
-                 pos: torch.Tensor, plans=None):
+                 pos: torch.Tensor, plans=None, active=None):
     """Single-token block at the device position ``pos`` (0-d or [B],
-    see ``attention.gqa_decode_attn``); the cache's k/v are updated in
+    with ``active`` [B] gating each row's write; see
+    ``attention.gqa_decode_attn``); the cache's k/v are updated in
     place."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y, nk, nv = gqa_decode_attn(p["attn"], cfg, h, cache["k"], cache["v"],
-                                pos, backend=plans)
+                                pos, backend=plans, active=active)
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     return x + mlp_apply(p["ffn"], h, plans), {"k": nk, "v": nv}
@@ -96,13 +97,14 @@ def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
 
 
 def group_decode(params: list, group: Group, cfg: ModelConfig, x,
-                 caches: list, pos: torch.Tensor, plans=None):
+                 caches: list, pos: torch.Tensor, plans=None, active=None):
     period, _ = group
     new = []
     for layer, lc in zip(params, caches):
         c = {}
         for i, bd in enumerate(period):
             x, c[f"b{i}"] = block_decode(layer[f"b{i}"], cfg, bd, x,
-                                         lc[f"b{i}"], pos, plans=plans)
+                                         lc[f"b{i}"], pos, plans=plans,
+                                         active=active)
         new.append(c)
     return x, new

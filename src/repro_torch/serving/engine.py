@@ -1,19 +1,59 @@
-"""Fixed-batch serving loop: every row in lockstep at one cache position,
-greedy or temperature sampling; on the card each decode step is a replay
-of a captured CUDA graph."""
+"""Batch generation: ``generate`` over the continuous-batching scheduler,
+and ``generate_fixed``, the fixed-batch loop with every row in lockstep at
+one cache position.  Greedy or temperature sampling; on the card each
+decode step is a replay of a captured CUDA graph."""
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from .scheduler import Scheduler, make_requests
 
 
 @dataclasses.dataclass
 class GenerateResult:
     tokens: torch.Tensor       # [B, steps] int64
     logprobs: torch.Tensor     # [B, steps] fp32
+
+
+@torch.no_grad()
+def generate(model: Model, params, batch: dict, steps: int,
+             temperature: float = 0.0,
+             generator: torch.Generator | None = None,
+             top_k: int = 0) -> GenerateResult:
+    """Decode ``steps`` tokens for every row of ``batch["tokens"] [B,S]``
+    through the scheduler (``B`` slots; the first token comes from each
+    row's prefill logits), as the reference's ``engine.generate``.  There
+    is no EOS, so the result is rectangular; a ragged one raises.
+    ``batch["cache_len"]`` defaults to S + ``steps``.  ``temperature`` and
+    ``top_k`` become every row's sampling parameters; with ``generator``
+    each row draws from a generator of its own seeded from it, without it
+    from the scheduler's default per-uid streams."""
+    B, S = batch["tokens"].shape
+    if steps <= 0:
+        return GenerateResult(
+            torch.zeros((B, 0), dtype=torch.int64, device=model.device),
+            torch.zeros((B, 0), dtype=torch.float32, device=model.device))
+    sched = Scheduler(model, params, num_slots=B,
+                      cache_len=batch.get("cache_len", S + steps))
+    for req in make_requests(batch, max_new_tokens=steps,
+                             generator=generator, temperature=temperature,
+                             top_k=top_k):
+        sched.submit(req)
+    finished = sched.run()
+    short = [b for b in range(B) if len(finished[b].tokens) != steps]
+    if short:
+        raise RuntimeError(
+            f"rows {short} retired early "
+            f"({[finished[b].finish_reason for b in short]}): generate() "
+            f"returns rectangular batches")
+    toks = np.stack([finished[b].tokens for b in range(B)])
+    lps = np.stack([finished[b].logprobs for b in range(B)])
+    return GenerateResult(torch.from_numpy(toks).to(model.device),
+                          torch.from_numpy(lps).to(model.device))
 
 
 @torch.no_grad()

@@ -15,7 +15,8 @@ reference's weights carried into the port by ``convert.from_jax_params``.
 - Two consecutive steps dispatch the same ops with the same non-tensor
   arguments and read no device value on the host, so a CUDA graph captured
   at one step replays the next (a position frozen into the capture shows
-  here on the CPU).
+  here on the CPU); so do two masked steps of the scheduler's slot pool
+  with other positions and another ``active`` mask.
 - A position outside the cache raises before a step runs.
 """
 import jax
@@ -183,6 +184,29 @@ def test_two_steps_dispatch_the_same_ops_and_read_nothing(pair):
                    for n in names), sorted(names)
 
 
+def test_two_masked_steps_dispatch_the_same_ops_and_read_nothing(pair):
+    """The scheduler's slot-pool step: a position per row and an ``active``
+    mask, both changing between the steps, dispatch the same ops with the
+    same non-tensor arguments and read nothing on the host."""
+    _, _, tm, tp, _, forced = pair
+    _, _, _, tc = _prefill(pair)
+    tc["pos"] = torch.tensor([S, S - 3, S - 1], dtype=torch.int32)
+    masks = ([True, False, True], [False, True, True])
+    logs = []
+    for t, mask in enumerate(masks):
+        active = torch.tensor(mask)
+        with _OpLog() as log:
+            _, tc = tm.decode_step(tp, tc, torch.from_numpy(
+                forced[:, t:t + 1]), active)
+        logs.append(log.ops)
+    assert tc["pos"].tolist() == [S + 1, S - 2, S + 1]
+    assert len(logs[0]) > 100
+    assert logs[0] == logs[1]
+    names = {op for op, _ in logs[0]}
+    assert not any("_local_scalar_dense" in n or "aten.item" in n
+                   for n in names), sorted(names)
+
+
 def test_position_outside_the_cache_raises_before_a_step(monkeypatch):
     class Ran(Exception):
         pass
@@ -217,6 +241,8 @@ def test_graph_needs_a_cuda_model():
     tm = tbuild(tget_config("deepseek_7b", "smoke"), device="cpu")
     with pytest.raises(ValueError, match="CUDA model"):
         tm.graphed_decode_step(B, T)
+    with pytest.raises(ValueError, match="CUDA model"):
+        tm.graphed_decode_step(B, T, masked=True)
 
 
 def test_chain_tables_are_made_once_per_geometry(monkeypatch):

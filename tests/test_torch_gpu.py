@@ -11,6 +11,7 @@ Without a card every test skips.
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +21,7 @@ from repro_torch.core.packing import pack_core
 from repro_torch.core.quant import quantize_core
 from repro_torch.kernels import ref, tt_contract
 from repro_torch.kernels.ops import tt_forward
+from repro_torch.models.spec import tree_leaves
 from repro_torch.serving.engine import generate_fixed
 
 pytestmark = pytest.mark.gpu
@@ -431,7 +433,12 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the decode step"):
         generate_fixed(model, params, _prompt(model, 0), 4)
     assert model.graph_captures == 0
-    assert model.decode_graphs[(2, 16)].graph is None
+    assert model.decode_graphs[(2, 16, False)].graph is None
+    from repro_torch.serving.scheduler import Scheduler
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        Scheduler(model, params, num_slots=2, cache_len=16)
+    assert model.graph_captures == 0
+    assert model.decode_graphs[(2, 16, True)].graph is None
 
 
 def test_a_model_keeps_the_graphs_of_its_last_shapes(cuda):
@@ -443,4 +450,150 @@ def test_a_model_keeps_the_graphs_of_its_last_shapes(cuda):
     assert model.graphed_decode_step(2, 16) is first      # used last now
     model.graphed_decode_step(2, 99)
     assert len(model.decode_graphs) == GRAPH_CACHE_SIZE
-    assert (2, 17) not in model.decode_graphs and (2, 16) in model.decode_graphs
+    assert (2, 17, False) not in model.decode_graphs
+    assert (2, 16, False) in model.decode_graphs
+    # a slot-pool graph of the same shape is another entry
+    pool = model.graphed_decode_step(2, 16, masked=True)
+    assert pool is not first and pool.masked and not first.masked
+
+
+# ---------------------------------------------------------------------------
+# The scheduler's slot-pool step (models.graph.DecodeGraph, masked): a
+# position and an ``active`` flag per row, the pool as the graph's static
+# cache, one scheduler at a time.
+# ---------------------------------------------------------------------------
+
+class _Owner:
+    """A stand-in scheduler holding a slot-pool graph."""
+    num_active = 0
+
+
+def _rows(model, params, n, T=16):
+    """Prefill caches of ``n`` one-row prompts of lengths 8, 6, 7, ...:
+    (first greedy token [1,1], cache, prompt length) each."""
+    out = []
+    for i in range(n):
+        S = (8, 6, 7, 5)[i % 4]
+        batch = _prompt(model, 10 + i, B=1, S=S, T=T)
+        logits, cache = model.prefill(params, batch)
+        out.append((logits[:, -1].argmax(-1, keepdim=True), cache, S))
+    return out
+
+
+def _masked_pair(model, params, rows, slots, T=16):
+    """The bound slot-pool graph and an eager pool, each with ``rows``
+    spliced into ``slots``."""
+    graph = model.graphed_decode_step(3, T, masked=True)
+    owner = _Owner()
+    graph.bind(owner, params)
+    eager = model.init_cache(3, T, per_row=True)
+    for (_, cache, S), slot in zip(rows, slots):
+        graph.splice(cache, slot, S)
+        model.splice_cache(eager, cache, slot)
+    return graph, owner, eager
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_slot_pool_replay_is_the_eager_masked_step_bit_for_bit(cuda, path):
+    model, params = _smoke(path, "fp32", cuda)
+    rows = _rows(model, params, 2)
+    graph, _, eager = _masked_pair(model, params, rows, (0, 2))
+    assert model.graph_captures == 1
+    tok = torch.zeros((3, 1), dtype=torch.int64, device=cuda)
+    tok[0], tok[2] = rows[0][0][0], rows[1][0][0]
+    active = np.array([True, False, True])
+    for t in range(4):
+        want, eager = model.decode_step(params, eager, tok,
+                                        torch.from_numpy(active).to(cuda))
+        got = graph(tok, active)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    assert torch.equal(graph.cache["pos"], eager["pos"])
+    assert graph.cache["pos"].tolist() == [12, 0, 10]
+    assert graph.pos.tolist() == [12, 0, 10]
+    for a, b in zip(tree_leaves(graph.cache), tree_leaves(eager)):
+        assert torch.equal(a, b)
+
+
+def test_a_splice_between_replays_is_seen_by_the_next(cuda):
+    model, params = _smoke("fused2", "fp32", cuda)
+    rows = _rows(model, params, 3)
+    graph, _, eager = _masked_pair(model, params, rows[:2], (0, 2))
+    tok = torch.zeros((3, 1), dtype=torch.int64, device=cuda)
+    tok[0], tok[2] = rows[0][0][0], rows[1][0][0]
+    active = np.array([True, False, True])
+    for t in range(5):
+        if t == 2:                        # a third request takes slot 1
+            graph.splice(rows[2][1], 1, rows[2][2])
+            model.splice_cache(eager, rows[2][1], 1)
+            tok[1] = rows[2][0][0]
+            active[1] = True
+        want, eager = model.decode_step(params, eager, tok,
+                                        torch.from_numpy(active).to(cuda))
+        got = graph(tok, active)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    assert graph.pos.tolist() == graph.cache["pos"].tolist() == [13, 10, 11]
+
+
+def test_slot_pool_replay_past_the_cache_raises(cuda):
+    model, params = _smoke("fused2", "fp32", cuda)
+    rows = _rows(model, params, 1, T=10)
+    graph = model.graphed_decode_step(3, 10, masked=True)
+    graph.bind(_Owner(), params)
+    graph.splice(rows[0][1], 1, 8)
+    tok = torch.zeros((3, 1), dtype=torch.int64, device=cuda)
+    active = np.array([False, True, False])
+    graph(tok, active)
+    graph(tok, active)
+    with pytest.raises(ValueError, match="position 10 of row 1 outside"):
+        graph(tok, active)
+    graph(tok, np.zeros(3, bool))         # an inactive row may sit there
+    with pytest.raises(ValueError, match="one position shared"):
+        graph.load(params, rows[0][1], 8)
+
+
+def test_a_second_live_scheduler_on_a_held_graph_raises(cuda):
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+    first = Scheduler(model, params, num_slots=2, cache_len=16)
+    first.submit(Request(uid=0, inputs=_prompt(model, 0, B=1),
+                         max_new_tokens=4))
+    first.step()
+    assert first.num_active == 1
+    with pytest.raises(RuntimeError, match="held by a scheduler with 1"):
+        Scheduler(model, params, num_slots=2, cache_len=16)
+    other = model.init(1)               # a recapture would zero the pool
+    with pytest.raises(RuntimeError, match="held by a scheduler with 1"):
+        Scheduler(model, other, num_slots=2, cache_len=16)
+    assert first.run()[0].finish_reason == "length"
+    assert model.graph_captures == 1
+
+
+def test_a_new_scheduler_after_a_drain_makes_no_capture(cuda):
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+
+    def req(uid):
+        return Request(uid=uid, inputs=_prompt(model, uid, B=1),
+                       max_new_tokens=5)
+
+    first = Scheduler(model, params, num_slots=2, cache_len=16)
+    first.submit(req(0))
+    a = first.run()[0]
+    first.submit(req(1))                  # queued when the graph moves on
+    second = Scheduler(model, params, num_slots=2, cache_len=16)
+    second.submit(req(0))
+    b = second.run()[0]
+    assert model.graph_captures == 1
+    assert np.array_equal(a.tokens, b.tokens)
+    assert np.array_equal(a.logprobs, b.logprobs)
+    with pytest.raises(RuntimeError, match="bound by another scheduler"):
+        first.step()
+    eager = Scheduler(model, params, num_slots=2, cache_len=16, graph=False)
+    eager.submit(req(0))
+    c = eager.run()[0]
+    assert np.array_equal(a.tokens, c.tokens)
+    assert np.array_equal(a.logprobs, c.logprobs)
