@@ -8,9 +8,10 @@ Phases, each fatal on failure:
      ``src/repro_torch/kernels/csrc`` into ``build/`` (one ``nvcc`` per
      source, all started together) and time the build;
   2. hold every kernel against its plain PyTorch version at the
-     full-width deepseek-7b shapes its main path gives it (256 and 4 rows;
-     fp32, bf16, int8 cores): fused2 at the length-2 shapes, the fused
-     chain at the length-3 shapes, the step kernel on every step of both;
+     full-width deepseek-7b shapes its main path gives it (256 and 4 rows,
+     and untimed at 16, 32 and 64 rows, the admission buckets; fp32, bf16,
+     int8 cores): fused2 at the length-2 shapes, the fused chain at the
+     length-3 shapes, the step kernel on every step of both;
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
      take; fused2, the fused chain and the length-2 steps also with L2
@@ -20,32 +21,39 @@ Phases, each fatal on failure:
   4. check the port on a small input: the deepseek-7b SMOKE model on the
      card against the same weights on the CPU (plain versions), at length 2
      (fused2), at length 3 (fused chain) and at length 3 through the step
-     kernel, fp32 and int8 cores over fp32 parameters, decoded eagerly and
-     through the captured decode step (``Model.graphed_decode_step``), and
-     at length 2 with bf16 parameters as the full-width paths run; then
-     the continuous-batching scheduler on a staggered schedule (2 slots,
-     3 requests), card (slot-pool graph) against CPU, at lengths 2 and 3
-     with fp32 cores and at length 2 with int8 cores;
+     kernel, fp32 and int8 cores over fp32 parameters, eagerly and through
+     the captured prefill and decode step (``Model.graphed_prefill``,
+     ``Model.graphed_decode_step``), and at length 2 with bf16 parameters
+     as the full-width paths run; then the default (bucketed)
+     continuous-batching scheduler on a staggered schedule (2 slots, 3
+     requests), card (captured prefill, slot-pool graph) against CPU, at
+     lengths 2 and 3 with fp32 cores and at length 2 with int8 cores;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
      from the CLI flags as ``launch.serve.main`` builds it), at length 3
      with backend auto (fused chain, built through ``get_config``/``build``:
      the CLI has no length flag) and at length 2 with ``--tt-backend
-     cuda_step``; each decode step is a replay of the step captured in the
-     cold run, and every TT projection must have gone through its kernel
-     (the launches the wrappers counted, plus one capture's for each
-     replay); beside each path one eager warm run (tok/s, decode step ms
-     and peak memory, graph against eager; the first decode step's logits
-     bit for bit and the greedy tokens) and one more traced warm run of the
-     graph (``launch.profile_serve``: device busy share, kernels per pass,
-     the TT kernels in the trace against the launches expected); then
-     continuous batching at length 2, auto, fp cores on one slot-pool
-     graph of 4 slots × 96 positions: the arrival mode through
-     ``launch.serve.simulate`` (16 requests at 50/s; 0 captures and 0 plan
-     resolutions in the steady state, ``tt_fused2`` launched 210 times per
-     admission and per decode step), a step-indexed staggered run of 12
-     requests through the graph and eagerly (bit-identical), and a traced
+     cuda_step``; the prefill and each decode step are replays of the
+     graphs captured in the cold run, and every TT projection must have
+     gone through its kernel (the launches the wrappers counted, plus each
+     capture's for each of its replays; none counted in the warm run);
+     beside each path one eager warm run (tok/s, decode step ms and peak
+     memory, graph against eager; the prefill's logits and cache and the
+     first decode step's logits bit for bit, and the greedy tokens) and
+     one more traced warm run of the graphs (``launch.profile_serve``:
+     device busy share, kernels per pass, the TT kernels in the trace
+     against the launches expected), then the decode step's and the
+     prefill's replays traced alone; then continuous batching at length 2,
+     auto, fp cores on one slot-pool graph of 4 slots × 96 positions, each
+     admission a replay of its bucket's captured prefill: the arrival mode
+     through ``launch.serve.simulate`` (16 requests at 50/s; 0 captures of
+     either kind and 0 plan resolutions in the steady state, ``tt_fused2``
+     replayed 210 times per admission and per decode step), a
+     step-indexed staggered run of 12 requests (prompts of 16 to 64
+     tokens) through the graphs and eagerly (bit-identical; one prefill
+     capture per new bucket), each bucket's prefill replays traced alone
+     (busy ms and host-clock ms against the eager prefill's), and a traced
      arrival run (``launch.profile_serve.profile_arrivals``: device busy
      share, the admissions' share of the wall, the per-row KV writes).
 Kernel, plain and library times are device times of 50 calls enqueued
@@ -85,7 +93,8 @@ from repro_torch.core.tt import tt_reconstruct  # noqa: E402
 from repro_torch.kernels import ref, tt_contract  # noqa: E402
 from repro_torch.launch import profile_serve, serve  # noqa: E402
 from repro_torch.models.graph import WARMUP_STEPS  # noqa: E402
-from repro_torch.models.spec import map_tree  # noqa: E402
+from repro_torch.models.model import bucket_length  # noqa: E402
+from repro_torch.models.spec import map_tree, tree_leaves  # noqa: E402
 from repro_torch.serving.engine import generate_fixed  # noqa: E402
 from repro_torch.serving.scheduler import Request, Scheduler  # noqa: E402
 
@@ -104,6 +113,9 @@ SHAPES3 = {
     "ffn down 11008->4096": (((8, 8, 172), (64, 8, 8), (1, 16, 16, 1)), 1),
 }
 ROWS = (256, 4)          # prefill (batch 4 × prompt 64) and decode (batch 4)
+# the scheduler's one-row admission prefills at the buckets of a cache of
+# 96 (bucket_length): checked against the plain versions, not timed
+BUCKET_ROWS = (16, 32, 64)
 LAYERS, PASSES = 30, 32  # full depth; 1 prefill + 31 decode forward passes
 REPLAYS = 8              # decode steps traced alone
 PROJ = 7                 # TT projections per decoder layer
@@ -299,21 +311,29 @@ def step_cases(x, cores, scales, int8, act):
     return out
 
 
-def measure(kernel, label, rows, act, per_layer, run, plain, library,
-            moved, flops, tol, spec, flush=None) -> dict:
-    """Compare one kernel call with its plain version, then time kernel,
-    plain and library, and with ``flush`` the kernel with L2 evicted
-    before each call; fails when the error exceeds ``tol``."""
+def check(kernel, label, rows, act, run, plain, tol) -> dict:
+    """Compare one kernel call with its plain version (no timing); fails
+    when the error exceeds ``tol``."""
     y, y_ref = run(), plain()
     torch.cuda.synchronize()
     assert y.shape == y_ref.shape and y.dtype == y_ref.dtype
     err = float((y.float() - y_ref.float()).abs().max())
     rel = err / float(y_ref.float().abs().max())
-    ok = bool(torch.isfinite(y).all()) and rel <= tol
+    if not (bool(torch.isfinite(y).all()) and rel <= tol):
+        raise AssertionError(f"{kernel} {DT_NAME[act]} {label} rows={rows}: "
+                             f"max relative error {rel:.3e} > {tol:g}")
+    return dict(label=label, rows=rows, kernel=kernel, act=DT_NAME[act],
+                max_abs_err=err, max_rel_err=rel, tol=tol)
+
+
+def measure(kernel, label, rows, act, per_layer, run, plain, library,
+            moved, flops, tol, spec, flush=None) -> dict:
+    """Compare one kernel call with its plain version (``check``), then
+    time kernel, plain and library, and with ``flush`` the kernel with L2
+    evicted before each call."""
+    rec = check(kernel, label, rows, act, run, plain, tol)
     bound_s, bound_by = hw.bound_seconds(moved, flops, DT_NAME[act], spec)
-    rec = dict(label=label, rows=rows, kernel=kernel, act=DT_NAME[act],
-               per_layer=per_layer, max_abs_err=err, max_rel_err=rel,
-               tol=tol, eager_ms=cuda_ms(run), ms=device_ms(run),
+    rec.update(per_layer=per_layer, eager_ms=cuda_ms(run), ms=device_ms(run),
                plain_ms=device_ms(plain), library_ms=device_ms(library),
                bound_ms=bound_s * 1e3, bound_by=bound_by, bytes=moved,
                flops=flops)
@@ -322,13 +342,11 @@ def measure(kernel, label, rows, act, per_layer, run, plain, library,
         rec["cold_ms"] = cold_device_ms(run, flush)
         cold = f" cold-L2 {rec['cold_ms']:.4f}"
     print(f"{kernel:19s} {DT_NAME[act]:8s} {label:36s} rows={rows:3d} "
-          f"abs={err:.2e} rel={rel:.2e} (tol {tol:g}) "
-          f"kernel={rec['ms']:.4f}{cold} (eager {rec['eager_ms']:.4f}) "
-          f"plain={rec['plain_ms']:.4f} library={rec['library_ms']:.4f} "
-          f"bound={rec['bound_ms']:.5f} ms ({bound_by})", flush=True)
-    if not ok:
-        raise AssertionError(f"{kernel} {DT_NAME[act]} {label} rows={rows}: "
-                             f"max relative error {rel:.3e} > {tol:g}")
+          f"abs={rec['max_abs_err']:.2e} rel={rec['max_rel_err']:.2e} (tol "
+          f"{tol:g}) kernel={rec['ms']:.4f}{cold} (eager "
+          f"{rec['eager_ms']:.4f}) plain={rec['plain_ms']:.4f} "
+          f"library={rec['library_ms']:.4f} bound={rec['bound_ms']:.5f} ms "
+          f"({bound_by})", flush=True)
     return rec
 
 
@@ -341,6 +359,38 @@ def warm_card(seconds: float = 2.0) -> None:
         for _ in range(20):
             torch.matmul(a, a)
         torch.cuda.synchronize()
+
+
+def check_buckets(gen) -> list[dict]:
+    """Phase 2 at the admission buckets' row counts (``BUCKET_ROWS``):
+    every kernel against its plain version at every shape, case and step
+    of both lengths, untimed."""
+    recs = []
+    for length, shapes in ((2, SHAPES2), (3, SHAPES3)):
+        for label, (dims, _) in shapes.items():
+            for rows in BUCKET_ROWS:
+                for int8, act in CASES:
+                    kernel, run, plain, _, _, _, x, cores, scales = \
+                        layer_cases(dims, rows, int8, act, gen)
+                    batch = [check(kernel, label, rows, act, run, plain,
+                                   TOL[act])]
+                    for step, run, plain, *_ in step_cases(
+                            x, cores, scales, int8, act):
+                        batch.append(check(
+                            "tt_step_int8" if int8 else "tt_step",
+                            f"{label} d={length} {step}", rows, act, run,
+                            plain, TOL[torch.float32]))
+                    for rec in batch:
+                        rec["length"] = length
+                    recs += batch
+    worst = {}
+    for r in recs:
+        worst[r["kernel"]] = max(worst.get(r["kernel"], 0.0),
+                                 r["max_rel_err"])
+    print(f"kernels at {BUCKET_ROWS} rows: {len(recs)} calls within "
+          f"tolerance; worst relative error by kernel "
+          f"{ {k: f'{v:.2e}' for k, v in worst.items()} }", flush=True)
+    return recs
 
 
 def check_and_time(gen) -> list[dict]:
@@ -473,11 +523,14 @@ def small_input_check() -> None:
         for how in runs:
             tt_contract.reset_launch_counts()
             captured0 = tt_contract.capture_counts()
-            lg, cg = gpu.prefill(p_gpu, batch)
             if how == "graph":
+                lg, cg = gpu.graphed_prefill(2, 16, 16 + 8)(
+                    p_gpu, tokens, 16)
                 step = gpu.graphed_decode_step(2, 16 + 8)
                 step.load(p_gpu, cg, 16)
-            got = [lg]
+            else:
+                lg, cg = gpu.prefill(p_gpu, batch)
+            got = [lg.clone()]
             for tok in forced:
                 if how == "graph":
                     got.append(step(tok.cuda()).clone())
@@ -507,14 +560,17 @@ def small_input_check() -> None:
             g_toks = generate_fixed(gpu, p_gpu, batch, 8).tokens.cpu()
             c_toks = generate_fixed(cpu, p_cpu, batch, 8).tokens
             print(f"small input (length {length}, {backend}, {weights} "
-                  f"cores): greedy tokens through the graph on the card "
+                  f"cores): greedy tokens through the graphs on the card "
                   f"{'=' if torch.equal(g_toks, c_toks) else '!='} the "
-                  f"cpu's; {gpu.graph_captures} capture", flush=True)
-            if not torch.equal(g_toks, c_toks) or gpu.graph_captures != 1:
+                  f"cpu's; {gpu.graph_captures} decode and "
+                  f"{gpu.prefill_builds} prefill capture", flush=True)
+            if not torch.equal(g_toks, c_toks) or (
+                    gpu.graph_captures, gpu.prefill_builds) != (1, 1):
                 raise AssertionError(
                     f"SMOKE length {length} {backend} {weights}: greedy "
                     f"tokens card {g_toks.tolist()} cpu {c_toks.tolist()}, "
-                    f"{gpu.graph_captures} captures")
+                    f"{gpu.graph_captures} decode and {gpu.prefill_builds} "
+                    f"prefill captures")
 
 
 def staggered_smoke(model, params, prompts) -> dict:
@@ -533,12 +589,14 @@ def staggered_smoke(model, params, prompts) -> dict:
 
 def small_scheduler_check() -> None:
     """Phase 4, the scheduler: the staggered schedule on SMOKE through the
-    scheduler on the card (every decode step a replay of the slot-pool
-    graph) and on the CPU (plain versions), same weights: at length 2 and
-    3 ``auto`` with fp32 cores and at length 2 with int8 cores.  Greedy
-    tokens identical, logprobs within 1e-4; the card launches only the
-    path's kernel, per pass at each admission and the capture's warm-up
-    step (counted) and at each replay (replayed)."""
+    default (bucketed) scheduler on the card (every admission a replay of
+    the captured prefill of the bucket of 16, every decode step a replay of
+    the slot-pool graph) and on the CPU (plain versions, eager padded
+    prefills), same weights: at length 2 and 3 ``auto`` with fp32 cores and
+    at length 2 with int8 cores.  Greedy tokens identical, logprobs within
+    1e-4; the card launches only the path's kernel, per pass at the two
+    captures' warm-ups (counted) and at each admission and decode step
+    (replayed)."""
     for length, kernel, weights in ((2, "tt_fused2", "fp32"),
                                     (3, "tt_fused_chain", "fp32"),
                                     (2, "tt_fused2", "int8")):
@@ -558,6 +616,7 @@ def small_scheduler_check() -> None:
         got, sched = staggered_smoke(gpu, p_gpu, prompts)
         name = kernel + ("_int8" if weights == "int8" else "")
         per_pass = sched.graph.captured.get(name, 0)
+        prefill = gpu.prefill_graphs[(1, 16, 16)].captured
         counted = tt_contract.launch_counts()
         replayed = dict(gpu.replayed_launches)
         same = all(np.array_equal(got[u].tokens, want[u].tokens)
@@ -568,52 +627,61 @@ def small_scheduler_check() -> None:
               f"cores): greedy tokens card {'=' if same else '!='} cpu, "
               f"logprobs max abs diff {worst:.3e} (tol 1e-4); "
               f"{sched.admissions} admissions, {sched.steps_run} steps, "
-              f"{gpu.graph_captures} capture; launches counted {counted}, "
-              f"replayed {replayed} ({per_pass} per pass)", flush=True)
-        want_counts = ({name: per_pass * (sched.admissions + WARMUP_STEPS)},
-                       {name: per_pass * sched.steps_run}, 1)
-        if not same or not worst <= 1e-4 or per_pass == 0 or (
-                counted, replayed, gpu.graph_captures) != want_counts:
+              f"{gpu.graph_captures} decode and {gpu.prefill_builds} prefill "
+              f"capture; launches counted {counted}, replayed {replayed} "
+              f"({per_pass} per pass)", flush=True)
+        want_counts = ({name: per_pass * 2 * WARMUP_STEPS},
+                       {name: per_pass * (sched.steps_run + sched.admissions)},
+                       {name: per_pass}, (1, 1))
+        got_counts = (counted, replayed, prefill,
+                      (gpu.graph_captures, gpu.prefill_builds))
+        if not same or not worst <= 1e-4 or per_pass == 0 or \
+                got_counts != want_counts:
             raise AssertionError(
                 f"SMOKE scheduler length {length} {weights}: tokens same "
-                f"{same}, logprobs {worst:.3e}; (counted, replayed, "
-                f"captures) {(counted, replayed, gpu.graph_captures)} != "
-                f"{want_counts}")
+                f"{same}, logprobs {worst:.3e}; (counted, replayed, prefill "
+                f"capture, captures) {got_counts} != {want_counts}")
 
 
 def drive(label: str, kernel: str, per_pass: int, model, params,
           args) -> tuple[dict, int]:
     """One main path: launch counts set to 0 just before
     ``launch.serve.fixed`` serves ``model`` (a cold run that captures the
-    decode step, and a warm run of replays) and read just after.  The
-    capture must record ``per_pass`` launches of ``kernel`` and nothing
-    else; the warm run must make ``per_pass`` × ``PASSES`` of them (the
-    prefill's, counted by the wrapper, and one capture's per replay),
-    capture nothing and resolve no plan.  Returns serve's result and the
-    kernel's launches over the whole call, counted and replayed."""
+    prefill and the decode step, and a warm run of replays) and read just
+    after.  Each capture must record ``per_pass`` launches of ``kernel``
+    and nothing else; the warm run must make ``per_pass`` × ``PASSES`` of
+    them, all replayed (none counted), capture nothing and resolve no
+    plan.  Returns serve's result and the kernel's launches over the whole
+    call, counted and replayed."""
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
     out = serve.fixed(model, params, args)
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
-    graph = model.decode_graphs[(args.batch, args.prompt_len + args.steps,
-                                 False)]
+    T = args.prompt_len + args.steps
+    graph = model.decode_graphs[(args.batch, T, False)]
+    prefill = model.prefill_graphs[(args.batch, args.prompt_len, T)]
     per_run = per_pass * PASSES
     print(f"main path ({label}): launches counted {counted}, by graph "
-          f"replays {replayed} (one capture: {graph.captured}); peak "
+          f"replays {replayed} (one capture of the decode step: "
+          f"{graph.captured}, of the prefill: {prefill.captured}); peak "
           f"memory {out['peak_bytes'] / 2**30:.3f} GiB allocated, "
           f"{out['peak_reserved_bytes'] / 2**30:.3f} GiB reserved; "
           f"{out['tok_per_s']:.1f} tok/s; warm run {out['warm_s']:.3f} s",
           flush=True)
     want = {
-        "capture": ({kernel: per_pass}, graph.captured),
+        "decode capture": ({kernel: per_pass}, graph.captured),
+        "prefill capture": ({kernel: per_pass}, prefill.captured),
         "warm run": ({kernel: per_run}, out["launches"]),
-        "cold run": ({kernel: per_run + WARMUP_STEPS * per_pass},
+        "warm run counted": ({}, out["counted"]),
+        "cold run": ({kernel: per_run + 2 * WARMUP_STEPS * per_pass},
                      out["cold_launches"]),
-        "counted": ({kernel: (2 + WARMUP_STEPS) * per_pass}, counted),
-        "replayed": ({kernel: 2 * (PASSES - 1) * per_pass}, replayed),
-        "captures cold, warm": ((1, 0), (out["cold_captures"],
-                                         out["captures"])),
+        "counted": ({kernel: 2 * WARMUP_STEPS * per_pass}, counted),
+        "replayed": ({kernel: 2 * PASSES * per_pass}, replayed),
+        "decode captures cold, warm": ((1, 0), (out["cold_captures"],
+                                                out["captures"])),
+        "prefill captures cold, warm": ((1, 0), (
+            out["cold_prefill_captures"], out["prefill_captures"])),
         "plan resolutions": (0, out["replans"]),
     }
     bad = {k: v for k, v in want.items() if v[0] != v[1]}
@@ -628,11 +696,15 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
 
 
 def decode_steps(model, params, batch, graph: bool, n: int = 16):
-    """Prefill ``batch``, then 1 + ``n`` greedy decode steps, eager or
-    replayed: (the first step's logits, the mean host-clock ms of the
-    ``n`` later steps, each with its greedy pick, to the device's end)."""
+    """Prefill ``batch`` (a replay of its captured prefill, or eagerly),
+    then 1 + ``n`` greedy decode steps, replayed or eager: (the prefill's
+    logits and cache, copied; the first step's logits; the mean host-clock
+    ms of the ``n`` later steps, each with its greedy pick, to the device's
+    end)."""
     B, S = batch["tokens"].shape
-    logits, cache = model.prefill(params, batch)
+    logits, cache = model.padded_prefill(params, batch["tokens"], S,
+                                         batch["cache_len"], graph)
+    prefilled = (logits.clone(), map_tree(torch.clone, cache))
     if graph:
         step = model.graphed_decode_step(B, batch["cache_len"])
         step.load(params, cache, S)
@@ -648,7 +720,7 @@ def decode_steps(model, params, batch, graph: bool, n: int = 16):
     for _ in range(n):
         tok = step(tok)[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
-    return first, (time.perf_counter() - t0) * 1e3 / n
+    return prefilled, first, (time.perf_counter() - t0) * 1e3 / n
 
 
 def eager_runs(model, params, args) -> dict:
@@ -671,13 +743,17 @@ def graph_against_eager(label: str, model, params, args, out: dict,
                         eager: dict, smi: str) -> dict:
     """Phase 5 beside each served path: the graph's warm run (``out``)
     against the eager one (``eager``): tok/s, peak memory, greedy tokens
-    identical; then the first decode step's logits graph against eager bit
-    for bit, and each decode step's time."""
+    identical; then the captured prefill's logits and cache against the
+    eager prefill's and the first decode step's logits, graph against
+    eager, bit for bit, and each decode step's time."""
     batch = serve.prompt_batch(model, args)
-    captures = model.graph_captures
-    g_first, g_ms = decode_steps(model, params, batch, graph=True)
-    e_first, e_ms = decode_steps(model, params, batch, graph=False)
+    captures = (model.graph_captures, model.prefill_builds)
+    g_pre, g_first, g_ms = decode_steps(model, params, batch, graph=True)
+    e_pre, e_first, e_ms = decode_steps(model, params, batch, graph=False)
     diff = float((g_first - e_first).abs().max())
+    prefill_same = torch.equal(g_pre[0], e_pre[0]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(g_pre[1]),
+                                          tree_leaves(e_pre[1])))
     same_tokens = torch.equal(eager["tokens"], out["tokens"])
     rec = dict(graph_tok_per_s=out["tok_per_s"],
                eager_tok_per_s=eager["tok_per_s"],
@@ -686,7 +762,8 @@ def graph_against_eager(label: str, model, params, args, out: dict,
                graph_reserved_bytes=out["peak_reserved_bytes"],
                eager_peak_bytes=eager["peak_bytes"],
                eager_reserved_bytes=eager["peak_reserved_bytes"],
-               first_step_max_abs_diff=diff, tokens_identical=same_tokens)
+               first_step_max_abs_diff=diff, tokens_identical=same_tokens,
+               prefill_identical=prefill_same)
     gib = 2 ** 30
     print(f"graph vs eager ({label}; {smi}): {rec['graph_tok_per_s']:.1f} "
           f"vs {rec['eager_tok_per_s']:.1f} tok/s (warm run, prefill "
@@ -694,13 +771,17 @@ def graph_against_eager(label: str, model, params, args, out: dict,
           f"allocated {out['peak_bytes'] / gib:.3f} vs "
           f"{eager['peak_bytes'] / gib:.3f} GiB (reserved "
           f"{out['peak_reserved_bytes'] / gib:.3f} vs "
-          f"{eager['peak_reserved_bytes'] / gib:.3f}); first decode step's "
-          f"logits max abs diff {diff:.3e}; greedy tokens "
+          f"{eager['peak_reserved_bytes'] / gib:.3f}); prefill logits and "
+          f"cache {'bit-identical' if prefill_same else 'DIFFER'}; first "
+          f"decode step's logits max abs diff {diff:.3e}; greedy tokens "
           f"{'identical' if same_tokens else 'DIFFER'}", flush=True)
-    if diff != 0 or not same_tokens or model.graph_captures != captures:
-        raise AssertionError(f"{label}: graph and eager differ (first step "
+    now = (model.graph_captures, model.prefill_builds)
+    if diff != 0 or not same_tokens or not prefill_same or now != captures:
+        raise AssertionError(f"{label}: graph and eager differ (prefill "
+                             f"identical {prefill_same}, first step "
                              f"{diff:.3e}, tokens identical {same_tokens}, "
-                             f"{model.graph_captures - captures} captures)")
+                             f"captures and prefill builds {captures} -> "
+                             f"{now})")
     return rec
 
 
@@ -729,35 +810,86 @@ def traced(label: str, kernel: str, per_pass: int, model, params,
     step = model.graphed_decode_step(args.batch, batch["cache_len"])
     step.load(params, cache, args.prompt_len)
     tok = logits[:, -1].argmax(-1, keepdim=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as alone:
-        profile_serve.preroll()
-        t0 = time.perf_counter()
-        for _ in range(REPLAYS):
-            step(tok)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        time.sleep(profile_serve.RECORDS_S)
-    ks = profile_serve.device_kernels(alone)
+    alone = replays_alone(lambda: step(tok), source)
+    pre = prefill_replays(model, params, batch["tokens"], args.prompt_len,
+                          batch["cache_len"], source)
     rec = dict(busy_s=prof["busy_s"], wall_s=prof["wall_s"],
                busy_share=prof["busy_s"] / prof["wall_s"],
                kernels_per_pass=prof["launches"] / PASSES,
                tt_found=tt["found"], tt_expected=tt["expected"],
                tt_per_replay=per_replay,
-               replay_kernels=sum(e.count for e in ks) / REPLAYS,
-               replay_tt=sum(e.count for e in ks if source in e.key)
-               / REPLAYS,
-               replay_busy_ms=sum(e.self_device_time_total for e in ks)
-               / 1e3 / REPLAYS,
-               replay_wall_ms=wall * 1e3 / REPLAYS)
+               **{f"replay_{k}": v for k, v in alone.items()},
+               **{f"prefill_{k}": v for k, v in pre.items()})
     print(f"profile ({label}): {REPLAYS} replays alone: "
           f"{rec['replay_kernels']:g} device kernels, {rec['replay_tt']:g} "
           f"{source}, {rec['replay_busy_ms']:.3f} ms busy, "
           f"{rec['replay_wall_ms']:.3f} ms wall per replay", flush=True)
-    if rec["replay_tt"] != per_pass:
-        raise AssertionError(f"{label}: {rec['replay_tt']} {source} per "
-                             f"replay traced alone, expected {per_pass}")
+    print(f"profile ({label}): prefill of {args.batch} x {args.prompt_len} "
+          f"tokens: {pre_line(pre, source)}", flush=True)
+    if rec["replay_tt"] != per_pass or rec["prefill_tt"] != per_pass:
+        raise AssertionError(f"{label}: {rec['replay_tt']} and "
+                             f"{rec['prefill_tt']} {source} per decode and "
+                             f"prefill replay traced alone, expected "
+                             f"{per_pass}")
     return rec
+
+
+def replays_alone(replay, source: str) -> dict:
+    """``REPLAYS`` calls of ``replay`` traced alone (device kernels only,
+    the trace opened by the pre-roll): per call, the device kernels, those
+    of ``source``, the device busy ms and the host-clock wall ms (the
+    profiler's host cost included)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profile_serve.preroll()
+        t0 = time.perf_counter()
+        for _ in range(REPLAYS):
+            replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(profile_serve.RECORDS_S)
+    ks = profile_serve.device_kernels(prof)
+    return dict(kernels=sum(e.count for e in ks) / REPLAYS,
+                tt=sum(e.count for e in ks if source in e.key) / REPLAYS,
+                busy_ms=sum(e.self_device_time_total for e in ks) / 1e3
+                / REPLAYS,
+                wall_ms=wall * 1e3 / REPLAYS)
+
+
+def host_ms(fn, n: int = REPLAYS) -> float:
+    """Mean host-clock ms of ``n`` calls of ``fn``, each to the device's
+    end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def prefill_replays(model, params, tokens, prompt_len: int, T: int,
+                    source: str) -> dict:
+    """The captured prefill of ``tokens [B, S]`` (right-padded past
+    ``prompt_len``) into a cache of ``T``: its replays traced alone
+    (``replays_alone``), and the host-clock ms of a replay (the copy of the
+    tokens in, to the device's end) against the eager prefill's at the same
+    shape, untraced."""
+    B, S = tokens.shape
+    graph = model.graphed_prefill(B, S, T)
+    out = replays_alone(lambda: graph(params, tokens, prompt_len), source)
+    out.update(host_ms=host_ms(lambda: graph(params, tokens, prompt_len)),
+               eager_host_ms=host_ms(lambda: model.prefill(params, {
+                   "tokens": tokens, "cache_len": T,
+                   "prompt_len": prompt_len})))
+    return out
+
+
+def pre_line(pre: dict, source: str) -> str:
+    return (f"replay {pre['host_ms']:.3f} ms host clock (eager "
+            f"{pre['eager_host_ms']:.3f}); traced alone {pre['kernels']:g} "
+            f"device kernels, {pre['tt']:g} {source}, {pre['busy_ms']:.3f} "
+            f"ms busy, {pre['wall_ms']:.3f} ms wall per replay")
 
 
 def cli_model(argv):
@@ -859,17 +991,21 @@ def staggered_full(model, params, graph: bool) -> tuple[dict, dict]:
 def scheduler_path(smi: str) -> tuple[int, dict]:
     """Phase 5, continuous batching: full-width deepseek-7b at length 2
     ``auto`` (fp cores, bf16 params) built from the serve flags, on one
-    slot-pool graph of 4 slots × 96 positions.  The arrival mode through
-    ``launch.serve.simulate`` (launch counts set to 0 just before, read
-    just after): 0 captures and 0 plan resolutions in the steady state,
-    and ``tt_fused2`` launched 210 times per admission prefill (counted)
-    plus 210 per decode step (replayed).  Then the step-indexed staggered
-    run through the graph and eagerly (``graph=False``): every token and
-    logprob bit for bit, no capture.  Then a trace of one more arrival run
-    (``launch.profile_serve.profile_arrivals``): device busy share,
-    admissions' share of the wall, the per-row ``torch.where`` KV writes.
-    Returns ``tt_fused2``'s launches over the ``simulate`` call and the
-    record."""
+    slot-pool graph of 4 slots × 96 positions, admissions bucketed (the
+    default) and each a replay of the captured prefill of its bucket.  The
+    arrival mode through ``launch.serve.simulate`` (launch counts set to 0
+    just before, read just after): 0 captures of either kind and 0 plan
+    resolutions in the steady state, and ``tt_fused2`` launched 210 times
+    per admission prefill plus 210 per decode step, all replayed (none
+    counted).  Then the step-indexed staggered run (prompts of 16 to 64
+    tokens) through the graphs and eagerly (``graph=False``), both
+    bucketed: every token and logprob bit for bit, one prefill capture per
+    bucket met that the arrival run had not met, no decode capture.  Then
+    each bucket's prefill replays traced alone, and a trace of one more
+    arrival run (``launch.profile_serve.profile_arrivals``): device busy
+    share, admissions' share of the wall, the per-row ``torch.where`` KV
+    writes.  Returns ``tt_fused2``'s launches over the ``simulate`` call
+    and the record."""
     per_pass = PROJ * LAYERS
     args = serve.parse_args(ARRIVAL_ARGS)
     model, params = serve.setup(args)
@@ -879,7 +1015,9 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
     launches = counted.get("tt_fused2", 0) + replayed.get("tt_fused2", 0)
-    graph = model.decode_graphs[(4, 64 + PASSES, True)]
+    T = 64 + PASSES
+    graph = model.decode_graphs[(4, T, True)]
+    prefill = model.prefill_graphs[(1, 64, T)]
     fin = out["finished"]
     print(f"main path (continuous batching, arrival mode; {smi}): "
           f"{len(fin)} requests, {out['tokens_out']} tokens in "
@@ -892,18 +1030,23 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
           f"({out['admit_share']:.1%} of the wall), {out['steps_run']} "
           f"decode steps; pool {out['kv_pool_bytes'] / 2**20:.1f} MiB, peak "
           f"{out['peak_bytes'] / 2**30:.3f} GiB allocated; launches over the "
-          f"call counted {counted}, replayed {replayed} (one capture: "
-          f"{graph.captured})", flush=True)
+          f"call counted {counted}, replayed {replayed} (one capture of the "
+          f"decode step: {graph.captured}, of the prefill: "
+          f"{prefill.captured}); prefill graphs {list(model.prefill_graphs)}",
+          flush=True)
     want = {
         "steady launches": ({"tt_fused2": per_pass * (
             out["admissions"] + out["steps_run"])}, out["launches"]),
-        "steady counted": ({"tt_fused2": per_pass * out["admissions"]},
-                           out["counted"]),
-        "steady replayed": ({"tt_fused2": per_pass * out["steps_run"]},
-                            out["replayed"]),
-        "capture": ({"tt_fused2": per_pass}, graph.captured),
-        "captures, plans": ((0, 0), (out["captures"], out["replans"])),
-        "captures of the model": (1, model.graph_captures),
+        "steady counted": ({}, out["counted"]),
+        "steady replayed": ({"tt_fused2": per_pass * (
+            out["admissions"] + out["steps_run"])}, out["replayed"]),
+        "decode capture": ({"tt_fused2": per_pass}, graph.captured),
+        "prefill capture": ({"tt_fused2": per_pass}, prefill.captured),
+        "steady captures, prefill captures, plans": ((0, 0, 0), (
+            out["captures"], out["prefill_captures"], out["replans"])),
+        "captures, prefill captures of the model": (
+            (1, 1), (model.graph_captures, model.prefill_builds)),
+        "prefill graphs": ([(1, 64, T)], list(model.prefill_graphs)),
         "requests": (list(range(16)), sorted(f.uid for f in fin)),
         "admissions": (16, out["admissions"]),
     }
@@ -916,23 +1059,48 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
     rec.update(card=smi, launches_total=launches,
                latency_s=[f.finish_time - f.submit_time for f in fin])
 
+    builds = model.prefill_builds
     g_done, g_stats = staggered_full(model, params, graph=True)
+    captured = model.prefill_builds - builds
     e_done, e_stats = staggered_full(model, params, graph=False)
     same = sorted(g_done) == sorted(e_done) == list(range(STAGGER_N)) and all(
         np.array_equal(g_done[u].tokens, e_done[u].tokens) and
         np.array_equal(g_done[u].logprobs, e_done[u].logprobs)
         for u in g_done)
+    met = sorted({bucket_length(f.prompt_len, T) for f in g_done.values()})
+    graphs = sorted(S for _, S, _ in model.prefill_graphs)
     print(f"staggered run ({STAGGER_N} requests, {g_stats['admissions']} "
           f"admissions, {g_stats['steps_run']} steps; {smi}): graph "
           f"{g_stats['wall_s']:.3f} s ({g_stats['tokens_out']} tokens) vs "
           f"eager {e_stats['wall_s']:.3f} s; tokens and logprobs "
-          f"{'bit-identical' if same else 'DIFFER'}; captures "
-          f"{model.graph_captures}", flush=True)
+          f"{'bit-identical' if same else 'DIFFER'}; buckets met {met}, "
+          f"prefill graphs {graphs} ({captured} captured in the run); decode "
+          f"captures {model.graph_captures}", flush=True)
     if not same or model.graph_captures != 1 or \
-            g_stats["steps_run"] != e_stats["steps_run"]:
+            g_stats["steps_run"] != e_stats["steps_run"] or \
+            graphs != sorted(set(met) | {64}) or \
+            captured != len(set(met) - {64}):
         raise AssertionError(f"staggered run: graph and eager differ ({same})"
-                             f" or {model.graph_captures} captures")
-    rec.update(stagger_graph=g_stats, stagger_eager=e_stats)
+                             f", {model.graph_captures} decode captures, "
+                             f"prefill graphs {graphs} for buckets {met}, "
+                             f"{captured} captured")
+    rec.update(stagger_graph=g_stats, stagger_eager=e_stats,
+               stagger_buckets=met, stagger_prefill_captures=captured)
+
+    # each bucket's prefill: a 1-row prompt of the bucket's length
+    rng = np.random.default_rng(1)
+    buckets = {}
+    for S in met:
+        tokens = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, (1, S), dtype=np.int64)).cuda()
+        buckets[S] = prefill_replays(model, params, tokens, S, T,
+                                     "tt_fused2_kernel")
+        print(f"prefill bucket {S} (1 row, cache {T}; {smi}): "
+              f"{pre_line(buckets[S], 'tt_fused2_kernel')}", flush=True)
+        if buckets[S]["tt"] != per_pass:
+            raise AssertionError(f"prefill bucket {S}: {buckets[S]['tt']} "
+                                 f"tt_fused2_kernel per replay")
+    rec.update(prefill_buckets=buckets)
 
     print("profile (continuous batching, arrival mode):", flush=True)
     prof = profile_serve.profile_arrivals(model, params, args)
@@ -951,9 +1119,12 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
           f"expected: {2 * LAYERS * prof['steps_run']}), "
           f"{prof['where_s'] * 1e3:.3f} ms; tt_fused2_kernel {tt}",
           flush=True)
-    if tt["found"] != tt["expected"] or model.graph_captures != 1:
+    if tt["found"] != tt["expected"] or model.graph_captures != 1 or \
+            prof["prefill_captures"] or prof["counted"]:
         raise AssertionError(f"traced arrival run: {tt} tt_fused2_kernel, "
-                             f"{model.graph_captures} captures")
+                             f"{model.graph_captures} decode captures, "
+                             f"{prof['prefill_captures']} prefill captures, "
+                             f"counted {prof['counted']}")
     del model, params, graph
     gc.collect()
     torch.cuda.empty_cache()
@@ -1018,6 +1189,7 @@ def main() -> int:
     recs = check_and_time(gen)
     layers = layer_summary(recs)
     steps = step_breakdown(recs)
+    recs += check_buckets(gen)
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

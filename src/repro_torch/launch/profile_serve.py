@@ -12,8 +12,8 @@ wall time (the sum of kernel times over the wall time; kernels of one
 stream do not overlap), and the TT kernels found in the trace against the
 launches expected; for the arrival mode also the admissions' share of the
 wall (host clock) and the device time of the decode step's per-row
-``torch.where`` KV writes.  On a card the decode steps are replays of the
-captured CUDA graph.  On a card only device kernels are traced; on the
+``torch.where`` KV writes.  On a card the prefills and the decode steps
+are replays of captured CUDA graphs.  On a card only device kernels are traced; on the
 CPU only host operators are recorded and the device lines read "not
 measured".
 """
@@ -96,10 +96,10 @@ def _report(kernels, wall: float, expected: dict, top: int) -> dict:
 
 def profile_fixed(model, params, args, top: int = 12) -> dict:
     """Profile one warm ``generate_fixed`` run of ``model`` with the batch,
-    prompt and steps of the serve flags ``args``: on a card the decode
-    steps are replays of the captured graph, and the TT kernels found in
-    the trace are held against the launches expected (counted by the
-    wrappers at prefill, plus those one capture recorded times the
+    prompt and steps of the serve flags ``args``: on a card the prefill
+    and the decode steps are replays of captured graphs, and the TT
+    kernels found in the trace are held against the launches expected
+    (counted by the wrappers, plus those each capture recorded times its
     replays)."""
     cuda = model.device.type == "cuda"
     batch = serve.prompt_batch(model, args)
@@ -142,8 +142,9 @@ def profile_arrivals(model, params, args, top: int = 12) -> dict:
     after its warm-up request, on the serve flags ``args``: the device busy
     share of their wall, the admissions' share of it (host clock), and the
     device time and count of the per-row ``torch.where`` KV writes; the TT
-    kernels in the trace are held against the launches expected (counted at
-    the admission prefills, plus one capture's per replay)."""
+    kernels in the trace are held against the launches expected (counted by
+    the wrappers, plus each capture's per replay of it: the admission
+    prefills' and the decode steps')."""
     cuda = model.device.type == "cuda"
     sched, _ = serve.arrival_scheduler(model, params, args)
     acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]

@@ -12,10 +12,11 @@ whole chain in one launch), ``cuda_step`` (one step kernel per core) or
 ``einsum``.  Builds the model with random weights from ``--seed``, draws
 the prompt tokens from a numpy generator seeded with ``--seed``, and runs
 ``generate_fixed`` twice: a cold run (kernel build, first-call set-up,
-the capture of the decode step's CUDA graph on a card) and a warm run that
-is timed and must capture nothing and resolve no TT plan.  TT launches are
-those the kernel wrappers counted plus those the graph replays made (the
-launches one capture recorded, times the replays).
+the captures of the prefill's and the decode step's CUDA graphs on a card)
+and a warm run that is timed and must capture nothing, make no new prefill
+entry and resolve no TT plan.  TT launches are those the kernel wrappers
+counted plus those the graph replays made (the launches each capture
+recorded, times its replays); on a card a warm run's are all replayed.
 
 With ``--arrival-rate`` it runs ``simulate`` instead, the reference's
 arrival mode: a ``Scheduler`` of ``--slots`` slots over ``--prompt-len`` +
@@ -24,9 +25,12 @@ arrival mode: a ``Scheduler`` of ``--slots`` slots over ``--prompt-len`` +
 tokens each, submitted at Poisson arrival times (numpy, ``--seed``) on the
 wall clock.  It prints tok/s, per-request latency, time to first token and
 inter-token latency (p50/p95), the admissions' share of the wall, the KV
-pool's bytes, and the steady state's plan resolutions, graph captures and
-TT launches; ``--assert-no-replan`` fails on a plan resolution or a
-capture there.  An interrupt drains the scheduler with ``cancel``.
+pool's bytes, and the steady state's plan resolutions, decode and prefill
+captures and TT launches; ``--assert-no-replan`` fails on a plan
+resolution or a capture of either kind there.  The admissions prefill
+each prompt right-padded to its length bucket, on a card through the
+captured prefill of that bucket.  An interrupt drains the scheduler with
+``cancel``.
 """
 from __future__ import annotations
 
@@ -82,11 +86,13 @@ def since(before: dict, after: dict) -> dict:
 
 def tally(model) -> dict:
     """What a run is checked by, so far: TT launches counted by the kernel
-    wrappers, TT launches made by replays of the model's captured decode
-    steps, the captures and the plan resolutions."""
+    wrappers, TT launches made by replays of the model's captured prefills
+    and decode steps, the decode captures, the prefill entries (captures
+    on a card) and the plan resolutions."""
     return {"counted": tt_contract.launch_counts(),
             "replayed": dict(model.replayed_launches),
             "captures": model.graph_captures,
+            "prefills": model.prefill_builds,
             "plans": ttplan.plan_resolutions()}
 
 
@@ -100,8 +106,9 @@ def launches_between(a: dict, b: dict) -> dict:
 
 def fixed(model, params, args) -> dict:
     """Serve the prompts of ``args`` twice: a cold run (kernel build, plan
-    and geometry memos, the decode step's capture on a card) and a warm
-    run that is timed and must capture nothing and resolve no TT plan."""
+    and geometry memos, the prefill's and the decode step's captures on a
+    card) and a warm run that is timed and must capture nothing, make no
+    prefill entry and resolve no TT plan."""
     batch = prompt_batch(model, args)
     gen = None
     if args.temperature:
@@ -117,6 +124,7 @@ def fixed(model, params, args) -> dict:
     t2 = tally(model)
     replans = t2["plans"] - t1["plans"]
     captures = t2["captures"] - t1["captures"]
+    prefills = t2["prefills"] - t1["prefills"]
     launches = launches_between(t1, t2)
     peak = torch.cuda.max_memory_allocated(model.device) if cuda else None
     reserved = torch.cuda.max_memory_reserved(model.device) if cuda else None
@@ -124,28 +132,34 @@ def fixed(model, params, args) -> dict:
     toks = args.batch * args.steps
     print(f"arch={model.cfg.name} device={model.device} batch={args.batch} "
           f"prompt={args.prompt_len} decode={args.steps} "
-          f"decode step: {'CUDA graph' if cuda else 'eager'}")
+          f"prefill and decode step: {'CUDA graphs' if cuda else 'eager'}")
     print(f"cold run {cold:.3f}s, warm run {warm:.3f}s: {toks} tokens "
           f"({toks / warm:.1f} tok/s incl. prefill)")
     print("sample tokens[0]:", res.tokens[0].tolist())
     print(f"warm run: {replans} plan resolutions (model plans: "
-          f"{len(model.plan_book)}), {captures} graph captures (cold run: "
-          f"{t1['captures'] - t0['captures']}); TT launches {launches} "
+          f"{len(model.plan_book)}), {captures} decode captures and "
+          f"{prefills} prefill builds (cold run: "
+          f"{t1['captures'] - t0['captures']} and "
+          f"{t1['prefills'] - t0['prefills']}); TT launches {launches} "
           f"(counted {since(t1['counted'], t2['counted'])}, by graph "
           f"replays {since(t1['replayed'], t2['replayed'])}); peak device "
           f"memory: " + ("n/a on cpu" if peak is None else
                          f"{peak / 2**30:.3f} GiB allocated, "
                          f"{reserved / 2**30:.3f} GiB reserved"))
-    if replans or captures:
+    if replans or captures or prefills:
         raise AssertionError(
-            f"{replans} TT plan resolutions and {captures} graph captures "
-            f"during the warm run: serving must execute build-time plans "
-            f"and the decode step captured in the cold run")
+            f"{replans} TT plan resolutions, {captures} decode captures and "
+            f"{prefills} prefill builds during the warm run: serving must "
+            f"execute build-time plans and the graphs captured in the cold "
+            f"run")
     return {"tokens": res.tokens, "logprobs": res.logprobs,
             "tok_per_s": toks / warm, "warm_s": warm, "cold_s": cold,
             "replans": replans, "captures": captures,
+            "prefill_captures": prefills,
             "cold_captures": t1["captures"] - t0["captures"],
+            "cold_prefill_captures": t1["prefills"] - t0["prefills"],
             "launches": launches, "cold_launches": launches_between(t0, t1),
+            "counted": since(t1["counted"], t2["counted"]),
             "peak_bytes": peak, "peak_reserved_bytes": reserved}
 
 
@@ -165,8 +179,9 @@ def arrival_request(model, args, uid: int, seed: int) -> Request:
 
 def arrival_scheduler(model, params, args) -> tuple[Scheduler, float]:
     """The arrival mode's scheduler after its warm-up request (uid -1),
-    which builds the kernels, captures the slot-pool decode step on a card
-    and fills the launch-geometry memos: (scheduler, warm-up seconds)."""
+    which builds the kernels, captures the slot-pool decode step and the
+    prefill of the prompts' bucket on a card and fills the launch-geometry
+    memos: (scheduler, warm-up seconds)."""
     t0 = time.perf_counter()
     sched = Scheduler(model, params, num_slots=args.slots or args.batch,
                       cache_len=args.prompt_len + args.steps,
@@ -182,7 +197,7 @@ def arrivals(sched: Scheduler, args) -> dict:
     """The steady state of the arrival mode: ``--max-requests`` Poisson
     arrivals at ``--arrival-rate`` per second through ``sched``, timed on
     the wall clock, reported, and checked (``--assert-no-replan``) for
-    plan resolutions and graph captures."""
+    plan resolutions and captures of either kind."""
     model = sched.model
     cuda = model.device.type == "cuda"
     rng = np.random.default_rng(args.seed)
@@ -228,6 +243,7 @@ def arrivals(sched: Scheduler, args) -> dict:
             if f.first_token_time is not None and len(f.tokens) > 1]
     replans = t1["plans"] - t0["plans"]
     captures = t1["captures"] - t0["captures"]
+    prefills = t1["prefills"] - t0["prefills"]
     launches = launches_between(t0, t1)
     peak = torch.cuda.max_memory_allocated(model.device) if cuda else None
     out = {"finished": finished, "wall_s": wall,
@@ -238,15 +254,16 @@ def arrivals(sched: Scheduler, args) -> dict:
            "itl_p50_s": _percentile(itls, 50),
            "itl_p95_s": _percentile(itls, 95),
            "admit_share": st["admit_s"] / wall, "replans": replans,
-           "captures": captures, "launches": launches,
+           "captures": captures, "prefill_captures": prefills,
+           "launches": launches,
            "counted": since(t0["counted"], t1["counted"]),
            "replayed": since(t0["replayed"], t1["replayed"]),
            "peak_bytes": peak, "interrupted": interrupted, **st}
     print(f"arch={model.cfg.name} device={model.device} "
           f"slots={sched.num_slots} arrival_rate={args.arrival_rate}/s "
           f"requests={len(finished)} prompt={args.prompt_len} "
-          f"max_new={args.steps} decode step: "
-          f"{'CUDA graph' if sched.graph is not None else 'eager'}"
+          f"max_new={args.steps} prefill and decode step: "
+          f"{'CUDA graphs' if sched.graph is not None else 'eager'}"
           f"{' (PARTIAL: interrupted)' if interrupted else ''}")
     print(f"steady state: {st['tokens_out']} tokens in {wall:.3f}s "
           f"({out['tok_per_s']:.1f} tok/s), decode steps {st['steps_run']}, "
@@ -262,14 +279,15 @@ def arrivals(sched: Scheduler, args) -> dict:
           f"memory: " + ("n/a on cpu" if peak is None else
                          f"{peak / 2**30:.3f} GiB allocated"))
     print(f"steady state: {replans} plan resolutions (model plans: "
-          f"{len(model.plan_book)}), {captures} graph captures; TT launches "
-          f"{launches} (counted {out['counted']}, by graph replays "
-          f"{out['replayed']})")
-    if args.assert_no_replan and (replans or captures):
+          f"{len(model.plan_book)}), {captures} decode captures and "
+          f"{prefills} prefill builds; TT launches {launches} (counted "
+          f"{out['counted']}, by graph replays {out['replayed']})")
+    if args.assert_no_replan and (replans or captures or prefills):
         raise AssertionError(
-            f"{replans} TT plan resolutions and {captures} graph captures "
-            f"during the steady state: serving must execute build-time "
-            f"plans and the decode step captured at the warm-up")
+            f"{replans} TT plan resolutions, {captures} decode captures and "
+            f"{prefills} prefill builds during the steady state: serving "
+            f"must execute build-time plans and the graphs captured at the "
+            f"warm-up")
     return out
 
 
@@ -310,8 +328,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="scheduler slots (default: --batch)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--assert-no-replan", action="store_true",
-                    help="fail on a TT plan resolution or a graph capture "
-                         "in the arrival mode's steady state")
+                    help="fail on a TT plan resolution or a capture (decode "
+                         "or prefill) in the arrival mode's steady state")
     return ap.parse_args(argv)
 
 

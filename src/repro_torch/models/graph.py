@@ -1,6 +1,7 @@
-"""The decode step captured as a CUDA graph: the port's analogue of the
-reference's ``Model.jitted_decode_step`` (fixed batch) and
-``jitted_decode_step_masked`` (the scheduler's slot pool).
+"""The decode step and the prefill captured as CUDA graphs: the port's
+analogues of the reference's ``Model.jitted_decode_step`` (fixed batch),
+``jitted_decode_step_masked`` (the scheduler's slot pool) and
+``jitted_prefill`` (exact or at a prompt-length bucket).
 
 A :class:`DecodeGraph` belongs to one model, one (batch, cache length) and
 one mode.  It owns static buffers: the token [B,1], a KV cache with its
@@ -11,13 +12,20 @@ so a replay is one launch from the host, and the position moves on the
 device.  The step is the eager one, op for op, so a replay gives the eager
 step's logits bit for bit.
 
-Capture happens at the first ``load`` (fixed batch) or ``bind`` (slot
-pool, before any row is spliced): the step first runs once eagerly on
-a side stream at the same batch and cache length (this builds the kernel
-library, fills the launch-geometry memos and the chain's address tables,
-and opts each kernel into its shared memory), then it is captured.  A
-capture or a replay that fails raises; nothing falls back to the eager
-step.
+A :class:`PrefillGraph` belongs to one model and one (batch, padded
+prompt length, cache length).  Its static buffers are the tokens [B,S],
+the true prompt length (0-d int32), the logits [B,1,V] and an output cache
+that all prefill graphs of the model with the same (batch, cache length)
+share; its temporaries live in one memory pool shared by every prefill
+graph of the model (no output lives there, and one replays at a time).
+
+Capture happens at a graph's first use (a decode graph's first ``load``
+or ``bind``, a prefill graph's first call), and again when ``params`` is
+another tree: the work first runs once eagerly on a side stream with the
+same shapes (this builds the kernel library, fills the launch-geometry
+memos and the chain's address tables, and opts each kernel into its
+shared memory), then it is captured.  A capture or a replay that fails
+raises; nothing falls back to eager work.
 
 Kernel wrappers do not run on replay: the TT launches a capture recorded
 (``tt_contract.CAPTURE_COUNTS``) are kept per graph and added to the
@@ -38,8 +46,40 @@ from .spec import map_tree, tree_leaves
 if TYPE_CHECKING:
     from .model import Model
 
-# eager steps on the side stream before the capture
+# eager runs on the side stream before the capture
 WARMUP_STEPS = 1
+
+
+def _capture(model: "Model", run, what: str, pool=None
+             ) -> tuple[torch.cuda.CUDAGraph, object, dict[str, int]]:
+    """``run()`` ``WARMUP_STEPS`` times eagerly on a side stream, then
+    captured once as a CUDA graph whose temporaries live in ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``; None: a private pool).  Returns
+    (the graph, what the captured call returned, the TT launches it
+    recorded by kernel name); raises naming ``what`` when the capture
+    fails."""
+    dev = model.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP_STEPS):
+            run()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    # a dropped model and its graphs refer to each other, so only the
+    # cyclic collector frees them; if it ran during this capture, the
+    # freed graph's memory release would invalidate the capture
+    gc.collect()
+    before = tt_contract.capture_counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = run()
+    except Exception as e:
+        raise RuntimeError(f"capturing {what} failed") from e
+    captured = {k: v - before.get(k, 0)
+                for k, v in tt_contract.capture_counts().items()
+                if v != before.get(k, 0)}
+    return graph, out, captured
 
 
 class DecodeGraph:
@@ -97,32 +137,15 @@ class DecodeGraph:
         the graph takes), after an eager warm-up step; in slot-pool mode
         ``active`` is all False, so the warm-up writes no k/v and advances
         no position."""
-        dev = self.model.device
         self.graph = self.logits = None
         self.params, self.cache = params, cache
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self._step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        # a dropped model and its graph refer to each other, so only the
-        # cyclic collector frees them; if it ran during this capture, the
-        # freed graph's memory release would invalidate the capture
-        gc.collect()
-        before = tt_contract.capture_counts()
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
-                logits = self._step()
-        except Exception as e:
+            graph, logits, self.captured = _capture(
+                self.model, self._step, f"the decode step of {self.B} rows "
+                f"over a cache of {self.T}")
+        except RuntimeError:
             self.params = self.cache = None
-            raise RuntimeError(
-                f"capturing the decode step of {self.B} rows over a cache "
-                f"of {self.T} failed") from e
-        self.captured = {k: v - before.get(k, 0)
-                         for k, v in tt_contract.capture_counts().items()
-                         if v != before.get(k, 0)}
+            raise
         self.graph, self.logits = graph, logits
         self.model.graph_captures += 1
 
@@ -196,3 +219,81 @@ class DecodeGraph:
         self.pos += active if self.masked else 1
         self.model.replayed_launches.update(self.captured)
         return self.logits
+
+
+class PrefillGraph:
+    """``Model.prefill`` of ``B`` prompts right-padded to ``S`` tokens
+    into a cache of ``T`` positions, captured once and replayed for every
+    prompt length up to ``S`` (``Model.graphed_prefill``).
+
+    ``graph(params, tokens, prompt_len)`` copies ``tokens [B,S]`` and the
+    true length into the static buffers (capturing first when there is no
+    graph for ``params`` yet) and replays: it returns the static logits
+    [B,1,V] of position prompt_len - 1 and the static output cache at
+    ``pos`` = prompt_len, which the caller copies out (a splice into the
+    slot pool, ``DecodeGraph.load``) before the next replay of a prefill
+    graph of the same (B, T).  The capture touches nothing but the graph's
+    own buffers, so it may run while a slot pool holds live rows.
+    """
+
+    def __init__(self, model: "Model", B: int, S: int, T: int):
+        if model.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA model, not "
+                             f"{model.device}: prefill eagerly on the CPU")
+        if S > T:
+            raise ValueError(f"prompt of {S} tokens exceeds the cache of {T}")
+        dev = model.device
+        self.model, self.B, self.S, self.T = model, B, S, T
+        self.graph: torch.cuda.CUDAGraph | None = None
+        # the captured prefill reads these parameters' memory at every
+        # replay, so the graph keeps them alive
+        self.params = None
+        self.tokens = torch.zeros((B, S), dtype=torch.int64, device=dev)
+        self.prompt_len = torch.full((), S, dtype=torch.int32, device=dev)
+        self.logits = torch.empty((B, 1, model.cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        # made by the first prefill graph of (B, T), outside any capture
+        if (B, T) not in model.prefill_caches:
+            model.prefill_caches[(B, T)] = model.init_cache(B, T)
+        self.cache = model.prefill_caches[(B, T)]
+        # TT launches one replay makes, by kernel name
+        self.captured: dict[str, int] = {}
+
+    def _prefill(self) -> None:
+        logits, _ = self.model.prefill(
+            self.params, {"tokens": self.tokens, "cache_len": self.T,
+                          "prompt_len": self.prompt_len}, out=self.cache)
+        self.logits.copy_(logits)
+
+    def _capture(self, params) -> None:
+        model = self.model
+        if model.prefill_pool is None:
+            model.prefill_pool = torch.cuda.graph_pool_handle()
+        self.graph, self.params = None, params
+        try:
+            self.graph, _, self.captured = _capture(
+                model, self._prefill, f"the prefill of {self.B} rows of "
+                f"{self.S} tokens into a cache of {self.T}",
+                model.prefill_pool)
+        except RuntimeError:
+            self.params = None
+            raise
+        model.prefill_builds += 1
+
+    def __call__(self, params, tokens: torch.Tensor, prompt_len: int
+                 ) -> tuple[torch.Tensor, dict]:
+        """Prefill ``tokens [B,S]``, right-padded past ``prompt_len``;
+        returns the static (logits [B,1,V], cache)."""
+        if tuple(tokens.shape) != (self.B, self.S):
+            raise ValueError(f"tokens {tuple(tokens.shape)} for the prefill "
+                             f"graph of {self.B} rows of {self.S}")
+        if not 0 < prompt_len <= self.S:
+            raise ValueError(f"prompt_len {prompt_len} outside a prompt of "
+                             f"{self.S}")
+        self.tokens.copy_(tokens)
+        self.prompt_len.fill_(prompt_len)
+        if self.graph is None or params is not self.params:
+            self._capture(params)
+        self.graph.replay()
+        self.model.replayed_launches.update(self.captured)
+        return self.logits, self.cache

@@ -1,4 +1,6 @@
-"""Model facade: parameter specs and init, ``prefill``, ``decode_step``,
+"""Model facade: parameter specs and init, ``prefill`` (exact, padded to
+a prompt-length bucket, or captured: ``padded_prefill``,
+``bucketed_prefill``, ``graphed_prefill``), ``decode_step``,
 ``splice_cache``, ``graphed_decode_step``, ``init_cache`` and
 ``quantize_params`` for the dense decoder.
 
@@ -12,19 +14,31 @@ from __future__ import annotations
 import collections
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.plan import PlanBook
-from .graph import DecodeGraph
+from .graph import DecodeGraph, PrefillGraph
 from .layers import (embed_apply, embed_spec, linear_apply, linear_spec,
                      quantize_tt_params, rmsnorm_apply, rmsnorm_spec)
 from .spec import init_tree, tree_leaves
 from .transformer import Group, group_decode, group_fwd, group_spec
 
 
-# captured decode steps a model keeps (the reference's jit_cache_size)
+# captured decode steps a model keeps, and captured prefills (the
+# reference's jit_cache_size)
 GRAPH_CACHE_SIZE = 8
+
+
+def bucket_length(S: int, limit: int, floor: int = 16) -> int:
+    """Prompt-length bucket: next power of two >= S (min ``floor``),
+    clamped to ``limit`` — varied-length traffic compiles O(log limit)
+    prefill variants instead of one per distinct length."""
+    if S > limit:
+        raise ValueError(f"prompt length {S} exceeds cache length {limit}")
+    b = max(floor, 1 << max(S - 1, 0).bit_length())
+    return min(b, limit)
 
 
 class Model:
@@ -44,13 +58,26 @@ class Model:
         torch.backends.cudnn.allow_tf32 = False
         self._plan_book: PlanBook | None = None
         # captured decode steps per (batch, cache length, masked), least
-        # recently used first; the captures made (the reference counts
-        # ``prefill_builds``) and the TT launches the replays made, by
-        # kernel name (no wrapper runs on a replay)
+        # recently used first; the captures made and the TT launches the
+        # replays (of decode steps and prefills) made, by kernel name (no
+        # wrapper runs on a replay)
         self.decode_graphs: collections.OrderedDict = \
             collections.OrderedDict()
         self.graph_captures = 0
         self.replayed_launches: collections.Counter = collections.Counter()
+        # captured prefills per (batch, padded length, cache length), least
+        # recently used first; their output caches per (batch, cache
+        # length), shared by that pair's buckets; the memory pool of their
+        # temporaries, shared by all of them; the eager prefills' keys, in
+        # an LRU of their own; and the reference's ``prefill_builds``: new
+        # prefill entries, a capture or an eager key seen first
+        self.prefill_graphs: collections.OrderedDict = \
+            collections.OrderedDict()
+        self.prefill_caches: dict = {}
+        self.prefill_pool = None
+        self.eager_prefills: collections.OrderedDict = \
+            collections.OrderedDict()
+        self.prefill_builds = 0
 
     @property
     def plan_book(self) -> PlanBook:
@@ -92,23 +119,101 @@ class Model:
         return linear_apply(params["lm_head"], x, self.plan_book).float()
 
     @torch.no_grad()
-    def prefill(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    def prefill(self, params, batch: dict, out: dict | None = None
+                ) -> tuple[torch.Tensor, dict]:
         """Process the prompt ``batch["tokens"] [B,S]``; return
         (last-token logits [B,1,V] fp32, cache).  ``batch["cache_len"]``
-        (default S) sizes the cache; ``cache["pos"]`` is S as a 0-d int32
-        tensor on the model's device."""
+        (default S) sizes the cache; ``cache["pos"]`` is a 0-d int32
+        tensor on the model's device.
+
+        ``batch["prompt_len"]`` (an int, or a 0-d integer tensor on the
+        model's device) marks the true length of a prompt right-padded to
+        a bucket (``bucket_length``): ``cache["pos"]`` is then prompt_len,
+        not S, and the logits are those of position prompt_len - 1.  The
+        padding's k/v rows lie beyond ``pos``, where every decode path
+        masks them.  The last position is picked on the device, so the
+        prefill reads nothing on the host and can be captured
+        (``graphed_prefill``).
+
+        ``out`` (a cache of ``init_cache(B, cache_len)``'s layout) receives
+        the result in place: its k/v rows 0..S-1 are the prompt's, the rows
+        past S are zeroed, and its ``pos`` is set, bit for bit what a fresh
+        cache would hold."""
         tokens = batch["tokens"].to(self.device)
         x = embed_apply(params["embed"], tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         T = batch.get("cache_len", S)
-        cache: dict = {"pos": torch.full((), S, dtype=torch.int32,
-                                         device=self.device)}
+        plen = batch.get("prompt_len", S)
+        pos = (torch.empty((), dtype=torch.int32, device=self.device)
+               if out is None else out["pos"])
+        if isinstance(plen, torch.Tensor):
+            pos.copy_(plen)
+        elif not 0 < plen <= S:
+            raise ValueError(f"prompt_len {plen} outside a prompt of {S}")
+        else:
+            pos.fill_(plen)
+        cache: dict = {"pos": pos}
         for gi, g in enumerate(self.groups):
             x, cache[f"g{gi}"] = group_fwd(
                 params[f"g{gi}"], g, self.cfg, x, positions, want_cache=True,
-                T_cache=T, plans=self.plan_book)
-        return self._logits(params, x[:, -1:, :]), cache
+                T_cache=T, plans=self.plan_book,
+                out=None if out is None else out[f"g{gi}"])
+        last = x.index_select(1, (pos - 1).reshape(1))
+        return self._logits(params, last), cache
+
+    @torch.no_grad()
+    def padded_prefill(self, params, tokens: torch.Tensor, prompt_len: int,
+                       T: int, graph: bool = True
+                       ) -> tuple[torch.Tensor, dict]:
+        """The prefill of ``tokens [B,S]`` (right-padded past
+        ``prompt_len``) into a cache of ``T`` positions, one entry per
+        (B, S, T), the reference's ``jitted_prefill``.  On a CUDA model
+        with ``graph``, a replay of ``graphed_prefill(B, S, T)``: the
+        logits and the cache it returns are the graph's static buffers,
+        which the next replay of that graph (logits) or of any prefill
+        graph of the same (B, T) (cache) overwrites.  Otherwise the eager
+        prefill, whose key counts in ``prefill_builds`` when it is new to
+        the LRU of eager keys."""
+        key = (*tokens.shape, T)
+        if graph and self.device.type == "cuda":
+            return self.graphed_prefill(*key)(params, tokens, prompt_len)
+        if key not in self.eager_prefills:
+            self.prefill_builds += 1
+        _lru_put(self.eager_prefills, key, None)
+        return self.prefill(params, {"tokens": tokens, "cache_len": T,
+                                     "prompt_len": prompt_len})
+
+    def bucketed_prefill(self, T: int, graph: bool = True):
+        """Host wrapper around ``padded_prefill`` with prompt-length
+        bucketing, the reference's ``jitted_prefill_bucketed``:
+        ``call(params, batch)`` right-pads ``batch["tokens"] [B,S]`` with
+        0 to ``bucket_length(S, T)`` and passes the true length S, so
+        varied-length traffic makes O(log T) prefill entries instead of
+        one per prompt length."""
+        def call(params, batch: dict) -> tuple[torch.Tensor, dict]:
+            tokens = batch["tokens"]
+            S = int(tokens.shape[1])
+            S_pad = bucket_length(S, T)
+            if S_pad != S:
+                tokens = F.pad(tokens, (0, S_pad - S))
+            return self.padded_prefill(params, tokens, S, T, graph)
+        return call
+
+    def graphed_prefill(self, B: int, S: int, T: int) -> PrefillGraph:
+        """The prefill of ``B`` prompts padded to ``S`` tokens into a cache
+        of ``T`` positions as a CUDA graph (``models.graph.PrefillGraph``),
+        captured at its first call and kept for the ``GRAPH_CACHE_SIZE``
+        keys used last.  Every prefill graph of one (B, T) writes the same
+        output cache (``prefill_caches``), dropped with the last of them."""
+        key = (B, S, T)
+        graph = self.prefill_graphs.get(key)
+        if graph is None:
+            graph = PrefillGraph(self, B, S, T)
+        for b, _, t in _lru_put(self.prefill_graphs, key, graph):
+            if not any(k[::2] == (b, t) for k in self.prefill_graphs):
+                del self.prefill_caches[(b, t)]
+        return graph
 
     @torch.no_grad()
     def decode_step(self, params, cache: dict, token: torch.Tensor,
@@ -189,11 +294,20 @@ class Model:
         key = (B, T, masked)
         graph = self.decode_graphs.get(key)
         if graph is None:
-            graph = self.decode_graphs[key] = DecodeGraph(self, B, T, masked)
-            while len(self.decode_graphs) > GRAPH_CACHE_SIZE:
-                self.decode_graphs.popitem(last=False)
-        self.decode_graphs.move_to_end(key)
+            graph = DecodeGraph(self, B, T, masked)
+        _lru_put(self.decode_graphs, key, graph)
         return graph
+
+
+def _lru_put(lru: collections.OrderedDict, key, value) -> list:
+    """Make ``key`` → ``value`` the most recent entry of ``lru``; return
+    the keys evicted to keep it within ``GRAPH_CACHE_SIZE``."""
+    lru[key] = value
+    lru.move_to_end(key)
+    evicted = []
+    while len(lru) > GRAPH_CACHE_SIZE:
+        evicted.append(lru.popitem(last=False)[0])
+    return evicted
 
 
 def _kv_leaves(cache: dict) -> list[torch.Tensor]:

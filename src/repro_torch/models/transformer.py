@@ -45,9 +45,10 @@ def group_spec(cfg: ModelConfig, group: Group, dtype) -> list:
 
 
 def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
-              want_cache: bool, T_cache: int = 0, plans=None):
+              want_cache: bool, T_cache: int = 0, plans=None, out=None):
     """Full-sequence block (prefill).  Returns (x, cache or None); the
-    cache holds k/v zero-padded from S to ``T_cache`` positions."""
+    cache holds k/v zero-padded from S to ``T_cache`` positions, written
+    into ``out`` (``{"k", "v"}`` of that shape) when it is given."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y, (k, v) = gqa_self_attn(p["attn"], cfg, h, positions, backend=plans)
     cache = None
@@ -58,9 +59,17 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
                              f"{T_cache}")
         cache = {}
         for name, t in (("k", k), ("v", v)):
-            buf = torch.zeros((B, T_cache, KV, hd), dtype=t.dtype,
-                              device=t.device)
+            shape = (B, T_cache, KV, hd)
+            if out is None:
+                buf = torch.empty(shape, dtype=t.dtype, device=t.device)
+            else:
+                buf = out[name]
+                if buf.shape != shape or buf.dtype != t.dtype:
+                    raise ValueError(
+                        f"the output cache's {name} is {tuple(buf.shape)} "
+                        f"{buf.dtype}, the prefill writes {shape} {t.dtype}")
             buf[:, :S] = t
+            buf[:, S:] = 0
             cache[name] = buf
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
@@ -82,16 +91,19 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
 
 
 def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
-              *, want_cache: bool, T_cache: int = 0, plans=None):
-    """Run a group's repetitions in order.  Returns (x, per-layer caches)."""
+              *, want_cache: bool, T_cache: int = 0, plans=None, out=None):
+    """Run a group's repetitions in order.  Returns (x, per-layer caches),
+    written into ``out`` (a cache group's per-layer list) when it is
+    given."""
     period, _ = group
     caches = []
-    for layer in params:
+    for li, layer in enumerate(params):
         c = {}
         for i, bd in enumerate(period):
-            x, c[f"b{i}"] = block_fwd(layer[f"b{i}"], cfg, bd, x, positions,
-                                      want_cache=want_cache,
-                                      T_cache=T_cache, plans=plans)
+            x, c[f"b{i}"] = block_fwd(
+                layer[f"b{i}"], cfg, bd, x, positions,
+                want_cache=want_cache, T_cache=T_cache, plans=plans,
+                out=None if out is None else out[li][f"b{i}"])
         caches.append(c)
     return x, (caches if want_cache else None)
 

@@ -1,7 +1,7 @@
 """Batch generation: ``generate`` over the continuous-batching scheduler,
 and ``generate_fixed``, the fixed-batch loop with every row in lockstep at
-one cache position.  Greedy or temperature sampling; on the card each
-decode step is a replay of a captured CUDA graph."""
+one cache position.  Greedy or temperature sampling; on the card the
+prefill and each decode step are replays of captured CUDA graphs."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,11 +66,15 @@ def generate_fixed(model: Model, params, batch: dict, steps: int,
     is greedy and uses no randomness; otherwise tokens are drawn from
     ``generator``, which must live on the model's device.
 
-    On a CUDA model every decode step is one replay of the model's captured
+    On a CUDA model the prefill is one replay of the model's captured
+    prefill for (B, S, ``cache_len``) (``Model.graphed_prefill``, at the
+    prompt's own length, as the reference prefills through
+    ``jitted_prefill``), and every decode step one replay of its captured
     step for (B, ``cache_len``) (``Model.graphed_decode_step``), as the
     reference decodes through ``jitted_decode_step``; ``graph=False`` asks
-    for the eager step instead, to hold the two against each other.  On the
-    CPU the step is eager.  Sampling stays outside the graph."""
+    for the eager prefill and step instead, to hold the two against each
+    other.  On the CPU both are eager.  Sampling stays outside the
+    graphs."""
     B, S = batch["tokens"].shape
     if steps <= 0:
         return GenerateResult(
@@ -84,7 +88,7 @@ def generate_fixed(model: Model, params, batch: dict, steps: int,
                          f"decode up to position {S + steps - 2}, outside "
                          f"the cache of {T}")
     model.plan_book          # resolve all TT plans before the serving loop
-    logits, cache = model.prefill(params, batch)
+    logits, cache = model.padded_prefill(params, batch["tokens"], S, T, graph)
     if graph and model.device.type == "cuda":
         step = model.graphed_decode_step(B, T)
         step.load(params, cache, S)

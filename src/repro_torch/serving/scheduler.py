@@ -7,16 +7,22 @@ slot owns ``cache_len`` positions of every layer and a position of its own.
 Lifecycle of a request:
 
   submit() ─→ queue ─→ admission into a free slot, best rank first
-  (``priority``, then submit time): an eager prefill of the prompt alone
-  at its own length into a cache of the pool's length, the first token
-  picked from its logits, and a splice of the row into the pool ─→ masked
-  decode steps until EOS or the token budget ─→ retirement frees the slot.
+  (``priority``, then submit time): a prefill of the prompt alone into a
+  cache of the pool's length, right-padded to its length bucket
+  (``bucket_prompts``, the default; ``Model.bucketed_prefill``) or at its
+  own length, the first token picked from its logits, and a splice of the
+  row into the pool ─→ masked decode steps until EOS or the token budget
+  ─→ retirement frees the slot.
 
-On a CUDA model every decode step is one replay of the slot-pool CUDA
-graph ``Model.graphed_decode_step(num_slots, cache_len, masked=True)``,
-whose static cache is the pool; on the CPU the step is the eager
-``Model.decode_step`` with the ``active`` mask.  ``graph=False`` asks for
-the eager step on the card, to hold the two against each other.
+On a CUDA model every admission prefill is one replay of a captured
+prefill (``Model.graphed_prefill(1, bucket or prompt length, cache_len)``,
+captured the first time its key is met), and every decode step one replay
+of the slot-pool CUDA graph ``Model.graphed_decode_step(num_slots,
+cache_len, masked=True)``, whose static cache is the pool; the splice is a
+device copy from the prefill graph's output cache into the pool, between
+replays.  On the CPU both are eager (``Model.decode_step`` with the
+``active`` mask).  ``graph=False`` asks for the eager prefill and step on
+the card, to hold the two against each other.
 
 Sampling parameters ride on the ``Request`` (``temperature``, ``top_k``).
 A sampled request draws from its own ``torch.Generator`` on the model's
@@ -46,7 +52,7 @@ NEG_INF = -1e30
 # the reference's Scheduler arguments this port leaves out, by the
 # ROADMAP.md Queue 1 item that brings them
 NOT_PORTED = {"paged": 3, "block_size": 3, "num_blocks": 3,
-              "prefix_cache": 3, "bucket_prompts": 2, "chunk_prefill": 4,
+              "prefix_cache": 3, "chunk_prefill": 4,
               "chunk_size": 4, "prefill_budget": 4, "preempt": 6,
               "clock": 6, "mesh": 10}
 
@@ -108,7 +114,8 @@ class Scheduler:
 
     def __init__(self, model: Model, params, num_slots: int, cache_len: int,
                  *, eos_id: int | None = None, seed: int = 0,
-                 graph: bool = True, **left_out):
+                 bucket_prompts: bool = True, graph: bool = True,
+                 **left_out):
         for name in left_out:
             if name not in NOT_PORTED:
                 raise TypeError(f"Scheduler got an unexpected keyword "
@@ -129,6 +136,8 @@ class Scheduler:
         self.cache_len = cache_len
         self.eos_id = eos_id
         self.seed = seed
+        self.bucket_prompts = bucket_prompts
+        self.graphed = graph
         self.queue: deque[_Queued] = deque()
         self.slots: list[_Slot | None] = [None] * num_slots
         self.finished: list[FinishedRequest] = []
@@ -288,10 +297,18 @@ class Scheduler:
                 "cache_len": self.cache_len}
 
     def _row_prefill(self, inputs: dict) -> tuple[torch.Tensor, dict]:
-        """The prompt alone, eagerly, at its own length (the reference's
-        ``bucket_prompts=False``)."""
+        """The prompt alone, right-padded to its bucket or at its own
+        length (``bucket_prompts=False``); a replay on the card unless
+        ``graph=False``.  The cache it returns may be a prefill graph's
+        static one: spliced before the next admission."""
         self.admissions += 1
-        return self.model.prefill(self.params, inputs)
+        if self.bucket_prompts:
+            return self.model.bucketed_prefill(
+                self.cache_len, self.graphed)(self.params, inputs)
+        tokens = inputs["tokens"]
+        return self.model.padded_prefill(self.params, tokens,
+                                         int(tokens.shape[1]),
+                                         self.cache_len, self.graphed)
 
     def _req_key(self, req: Request) -> torch.Generator | None:
         if req.temperature <= 0.0:

@@ -430,8 +430,14 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch):
             return call
 
     monkeypatch.setattr(tt_contract, "_lib", NoCapture)
-    with pytest.raises(RuntimeError, match="capturing the decode step"):
+    # generate_fixed captures its prefill first
+    with pytest.raises(RuntimeError, match="capturing the prefill"):
         generate_fixed(model, params, _prompt(model, 0), 4)
+    assert model.prefill_builds == 0
+    assert model.prefill_graphs[(2, 8, 16)].graph is None
+    _, cache = model.prefill(params, _prompt(model, 0))
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        model.graphed_decode_step(2, 16).load(params, cache, 8)
     assert model.graph_captures == 0
     assert model.decode_graphs[(2, 16, False)].graph is None
     from repro_torch.serving.scheduler import Scheduler
@@ -597,3 +603,117 @@ def test_a_new_scheduler_after_a_drain_makes_no_capture(cuda):
     c = eager.run()[0]
     assert np.array_equal(a.tokens, c.tokens)
     assert np.array_equal(a.logprobs, c.logprobs)
+
+
+# ---------------------------------------------------------------------------
+# The prefill captured as a CUDA graph (models.graph.PrefillGraph), per
+# (batch, padded length, cache length): a replay must give the eager
+# prefill at the same padded shape bit for bit, logits and cache.
+# ---------------------------------------------------------------------------
+
+def _padded(model, seed, L, S, B=1):
+    """``B`` prompts of ``L`` tokens right-padded with 0 to ``S``."""
+    tokens = _prompt(model, seed, B=B, S=L)["tokens"]
+    return torch.nn.functional.pad(tokens, (0, S - L))
+
+
+@pytest.mark.parametrize("weights", ["fp32", "int8"])
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_captured_prefill_is_the_eager_prefill_bit_for_bit(cuda, path,
+                                                           weights):
+    """Two lengths in the bucket of 16 through one capture, then the
+    bucket's full length, each against the eager padded prefill."""
+    model, params = _smoke(path, weights, cuda)
+    name = GRAPH_PATHS[path][2] + ("_int8" if weights == "int8" else "")
+    graph = model.graphed_prefill(2, 16, 32)
+    for L in (9, 13, 16):
+        tokens = _padded(model, L, L, 16, B=2)
+        before = tt_contract.launch_counts()
+        want_l, want = model.prefill(params, {
+            "tokens": tokens, "cache_len": 32, "prompt_len": L})
+        eager = {k: v - before.get(k, 0)
+                 for k, v in tt_contract.launch_counts().items()
+                 if v != before.get(k, 0)}
+        got_l, got = graph(params, tokens, L)
+        torch.cuda.synchronize()
+        assert torch.equal(got_l, want_l), L
+        assert int(got["pos"]) == L
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(a, b), L
+    assert model.prefill_builds == 1 and graph.captured == eager
+    assert set(eager) == {name}
+    assert model.replayed_launches == {name: 3 * eager[name]}
+
+
+def test_bucketed_prefill_replays_one_graph_per_bucket(cuda):
+    """Lengths 3..40 at a cache of 64: three captures (buckets 16, 32 and
+    64), every one's logits and cache the eager padded prefill's; the
+    buckets of one (batch, cache length) share one output cache."""
+    model, params = _smoke("fused2", "fp32", cuda)
+    graphed, eager = model.bucketed_prefill(64), model.bucketed_prefill(
+        64, graph=False)
+    for L in range(3, 41):
+        batch = {"tokens": _prompt(model, L, B=1, S=L)["tokens"]}
+        want_l, want = eager(params, batch)
+        got_l, got = graphed(params, batch)
+        assert torch.equal(got_l, want_l), L
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(a, b), L
+    keys = [k for k in model.prefill_graphs]
+    assert keys == [(1, 16, 64), (1, 32, 64), (1, 64, 64)]
+    caches = {id(g.cache) for g in model.prefill_graphs.values()}
+    assert len(caches) == 1 and list(model.prefill_caches) == [(1, 64)]
+    # 3 captures; the eager entries count on their first key too
+    assert model.prefill_builds == 3 + 3
+    assert model.graph_captures == 0
+
+
+def test_prefill_graphs_keep_their_last_keys_and_drop_unused_caches(cuda):
+    from repro_torch.models.model import GRAPH_CACHE_SIZE
+    model, _ = _smoke("fused2", "fp32", cuda)
+    first = model.graphed_prefill(1, 16, 32)
+    for T in range(33, 33 + GRAPH_CACHE_SIZE - 1):
+        model.graphed_prefill(1, 16, T)
+    assert model.graphed_prefill(1, 16, 32) is first     # used last now
+    model.graphed_prefill(1, 32, 32)                    # evicts (1, 16, 33)
+    assert len(model.prefill_graphs) == GRAPH_CACHE_SIZE
+    assert (1, 33) not in model.prefill_caches
+    assert model.prefill_graphs[(1, 32, 32)].cache is first.cache
+    with pytest.raises(ValueError, match="exceeds the cache"):
+        model.graphed_prefill(1, 64, 32)
+    with pytest.raises(ValueError, match="prompt_len 17 outside"):
+        first(None, torch.zeros((1, 16), dtype=torch.int64), 17)
+
+
+def test_bucketed_scheduler_captures_while_rows_are_live(cuda):
+    """Prompts of 5, 20, 12 and 30 tokens at a cache of 48: a capture per
+    bucket (16, 32), the second while the first request decodes; tokens
+    and logprobs the eager scheduler's (``graph=False``) bit for bit."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+
+    def run(graph):
+        sched = Scheduler(model, params, num_slots=2, cache_len=48,
+                          graph=graph)
+        for uid, L in enumerate((5, 20, 12, 30)):
+            sched.submit(Request(uid=uid, inputs={"tokens": _prompt(
+                model, 20 + uid, B=1, S=L)["tokens"]}, max_new_tokens=6))
+            sched.step()
+        return sched.run() | {f.uid: f for f in sched.finished}
+
+    builds = model.prefill_builds
+    got = run(True)
+    assert model.prefill_builds - builds == 2
+    assert sorted(model.prefill_graphs) == [(1, 16, 48), (1, 32, 48)]
+    want = run(False)
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    for uid in got:
+        assert np.array_equal(got[uid].tokens, want[uid].tokens)
+        assert np.array_equal(got[uid].logprobs, want[uid].logprobs)
+    assert model.graph_captures == 1
+    exact = Scheduler(model, params, num_slots=2, cache_len=48,
+                      bucket_prompts=False)
+    exact.submit(Request(uid=0, inputs={"tokens": _prompt(
+        model, 20, B=1, S=5)["tokens"]}, max_new_tokens=6))
+    exact.run()
+    assert (1, 5, 48) in model.prefill_graphs

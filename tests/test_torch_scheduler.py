@@ -8,8 +8,9 @@ Each test mirrors one of the reference's (``tests/test_serving.py``):
 
 - Staggered admissions through a 2-slot pool give every request the tokens
   of the port's own ``generate_fixed`` of that prompt alone, and of the
-  reference ``Scheduler`` (``bucket_prompts=False``) fed the same
-  schedule; logprobs within 1e-4 of the reference's (XLA and torch sum in
+  reference ``Scheduler`` fed the same schedule, both with
+  ``bucket_prompts=False`` (the bucketed default is held against the
+  reference's in ``tests/test_torch_prefill_graph.py``); logprobs within 1e-4 of the reference's (XLA and torch sum in
   other orders) and 1e-5 of the port's fixed loop.  At every checked step
   the reference's top-1/top-2 logit gap exceeds ten times 1e-4, which the
   tests assert.  On the three main paths: length 2 ``auto`` (fused2),
@@ -131,7 +132,7 @@ def _staggered(sched, req_cls, rows):
 
 def test_staggered_equals_sequential(pair):
     jm, jp, tm, tp, prompts = pair
-    sched = Scheduler(tm, tp, num_slots=2, cache_len=T)
+    sched = Scheduler(tm, tp, num_slots=2, cache_len=T, bucket_prompts=False)
     plans0 = tplan.plan_resolutions()
     mine = _staggered(sched, Request, torch.from_numpy(prompts))
     assert tplan.plan_resolutions() == plans0
