@@ -27,7 +27,12 @@ Phases, each fatal on failure:
      as the full-width paths run; then the default (bucketed)
      continuous-batching scheduler on a staggered schedule (2 slots, 3
      requests), card (captured prefill, slot-pool graph) against CPU, at
-     lengths 2 and 3 with fp32 cores and at length 2 with int8 cores;
+     lengths 2 and 3 with fp32 cores and at length 2 with int8 cores; and
+     the paged scheduler (block 4) on that schedule and on a shared-prefix
+     pair followed by a resubmitted prompt (full coverage, a copy on
+     write), card (the paged slot-pool graph, the captured resume) against
+     CPU at lengths 2 and 3: tokens, logprobs, block ids per slot after
+     every step, prefix counters, no leaked block;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -61,8 +66,8 @@ while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
 the eager back-to-back time of each kernel is recorded beside them.  Every
 record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
-the kernel line's ``tt_fused2`` launches are those of the fixed-batch and
-the arrival-mode calls together.
+the kernel line's ``tt_fused2`` launches are those of the fixed-batch
+calls, the dense arrival-mode call and the paged runs together.
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits non-zero and prints no result.
@@ -153,6 +158,15 @@ ARRIVAL_ARGS = SERVE_ARGS + ["--tt-backend", "auto", "--slots", "4",
                              "--assert-no-replan"]
 # the step-indexed staggered run: requests, prompt lengths, budgets
 STAGGER_N, STAGGER_LENS, STAGGER_BUDGETS = 12, (16, 64), (8, 32)
+# the paged pool of phase 5: blocks of 16 positions, 6 per slot, 24 + 1
+# sentinel by default, 12 in the memory-limited run
+PAGED_ARGS = ["--paged", "--block-size", "16"]
+PAGED_BLOCK, SMALL_POOL = 16, 12
+# the prefix-reuse check: prompts of 48 shared + 16 own tokens from seed
+# 0.  No seed gives a top-1/top-2 gap over the bf16 tolerance here (bf16
+# logits tie exactly: seeds 0-7 all have a gap of 0 within 32 steps), so
+# serve's ``check_greedy`` holds each pick to the top logit within it
+PREFIX_LEN, PREFIX_SEED = 48, 0
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
@@ -643,6 +657,112 @@ def small_scheduler_check() -> None:
                 f"capture, captures) {got_counts} != {want_counts}")
 
 
+def paged_smoke(model, params, prompts) -> dict:
+    """Phase 4's paged schedules on SMOKE (block 4): the staggered schedule
+    of ``staggered_smoke`` through a paged pool (2 slots over 16
+    positions), then a pool of 2 slots over 24 positions: a 16-token
+    prompt, after one step a prompt sharing its first 12 tokens (3 shared
+    blocks), and after both retired the first again (full coverage: a copy
+    on write and one token recomputed).  The slots' block ids are read after
+    every step, and no block may leak.  {"done": {(run, uid): finished},
+    "blocks": [...], "stats": [...], "steps": n, "admissions": n}."""
+    out = {"done": {}, "blocks": [], "stats": [], "steps": 0,
+           "admissions": 0}
+    first = prompts[3:4]
+    second = torch.cat([first[:, :12], prompts[4:5, :4]], 1)
+    # (run, cache length, [(prompt, budget, steps after its submission or
+    # "drain")])
+    for run, T, schedule in (
+            ("staggered", 16, [(prompts[0:1, :8], 6, 1),
+                               (prompts[1:2, :8], 3, 1),
+                               (prompts[2:3, :8], 5, 0)]),
+            ("prefix", 24, [(first, 5, 1), (second, 5, "drain"),
+                            (first, 4, 0)])):
+        sched = Scheduler(model, params, num_slots=2, cache_len=T,
+                          paged=True, block_size=4)
+
+        def step():
+            sched.step()
+            out["blocks"].append([None if b is None else list(b)
+                                  for b in sched._slot_blocks])
+
+        for uid, (tokens, budget, after) in enumerate(schedule):
+            sched.submit(Request(uid=uid, inputs={"tokens": tokens},
+                                 max_new_tokens=budget))
+            if after == "drain":
+                while not sched.idle:
+                    step()
+            for _ in range(0 if after == "drain" else after):
+                step()
+        while not sched.idle:
+            step()
+        sched.allocator.assert_quiescent()
+        st = sched.stats()
+        out["stats"].append({k: st[k] for k in (
+            "prefix_hit_tokens", "prefill_tokens_skipped",
+            "block_high_water", "blocks_in_use")})
+        out["steps"] += st["steps_run"]
+        out["admissions"] += st["admissions"]
+        out["done"].update({(run, f.uid): f for f in sched.finished})
+    return out
+
+
+def small_paged_check() -> None:
+    """Phase 4, the paged pool: ``paged_smoke`` on SMOKE at lengths 2 and 3
+    ``auto`` with fp32 cores, on the card (the paged slot-pool graph, the
+    bucket's captured prefill, the captured resume) and on the CPU (eager),
+    same weights: greedy tokens identical, logprobs within 1e-4, the same
+    block ids per slot after every step and the same prefix hits, tokens
+    skipped and block high-water; the card launches only the path's kernel,
+    per pass at each capture's warm-up (counted) and at each admission and
+    decode step (replayed)."""
+    for length, name in ((2, "tt_fused2"), (3, "tt_fused_chain")):
+        cfg = get_config("deepseek-7b", "smoke", tt=TTConfig(
+            enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+            length=length, backend="auto"))
+        gpu = build(cfg, device="cuda")
+        cpu = build(cfg, device="cpu")
+        p_gpu = gpu.init(0)
+        p_cpu = map_tree(lambda t: t.cpu(), p_gpu)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (5, 16), dtype=np.int64))
+        want = paged_smoke(cpu, p_cpu, prompts)
+        tt_contract.reset_launch_counts()
+        got = paged_smoke(gpu, p_gpu, prompts)
+        counted = tt_contract.launch_counts()
+        replayed = dict(gpu.replayed_launches)
+        captures = gpu.graph_captures + gpu.prefill_builds
+        per_pass = next(iter(gpu.decode_graphs.values())).captured.get(
+            name, 0)
+        same = sorted(got["done"]) == sorted(want["done"]) and all(
+            np.array_equal(got["done"][u].tokens, want["done"][u].tokens)
+            for u in want["done"])
+        worst = max(float(np.abs(got["done"][u].logprobs -
+                                 want["done"][u].logprobs).max())
+                    for u in want["done"])
+        print(f"small input, paged scheduler (length {length}, auto, fp32 "
+              f"cores, block 4): greedy tokens card {'=' if same else '!='} "
+              f"cpu, logprobs max abs diff {worst:.3e} (tol 1e-4); block ids "
+              f"{'same' if got['blocks'] == want['blocks'] else 'DIFFER'}; "
+              f"counters card {got['stats']} cpu {want['stats']}; "
+              f"{got['admissions']} admissions, {got['steps']} steps, "
+              f"{gpu.graph_captures} decode and {gpu.prefill_builds} prefill "
+              f"or resume captures; launches counted {counted}, replayed "
+              f"{replayed} ({per_pass} per pass)", flush=True)
+        want_counts = ({name: per_pass * captures * WARMUP_STEPS},
+                       {name: per_pass * (got["steps"] + got["admissions"])})
+        if not same or not worst <= 1e-4 or per_pass == 0 or \
+                got["blocks"] != want["blocks"] or \
+                got["stats"] != want["stats"] or \
+                (counted, replayed) != want_counts:
+            raise AssertionError(
+                f"SMOKE paged scheduler length {length}: tokens same {same}, "
+                f"logprobs {worst:.3e}, blocks same "
+                f"{got['blocks'] == want['blocks']}, counters {got['stats']} "
+                f"!= {want['stats']}, (counted, replayed) "
+                f"{(counted, replayed)} != {want_counts}")
+
+
 def drive(label: str, kernel: str, per_pass: int, model, params,
           args) -> tuple[dict, int]:
     """One main path: launch counts set to 0 just before
@@ -954,12 +1074,15 @@ def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
     return launches, recs
 
 
-def staggered_full(model, params, graph: bool) -> tuple[dict, dict]:
+def staggered_full(model, params, graph: bool, check=None,
+                   **paged) -> tuple[dict, dict]:
     """The step-indexed staggered run at full width: ``STAGGER_N`` requests
     with prompt lengths and budgets drawn by numpy from seed 0 through a
-    4-slot pool over prompt + steps positions; four are submitted before
-    the first ``step()``, then one before every third.  ({uid: finished},
-    the scheduler's stats with the wall seconds)."""
+    4-slot pool over prompt + steps positions (``paged``: the paged pool's
+    ``Scheduler`` arguments); four are submitted before the first
+    ``step()``, then one before every third; ``check(sched)`` after every
+    step.  A paged pool must leak no block.  ({uid: finished}, the
+    scheduler's stats with the wall seconds)."""
     rng = np.random.default_rng(0)
     lens = rng.integers(STAGGER_LENS[0], STAGGER_LENS[1] + 1, STAGGER_N)
     budgets = rng.integers(STAGGER_BUDGETS[0], STAGGER_BUDGETS[1] + 1,
@@ -967,7 +1090,7 @@ def staggered_full(model, params, graph: bool) -> tuple[dict, dict]:
     prompts = [torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, n),
                                              dtype=np.int64)) for n in lens]
     sched = Scheduler(model, params, num_slots=4, cache_len=64 + PASSES,
-                      graph=graph)
+                      graph=graph, **paged)
 
     def submit(i):
         sched.submit(Request(uid=i, inputs={"tokens": prompts[i]},
@@ -982,9 +1105,13 @@ def staggered_full(model, params, graph: bool) -> tuple[dict, dict]:
             submit(nxt)
             nxt += 1
         sched.step()
+        if check is not None:
+            check(sched)
         k += 1
     torch.cuda.synchronize()
     stats = dict(sched.stats(), wall_s=time.perf_counter() - t0)
+    if sched.paged:
+        sched.allocator.assert_quiescent()
     return {f.uid: f for f in sched.finished}, stats
 
 
@@ -1055,7 +1182,7 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
                   int(f.tokens.min()) < 0 or int(f.tokens.max()) >= 102400
                   or not np.isfinite(f.logprobs).all() for f in fin):
         raise AssertionError(f"continuous batching: (expected, got) {bad}")
-    rec = {k: v for k, v in out.items() if k != "finished"}
+    rec = {k: v for k, v in out.items() if k not in ("finished", "sched")}
     rec.update(card=smi, launches_total=launches,
                latency_s=[f.finish_time - f.submit_time for f in fin])
 
@@ -1125,10 +1252,251 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
                              f"{model.graph_captures} decode captures, "
                              f"{prof['prefill_captures']} prefill captures, "
                              f"counted {prof['counted']}")
+    paged_launches, rec["paged"] = paged_path(
+        smi, model, params, args, out, g_done, buckets[64])
     del model, params, graph
     gc.collect()
     torch.cuda.empty_cache()
+    return launches + paged_launches, rec
+
+
+def same_runs(a: dict, b: dict) -> bool:
+    """Two staggered runs' requests, tokens and logprobs bit for bit."""
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(a[u].tokens, b[u].tokens) and
+        np.array_equal(a[u].logprobs, b[u].logprobs) for u in a)
+
+
+def paged_path(smi: str, model, params, args, dense: dict, dense_done: dict,
+               prefill64: dict) -> tuple[int, dict]:
+    """Phase 5, the block-paged pool (blocks of 16, 6 per slot), on the
+    model of ``scheduler_path``, whose dense runs are ``dense`` (arrival
+    mode) and ``dense_done`` (staggered, graphs): the arrival mode with
+    ``--paged`` (0 captures and plan resolutions in the steady state,
+    ``tt_fused2`` replayed 210 × (admissions + steps), no leaked block);
+    the staggered run paged through the graphs against the dense one and
+    against paged eager, bit for bit; the staggered run over 12 blocks
+    (admission by memory: live blocks within the pool after every step, a
+    request held back while a slot is free, tokens the dense run's,
+    logprobs within the bf16 tolerance); serve's ``--prefix-smoke`` (3
+    shared blocks and 48 tokens skipped, then full coverage: 63 skipped and
+    one block copied on write; greedy tokens and logprobs held against
+    ``generate_fixed``'s by ``serve.check_greedy``); the
+    captured resume against the eager one (bit for bit) and the full
+    prefill (within 2e-2 × max |logit|), with its replay's times beside the
+    bucket-64 prefill replay's ``prefill64``; and a traced paged arrival
+    run.  Returns ``tt_fused2``'s launches over the paged runs (all but the
+    timing and the trace) and the record."""
+    per_pass = PROJ * LAYERS
+    T = 64 + PASSES
+    key = (4, T, True, (4 * T // PAGED_BLOCK, PAGED_BLOCK))
+    pargs = serve.parse_args(ARRIVAL_ARGS + PAGED_ARGS)
+    tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
+    captures0 = model.graph_captures
+    out = serve.simulate(model, params, pargs)
+    out.pop("sched").allocator.assert_quiescent()
+    graph = model.decode_graphs[key]
+    fin = out["finished"]
+    rows = [("tok/s", "tok_per_s", 1), ("ttft p50 ms", "ttft_p50_s", 1e3),
+            ("ttft p95 ms", "ttft_p95_s", 1e3),
+            ("inter-token p50 ms", "itl_p50_s", 1e3),
+            ("inter-token p95 ms", "itl_p95_s", 1e3),
+            ("admissions share", "admit_share", 1),
+            ("kv_pool_bytes", "kv_pool_bytes", 1)]
+    print(f"main path (paged arrival mode, block {PAGED_BLOCK}, "
+          f"{out['num_blocks']} blocks; {smi}): {len(fin)} requests, "
+          f"{out['tokens_out']} tokens in {out['wall_s']:.3f} s; paged vs "
+          f"dense: " + "; ".join(
+              f"{name} {out[k] * f:.4g} vs {dense[k] * f:.4g}"
+              for name, k, f in rows) +
+          f"; block high-water {out['block_high_water']}; "
+          f"{out['admissions']} admissions, {out['steps_run']} steps; one "
+          f"capture of the paged step: {graph.captured}", flush=True)
+    want = {
+        "steady launches": ({"tt_fused2": per_pass * (
+            out["admissions"] + out["steps_run"])}, out["launches"]),
+        "steady counted": ({}, out["counted"]),
+        "paged step capture": ({"tt_fused2": per_pass}, graph.captured),
+        "steady captures, prefill captures, plans": ((0, 0, 0), (
+            out["captures"], out["prefill_captures"], out["replans"])),
+        "decode captures in the call": (1, model.graph_captures - captures0),
+        "requests": (list(range(16)), sorted(f.uid for f in fin)),
+        "blocks in use after the drain": (0, out["blocks_in_use"]),
+    }
+    bad = {k: v for k, v in want.items() if v[0] != v[1]}
+    if bad or any(len(f.tokens) != PASSES or f.finish_reason != "length"
+                  or not np.isfinite(f.logprobs).all() for f in fin):
+        raise AssertionError(f"paged arrival mode: (expected, got) {bad}")
+    rec = {k: v for k, v in out.items() if k != "finished"}
+    rec.update(card=smi, dense_tok_per_s=dense["tok_per_s"],
+               dense_kv_pool_bytes=dense["kv_pool_bytes"])
+
+    paged = dict(paged=True, block_size=PAGED_BLOCK)
+    p_done, p_stats = staggered_full(model, params, graph=True, **paged)
+    e_done, e_stats = staggered_full(model, params, graph=False, **paged)
+    vs_dense, vs_eager = same_runs(p_done, dense_done), same_runs(p_done,
+                                                                 e_done)
+    print(f"paged staggered run ({smi}): graph {p_stats['wall_s']:.3f} s, "
+          f"eager {e_stats['wall_s']:.3f} s, block high-water "
+          f"{p_stats['block_high_water']}; tokens and logprobs against the "
+          f"dense graphs {'bit-identical' if vs_dense else 'DIFFER'}, "
+          f"against paged eager {'bit-identical' if vs_eager else 'DIFFER'}",
+          flush=True)
+    if not (vs_dense and vs_eager):
+        raise AssertionError(f"paged staggered run: against dense {vs_dense}"
+                             f", against eager {vs_eager}")
+
+    seen = {"rows": [], "held": 0}
+
+    def memory(sched):
+        reserved = sum(len(b) for b in sched._slot_blocks if b)
+        if sched.allocator.in_use > SMALL_POOL or \
+                reserved != sched.allocator.in_use:
+            raise AssertionError(f"{sched.allocator.in_use} blocks live, "
+                                 f"{reserved} reserved, pool {SMALL_POOL}")
+        seen["rows"].append(sched.num_active)
+        seen["held"] += bool(sched.queue) and sched.num_active < 4
+
+    m_done, m_stats = staggered_full(model, params, graph=True, check=memory,
+                                     num_blocks=SMALL_POOL, **paged)
+    same_tokens = sorted(m_done) == sorted(dense_done) and all(
+        np.array_equal(m_done[u].tokens, dense_done[u].tokens)
+        for u in m_done)
+    scale = max(float(np.abs(f.logprobs).max()) for f in dense_done.values())
+    worst = max(float(np.abs(m_done[u].logprobs -
+                             dense_done[u].logprobs).max()) for u in m_done)
+    print(f"paged staggered run over {SMALL_POOL} blocks ({smi}): at most "
+          f"{max(seen['rows'])} rows live (mean "
+          f"{np.mean(seen['rows']):.2f}), a request held back with a slot "
+          f"free after {seen['held']} of {len(seen['rows'])} steps, "
+          f"{m_stats['steps_run']} steps against {p_stats['steps_run']} on "
+          f"24 blocks; tokens {'identical' if same_tokens else 'DIFFER'}, "
+          f"logprobs max abs diff {worst:.3e} (tol {2e-2 * scale:.3e}), "
+          f"{'' if same_runs(m_done, dense_done) else 'not '}bit-identical "
+          f"to the dense run", flush=True)
+    if not same_tokens or worst > 2e-2 * scale or not seen["held"]:
+        raise AssertionError(f"memory-limited run: tokens same {same_tokens},"
+                             f" logprobs {worst:.3e}, held {seen['held']}")
+    rec.update(stagger_graph=p_stats, stagger_eager=e_stats,
+               small_pool=dict(m_stats, max_rows=max(seen["rows"]),
+                               held_steps=seen["held"], max_abs_err=worst,
+                               bit_identical=same_runs(m_done, dense_done)))
+
+    sargs = serve.parse_args(
+        SERVE_ARGS + ["--tt-backend", "auto", "--slots", "4",
+                      "--prefix-smoke", "--prefix-len", str(PREFIX_LEN),
+                      "--seed", str(PREFIX_SEED)] + PAGED_ARGS)
+    smoke = serve.prefix_smoke(model, params, sargs)
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    launches = counted.get("tt_fused2", 0) + replayed.get("tt_fused2", 0)
+    rec.update(prefix=dict(hits=smoke["hits"], blocks=smoke["blocks"],
+                           admit_ms=smoke["admit_ms"],
+                           greedy=smoke["greedy"],
+                           high_water=smoke["block_high_water"]),
+               launches_total=launches)
+    rec["resume"] = resume_checks(smi, model, params, smoke, prefill64)
+
+    print("profile (paged arrival mode):", flush=True)
+    prof = profile_serve.profile_arrivals(model, params, pargs)
+    prof.pop("sched", None)
+    tt = prof["tt_kernels"].get("tt_fused2_kernel",
+                                {"found": 0, "expected": None})
+    passes = prof["steps_run"] + prof["admissions"]
+    rec.update(traced=dict(
+        wall_s=prof["wall_s"], busy_s=prof["busy_s"],
+        busy_share=prof["busy_s"] / prof["wall_s"],
+        admit_share=prof["admit_share"], scatter_s=prof["scatter_s"],
+        scatter_count=prof["scatter_count"], gather_s=prof["gather_s"],
+        gather_count=prof["gather_count"], where_s=prof["where_s"],
+        where_count=prof["where_count"],
+        steps_run=prof["steps_run"], admissions=prof["admissions"], tt=tt))
+    print(f"profile (paged arrival mode; {smi}): device busy "
+          f"{prof['busy_s'] / prof['wall_s']:.1%} of {prof['wall_s']:.3f} s; "
+          f"admissions {prof['admit_share']:.1%} of the wall; block-table "
+          f"scatters {prof['scatter_count']} kernels, "
+          f"{prof['scatter_s'] * 1e3:.3f} ms ({2 * LAYERS} per step and per "
+          f"admission expected: {2 * LAYERS * passes}); gathers with the "
+          f"embedding lookups {prof['gather_count']} kernels, "
+          f"{prof['gather_s'] * 1e3:.3f} ms ({2 * LAYERS} per step and one "
+          f"per pass expected: {2 * LAYERS * prof['steps_run'] + passes}); "
+          f"torch.where {prof['where_count']} kernels, "
+          f"{prof['where_s'] * 1e3:.3f} ms; tt_fused2_kernel {tt}",
+          flush=True)
+    if tt["found"] != tt["expected"] or prof["prefill_captures"] or \
+            prof["captures"] or prof["counted"]:
+        raise AssertionError(f"traced paged arrival run: {tt} "
+                             f"tt_fused2_kernel, {prof['captures']} decode "
+                             f"and {prof['prefill_captures']} prefill "
+                             f"captures, counted {prof['counted']}")
     return launches, rec
+
+
+def resume_checks(smi: str, model, params, smoke: dict,
+                  prefill64: dict) -> dict:
+    """On the drained pool of serve's prefix smoke: a new prompt sharing its
+    ``PREFIX_LEN``-token prefix takes the 3 resident blocks and 3 fresh
+    ones, and its suffix of 16 is resumed into slot 0 through the captured
+    resume (bucket 16) and eagerly: logits and written blocks bit for bit;
+    its logits within 2e-2 × max |logit| of the bucket-64 prefill of the
+    whole prompt; the replay's host ms and its busy ms traced alone beside
+    the bucket-64 prefill replay's (``prefill64``).  The blocks go back to
+    the allocator, which must be quiescent."""
+    from repro_torch.serving.paging import chain_hashes
+    sched = smoke["sched"]
+    alloc, T = sched.allocator, sched.cache_len
+    prefix = smoke["prompts"][0][:, :PREFIX_LEN]
+    tail = np.random.default_rng(PREFIX_SEED + 1000).integers(
+        0, model.cfg.vocab_size, (1, 64 - PREFIX_LEN), dtype=np.int64)
+    prompt = torch.cat([prefix, torch.from_numpy(tail)], 1).to(model.device)
+    hashes = chain_hashes(prompt.cpu().numpy(), PAGED_BLOCK)
+    shared = [alloc.acquire(h) for h in hashes[:PREFIX_LEN // PAGED_BLOCK]]
+    assert None not in shared and alloc.acquire(hashes[-1]) is None
+    blocks = shared + [alloc.alloc() for _ in range(6 - len(shared))]
+    table = torch.tensor(blocks, dtype=torch.int32, device=model.device)
+    suffix = prompt[:, PREFIX_LEN:]
+    fresh = torch.tensor(blocks[len(shared):], device=model.device)
+
+    def written():
+        return [a[fresh].clone() for a in tree_leaves(sched.cache["g0"])]
+
+    def resume(graph):
+        return model.resume_prefill(params, sched.cache, suffix, 0, table,
+                                    table, PREFIX_LEN, graph)
+
+    g_logits = resume(sched.graph).clone()
+    g_blocks = written()
+    e_logits = resume(None)
+    same = torch.equal(g_logits, e_logits) and all(
+        torch.equal(a, b) for a, b in zip(g_blocks, written()))
+    full, _ = model.bucketed_prefill(T)(params, {"tokens": prompt})
+    diff = float((g_logits - full).abs().max())
+    scale = float(full.abs().max())
+    host = host_ms(lambda: resume(sched.graph))
+    alone = replays_alone(lambda: resume(sched.graph), "tt_fused2_kernel")
+    for b in blocks:
+        alloc.decref(b)
+    alloc.assert_quiescent()
+    rec = dict(bit_identical=same, max_abs_diff_full=diff,
+               tol=2e-2 * scale, host_ms=host, **{f"replay_{k}": v
+                                                  for k, v in alone.items()},
+               prefill64_host_ms=prefill64["host_ms"],
+               prefill64_busy_ms=prefill64["busy_ms"])
+    print(f"resume (suffix of {64 - PREFIX_LEN} after {PREFIX_LEN} shared, "
+          f"bucket 16; {smi}): replay against eager "
+          f"{'bit-identical' if same else 'DIFFER'}; first-token logits "
+          f"against the full prefill max abs diff {diff:.3e} (tol "
+          f"{2e-2 * scale:.3e}); replay {host:.3f} ms host clock, traced "
+          f"alone {alone['busy_ms']:.3f} ms busy, {alone['kernels']:g} "
+          f"kernels, {alone['tt']:g} tt_fused2_kernel; the bucket-64 prefill "
+          f"replay {prefill64['host_ms']:.3f} ms host, "
+          f"{prefill64['busy_ms']:.3f} ms busy", flush=True)
+    if not same or diff > 2e-2 * scale or alone["tt"] != PROJ * LAYERS:
+        raise AssertionError(f"resume: bit-identical {same}, {diff:.3e} "
+                             f"from the full prefill, {alone['tt']} "
+                             f"tt_fused2_kernel per replay")
+    return rec
 
 
 def kernel_line(recs, launches) -> dict:
@@ -1197,6 +1565,7 @@ def main() -> int:
                    "steps": steps}, f, indent=1)
     small_input_check()
     small_scheduler_check()
+    small_paged_check()
     launches, graph_recs = main_paths(smi)
     fused2, sched_rec = scheduler_path(smi)
     launches["tt_fused2"] += fused2

@@ -26,8 +26,8 @@ PENDING = (
     "seamless_m4t_large_v2",
 )
 
-_PENDING_MSG = ("architecture {!r} is not ported yet (ROADMAP.md Queue 1 "
-                "item 10: remaining families)")
+_PENDING_MSG = ("architecture {!r} is not ported yet (ROADMAP.md Queue 1, "
+                "\"Remaining families\")")
 
 # external ids (--arch flag) → module names
 ALIASES = {a.replace("_", "-"): a for a in PORTED + PENDING}

@@ -12,10 +12,12 @@ wall time (the sum of kernel times over the wall time; kernels of one
 stream do not overlap), and the TT kernels found in the trace against the
 launches expected; for the arrival mode also the admissions' share of the
 wall (host clock) and the device time of the decode step's per-row
-``torch.where`` KV writes.  On a card the prefills and the decode steps
-are replays of captured CUDA graphs.  On a card only device kernels are traced; on the
-CPU only host operators are recorded and the device lines read "not
-measured".
+``torch.where`` KV writes, or, on a paged pool (``--paged``), of its
+block-table copies: the k/v scatter into each layer's arenas and the
+gathers of each row's logical cache through its table.  On a card the
+prefills and the decode steps are replays of captured CUDA graphs.  On a
+card only device kernels are traced; on the CPU only host operators are
+recorded and the device lines read "not measured".
 """
 from __future__ import annotations
 
@@ -51,6 +53,13 @@ TT_KERNELS = {"tt_fused2_kernel": ("tt_fused2", "tt_fused2_int8"),
 # the device kernel of ``torch.where``: in serving, only the per-row KV
 # writes of the slot pool's decode step (two per layer and step)
 WHERE_KERNEL = "where_kernel"
+# the device kernels of the paged pool's block-table copies: ``index_put_``
+# (the step's k/v scatter into the arenas, two per layer and step, and a
+# full-prompt admission's scatter of its row, two per layer) and the
+# gathers ``arena[table]`` (two per layer and step; also every pass's
+# embedding lookup)
+SCATTER_KERNEL = "index_elementwise_kernel"
+GATHER_KERNEL = "vectorized_gather_kernel"
 
 
 def preroll() -> None:
@@ -141,7 +150,9 @@ def profile_arrivals(model, params, args, top: int = 12) -> dict:
     """Profile the arrival mode's timed arrivals (``launch.serve.arrivals``)
     after its warm-up request, on the serve flags ``args``: the device busy
     share of their wall, the admissions' share of it (host clock), and the
-    device time and count of the per-row ``torch.where`` KV writes; the TT
+    device time and count of the per-row ``torch.where`` KV writes and of
+    the block-table scatters and gathers (``SCATTER_KERNEL``,
+    ``GATHER_KERNEL``); the TT
     kernels in the trace are held against the launches expected (counted by
     the wrappers, plus each capture's per replay of it: the admission
     prefills' and the decode steps')."""
@@ -163,12 +174,18 @@ def profile_arrivals(model, params, args, top: int = 12) -> dict:
         print("device kernel time: not measured")
         return dict(run, busy_s=None, kernels={})
     out = _report(kernels, wall, run["launches"], top)
-    where = [e for e in kernels if WHERE_KERNEL in e.key]
-    out.update(where_s=sum(e.self_device_time_total for e in where) / 1e6,
-               where_count=sum(e.count for e in where))
-    print(f"per-row KV writes ({WHERE_KERNEL}): {out['where_count']} "
-          f"kernels, {out['where_s'] * 1e3:.3f} ms of device time "
-          f"({out['where_s'] / out['busy_s']:.1%} of busy)")
+    for name, kernel, what in (
+            ("where", WHERE_KERNEL, "per-row KV writes"),
+            ("scatter", SCATTER_KERNEL, "block-table scatters"),
+            ("gather", GATHER_KERNEL,
+             "block-table gathers and embedding lookups")):
+        found = [e for e in kernels if kernel in e.key]
+        out[f"{name}_s"] = sum(e.self_device_time_total
+                               for e in found) / 1e6
+        out[f"{name}_count"] = sum(e.count for e in found)
+        print(f"{what} ({kernel}): {out[f'{name}_count']} kernels, "
+              f"{out[f'{name}_s'] * 1e3:.3f} ms of device time "
+              f"({out[f'{name}_s'] / out['busy_s']:.1%} of busy)")
     return dict(run, **out)
 
 if __name__ == "__main__":

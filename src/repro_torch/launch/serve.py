@@ -4,7 +4,9 @@ the continuous-batching scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
         --variant full --batch 4 --prompt-len 64 --steps 32 --tt ffn,attn \\
         --tt-rank 16 --tt-backend auto [--tt-weights int8] [--device cpu] \\
-        [--arrival-rate 50 --max-requests 16 --slots 4 --assert-no-replan]
+        [--arrival-rate 50 --max-requests 16 --slots 4 --assert-no-replan
+         [--paged --block-size 16 [--num-blocks N]]]
+        [--prefix-smoke --paged --block-size 16 --prefix-len 48]
 
 ``--tt-backend`` is one of ``kernels.plan.BACKENDS``: ``auto`` (d=2
 layers through the fused2 kernel), ``cuda_fused2``, ``cuda_fused`` (the
@@ -30,7 +32,19 @@ captures and TT launches; ``--assert-no-replan`` fails on a plan
 resolution or a capture of either kind there.  The admissions prefill
 each prompt right-padded to its length bucket, on a card through the
 captured prefill of that bucket.  An interrupt drains the scheduler with
-``cancel``.
+``cancel``.  ``--paged`` serves from the block-paged KV pool (DESIGN.md
+§7; ``--block-size`` tokens per block, ``--num-blocks`` blocks, default
+enough for every slot's whole length) and also reports the blocks, their
+high-water mark and the prefix cache's hits.
+
+``--prefix-smoke`` (with ``--paged``) is the prefix-reuse check: two
+requests whose prompts share a ``--prefix-len``-token prefix, then the
+first prompt again after both retired.  The second admission must share
+the prefix's blocks and skip their prefill; the third must cover its whole
+prompt, copy its last block on write and recompute one token; every
+request's greedy tokens and logprobs are held against ``generate_fixed``'s
+for that prompt alone, within the repo's tolerance where logits tie
+(``check_greedy``), and its smallest top-1/top-2 logit gap is printed.
 """
 from __future__ import annotations
 
@@ -177,15 +191,35 @@ def arrival_request(model, args, uid: int, seed: int) -> Request:
                    top_k=args.top_k)
 
 
+def make_scheduler(model, params, args, cache_len: int) -> Scheduler:
+    """A scheduler of ``--slots`` slots (default ``--batch``) over
+    ``cache_len`` positions, paged with ``--paged``."""
+    return Scheduler(model, params, num_slots=args.slots or args.batch,
+                     cache_len=cache_len, eos_id=args.eos_id,
+                     seed=args.seed + 1, paged=args.paged,
+                     block_size=args.block_size, num_blocks=args.num_blocks)
+
+
+def print_pool_stats(sched: Scheduler) -> None:
+    """The KV pool's bytes and, paged, its blocks, their high-water mark
+    and the prefix cache's hits."""
+    st = sched.stats()
+    line = f"kv pool: {st['kv_pool_bytes'] / 1e6:.2f} MB"
+    if sched.paged:
+        line += (f" | blocks: {st['num_blocks']}x{st['block_size']} tokens, "
+                 f"high-water {st['block_high_water']} | prefix hit rate "
+                 f"{st['prefix_hit_rate']:.2f} "
+                 f"({st['prefill_tokens_skipped']} prefill tokens skipped)")
+    print(line)
+
+
 def arrival_scheduler(model, params, args) -> tuple[Scheduler, float]:
     """The arrival mode's scheduler after its warm-up request (uid -1),
     which builds the kernels, captures the slot-pool decode step and the
     prefill of the prompts' bucket on a card and fills the launch-geometry
     memos: (scheduler, warm-up seconds)."""
     t0 = time.perf_counter()
-    sched = Scheduler(model, params, num_slots=args.slots or args.batch,
-                      cache_len=args.prompt_len + args.steps,
-                      eos_id=args.eos_id, seed=args.seed + 1)
+    sched = make_scheduler(model, params, args, args.prompt_len + args.steps)
     sched.submit(arrival_request(model, args, -1, args.seed + 999))
     sched.run()
     _sync(model.device)
@@ -275,9 +309,9 @@ def arrivals(sched: Scheduler, args) -> dict:
           f"p95={out['ttft_p95_s'] * 1e3:.1f}ms | inter-token: "
           f"p50={out['itl_p50_s'] * 1e3:.1f}ms "
           f"p95={out['itl_p95_s'] * 1e3:.1f}ms")
-    print(f"kv pool: {st['kv_pool_bytes'] / 1e6:.2f} MB; peak device "
-          f"memory: " + ("n/a on cpu" if peak is None else
-                         f"{peak / 2**30:.3f} GiB allocated"))
+    print_pool_stats(sched)
+    print("peak device memory: " + ("n/a on cpu" if peak is None else
+                                    f"{peak / 2**30:.3f} GiB allocated"))
     print(f"steady state: {replans} plan resolutions (model plans: "
           f"{len(model.plan_book)}), {captures} decode captures and "
           f"{prefills} prefill builds; TT launches {launches} (counted "
@@ -295,7 +329,163 @@ def simulate(model, params, args) -> dict:
     """The arrival mode: a warm-up request, then the timed arrivals."""
     sched, warm = arrival_scheduler(model, params, args)
     print(f"warm-up request: {warm:.3f}s (excluded below)")
-    return dict(arrivals(sched, args), warmup_s=warm)
+    return dict(arrivals(sched, args), warmup_s=warm, sched=sched)
+
+
+# --prefix-smoke: each prompt's own tokens after the shared prefix
+PREFIX_TAIL = 16
+
+
+def forced_logits(model, params, tokens: torch.Tensor,
+                  forced: np.ndarray, T: int) -> torch.Tensor:
+    """``generate_fixed``'s logits [n, V] (fp32) for the one prompt ``tokens
+    [1, S]`` over a cache of ``T``, fed the ``n`` tokens ``forced`` (picked
+    by another path) in place of its own greedy picks: the prefill's, then
+    each decode step's, through the same entries (the prefill at the
+    prompt's length and, on a card, the fixed-batch decode graph of one
+    row)."""
+    S = int(tokens.shape[1])
+    logits, cache = model.padded_prefill(params, tokens, S, T)
+    out = [logits[0, -1].clone()]
+    step = None
+    if model.device.type == "cuda":
+        step = model.graphed_decode_step(1, T)
+        step.load(params, cache, S)
+    for tok in forced[:-1]:
+        tok = torch.tensor([[int(tok)]], device=model.device)
+        if step is not None:
+            logits = step(tok)
+        else:
+            logits, cache = model.decode_step(params, cache, tok)
+        out.append(logits[0, -1].clone())
+    return torch.stack(out)
+
+
+def check_greedy(model, params, prompt: torch.Tensor, got, T: int) -> dict:
+    """Hold a served request's greedy tokens and logprobs (``got``, a
+    ``FinishedRequest``) against ``generate_fixed`` of its prompt alone.
+    The tokens must be ``generate_fixed``'s whenever its top-1/top-2 logit
+    gap exceeds the tolerance at every step; along the served tokens (fed
+    to ``generate_fixed``'s arithmetic, ``forced_logits``) every pick must
+    be within the tolerance of that step's top logit and every logprob
+    within it of that step's.  The tolerance is the repo's: 1e-4 with fp32
+    parameters, 2e-2 × the largest |logit| with bf16 ones (whose logits
+    are bf16 values and tie exactly, so another batch shape may pick the
+    other of two tied tokens).  Returns the tokens' identity, the smallest
+    gap, the largest slack of a pick and logprob difference, and the
+    tolerance."""
+    toks = np.asarray(got.tokens)
+    ref = generate_fixed(model, params, {"tokens": prompt, "cache_len": T},
+                         len(toks)).tokens.cpu().numpy()[0]
+    lg = forced_logits(model, params, prompt, toks, T).float()
+    tol = (1e-4 if model.param_dtype == torch.float32
+           else 2e-2 * float(lg.abs().max()))
+    pick = torch.from_numpy(toks).to(lg.device)[:, None]
+    top2 = lg.topk(2, -1).values
+    slack = float((top2[:, 0] - lg.gather(-1, pick)[:, 0]).max())
+    lp = torch.log_softmax(lg, -1).gather(-1, pick)[:, 0].cpu().numpy()
+    out = dict(identical=bool(np.array_equal(toks, ref)),
+               gap=float((top2[:, 0] - top2[:, 1]).min()), slack=slack,
+               logprob_diff=float(np.abs(lp - got.logprobs).max()), tol=tol)
+    if slack > tol or out["logprob_diff"] > tol or (
+            out["gap"] > tol and not out["identical"]):
+        raise AssertionError(f"request {got.uid}: tokens {toks.tolist()} "
+                             f"against generate_fixed's {ref.tolist()}: {out}")
+    return out
+
+
+def prefix_prompts(vocab: int, prefix_len: int, seed: int
+                   ) -> list[torch.Tensor]:
+    """The prefix smoke's two prompts [1, prefix_len + PREFIX_TAIL]: one
+    prefix and two tails, drawn by a numpy generator seeded with
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, (1, prefix_len), dtype=np.int64)
+    return [torch.from_numpy(np.concatenate(
+        [prefix, rng.integers(0, vocab, (1, PREFIX_TAIL), dtype=np.int64)],
+        1)) for _ in range(2)]
+
+
+def prefix_smoke(model, params, args) -> dict:
+    """The prefix-reuse check (``--prefix-smoke --paged``): a paged
+    scheduler over ``--prefix-len`` + ``PREFIX_TAIL`` + ``--steps``
+    positions serves two requests whose prompts share a
+    ``--prefix-len``-token prefix (the first decodes one step before the
+    second arrives), then, after both retired, the first prompt again.
+    The second admission must share every full block of the prefix and
+    skip its prefill; the third must cover its whole prompt, copy its last
+    block on write (a block the first request did not hold) and recompute
+    one token; every request's greedy tokens and logprobs are held against
+    ``generate_fixed``'s for its prompt alone (``check_greedy``); no block
+    may leak.  Prompts are drawn by numpy from ``--seed``."""
+    P, steps = args.prefix_len, args.steps
+    S = P + PREFIX_TAIL
+    cache_len = S + steps
+    prompts = prefix_prompts(model.cfg.vocab_size, P, args.seed)
+    prompts.append(prompts[0])
+    sched = make_scheduler(model, params, args, cache_len)
+    if not sched.paged or not sched.prefix_cache:
+        raise SystemExit("--prefix-smoke needs --paged and a model whose "
+                         "prefix blocks can be shared")
+    blk = sched.block
+    admit_ms, blocks, counters, out = [], [], [], {}
+    for uid, toks in enumerate(prompts):
+        if uid == 2:                      # after both retired
+            out.update(sched.run())
+        t0 = time.perf_counter()
+        sched.submit(Request(uid=uid, inputs={"tokens": toks},
+                             max_new_tokens=steps))
+        sched.step()                      # the admission and a decode step
+        _sync(model.device)
+        admit_ms.append((time.perf_counter() - t0) * 1e3)
+        slot = next(i for i, s in enumerate(sched.slots)
+                    if s is not None and s.uid == uid)
+        blocks.append(list(sched._slot_blocks[slot]))
+        st = sched.stats()
+        counters.append((st["prefix_hit_tokens"],
+                         st["prefill_tokens_skipped"]))
+    out.update(sched.run())
+    for f in sched.finished:
+        out[f.uid] = f
+    sched.allocator.assert_quiescent()
+    hits = [counters[0]] + [tuple(b - a for a, b in zip(counters[i - 1],
+                                                         counters[i]))
+                            for i in (1, 2)]
+    shared = [sum(a == b for a, b in zip(blocks[0], blocks[i]))
+              for i in (1, 2)]
+    cow = blocks[2][S // blk - 1] not in blocks[0]
+    print(f"arch={model.cfg.name} prefix={P} tail={PREFIX_TAIL} block={blk} "
+          f"cache={cache_len} device={model.device}")
+    print(f"admission + first step wall ms: {admit_ms[0]:.1f} (full prompt), "
+          f"{admit_ms[1]:.1f} (prefix hit; on a card the resume's capture), "
+          f"{admit_ms[2]:.1f} (full cover)")
+    print(f"second admission: {shared[0]} shared blocks, {hits[1][1]} prefill "
+          f"tokens skipped; resubmission: {hits[2][0]} tokens covered, "
+          f"{hits[2][1]} skipped, last prompt block copied on write: {cow}")
+    print_pool_stats(sched)
+    full = S % blk == 0                   # the whole prompt in full blocks
+    want = {"shared": (P // blk, shared[0]),
+            "skipped": (P // blk * blk, hits[1][1]),
+            "resubmission (hit, skipped)": (
+                (S, S - 1) if full else (S // blk * blk,) * 2, hits[2]),
+            "first admission (hit, skipped)": ((0, 0), hits[0]),
+            "copied on write": (full, cow)}
+    bad = {k: v for k, v in want.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"prefix reuse: (expected, got) {bad}")
+    greedy = {u: check_greedy(model, params, prompts[u].to(model.device),
+                              out[u], cache_len) for u in range(3)}
+    for u, g in greedy.items():
+        print(f"request {u}: greedy tokens "
+              f"{'identical to' if g['identical'] else 'NOT'} generate_fixed's"
+              f"{'' if g['identical'] else ' (a tie within the tolerance)'}; "
+              f"picks within {g['slack']:.3g} of its top logit, logprobs "
+              f"within {g['logprob_diff']:.3g} (tol {g['tol']:.3g}); "
+              f"smallest top-1/top-2 gap {g['gap']:.4g}")
+    return {"sched": sched, "finished": out, "blocks": blocks,
+            "shared_blocks": shared[0], "hits": hits, "cow": cow,
+            "admit_ms": admit_ms, "greedy": greedy,
+            "prompts": prompts, **sched.stats()}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -327,6 +517,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--slots", type=int, default=None,
                     help="scheduler slots (default: --batch)")
     ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the block-paged KV pool (arrival mode "
+                         "and --prefix-smoke)")
+    ap.add_argument("--block-size", type=int, default=64,
+                    help="tokens per KV block (--paged)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="KV blocks of the paged pool (default: every "
+                         "slot's whole length)")
+    ap.add_argument("--prefix-smoke", action="store_true",
+                    help="prefix-reuse check: two prompts sharing a "
+                         "--prefix-len prefix, then the first again "
+                         "(needs --paged)")
+    ap.add_argument("--prefix-len", type=int, default=128)
     ap.add_argument("--assert-no-replan", action="store_true",
                     help="fail on a TT plan resolution or a capture (decode "
                          "or prefill) in the arrival mode's steady state")
@@ -354,6 +557,8 @@ def setup(args):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     model, params = setup(args)
+    if args.prefix_smoke:
+        return prefix_smoke(model, params, args)
     if args.arrival_rate:
         return simulate(model, params, args)
     return fixed(model, params, args)

@@ -5,9 +5,15 @@ technique applies to q/k/v/o ("attn" family).  Scores and the softmax are
 fp32, as in ``repro.models.attention``.
 
 Cache contract: k, v [B, S_max, KV, hd]; decode writes the new position
-in place, at a position held on the device.
+in place, at a position held on the device.  The block-paged pool
+(DESIGN.md §7) holds one arena per layer and leaf, [num_blocks + 1, block,
+KV, hd], addressed through per-slot block tables; its last block is the
+write sentinel.  The paged decode and the resume prefill gather the
+logical cache ``arena[table]`` and run the dense pool's arithmetic on it.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -100,3 +106,135 @@ def gqa_decode_attn(p, cfg: ModelConfig, x, cache_k, cache_v,
     ctx = _gqa_scores_ctx(q, cache_k, cache_v, valid,
                           1.0 / np.sqrt(cfg.head_dim))
     return linear_apply(p["o"], ctx, backend), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Paged decode: block-table gather/scatter against a block arena
+# ---------------------------------------------------------------------------
+#
+# Logical token t of slot b lives at (bt[b, t // block], t % block); the
+# last arena block is the write sentinel: inactive slots write there, so a
+# retired slot's stale table never touches storage another request reuses.
+# What the layers read of the tables is computed once per step
+# (``paged_index``): in a captured step each op is a node of the graph.
+
+class PagedIndex(NamedTuple):
+    """What every layer's paged decode reads of the block tables, the same
+    for all layers of a step (``paged_index``): the gather index ``table``
+    [B, max_blocks] int64, each row's write address ``write`` = (block,
+    offset) [B] int64, and the attention mask ``valid`` [B,1,1,1,T]."""
+    table: torch.Tensor
+    write: tuple[torch.Tensor, torch.Tensor]
+    valid: torch.Tensor
+
+
+def paged_index(bt, pos: torch.Tensor, active: torch.Tensor, block: int,
+                sentinel: int) -> PagedIndex:
+    """The ``PagedIndex`` of one decode step: bt [B, max_blocks] int32, pos
+    [B] int32, active [B] bool, on the cache's device.  An active row
+    writes at (bt[b, pos // block], pos % block), an inactive one into the
+    ``sentinel`` block (whatever its position: a row parked past its table
+    clamps to its last entry first); every row attends to its logical
+    positions ≤ pos.  Computed once per step and read by every layer: the
+    reference computes it in each layer, to the same values."""
+    mb = bt.shape[1]
+    table = bt.long()
+    col = torch.clamp(pos // block, max=mb - 1).long()
+    phys = torch.where(active, table.gather(1, col[:, None])[:, 0], sentinel)
+    idx = torch.arange(mb * block, device=bt.device)
+    valid = (idx[None, :] <= pos[:, None])[:, None, None, None, :]
+    return PagedIndex(table, (phys, (pos % block).long()), valid)
+
+
+def gqa_decode_attn_paged(p, cfg: ModelConfig, x, arena_k, arena_v,
+                          pos: torch.Tensor, index: PagedIndex, *,
+                          backend="einsum"):
+    """One-token decode against a block-paged cache (full attention).
+
+    x [B,1,d]; arena_k/v [nb+1, block, KV, hd]; pos [B] int32 on the
+    cache's device; ``index`` the step's ``paged_index`` of the block
+    tables.  Each row's new k/v go to its write address (an inactive row's
+    to the sentinel block), IN PLACE (the reference returns updated
+    arenas); every row then attends over its gathered logical cache
+    ``arena[table[b]]`` [max_blocks · block] with the dense pool's mask and
+    arithmetic.  Nothing is read on the host, so the step can be captured.
+    Returns (y [B,1,d], arena_k, arena_v)."""
+    B = x.shape[0]
+    KV, hd = arena_k.shape[2:]
+    q, k, v = _qkv(p, cfg, x, pos[:, None], backend)
+    arena_k.index_put_(index.write, k[:, 0])
+    arena_v.index_put_(index.write, v[:, 0])
+    gk = arena_k[index.table].reshape(B, -1, KV, hd)
+    gv = arena_v[index.table].reshape(B, -1, KV, hd)
+    ctx = _gqa_scores_ctx(q, gk, gv, index.valid,
+                          1.0 / np.sqrt(cfg.head_dim))
+    return linear_apply(p["o"], ctx, backend), arena_k, arena_v
+
+
+# ---------------------------------------------------------------------------
+# Resume prefill: suffix attention over gathered prefix blocks (COW write)
+# ---------------------------------------------------------------------------
+#
+# The prefix-reuse admission: the logical cache is gathered densely through
+# the *source* table, the suffix k/v are written into that buffer at their
+# absolute positions, and the buffer is scattered back through the
+# *destination* table.  A destination entry that differs from its source
+# entry IS the copy-on-write: content flows old block → dense buffer → new
+# block, with the overwritten rows replaced in between.  Identical entries
+# rewrite shared blocks with the bits they hold.
+
+def _resume_dense(arena, src_b, S_pad: int):
+    """The logical cache [1, max_blocks · block + S_pad, ...] gathered
+    through ``src_b`` [max_blocks], with ``S_pad`` scratch rows appended so
+    the suffix's write at ``start`` < max_blocks · block stays in range."""
+    mb, blk = src_b.shape[0], arena.shape[1]
+    dense = arena[src_b].reshape(1, mb * blk, *arena.shape[2:])
+    pad = torch.zeros((1, S_pad, *arena.shape[2:]), dtype=arena.dtype,
+                      device=arena.device)
+    return torch.cat([dense, pad], 1)
+
+
+def _resume_scatter(arena, dst_b, dense) -> None:
+    """Scatter the first max_blocks · block rows of ``dense`` back through
+    ``dst_b`` IN PLACE (sentinel-padded entries collapse onto the scratch
+    block)."""
+    mb, blk = dst_b.shape[0], arena.shape[1]
+    blocks = dense[0, :mb * blk].reshape(mb, blk, *arena.shape[2:])
+    arena.index_put_((dst_b.long(),), blocks.to(arena.dtype))
+
+
+def gqa_chunk_attn(p, cfg: ModelConfig, x, dk, dv, start: torch.Tensor, *,
+                   backend="einsum"):
+    """Chunk or suffix prefill against a *dense logical* cache buffer.
+
+    x [1, S_pad, d] at absolute positions start + t (``start`` a 0-d int32
+    tensor on the device); dk/dv [1, T + S_pad, KV, hd], the logical cache
+    with S_pad scratch rows.  Writes the chunk's k/v at their absolute
+    positions (in place) and attends causally to prefix + itself.  Full
+    attention only.  Returns (y, dk, dv)."""
+    S_pad = x.shape[1]
+    positions = start + torch.arange(S_pad, dtype=torch.int32,
+                                     device=x.device)[None, :]  # [1, S_pad]
+    q, k, v = _qkv(p, cfg, x, positions, backend)
+    rows = positions[0].long()
+    dk.index_copy_(1, rows, k.to(dk.dtype))
+    dv.index_copy_(1, rows, v.to(dv.dtype))
+    j = torch.arange(dk.shape[1], device=x.device)[None, None, :]   # [1,1,T]
+    mask = (j <= positions[:, :, None])[:, None, None]    # [1,1,1,S,T]
+    ctx = _gqa_scores_ctx(q, dk, dv, mask, 1.0 / np.sqrt(cfg.head_dim))
+    return linear_apply(p["o"], ctx, backend), dk, dv
+
+
+def gqa_resume_attn(p, cfg: ModelConfig, x, arena_k, arena_v, src_b, dst_b,
+                    start: torch.Tensor, *, backend="einsum"):
+    """Suffix prefill (x [1, S_pad, d] at absolute positions start + t)
+    attending to the prefix gathered through ``src_b`` and to itself; the
+    updated logical cache goes back into the arenas through ``dst_b``, IN
+    PLACE.  Full attention only.  Returns (y, arena_k, arena_v)."""
+    S_pad = x.shape[1]
+    dk = _resume_dense(arena_k, src_b, S_pad)
+    dv = _resume_dense(arena_v, src_b, S_pad)
+    y, dk, dv = gqa_chunk_attn(p, cfg, x, dk, dv, start, backend=backend)
+    _resume_scatter(arena_k, dst_b, dk)
+    _resume_scatter(arena_v, dst_b, dv)
+    return y, arena_k, arena_v

@@ -12,6 +12,13 @@ so a replay is one launch from the host, and the position moves on the
 device.  The step is the eager one, op for op, so a replay gives the eager
 step's logits bit for bit.
 
+A slot-pool decode graph may be block-paged (``paged`` = (num_blocks,
+block)): its static cache is then the paged pool (per-layer arenas,
+``block_tables`` and ``pos``), captured over a zeroed pool whose tables
+are all the sentinel, so the warm-up writes only into the sentinel block.
+Such a graph also keeps one :class:`ResumeGraph` per suffix bucket, the
+prefix-reuse admission captured on the same pool.
+
 A :class:`PrefillGraph` belongs to one model and one (batch, padded
 prompt length, cache length).  Its static buffers are the tokens [B,S],
 the true prompt length (0-d int32), the logits [B,1,V] and an output cache
@@ -20,12 +27,12 @@ share; its temporaries live in one memory pool shared by every prefill
 graph of the model (no output lives there, and one replays at a time).
 
 Capture happens at a graph's first use (a decode graph's first ``load``
-or ``bind``, a prefill graph's first call), and again when ``params`` is
-another tree: the work first runs once eagerly on a side stream with the
-same shapes (this builds the kernel library, fills the launch-geometry
-memos and the chain's address tables, and opts each kernel into its
-shared memory), then it is captured.  A capture or a replay that fails
-raises; nothing falls back to eager work.
+or ``bind``, a prefill or resume graph's first call), and again when
+``params`` is another tree: the work first runs once eagerly on a side
+stream with the same shapes (this builds the kernel library, fills the
+launch-geometry memos and the chain's address tables, and opts each
+kernel into its shared memory), then it is captured.  A capture or a
+replay that fails raises; nothing falls back to eager work.
 
 Kernel wrappers do not run on replay: the TT launches a capture recorded
 (``tt_contract.CAPTURE_COUNTS``) are kept per graph and added to the
@@ -82,6 +89,15 @@ def _capture(model: "Model", run, what: str, pool=None
     return graph, out, captured
 
 
+def _prefill_pool(model: "Model"):
+    """The memory pool of the temporaries of the model's captured prefills
+    and resumes, made at the first capture: nothing that outlives a replay
+    lives there, and one of them replays at a time."""
+    if model.prefill_pool is None:
+        model.prefill_pool = torch.cuda.graph_pool_handle()
+    return model.prefill_pool
+
+
 class DecodeGraph:
     """The decode step of ``model`` for ``B`` rows over a cache of ``T``
     positions, captured once and replayed at every position.
@@ -99,15 +115,28 @@ class DecodeGraph:
     row into the pool between replays; ``graph(token, active)`` decodes
     one token for the active rows and leaves the others as they were.
 
+    Paged slot-pool mode (``paged`` = (num_blocks, block)): the pool is
+    block-paged; ``splice_paged(row_cache, slot, prompt_len, table)``
+    scatters an admitted row into its blocks, and ``resume(...)`` replays
+    the captured prefix-reuse admission of the suffix's bucket
+    (:class:`ResumeGraph`, dropped at a recapture).
+
     A host mirror of the position (an int, or a numpy [B]) refuses a
     replay outside the cache before it runs.
     """
 
-    def __init__(self, model: "Model", B: int, T: int, masked: bool = False):
+    def __init__(self, model: "Model", B: int, T: int, masked: bool = False,
+                 paged: tuple[int, int] | None = None):
         if model.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA model, not "
                              f"{model.device}: decode eagerly on the CPU")
+        if paged is not None and (not masked or T % paged[1]):
+            raise ValueError(f"a paged pool is a slot pool over whole blocks "
+                             f"(masked, T={T}, block={paged[1]})")
         self.model, self.B, self.T, self.masked = model, B, T, masked
+        self.paged = paged
+        # the captured resume prefills of a paged pool, by suffix bucket
+        self.resumes: dict[int, ResumeGraph] = {}
         self.graph: torch.cuda.CUDAGraph | None = None
         # the captured step reads these parameters' memory at every replay,
         # so the graph keeps them alive
@@ -138,6 +167,7 @@ class DecodeGraph:
         ``active`` is all False, so the warm-up writes no k/v and advances
         no position."""
         self.graph = self.logits = None
+        self.resumes.clear()            # they address the pool replaced here
         self.params, self.cache = params, cache
         try:
             graph, logits, self.captured = _capture(
@@ -183,18 +213,58 @@ class DecodeGraph:
                 f"the decode graph of {self.B} slots over {self.T} positions "
                 f"is held by a scheduler with {held.num_active} active rows")
         if self.graph is None or params is not self.params:
-            self._capture(params, self.model.init_cache(self.B, self.T,
-                                                        per_row=True))
+            if self.paged is None:
+                pool = self.model.init_cache(self.B, self.T, per_row=True)
+            else:
+                num_blocks, block = self.paged
+                pool = self.model.init_cache(self.B, self.T, paged=True,
+                                             num_blocks=num_blocks,
+                                             block=block)
+            self._capture(params, pool)
             self.pos[:] = 0
         self.owner = weakref.ref(owner)
 
     def splice(self, row_cache: dict, slot: int, prompt_len: int) -> None:
         """Write a one-row prefill cache at ``prompt_len`` into row ``slot``
         of the pool (``Model.splice_cache``), between replays."""
-        if self.graph is None:
-            raise RuntimeError("bind the graph before splicing into it")
+        if self.graph is None or self.paged is not None:
+            raise RuntimeError("bind the dense slot-pool graph before "
+                               "splicing into it")
         self.model.splice_cache(self.cache, row_cache, slot)
         self.pos[slot] = prompt_len
+
+    def splice_paged(self, row_cache: dict, slot: int, prompt_len: int,
+                     table: torch.Tensor) -> None:
+        """Scatter a one-row prefill cache at ``prompt_len`` into the arena
+        blocks of ``table`` [max_blocks] int32 and make it row ``slot``'s
+        table (``Model.splice_cache_paged``), between replays."""
+        if self.graph is None or self.paged is None:
+            raise RuntimeError("bind the paged slot-pool graph before "
+                               "splicing into it")
+        self.model.splice_cache_paged(self.cache, row_cache, slot, table)
+        self.pos[slot] = prompt_len
+
+    def resume(self, tokens: torch.Tensor, slot: int, src: torch.Tensor,
+               dst: torch.Tensor, start: int, true_suf: int) -> torch.Tensor:
+        """The prefix-reuse admission of row ``slot`` (``Model.
+        prefill_resume``) as a replay of the resume captured for the
+        padded suffix ``tokens [1, S_pad]`` on this graph's pool (captured
+        at its bucket's first call), between decode replays; returns its
+        static logits [1,1,V]."""
+        if self.graph is None or self.paged is None:
+            raise RuntimeError("bind the paged slot-pool graph before "
+                               "resuming into it")
+        if not 0 <= slot < self.B or not 0 < true_suf <= tokens.shape[1] or \
+                not 0 <= start < start + true_suf <= self.T:
+            raise ValueError(f"resume of {true_suf} tokens from {start} into "
+                             f"slot {slot} of {self.B} over {self.T}")
+        S_pad = int(tokens.shape[1])
+        graph = self.resumes.get(S_pad)
+        if graph is None:
+            graph = self.resumes[S_pad] = ResumeGraph(self, S_pad)
+        logits = graph(tokens, slot, src, dst, start, true_suf)
+        self.pos[slot] = start + true_suf
+        return logits
 
     def __call__(self, token: torch.Tensor,
                  active: np.ndarray | None = None) -> torch.Tensor:
@@ -267,14 +337,12 @@ class PrefillGraph:
 
     def _capture(self, params) -> None:
         model = self.model
-        if model.prefill_pool is None:
-            model.prefill_pool = torch.cuda.graph_pool_handle()
         self.graph, self.params = None, params
         try:
             self.graph, _, self.captured = _capture(
                 model, self._prefill, f"the prefill of {self.B} rows of "
                 f"{self.S} tokens into a cache of {self.T}",
-                model.prefill_pool)
+                _prefill_pool(model))
         except RuntimeError:
             self.params = None
             raise
@@ -297,3 +365,71 @@ class PrefillGraph:
         self.graph.replay()
         self.model.replayed_launches.update(self.captured)
         return self.logits, self.cache
+
+
+class ResumeGraph:
+    """``Model.prefill_resume`` of a suffix right-padded to ``S`` tokens on
+    the pool of the paged slot-pool ``DecodeGraph`` ``decode``, captured
+    once (with the decode graph's parameters) and replayed for every
+    prefix hit whose suffix falls in that bucket (``DecodeGraph.resume``).
+
+    Its static inputs are the suffix tokens [1, S], the slot, the source
+    and destination tables [max_blocks] and ``start``/``true_suf`` (0-d
+    int32); a replay writes the arenas, ``pos[slot]`` and
+    ``block_tables[slot]`` on the device and the logits [1,1,V] of
+    position start + true_suf - 1 into a static buffer.  The warm-up and
+    the capture run with both tables all sentinel and the slot outside
+    the pool, so they touch no live row while other slots decode; the
+    first replay does the first real work.  Temporaries live in the
+    model's prefill pool (one prefill or resume replays at a time)."""
+
+    def __init__(self, decode: DecodeGraph, S: int):
+        model, dev = decode.model, decode.model.device
+        self.decode, self.model, self.S = decode, model, S
+        num_blocks = decode.paged[0]
+        mb = decode.cache["block_tables"].shape[1]
+        self.tokens = torch.zeros((1, S), dtype=torch.int64, device=dev)
+        self.slot = torch.full((), decode.B, dtype=torch.int32, device=dev)
+        self.src = torch.full((mb,), num_blocks, dtype=torch.int32,
+                              device=dev)
+        self.dst = torch.full((mb,), num_blocks, dtype=torch.int32,
+                              device=dev)
+        self.start = torch.zeros((), dtype=torch.int32, device=dev)
+        self.true_suf = torch.ones((), dtype=torch.int32, device=dev)
+        self.logits = torch.empty((1, 1, model.cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        # TT launches one replay makes, by kernel name
+        self.captured: dict[str, int] = {}
+
+    def _resume(self) -> None:
+        logits, _ = self.model.prefill_resume(
+            self.decode.params, self.tokens, self.decode.cache, self.slot,
+            self.src, self.dst, self.start, self.true_suf)
+        self.logits.copy_(logits)
+
+    def _capture(self) -> None:
+        model = self.model
+        self.graph, _, self.captured = _capture(
+            model, self._resume, f"the resume prefill of {self.S} tokens "
+            f"into the paged pool of {self.decode.B} slots over "
+            f"{self.decode.T}", _prefill_pool(model))
+        model.prefill_builds += 1
+
+    def __call__(self, tokens: torch.Tensor, slot: int, src: torch.Tensor,
+                 dst: torch.Tensor, start: int, true_suf: int
+                 ) -> torch.Tensor:
+        if tuple(tokens.shape) != (1, self.S):
+            raise ValueError(f"tokens {tuple(tokens.shape)} for the resume "
+                             f"graph of 1 row of {self.S}")
+        if self.graph is None:
+            self._capture()
+        self.tokens.copy_(tokens)
+        self.slot.fill_(slot)
+        self.src.copy_(src)
+        self.dst.copy_(dst)
+        self.start.fill_(start)
+        self.true_suf.fill_(true_suf)
+        self.graph.replay()
+        self.model.replayed_launches.update(self.captured)
+        return self.logits

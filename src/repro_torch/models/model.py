@@ -2,7 +2,10 @@
 a prompt-length bucket, or captured: ``padded_prefill``,
 ``bucketed_prefill``, ``graphed_prefill``), ``decode_step``,
 ``splice_cache``, ``graphed_decode_step``, ``init_cache`` and
-``quantize_params`` for the dense decoder.
+``quantize_params`` for the dense decoder; and for the block-paged pool
+(DESIGN.md §7), ``init_cache(..., paged=True)``, ``splice_cache_paged``
+and the prefix-reuse admission ``prefill_resume`` (``resume_prefill``
+buckets it and, on a card, replays it captured).
 
 Parameters are a dict tree of tensors: ``embed``, ``final_norm``,
 ``lm_head`` and one list per layer group ``g{gi}`` holding a dict
@@ -19,11 +22,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.plan import PlanBook
+from .attention import paged_index
 from .graph import DecodeGraph, PrefillGraph
 from .layers import (embed_apply, embed_spec, linear_apply, linear_spec,
                      quantize_tt_params, rmsnorm_apply, rmsnorm_spec)
-from .spec import init_tree, tree_leaves
-from .transformer import Group, group_decode, group_fwd, group_spec
+from .spec import init_tree, map_tree, tree_leaves
+from .transformer import (Group, block_cache_kinds, block_paged_cache_shape,
+                          group_decode, group_fwd, group_resume, group_spec)
 
 
 # captured decode steps a model keeps, and captured prefills (the
@@ -229,15 +234,31 @@ class Model:
         and their position does not advance; without it every row advances
         by one.  The position advances on the device, and the KV tensors of
         ``cache`` are updated in place: the step reads no device value on
-        the host, so it can be captured (``graphed_decode_step``)."""
+        the host, so it can be captured (``graphed_decode_step``).
+
+        A cache carrying ``block_tables`` is the block-paged pool
+        (``init_cache(..., paged=True)``): k/v are arenas addressed through
+        each row's table, and an inactive row writes to the sentinel block,
+        so a retired slot's stale table never touches storage a later
+        request reuses."""
         pos = cache["pos"]
+        bt = cache.get("block_tables")
         x = embed_apply(params["embed"], token.to(self.device))
         new_cache: dict = {"pos": pos + (1 if active is None
                                          else active.to(pos.dtype))}
+        paged = None
+        if bt is not None:
+            new_cache["block_tables"] = bt
+            arena = _kv_leaves(cache)[0]
+            paged = paged_index(
+                bt, pos, torch.ones(pos.shape, dtype=torch.bool,
+                                    device=pos.device)
+                if active is None else active, arena.shape[1],
+                arena.shape[0] - 1)
         for gi, g in enumerate(self.groups):
             x, new_cache[f"g{gi}"] = group_decode(
                 params[f"g{gi}"], g, self.cfg, x, cache[f"g{gi}"], pos,
-                plans=self.plan_book, active=active)
+                plans=self.plan_book, paged=paged, active=active)
         return self._logits(params, x), new_cache
 
     @torch.no_grad()
@@ -260,14 +281,148 @@ class Model:
             dst[slot].copy_(src[0])
         cache["pos"][slot].copy_(row_cache["pos"])
 
+    @torch.no_grad()
+    def splice_cache_paged(self, cache: dict, row_cache: dict, slot: int,
+                           blocks: torch.Tensor) -> None:
+        """Paged twin of ``splice_cache``: scatter a one-row dense prefill
+        cache (at the pool's logical cache length) into the arena blocks
+        named by ``blocks`` [max_blocks] int32 (the slot's full table row,
+        sentinel-padded past its allocation: the rows scattered there
+        collapse onto the scratch block), and set row ``slot``'s table and
+        position, IN PLACE (the reference returns an updated copy)."""
+        bt = cache["block_tables"]
+        if cache["pos"].dim() != 1 or tuple(blocks.shape) != bt.shape[1:]:
+            raise ValueError(f"splice_cache_paged takes a table row of "
+                             f"{bt.shape[1]} blocks into a paged pool")
+        idx = blocks.to(device=bt.device, dtype=torch.long)
+        for arena, row in zip(_kv_leaves(cache), _kv_leaves(row_cache)):
+            blk = arena.shape[1]
+            r = row[0]                                # [T_row, KV, hd]
+            nblk = -(-r.shape[0] // blk)
+            if nblk * blk != r.shape[0]:
+                r = F.pad(r, (0, 0, 0, 0, 0, nblk * blk - r.shape[0]))
+            arena.index_put_((idx[:nblk],),
+                             r.reshape(nblk, blk, *r.shape[1:]).to(
+                                 arena.dtype))
+        cache["pos"][slot].copy_(row_cache["pos"])
+        bt[slot].copy_(idx)
+
+    @torch.no_grad()
+    def prefill_resume(self, params, tokens: torch.Tensor, cache: dict, slot,
+                       src_blocks, dst_blocks, start, true_suf
+                       ) -> tuple[torch.Tensor, dict]:
+        """Prefix-reuse admission (DESIGN.md §7): prefill only the suffix
+        ``tokens [1, S_pad]`` (right-padded, ``true_suf`` real) from the
+        absolute position ``start``; the covered prefix is gathered from
+        the resident arena blocks through ``src_blocks`` [max_blocks] and
+        never recomputed, and the updated logical cache is scattered back
+        through ``dst_blocks`` (an entry that differs from ``src_blocks`` is
+        a copy-on-write block).  Row ``slot`` of the pool gets position
+        start + true_suf and table ``dst_blocks``.  The pool ``cache`` is
+        updated IN PLACE.  ``slot``, ``start`` and ``true_suf`` are ints or
+        0-d integer tensors on the device, the tables int32 tensors there:
+        with tensors nothing is read on the host, so the resume can be
+        captured (``models.graph.ResumeGraph``); a ``slot`` outside the pool
+        updates no row's position or table.  Returns (logits [1,1,V] fp32
+        of position start + true_suf - 1, cache)."""
+        dev = self.device
+
+        def index(v):
+            return torch.as_tensor(v, dtype=torch.int32, device=dev)
+
+        slot, start, true_suf = index(slot), index(start), index(true_suf)
+        src, dst = index(src_blocks), index(dst_blocks)
+        x = embed_apply(params["embed"], tokens.to(dev))
+        for gi, g in enumerate(self.groups):
+            x, cache[f"g{gi}"] = group_resume(
+                params[f"g{gi}"], g, self.cfg, x, cache[f"g{gi}"], src, dst,
+                start, plans=self.plan_book)
+        pos, bt = cache["pos"], cache["block_tables"]
+        row = torch.arange(pos.shape[0], device=dev) == slot
+        pos.copy_(torch.where(row, start + true_suf, pos))
+        bt.copy_(torch.where(row[:, None], dst[None, :], bt))
+        last = x.index_select(1, (true_suf - 1).reshape(1))
+        return self._logits(params, last), cache
+
+    def resume_prefill(self, params, cache: dict, tokens: torch.Tensor,
+                       slot: int, src_blocks: torch.Tensor,
+                       dst_blocks: torch.Tensor, start: int,
+                       graph: DecodeGraph | None = None) -> torch.Tensor:
+        """Host wrapper around ``prefill_resume`` with the suffix ``tokens
+        [1, S]`` right-padded to ``bucket_length(S, T)`` (T the pool's
+        logical length), the reference's ``jitted_prefill_resume``: one
+        entry per suffix bucket.  With ``graph`` (the bound paged slot-pool
+        ``DecodeGraph`` whose static cache is ``cache``), a replay of its
+        captured resume for the bucket (``DecodeGraph.resume``); otherwise
+        the eager resume, whose (bucket, T) key counts in
+        ``prefill_builds`` when it is new to the LRU of eager keys.
+        Returns the logits [1,1,V]; on a replay, the graph's static ones."""
+        S = int(tokens.shape[1])
+        T = cache["block_tables"].shape[1] * _kv_leaves(cache)[0].shape[1]
+        S_pad = bucket_length(S, T)
+        tokens = tokens.to(self.device)
+        if S_pad != S:
+            tokens = F.pad(tokens, (0, S_pad - S))
+        if graph is not None:
+            return graph.resume(tokens, slot, src_blocks, dst_blocks, start,
+                                S)
+        key = ("resume", S_pad, T)
+        if key not in self.eager_prefills:
+            self.prefill_builds += 1
+        _lru_put(self.eager_prefills, key, None)
+        return self.prefill_resume(params, tokens, cache, slot, src_blocks,
+                                   dst_blocks, start, S)[0]
+
+    @property
+    def supports_prefix_reuse(self) -> bool:
+        """Prefix blocks are shareable when every cache leaf is a pure
+        function of the token prefix and never overwritten in place: true
+        of full attention, the ported mixer (the reference also says no
+        for window rings, SSM state and frontends, not ported)."""
+        return all(kind == "paged" for period, _ in self.groups
+                   for bd in period for kind in block_cache_kinds(bd).values())
+
+    def paged_cache_shapes(self, num_slots: int, num_blocks: int,
+                           block: int, cache_len: int,
+                           dtype: torch.dtype | None = None) -> dict:
+        """(shape, dtype) tree of a block-paged pool (DESIGN.md §7): every
+        layer's k and v are arenas [num_blocks + 1, block, KV, hd] shared by
+        all slots through per-slot block tables; ``pos`` is [num_slots] and
+        ``block_tables`` [num_slots, ceil(cache_len / block)], both int32.
+        One arena per layer, in the per-layer list (the reference stacks
+        them [layers, ...])."""
+        dtype = self.param_dtype if dtype is None else dtype
+        max_blocks = -(-cache_len // block)
+        out: dict = {"pos": ((num_slots,), torch.int32),
+                     "block_tables": ((num_slots, max_blocks), torch.int32)}
+        for gi, (period, count) in enumerate(self.groups):
+            out[f"g{gi}"] = [
+                {f"b{i}": block_paged_cache_shape(self.cfg, bd, num_blocks,
+                                                  block, dtype)
+                 for i, bd in enumerate(period)} for _ in range(count)]
+        return out
+
     def init_cache(self, B: int, T: int, dtype: torch.dtype | None = None,
-                   per_row: bool = False) -> dict:
+                   per_row: bool = False, *, paged: bool = False,
+                   num_blocks: int | None = None, block: int = 64) -> dict:
         """Zeroed decode cache for ``B`` rows and ``T`` positions, k/v in
         ``dtype`` (default: the parameters', which is what ``prefill``
         writes).  ``per_row`` gives the scheduler's slot pool a position
-        per row ([B] int32); otherwise the position is 0-d."""
+        per row ([B] int32); otherwise the position is 0-d.  ``paged=True``
+        builds the block-paged pool of ``B`` slots instead
+        (``paged_cache_shapes``; ``num_blocks`` defaults to B ·
+        ceil(T / block)), its block tables filled with the sentinel id
+        ``num_blocks``."""
         cfg = self.cfg
         dtype = self.param_dtype if dtype is None else dtype
+        if paged:
+            if num_blocks is None:
+                num_blocks = B * -(-T // block)
+            shapes = self.paged_cache_shapes(B, num_blocks, block, T, dtype)
+            cache = map_tree(lambda sd: torch.zeros(
+                sd[0], dtype=sd[1], device=self.device), shapes)
+            cache["block_tables"].fill_(num_blocks)
+            return cache
         shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
         cache: dict = {"pos": torch.zeros((B,) if per_row else (),
                                           dtype=torch.int32,
@@ -281,20 +436,25 @@ class Model:
                 for _ in range(count)]
         return cache
 
-    def graphed_decode_step(self, B: int, T: int,
-                            masked: bool = False) -> DecodeGraph:
+    def graphed_decode_step(self, B: int, T: int, masked: bool = False,
+                            paged: tuple[int, int] | None = None
+                            ) -> DecodeGraph:
         """The decode step of a ``B``-row batch over a cache of ``T``
         positions as a CUDA graph (``models.graph.DecodeGraph``), made once
         per model and shape and kept for the ``GRAPH_CACHE_SIZE`` shapes
         used last, as the reference keeps its jitted steps.  ``masked``
         gives the scheduler's slot-pool step (a position and an ``active``
         flag per row), captured when a scheduler first binds it; otherwise
-        the fixed-batch step, captured at its first ``load``.  The two
-        never share an entry."""
-        key = (B, T, masked)
+        the fixed-batch step, captured at its first ``load``.  ``paged`` =
+        (num_blocks, block) makes the slot pool block-paged
+        (``init_cache(..., paged=True)``; masked only).  No two of these
+        share an entry."""
+        if paged is not None and not masked:
+            raise ValueError("a paged pool is the scheduler's: masked only")
+        key = (B, T, masked) if paged is None else (B, T, masked, paged)
         graph = self.decode_graphs.get(key)
         if graph is None:
-            graph = DecodeGraph(self, B, T, masked)
+            graph = DecodeGraph(self, B, T, masked, paged)
         _lru_put(self.decode_graphs, key, graph)
         return graph
 
@@ -311,5 +471,7 @@ def _lru_put(lru: collections.OrderedDict, key, value) -> list:
 
 
 def _kv_leaves(cache: dict) -> list[torch.Tensor]:
-    """A cache's k/v tensors in a fixed order (every leaf but ``pos``)."""
-    return tree_leaves({k: v for k, v in cache.items() if k != "pos"})
+    """A cache's k/v tensors (or arenas) in a fixed order (every leaf but
+    ``pos`` and ``block_tables``)."""
+    return tree_leaves({k: v for k, v in cache.items()
+                        if k not in ("pos", "block_tables")})

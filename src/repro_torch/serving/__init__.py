@@ -1,1 +1,2 @@
-"""Fixed-batch serving engine."""
+"""Serving: the engines, the continuous-batching scheduler and the paged
+KV pool's host side."""

@@ -23,7 +23,9 @@ class GenerateResult:
 def generate(model: Model, params, batch: dict, steps: int,
              temperature: float = 0.0,
              generator: torch.Generator | None = None,
-             top_k: int = 0) -> GenerateResult:
+             top_k: int = 0, paged: bool = False, block_size: int = 64,
+             num_blocks: int | None = None,
+             prefix_cache: bool = True) -> GenerateResult:
     """Decode ``steps`` tokens for every row of ``batch["tokens"] [B,S]``
     through the scheduler (``B`` slots; the first token comes from each
     row's prefill logits), as the reference's ``engine.generate``.  There
@@ -31,14 +33,19 @@ def generate(model: Model, params, batch: dict, steps: int,
     ``batch["cache_len"]`` defaults to S + ``steps``.  ``temperature`` and
     ``top_k`` become every row's sampling parameters; with ``generator``
     each row draws from a generator of its own seeded from it, without it
-    from the scheduler's default per-uid streams."""
+    from the scheduler's default per-uid streams.  ``paged=True`` serves
+    through the block-paged KV pool (``block_size``, ``num_blocks``,
+    ``prefix_cache`` as the ``Scheduler`` takes them), token for token
+    the dense pool's."""
     B, S = batch["tokens"].shape
     if steps <= 0:
         return GenerateResult(
             torch.zeros((B, 0), dtype=torch.int64, device=model.device),
             torch.zeros((B, 0), dtype=torch.float32, device=model.device))
     sched = Scheduler(model, params, num_slots=B,
-                      cache_len=batch.get("cache_len", S + steps))
+                      cache_len=batch.get("cache_len", S + steps),
+                      paged=paged, block_size=block_size,
+                      num_blocks=num_blocks, prefix_cache=prefix_cache)
     for req in make_requests(batch, max_new_tokens=steps,
                              generator=generator, temperature=temperature,
                              top_k=top_k):

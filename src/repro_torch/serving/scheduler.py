@@ -1,28 +1,44 @@
-"""Continuous batching over a pool of dense slots.
+"""Continuous batching over a pool of dense slots or of KV blocks.
 
-The dense-slot path of the reference's ``serving.scheduler``: one KV pool
+The dense-slot and block-paged paths of the reference's
+``serving.scheduler``.  Dense (the default): one KV pool
 (``Model.init_cache(num_slots, cache_len, per_row=True)``), in which every
 slot owns ``cache_len`` positions of every layer and a position of its own.
+Paged (``paged=True``, DESIGN.md §7): per-layer arenas of ``num_blocks``
+blocks of ``block_size`` positions (+ 1 write sentinel) shared by all
+slots through per-slot block tables (``Model.init_cache(..., paged=True)``),
+a ``serving.paging.BlockAllocator`` on the host, and admission by memory:
+a request is admitted when a slot is free AND its lifetime reservation
+(prompt + budget, in blocks) fits.  With ``prefix_cache`` (the default,
+for a model that ``supports_prefix_reuse``), the full blocks of a prompt
+are published under their chained content hash; a later prompt that
+shares them acquires them copy-on-write and prefills only its suffix
+(``Model.prefill_resume``), counted in ``prefill_tokens_skipped``.
 
 Lifecycle of a request:
 
   submit() ─→ queue ─→ admission into a free slot, best rank first
-  (``priority``, then submit time): a prefill of the prompt alone into a
-  cache of the pool's length, right-padded to its length bucket
+  (``priority``, then submit time; paged: when its blocks fit, else it
+  waits and no request jumps over it): a prefill of the prompt alone into
+  a cache of the pool's length, right-padded to its length bucket
   (``bucket_prompts``, the default; ``Model.bucketed_prefill``) or at its
-  own length, the first token picked from its logits, and a splice of the
-  row into the pool ─→ masked decode steps until EOS or the token budget
-  ─→ retirement frees the slot.
+  own length, and a splice of the row into the pool (paged: a scatter
+  into its blocks); or, paged on a prefix hit, a resume prefill of the
+  suffix into the pool; the first token picked from its logits ─→ masked
+  decode steps until EOS or the token budget ─→ retirement frees the slot
+  (and drops the slot's block references).
 
 On a CUDA model every admission prefill is one replay of a captured
 prefill (``Model.graphed_prefill(1, bucket or prompt length, cache_len)``,
-captured the first time its key is met), and every decode step one replay
-of the slot-pool CUDA graph ``Model.graphed_decode_step(num_slots,
-cache_len, masked=True)``, whose static cache is the pool; the splice is a
-device copy from the prefill graph's output cache into the pool, between
-replays.  On the CPU both are eager (``Model.decode_step`` with the
-``active`` mask).  ``graph=False`` asks for the eager prefill and step on
-the card, to hold the two against each other.
+captured the first time its key is met), every resume one replay of the
+resume captured for its suffix bucket (``DecodeGraph.resume``), and every
+decode step one replay of the slot-pool CUDA graph
+``Model.graphed_decode_step(num_slots, cache_len, masked=True, paged=...)``,
+whose static cache is the pool; the splice is a device copy (paged: a
+scatter) from the prefill graph's output cache into the pool, between
+replays.  On the CPU all are eager (``Model.decode_step`` with the
+``active`` mask).  ``graph=False`` asks for the eager prefill, resume and
+step on the card, to hold them against each other.
 
 Sampling parameters ride on the ``Request`` (``temperature``, ``top_k``).
 A sampled request draws from its own ``torch.Generator`` on the model's
@@ -30,9 +46,10 @@ device (``Request.key``, or one seeded from the scheduler's ``seed`` and
 the request's uid, the counterpart of ``fold_in(base_key, uid)``); greedy
 requests draw nothing.
 
-Not ported (ROADMAP.md Queue 1): paging and the prefix cache, chunked
-prefill, preemption, deadlines, resize, snapshots, the mesh and ``drop``.
-The constructor refuses their arguments.
+Not ported (ROADMAP.md Queue 1): chunked prefill, preemption, deadlines,
+resize, snapshots, the mesh and ``drop``.  The constructor refuses their
+arguments.  With equal priorities the reference never preempts, so the
+two agree at their defaults.
 """
 from __future__ import annotations
 
@@ -46,15 +63,14 @@ import torch
 from repro_torch.models.graph import DecodeGraph
 from repro_torch.models.model import Model
 from repro_torch.models.spec import tree_leaves
+from .paging import BlockAllocator, chain_hashes, logical_blocks
 
 NEG_INF = -1e30
 
 # the reference's Scheduler arguments this port leaves out, by the
 # ROADMAP.md Queue 1 item that brings them
-NOT_PORTED = {"paged": 3, "block_size": 3, "num_blocks": 3,
-              "prefix_cache": 3, "chunk_prefill": 4,
-              "chunk_size": 4, "prefill_budget": 4, "preempt": 6,
-              "clock": 6, "mesh": 10}
+NOT_PORTED = {"chunk_prefill": 4, "chunk_size": 4, "prefill_budget": 4,
+              "preempt": 6, "clock": 6, "mesh": 10}
 
 
 @dataclasses.dataclass
@@ -114,6 +130,8 @@ class Scheduler:
 
     def __init__(self, model: Model, params, num_slots: int, cache_len: int,
                  *, eos_id: int | None = None, seed: int = 0,
+                 paged: bool = False, block_size: int = 64,
+                 num_blocks: int | None = None, prefix_cache: bool = True,
                  bucket_prompts: bool = True, graph: bool = True,
                  **left_out):
         for name in left_out:
@@ -122,8 +140,8 @@ class Scheduler:
                                 f"argument {name!r}")
         if left_out:
             raise NotImplementedError(
-                f"{sorted(left_out)}: not ported; the dense-slot scheduler "
-                f"has none of them (ROADMAP.md Queue 1 items "
+                f"{sorted(left_out)}: not ported; the scheduler has none of "
+                f"them (ROADMAP.md Queue 1 items "
                 f"{sorted({NOT_PORTED[n] for n in left_out})})")
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
@@ -133,7 +151,24 @@ class Scheduler:
         # resolve none
         model.plan_book
         self.num_slots = num_slots
-        self.cache_len = cache_len
+        self.paged = paged
+        if paged:
+            self.block = block_size
+            self.max_blocks = logical_blocks(cache_len, block_size)
+            # the pool's logical length is block-aligned so prefilled rows
+            # scatter into whole blocks
+            self.cache_len = self.max_blocks * block_size
+            self.num_blocks = (num_blocks if num_blocks is not None
+                               else num_slots * self.max_blocks)
+            self.allocator = BlockAllocator(self.num_blocks, block_size)
+            self.prefix_cache = prefix_cache and model.supports_prefix_reuse
+            self._slot_blocks: list[list[int] | None] = [None] * num_slots
+            self.block_hwm = 0                # live blocks high-water mark
+            self.prefix_hit_tokens = 0        # prompt tokens found resident
+            self.prefix_prompt_tokens = 0     # prompt tokens seen (paged)
+            self.prefill_tokens_skipped = 0   # prefill compute avoided
+        else:
+            self.cache_len = cache_len
         self.eos_id = eos_id
         self.seed = seed
         self.bucket_prompts = bucket_prompts
@@ -143,23 +178,31 @@ class Scheduler:
         self.finished: list[FinishedRequest] = []
         self.steps_run = 0                # decode steps executed
         self.tokens_out = 0               # total generated tokens
-        self.admissions = 0               # admission prefills run
+        self.admissions = 0               # admission prefills (or resumes)
         self.admit_s = 0.0                # host seconds in admissions
         self.cancelled = 0                # requests cancelled via cancel()
         # on a card, the slot-pool decode step; its static cache is the pool
         self.graph: DecodeGraph | None = None
+        geometry = (self.num_blocks, self.block) if paged else None
         if graph and model.device.type == "cuda":
-            self.graph = model.graphed_decode_step(num_slots, cache_len,
-                                                    masked=True)
+            self.graph = model.graphed_decode_step(
+                num_slots, self.cache_len, masked=True, paged=geometry)
             self.graph.bind(self, params)
             self.cache = self.graph.cache
+        elif paged:
+            self.cache = model.init_cache(num_slots, self.cache_len,
+                                          paged=True,
+                                          num_blocks=self.num_blocks,
+                                          block=self.block)
         else:
             self.cache = model.init_cache(num_slots, cache_len, per_row=True)
 
     # ------------------------------------------------------------- interface
     def submit(self, req: Request, submit_time: float | None = None) -> None:
         """Queue a request.  Raises ValueError here when it could never be
-        admitted: prompt and budget must fit the cache."""
+        admitted: prompt and budget must fit the cache, and in a paged pool
+        their blocks must fit the pool even when every other request has
+        retired."""
         S = int(req.inputs["tokens"].shape[1])
         if req.max_new_tokens < 0:
             raise ValueError("max_new_tokens must be >= 0")
@@ -167,6 +210,14 @@ class Scheduler:
             raise ValueError(
                 f"request uid={req.uid}: prompt ({S}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds cache_len={self.cache_len}")
+        if self.paged:
+            need = logical_blocks(S + req.max_new_tokens, self.block)
+            if need > self.allocator.capacity:
+                raise ValueError(
+                    f"request uid={req.uid} can never be admitted: prompt "
+                    f"({S}) + max_new_tokens ({req.max_new_tokens}) needs "
+                    f"{need} blocks of {self.block} tokens but the pool "
+                    f"has only {self.allocator.capacity}")
         if req.key is not None and req.key.device.type != \
                 self.model.device.type:
             raise ValueError(f"request uid={req.uid}: its generator lives on "
@@ -178,7 +229,7 @@ class Scheduler:
     def cancel(self, uid: int) -> bool:
         """Cancel a request, queued or in flight: it retires with
         ``finish_reason="cancelled"`` (partial tokens included) and frees
-        its slot.  Returns False for an unknown uid."""
+        its slot and blocks.  Returns False for an unknown uid."""
         for qi, q in enumerate(self.queue):
             if q.req.uid == uid:
                 del self.queue[qi]
@@ -193,7 +244,7 @@ class Scheduler:
         for i, s in enumerate(self.slots):
             if s is not None and s.uid == uid:
                 self.finished.append(self._retire(s, "cancelled"))
-                self.slots[i] = None
+                self._free_slot(i)
                 self.cancelled += 1
                 return True
         return False
@@ -207,11 +258,23 @@ class Scheduler:
         return not self.queue and self.num_active == 0
 
     def stats(self) -> dict:
-        """Counters for reporting (``launch.serve``)."""
-        return {"tokens_out": self.tokens_out, "steps_run": self.steps_run,
-                "admissions": self.admissions, "admit_s": self.admit_s,
-                "kv_pool_bytes": self.kv_pool_bytes(),
-                "cancelled": self.cancelled}
+        """Pool and paging counters for reporting (``launch.serve``)."""
+        out = {"tokens_out": self.tokens_out, "steps_run": self.steps_run,
+               "admissions": self.admissions, "admit_s": self.admit_s,
+               "kv_pool_bytes": self.kv_pool_bytes(),
+               "cancelled": self.cancelled}
+        if self.paged:
+            out.update(
+                block_size=self.block, num_blocks=self.num_blocks,
+                blocks_in_use=self.allocator.in_use,
+                block_high_water=self.block_hwm,
+                prefix_hit_tokens=self.prefix_hit_tokens,
+                prefix_prompt_tokens=self.prefix_prompt_tokens,
+                prefill_tokens_skipped=self.prefill_tokens_skipped,
+                prefix_hit_rate=(
+                    self.prefix_hit_tokens / self.prefix_prompt_tokens
+                    if self.prefix_prompt_tokens else 0.0))
+        return out
 
     def kv_pool_bytes(self) -> int:
         return sum(t.nbytes for t in tree_leaves(self.cache))
@@ -223,6 +286,10 @@ class Scheduler:
         self.tokens_out = self.steps_run = self.admissions = 0
         self.cancelled = 0
         self.admit_s = 0.0
+        if self.paged:
+            self.block_hwm = self.allocator.in_use
+            self.prefix_hit_tokens = self.prefix_prompt_tokens = 0
+            self.prefill_tokens_skipped = 0
 
     def step(self) -> list[FinishedRequest]:
         """One scheduler tick: admit into free slots best-rank-first, then
@@ -252,9 +319,16 @@ class Scheduler:
             after = (len(self.queue), self.num_active, self.steps_run,
                      len(self.finished))
             if before == after and after[1] == 0:
+                detail = ""
+                if self.paged:
+                    q = self.queue[0]
+                    need = logical_blocks(
+                        q.prompt_len + q.req.max_new_tokens, self.block)
+                    detail = (f" (head uid={q.req.uid} needs {need} blocks, "
+                              f"{self.allocator.available} available)")
                 raise RuntimeError(
                     f"scheduler stalled: {len(self.queue)} queued requests, "
-                    f"no active slots, and a step made no progress")
+                    f"no active slots, and a step made no progress" + detail)
         return out
 
     # ------------------------------------------------------------- admission
@@ -265,8 +339,9 @@ class Scheduler:
         return (-q.req.priority, q.submit_time)
 
     def _admit_phase(self, done: list[FinishedRequest]) -> None:
-        """Admit queued requests best-rank-first while a slot is free; no
-        request jumps over a better one, and none is preempted."""
+        """Admit queued requests best-rank-first while a slot is free (and,
+        paged, while the best one's blocks fit); no request jumps over a
+        better one, and none is preempted."""
         while self.queue:
             free = next((i for i, s in enumerate(self.slots) if s is None),
                         None)
@@ -274,12 +349,15 @@ class Scheduler:
                 break
             qi = min(range(len(self.queue)),
                      key=lambda j: self._qrank(self.queue[j]))
-            q = self.queue[qi]
+            if not self._try_admit(self.queue[qi], free, done):
+                break                     # paged: its blocks do not fit yet
             del self.queue[qi]
-            self._try_admit(q, free, done)
 
     def _try_admit(self, q: _Queued, slot_idx: int,
-                   done: list[FinishedRequest]) -> None:
+                   done: list[FinishedRequest]) -> bool:
+        """Admit ``q`` into ``slot_idx``.  Returns False when the paged
+        pool cannot reserve its blocks yet (it stays queued; retirements
+        will free blocks)."""
         req = q.req
         if req.max_new_tokens == 0:       # nothing to generate: no prefill
             done.append(FinishedRequest(
@@ -287,8 +365,11 @@ class Scheduler:
                 logprobs=np.zeros((0,), np.float32), finish_reason="length",
                 prompt_len=q.prompt_len, submit_time=q.submit_time,
                 finish_time=time.perf_counter()))
-            return
+            return True
+        if self.paged:
+            return self._admit_paged(q, slot_idx, done)
         self._admit_dense(q, slot_idx, done)
+        return True
 
     def _admit_inputs(self, q: _Queued) -> dict:
         """The prefill's inputs: the prompt on the model's device, into a
@@ -358,6 +439,108 @@ class Scheduler:
             self.slots[slot_idx] = slot
         self.admit_s += time.perf_counter() - t0
 
+    def _admit_paged(self, q: _Queued, slot_idx: int,
+                     done: list[FinishedRequest]) -> bool:
+        """Reserve the request's lifetime blocks, sharing the longest chain
+        of resident prefix blocks, then prefill the whole prompt and
+        scatter it into its blocks, or, on a prefix hit, prefill only the
+        suffix through the shared blocks (``Model.resume_prefill``; full
+        coverage copies the last shared block on write and recomputes its
+        final token).  Returns False, holding nothing, when the blocks do
+        not fit yet."""
+        t0 = time.perf_counter()
+        req = q.req
+        S, blk, alloc = q.prompt_len, self.block, self.allocator
+        need = logical_blocks(min(S + req.max_new_tokens, self.cache_len),
+                              blk)
+        # ---- prefix lookup: acquire the longest chain of resident blocks
+        hashes: list[bytes] = []
+        shared: list[int] = []
+        if self.prefix_cache:
+            hashes = chain_hashes(req.inputs["tokens"].cpu().numpy(), blk)
+            for h in hashes:
+                bid = alloc.acquire(h)
+                if bid is None:
+                    break
+                shared.append(bid)
+        matched = len(shared)
+        covered = matched * blk
+        full_cover = matched > 0 and covered >= S
+        # the resume computes >= 1 token for the logits: full coverage
+        # copies the last matched block on write and recomputes its last
+        # token
+        start = S - 1 if full_cover else covered
+        fresh_needed = need - matched + (1 if full_cover else 0)
+        # the COW source's only owner is this admission: its decref returns
+        # it to the pool mid-admission, so credit it (or an idle pool could
+        # refuse a request that fits)
+        credit = (1 if full_cover and alloc.refcount(shared[-1]) == 1
+                  else 0)
+        if fresh_needed > alloc.available + credit:
+            for bid in shared:            # roll back: the request waits
+                alloc.decref(bid)
+            return False
+        # ---- source and destination tables (dst != src: a COW block)
+        src, dst = list(shared), list(shared)
+        if full_cover:
+            dst[-1] = alloc.cow(shared[-1])
+        fresh = [alloc.alloc() for _ in range(need - len(dst))]
+        src += fresh
+        dst += fresh
+        dev = self.model.device
+        src_t = torch.full((self.max_blocks,), self.num_blocks,
+                           dtype=torch.int32)
+        dst_t = src_t.clone()
+        src_t[:len(src)] = torch.tensor(src, dtype=torch.int32)
+        dst_t[:len(dst)] = torch.tensor(dst, dtype=torch.int32)
+        src_t, dst_t = src_t.to(dev), dst_t.to(dev)
+        # ---- prefill: the whole prompt (scatter) or the suffix (resume)
+        if start == 0:
+            logits, row_cache = self._row_prefill(self._admit_inputs(q))
+            if self.graph is not None:
+                self.graph.splice_paged(row_cache, slot_idx, S, dst_t)
+            else:
+                self.model.splice_cache_paged(self.cache, row_cache,
+                                              slot_idx, dst_t)
+        else:
+            self.admissions += 1
+            logits = self.model.resume_prefill(
+                self.params, self.cache, req.inputs["tokens"][:, start:],
+                slot_idx, src_t, dst_t, start, self.graph)
+            self.prefill_tokens_skipped += start
+        # ---- publish the prompt's full blocks for later sharing
+        if self.prefix_cache:
+            for i in range(min(len(hashes), len(dst))):
+                alloc.publish(dst[i], hashes[i])
+        self._slot_blocks[slot_idx] = dst
+        self.prefix_prompt_tokens += S
+        self.prefix_hit_tokens += min(covered, S)
+        self.block_hwm = max(self.block_hwm, alloc.in_use)
+        # ---- first token
+        slot = self._start_slot(q)
+        tok, lp = self._pick(logits[:, -1], [slot])
+        self._emit(slot, tok[0], lp[0])
+        if self._finished_reason(slot):
+            done.append(self._retire(slot))
+            self._release_blocks(slot_idx)  # never occupied a decode slot
+        else:
+            self.slots[slot_idx] = slot
+        self.admit_s += time.perf_counter() - t0
+        return True
+
+    def _release_blocks(self, slot_idx: int) -> None:
+        blocks = self._slot_blocks[slot_idx]
+        if blocks is not None:
+            for bid in blocks:
+                self.allocator.decref(bid)
+            self._slot_blocks[slot_idx] = None
+
+    def _free_slot(self, i: int) -> None:
+        """Empty slot ``i`` after its request retired: its blocks' references
+        go back to the allocator."""
+        if self.paged:
+            self._release_blocks(i)
+        self.slots[i] = None
     # -------------------------------------------------------------- sampling
     def _pick(self, logits: torch.Tensor, slots: list[_Slot | None]
               ) -> tuple[list[int], list[float]]:
@@ -403,7 +586,7 @@ class Scheduler:
             self._emit(s, tok[i], lp[i])
             if self._finished_reason(s):
                 done.append(self._retire(s))
-                self.slots[i] = None
+                self._free_slot(i)
 
     def _decode_once(self, done: list[FinishedRequest]) -> None:
         toks, active = self._decode_arrays()

@@ -717,3 +717,192 @@ def test_bucketed_scheduler_captures_while_rows_are_live(cuda):
         model, 20, B=1, S=5)["tokens"]}, max_new_tokens=6))
     exact.run()
     assert (1, 5, 48) in model.prefill_graphs
+
+
+# ---------------------------------------------------------------------------
+# The block-paged pool (DESIGN.md §7): the paged slot-pool step and the
+# resume prefill captured as CUDA graphs, each against its eager form bit
+# for bit; their warm-ups and captures write nowhere but the sentinel block.
+# ---------------------------------------------------------------------------
+
+PAGED = dict(num_blocks=12, block=4)      # 3 slots over 24 positions
+SENTINEL = PAGED["num_blocks"]
+
+
+def _paged_rows(model, params, T=24):
+    """Prefill caches of two one-row prompts of 16 tokens, the second
+    sharing the first's 12 first: (first greedy token [1,1], cache) each."""
+    first = _prompt(model, 30, B=1, S=16, T=T)
+    second = dict(first, tokens=torch.cat(
+        [first["tokens"][:, :12], _prompt(model, 31, B=1, S=4)["tokens"]], 1))
+    out = []
+    for batch in (first, second):
+        logits, cache = model.prefill(params, batch)
+        out.append((logits[:, -1].argmax(-1, keepdim=True), cache,
+                    batch["tokens"]))
+    return out
+
+
+def _table(*blocks):
+    t = torch.full((6,), SENTINEL, dtype=torch.int32)
+    t[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+    return t.cuda()
+
+
+def _same_pool(a, b):
+    """Positions, tables and every arena block but the sentinel equal."""
+    return all(torch.equal(x, y) for x, y in (
+        (a["pos"], b["pos"]), (a["block_tables"], b["block_tables"]))) and \
+        all(torch.equal(x[:SENTINEL], y[:SENTINEL])
+            for x, y in zip(tree_leaves(a["g0"]), tree_leaves(b["g0"])))
+
+
+def _clone_pool(cache):
+    from repro_torch.models.spec import map_tree
+    return map_tree(torch.clone, cache)
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_paged_replay_is_the_eager_paged_step_and_the_dense_one(cuda, path):
+    """Rows spliced into slots 0 (blocks 0-3, 9) and 2 (blocks 4-8), slot 1
+    empty: four replays against the eager paged step and the eager dense
+    masked step, logits bit for bit, pools equal."""
+    model, params = _smoke(path, "fp32", cuda)
+    rows = _paged_rows(model, params)
+    graph = model.graphed_decode_step(3, 24, masked=True,
+                                      paged=(PAGED["num_blocks"],
+                                             PAGED["block"]))
+    graph.bind(_Owner(), params)
+    assert model.graph_captures == 1
+    eager = model.init_cache(3, 24, paged=True, **PAGED)
+    dense = model.init_cache(3, 24, per_row=True)
+    for (_, cache, _), slot, table in zip(rows, (0, 2), (
+            _table(0, 1, 2, 3, 9), _table(4, 5, 6, 7, 8))):
+        graph.splice_paged(cache, slot, 16, table)
+        model.splice_cache_paged(eager, cache, slot, table)
+        model.splice_cache(dense, cache, slot)
+    tok = torch.zeros((3, 1), dtype=torch.int64, device=cuda)
+    tok[0], tok[2] = rows[0][0][0], rows[1][0][0]
+    active = np.array([True, False, True])
+    act = torch.from_numpy(active).to(cuda)
+    for t in range(4):
+        want, eager = model.decode_step(params, eager, tok, act)
+        flat, dense = model.decode_step(params, dense, tok, act)
+        got = graph(tok, active)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        assert torch.equal(want[[0, 2]], flat[[0, 2]]), f"dense, step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    assert graph.pos.tolist() == graph.cache["pos"].tolist() == [20, 0, 20]
+    assert _same_pool(graph.cache, eager)
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_resume_replay_is_the_eager_resume_bit_for_bit(cuda, path):
+    """Slot 0 holds a prompt in blocks 0-3 and decodes; slot 1 resumes the
+    prompt sharing its 12 first tokens (blocks 0-2 shared, from 12), then,
+    after a decode replay, slot 2 resumes the first prompt fully covered
+    (block 3 copied on write to 9, from 15): one capture for the bucket of
+    16, each replay's logits and pool the eager resume's bit for bit, and
+    the decode replays after them the eager steps'."""
+    model, params = _smoke(path, "fp32", cuda)
+    rows = _paged_rows(model, params)
+    graph = model.graphed_decode_step(3, 24, masked=True,
+                                      paged=(PAGED["num_blocks"],
+                                             PAGED["block"]))
+    graph.bind(_Owner(), params)
+    eager = model.init_cache(3, 24, paged=True, **PAGED)
+    first = _table(0, 1, 2, 3, 4, 5)
+    graph.splice_paged(rows[0][1], 0, 16, first)
+    model.splice_cache_paged(eager, rows[0][1], 0, first)
+    builds = model.prefill_builds
+    tok = torch.zeros((3, 1), dtype=torch.int64, device=cuda)
+    tok[0] = rows[0][0][0]
+    active = np.array([True, False, False])
+    for slot, suffix, src, dst, start in (
+            (1, rows[1][2][:, 12:], _table(0, 1, 2, 6, 7, 8),
+             _table(0, 1, 2, 6, 7, 8), 12),
+            (2, rows[0][2][:, 15:], _table(0, 1, 2, 3, 10, 11),
+             _table(0, 1, 2, 9, 10, 11), 15)):
+        got = model.resume_prefill(params, graph.cache, suffix, slot, src,
+                                   dst, start, graph).clone()
+        want = model.resume_prefill(params, eager, suffix, slot, src, dst,
+                                    start)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), slot
+        assert _same_pool(graph.cache, eager), slot
+        assert graph.pos[slot] == start + suffix.shape[1]
+        tok[slot] = got[:, -1].argmax(-1)
+        active[slot] = True
+        act = torch.from_numpy(active).to(cuda)
+        logits, eager = model.decode_step(params, eager, tok, act)
+        assert torch.equal(graph(tok, active), logits), slot
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    assert list(graph.resumes) == [16]
+    # one capture; the eager key (bucket 16) counted once too
+    assert model.prefill_builds - builds == 2
+    assert model.graph_captures == 1
+    assert _same_pool(graph.cache, eager)
+
+
+def test_resume_capture_writes_only_the_sentinel_block(cuda):
+    """A resume's warm-up and capture (at its bucket's first call) run while
+    a row is live: positions, tables and every arena block but the
+    sentinel stay as they were; a recapture of the decode graph drops the
+    resume graphs."""
+    from repro_torch.models.graph import ResumeGraph
+    model, params = _smoke("fused2", "fp32", cuda)
+    rows = _paged_rows(model, params)
+    graph = model.graphed_decode_step(3, 24, masked=True,
+                                      paged=(PAGED["num_blocks"],
+                                             PAGED["block"]))
+    owner = _Owner()
+    graph.bind(owner, params)
+    graph.splice_paged(rows[0][1], 0, 16, _table(0, 1, 2, 3, 4, 5))
+    before = _clone_pool(graph.cache)
+    resume = graph.resumes[32] = ResumeGraph(graph, 32)
+    resume._capture()
+    torch.cuda.synchronize()
+    assert _same_pool(graph.cache, before)
+    assert resume.captured and model.prefill_builds == 1
+    with pytest.raises(ValueError, match="resume of 4 tokens from 22"):
+        graph.resume(torch.zeros((1, 16), dtype=torch.int64, device=cuda), 1,
+                     _table(), _table(), 22, 4)
+    graph.bind(owner, model.init(1))       # other parameters: a recapture
+    assert graph.resumes == {} and model.graph_captures == 2
+
+
+def test_paged_scheduler_graph_is_eager_and_dense_bit_for_bit(cuda):
+    """Prompts of 16 (two sharing 12 tokens, one resubmitted) and 9 tokens
+    through a paged scheduler of 2 slots over 32 positions, block 4, on the
+    graphs and eagerly, and through the dense scheduler: every token and
+    logprob bit for bit; one resume capture (bucket 16), no block
+    leaked."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+    rows = _paged_rows(model, params)
+    prompts = [rows[0][2], rows[1][2], _prompt(model, 32, B=1, S=9)["tokens"],
+               rows[0][2]]
+
+    def run(**kw):
+        sched = Scheduler(model, params, num_slots=2, cache_len=32, **kw)
+        for uid, tokens in enumerate(prompts):
+            sched.submit(Request(uid=uid, inputs={"tokens": tokens},
+                                 max_new_tokens=8 - uid))
+            sched.step()
+        sched.run()
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+        return {f.uid: f for f in sched.finished}, sched
+
+    builds = model.prefill_builds
+    got, sched = run(paged=True, block_size=4)
+    assert sched.stats()["prefix_hit_tokens"] == 12 + 16
+    assert list(sched.graph.resumes) == [16]
+    captured = model.prefill_builds - builds
+    assert captured == 2                    # the prompts' bucket and a resume
+    for want, _ in (run(paged=True, block_size=4, graph=False), run()):
+        assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+        for uid in got:
+            assert np.array_equal(got[uid].tokens, want[uid].tokens), uid
+            assert np.array_equal(got[uid].logprobs, want[uid].logprobs), uid
