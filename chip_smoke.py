@@ -32,7 +32,11 @@ Phases, each fatal on failure:
      pair followed by a resubmitted prompt (full coverage, a copy on
      write), card (the paged slot-pool graph, the captured resume) against
      CPU at lengths 2 and 3: tokens, logprobs, block ids per slot after
-     every step, prefix counters, no leaked block;
+     every step, prefix counters, no leaked block; and the chunked-prefill
+     scheduler (chunks of 4 over 2 lanes, a prefix hit and a full cover),
+     dense and paged, card (the mixed step captured per (lanes, chunk))
+     against CPU on all six kernel paths: tokens, logprobs, slots, prompt
+     positions and block ids after every step, counters, launches;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -60,14 +64,23 @@ Phases, each fatal on failure:
      capture per new bucket), each bucket's prefill replays traced alone
      (busy ms and host-clock ms against the eager prefill's), and a traced
      arrival run (``launch.profile_serve.profile_arrivals``: device busy
-     share, the admissions' share of the wall, the per-row KV writes).
+     share, the admissions' share of the wall, the per-row KV writes);
+     then chunked prefill on that model: the arrival mode with
+     ``--chunk-prefill`` (chunks of 64, one lane) over the dense and the
+     paged pool beside the monolithic runs (0 captures and plan
+     resolutions steady, 16 chunks, ``tt_fused2`` replayed 420 times per
+     mixed step and 210 per plain step), the staggered run at chunks of 16
+     over 2 lanes, both pools, graph and eager (bit-identical; held
+     against ``generate_fixed`` by ``serve.check_greedy``), serve's prefix
+     smoke chunked, and the mixed replays traced alone.
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
 the eager back-to-back time of each kernel is recorded beside them.  Every
 record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
 the kernel line's ``tt_fused2`` launches are those of the fixed-batch
-calls, the dense arrival-mode call and the paged runs together.
+calls, the dense arrival-mode call, the paged runs and the chunked runs
+together.
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits non-zero and prints no result.
@@ -1074,21 +1087,28 @@ def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
     return launches, recs
 
 
+def stagger_requests(vocab: int) -> tuple[list, np.ndarray]:
+    """The staggered run's prompts [1, S] and budgets, drawn by numpy from
+    seed 0."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(STAGGER_LENS[0], STAGGER_LENS[1] + 1, STAGGER_N)
+    budgets = rng.integers(STAGGER_BUDGETS[0], STAGGER_BUDGETS[1] + 1,
+                           STAGGER_N)
+    return [torch.from_numpy(rng.integers(0, vocab, (1, n), dtype=np.int64))
+            for n in lens], budgets
+
+
 def staggered_full(model, params, graph: bool, check=None,
                    **paged) -> tuple[dict, dict]:
     """The step-indexed staggered run at full width: ``STAGGER_N`` requests
     with prompt lengths and budgets drawn by numpy from seed 0 through a
     4-slot pool over prompt + steps positions (``paged``: the paged pool's
-    ``Scheduler`` arguments); four are submitted before the first
+    and chunked prefill's ``Scheduler`` arguments); four are submitted
+    before the first
     ``step()``, then one before every third; ``check(sched)`` after every
     step.  A paged pool must leak no block.  ({uid: finished}, the
     scheduler's stats with the wall seconds)."""
-    rng = np.random.default_rng(0)
-    lens = rng.integers(STAGGER_LENS[0], STAGGER_LENS[1] + 1, STAGGER_N)
-    budgets = rng.integers(STAGGER_BUDGETS[0], STAGGER_BUDGETS[1] + 1,
-                           STAGGER_N)
-    prompts = [torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, n),
-                                             dtype=np.int64)) for n in lens]
+    prompts, budgets = stagger_requests(model.cfg.vocab_size)
     sched = Scheduler(model, params, num_slots=4, cache_len=64 + PASSES,
                       graph=graph, **paged)
 
@@ -1254,10 +1274,12 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
                              f"counted {prof['counted']}")
     paged_launches, rec["paged"] = paged_path(
         smi, model, params, args, out, g_done, buckets[64])
+    chunk_launches, rec["chunked"] = chunked_path(
+        smi, model, params, out, rec["paged"], g_done, buckets[64])
     del model, params, graph
     gc.collect()
     torch.cuda.empty_cache()
-    return launches + paged_launches, rec
+    return launches + paged_launches + chunk_launches, rec
 
 
 def same_runs(a: dict, b: dict) -> bool:
@@ -1499,6 +1521,298 @@ def resume_checks(smi: str, model, params, smoke: dict,
     return rec
 
 
+def chunked_smoke(model, params, prompts, paged: bool) -> dict:
+    """The chunked schedule of ``tests/test_torch_chunked.py`` on SMOKE: 2
+    slots over 32 positions, chunks of 4 over 2 lanes (budget 8), dense or
+    paged (block 4): r0 (13 tokens) prefills over 4 steps, then r1
+    (sharing its first 8 tokens) and r2 (queued) are submitted and the
+    pool drained, then r0's first 12 tokens (paged: a full cover, the
+    last block copied on write).  The slots' (uid, prompt tokens
+    processed, blocks) after every step; no block may leak.  {"done":
+    {uid: finished}, "history": [...], "stats": {...}, "sched": ...}."""
+    kw = dict(num_slots=2, cache_len=32, chunk_prefill=True, chunk_size=4,
+              prefill_budget=8)
+    if paged:
+        kw.update(paged=True, block_size=4)
+    sched = Scheduler(model, params, **kw)
+    history = []
+
+    def step():
+        sched.step()
+        history.append([None if s is None else (
+            s.uid, s.prefill_pos, list(sched._slot_blocks[i])
+            if paged else None) for i, s in enumerate(sched.slots)])
+
+    def submit(uid, budget):
+        sched.submit(Request(uid=uid, inputs={"tokens": prompts[uid]},
+                             max_new_tokens=budget))
+
+    submit(0, 6)
+    for _ in range(4):
+        step()
+    submit(1, 3)
+    submit(2, 5)
+    while not sched.idle:
+        step()
+    submit(3, 4)
+    while not sched.idle:
+        step()
+    if paged:
+        sched.allocator.assert_quiescent()
+    st = sched.stats()
+    return {"done": {f.uid: f for f in sched.finished}, "history": history,
+            "stats": {k: v for k, v in st.items()
+                      if k not in ("admit_s", "kv_pool_bytes")},
+            "sched": sched}
+
+
+def small_chunked_check() -> None:
+    """Phase 4, chunked prefill: ``chunked_smoke`` on SMOKE over the dense
+    and the paged pool, on all six kernel paths (lengths 2 and 3 ``auto``
+    and length 2 ``cuda_step``, fp32 and int8 cores, fp32 parameters), on
+    the card (the slot-pool graph and the mixed step captured for 2 lanes
+    of 4) and on the CPU (eager), same weights: greedy tokens identical,
+    logprobs within 1e-4, the same slots, prompt positions and block ids
+    after every step and the same counters; the mixed capture records
+    three times the decode step's launches of the path's kernel and
+    nothing else; the card launches them per pass at the captures'
+    warm-ups (counted) and at each replay (replayed)."""
+    for length, backend, kernel in ((2, "auto", "tt_fused2"),
+                                    (3, "auto", "tt_fused_chain"),
+                                    (2, "cuda_step", "tt_step")):
+        for weights in ("fp32", "int8"):
+            cfg = get_config("deepseek-7b", "smoke", tt=TTConfig(
+                enabled=True, families=("ffn", "attn"), rank=4,
+                min_factor=2, length=length, backend=backend,
+                weights=weights))
+            gpu = build(cfg, device="cuda")
+            cpu = build(cfg, device="cpu")
+            p_gpu = gpu.init(0)
+            if weights == "int8":
+                p_gpu = gpu.quantize_params(p_gpu)
+            p_cpu = map_tree(lambda t: t.cpu(), p_gpu)
+            rng = np.random.default_rng(80)
+            prompts = [torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, 13), dtype=np.int64))
+                for _ in range(3)]
+            prompts[1][:, :8] = prompts[0][:, :8]
+            prompts.append(prompts[0][:, :12])
+            name = kernel + ("_int8" if weights == "int8" else "")
+            for paged in (False, True):
+                want = chunked_smoke(cpu, p_cpu, prompts, paged)
+                tt_contract.reset_launch_counts()
+                replayed0 = dict(gpu.replayed_launches)
+                got = chunked_smoke(gpu, p_gpu, prompts, paged)
+                counted = tt_contract.launch_counts()
+                replayed = serve.since(replayed0, gpu.replayed_launches)
+                graph = got["sched"].graph
+                per_pass = graph.captured.get(name, 0)
+                mixed = graph.mixed_graphs[(2, 4)].captured
+                st = got["stats"]
+                same = sorted(got["done"]) == sorted(want["done"]) == \
+                    [0, 1, 2, 3] and all(
+                        np.array_equal(got["done"][u].tokens,
+                                       want["done"][u].tokens)
+                        for u in want["done"])
+                worst = max(float(np.abs(got["done"][u].logprobs -
+                                         want["done"][u].logprobs).max())
+                            for u in want["done"])
+                counts = {
+                    "history": (want["history"], got["history"]),
+                    "stats": (want["stats"], st),
+                    "mixed capture": ({name: 3 * per_pass}, mixed),
+                    "counted": ({name: (per_pass + mixed.get(name, 0)) *
+                                 WARMUP_STEPS}, counted),
+                    "replayed": ({name: per_pass * st["plain_steps"] +
+                                  mixed.get(name, 0) * st["mixed_steps"]},
+                                 replayed)}
+                bad = {k: v for k, v in counts.items() if v[0] != v[1]}
+                print(f"small input, chunked scheduler (length {length}, "
+                      f"{backend}, {weights} cores, "
+                      f"{'paged' if paged else 'dense'}): greedy tokens card "
+                      f"{'=' if same else '!='} cpu, logprobs max abs diff "
+                      f"{worst:.3e} (tol 1e-4); {st['prefill_chunks']} "
+                      f"chunks, {st['mixed_steps']} mixed and "
+                      f"{st['plain_steps']} plain steps; slots and counters "
+                      f"{'same' if not bad else 'DIFFER'}; launches counted "
+                      f"{counted}, replayed {replayed} ({per_pass} per decode "
+                      f"replay, {mixed} per mixed replay)", flush=True)
+                if not same or not worst <= 1e-4 or per_pass == 0 or bad:
+                    raise AssertionError(
+                        f"SMOKE chunked scheduler length {length} {backend} "
+                        f"{weights} paged={paged}: tokens same {same}, "
+                        f"logprobs {worst:.3e}, (expected, got) {bad}")
+
+
+def chunked_path(smi: str, model, params, dense: dict, paged: dict,
+                 dense_done: dict, prefill64: dict) -> tuple[int, dict]:
+    """Phase 5, chunked prefill inside the decode step, on the model of
+    ``scheduler_path`` (length 2 ``auto``, fp cores), whose monolithic
+    arrival runs are ``dense`` and ``paged`` and whose monolithic staggered
+    run is ``dense_done``: the arrival mode with ``--chunk-prefill`` at
+    the reference's defaults (chunks of 64, one lane) over the dense and
+    the paged pool (0 captures and plan resolutions in the steady state,
+    16 chunks, ``tt_fused2`` replayed 420 times per mixed step and 210 per
+    plain step, none counted, no leaked block), beside the monolithic run;
+    the staggered run at chunks of 16 over 2 lanes (budget 32) over both
+    pools, through the graphs and eagerly: graph ≡ eager and paged ≡ dense
+    bit for bit, and every request held against ``generate_fixed`` by
+    ``serve.check_greedy``; serve's prefix smoke with ``--chunk-prefill
+    --chunk-size 16`` (4 chunks, then 1 for the hit and 1 for the full
+    cover, its last block copied on write); and the mixed replays' host ms
+    and busy ms traced alone, idle (the same kernels), beside the decode
+    replay's and the bucket-64 prefill replay's ``prefill64``.  Returns
+    ``tt_fused2``'s launches over the chunked runs (all but the timing)
+    and the record."""
+    per_pass = PROJ * LAYERS
+    T = 64 + PASSES
+    tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
+    rec = {"card": smi}
+    rows = [("tok/s", "tok_per_s", 1), ("ttft p50 ms", "ttft_p50_s", 1e3),
+            ("ttft p95 ms", "ttft_p95_s", 1e3),
+            ("inter-token p50 ms", "itl_p50_s", 1e3),
+            ("inter-token p95 ms", "itl_p95_s", 1e3)]
+    for pool, extra, mono in (("dense", [], dense),
+                              ("paged", PAGED_ARGS, paged)):
+        cargs = serve.parse_args(ARRIVAL_ARGS + extra + ["--chunk-prefill"])
+        captures0 = model.graph_captures
+        out = serve.simulate(model, params, cargs)
+        sched = out.pop("sched")
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+        mixed = sched.graph.mixed_graphs[(1, 64)].captured
+        fin = out["finished"]
+        expect = {"tt_fused2": per_pass * (2 * out["mixed_steps"] +
+                                           out["plain_steps"])}
+        print(f"main path (chunked arrival mode, {pool} pool, chunks of 64, "
+              f"one lane; {smi}): {len(fin)} requests, {out['tokens_out']} "
+              f"tokens in {out['wall_s']:.3f} s; chunked vs monolithic: " +
+              "; ".join(f"{name} {out[k] * f:.4g} vs {mono[k] * f:.4g}"
+                        for name, k, f in rows) +
+              f"; {out['prefill_chunks']} chunks, {out['mixed_steps']} mixed "
+              f"and {out['plain_steps']} plain steps (monolithic: "
+              f"{mono['admissions']} admissions, {mono['steps_run']} steps); "
+              f"launches {out['launches']}; one capture of the mixed step: "
+              f"{mixed}", flush=True)
+        want = {
+            "steady launches": (expect, out["launches"]),
+            "steady replayed": (expect, out["replayed"]),
+            "steady counted": ({}, out["counted"]),
+            "mixed capture": ({"tt_fused2": 2 * per_pass}, mixed),
+            "steady captures, prefill captures, plans": ((0, 0, 0), (
+                out["captures"], out["prefill_captures"], out["replans"])),
+            "mixed captures in the call": (1, model.graph_captures -
+                                           captures0),
+            "chunks, admissions": ((16, 0), (out["prefill_chunks"],
+                                             out["admissions"])),
+            "requests": (list(range(16)), sorted(f.uid for f in fin)),
+        }
+        bad = {k: v for k, v in want.items() if v[0] != v[1]}
+        if bad or any(len(f.tokens) != PASSES or f.finish_reason != "length"
+                      or not np.isfinite(f.logprobs).all() for f in fin):
+            raise AssertionError(f"chunked arrival mode ({pool}): (expected, "
+                                 f"got) {bad}")
+        rec[f"arrival_{pool}"] = dict(
+            {k: v for k, v in out.items() if k != "finished"},
+            mono={k: mono[k] for _, k, _ in rows})
+
+    ck = dict(chunk_prefill=True, chunk_size=16, prefill_budget=32)
+    runs = {}
+    for label, graph, kw in (("dense graph", True, {}),
+                             ("dense eager", False, {}),
+                             ("paged graph", True, dict(
+                                 paged=True, block_size=PAGED_BLOCK)),
+                             ("paged eager", False, dict(
+                                 paged=True, block_size=PAGED_BLOCK))):
+        runs[label] = staggered_full(model, params, graph=graph, **kw, **ck)
+    done = {k: v[0] for k, v in runs.items()}
+    checks = {"dense graph = eager": same_runs(done["dense graph"],
+                                               done["dense eager"]),
+              "paged graph = eager": same_runs(done["paged graph"],
+                                               done["paged eager"]),
+              "paged = dense": same_runs(done["paged graph"],
+                                         done["dense graph"])}
+    prompts, _ = stagger_requests(model.cfg.vocab_size)
+    greedy = {u: serve.check_greedy(model, params,
+                                    prompts[u].to(model.device), f, T)
+              for u, f in done["dense graph"].items()}
+    as_mono = sum(np.array_equal(f.tokens, dense_done[u].tokens)
+                  for u, f in done["dense graph"].items())
+    st = runs["dense graph"][1]
+    print(f"chunked staggered run (chunks of 16, 2 lanes; {smi}): "
+          f"{st['prefill_chunks']} chunks, {st['mixed_steps']} mixed and "
+          f"{st['plain_steps']} plain steps; wall graph "
+          f"{st['wall_s']:.3f} s dense, {runs['paged graph'][1]['wall_s']:.3f}"
+          f" s paged, eager {runs['dense eager'][1]['wall_s']:.3f} and "
+          f"{runs['paged eager'][1]['wall_s']:.3f} s; " +
+          ", ".join(f"{k} {'bit-identical' if v else 'DIFFER'}"
+                    for k, v in checks.items()) +
+          f"; against generate_fixed: "
+          f"{sum(g['identical'] for g in greedy.values())} of "
+          f"{len(greedy)} identical, picks within "
+          f"{max(g['slack'] for g in greedy.values()):.3g} of the top logit, "
+          f"logprobs within "
+          f"{max(g['logprob_diff'] for g in greedy.values()):.3g} (tol "
+          f"{max(g['tol'] for g in greedy.values()):.3g}); {as_mono} of "
+          f"{len(greedy)} requests token-identical to the monolithic "
+          f"staggered run", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"chunked staggered run: {checks}")
+    rec["staggered"] = dict({k: v[1] for k, v in runs.items()},
+                            checks=checks, as_monolithic=int(as_mono),
+                            greedy=greedy)
+
+    sargs = serve.parse_args(
+        SERVE_ARGS + ["--tt-backend", "auto", "--slots", "4",
+                      "--prefix-smoke", "--prefix-len", str(PREFIX_LEN),
+                      "--seed", str(PREFIX_SEED), "--chunk-prefill",
+                      "--chunk-size", "16"] + PAGED_ARGS)
+    smoke = serve.prefix_smoke(model, params, sargs)
+    if smoke["chunks"] != [4, 1, 1]:
+        raise AssertionError(f"chunked prefix smoke: chunks per admission "
+                             f"{smoke['chunks']}, expected [4, 1, 1]")
+    rec["prefix"] = dict(hits=smoke["hits"], chunks=smoke["chunks"],
+                         cow=smoke["cow"], admit_ms=smoke["admit_ms"],
+                         greedy=smoke["greedy"])
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    launches = counted.get("tt_fused2", 0) + replayed.get("tt_fused2", 0)
+
+    # the replays, idle (every lane inactive, no row decoding: the same
+    # kernels on the same shapes, and nothing changes)
+    graph = model.decode_graphs[(4, T, True)]
+    tok = torch.zeros((4, 1), dtype=torch.int64, device=model.device)
+    idle = np.zeros(4, bool)
+    timing = {"decode": dict(host_ms=host_ms(lambda: graph(tok, idle)),
+                             **replays_alone(lambda: graph(tok, idle),
+                                             "tt_fused2_kernel"))}
+    for K, C in ((1, 64), (2, 16)):
+        mixed = graph.mixed(K, C)
+        lanes = {"tokens": np.zeros((K, C), np.int64),
+                 "slot": np.zeros(K, np.int32),
+                 "start": np.zeros(K, np.int32),
+                 "true": np.ones(K, np.int32), "active": np.zeros(K, bool)}
+
+        def replay():
+            mixed(tok, idle, lanes)
+
+        timing[f"mixed {K}x{C}"] = dict(host_ms=host_ms(replay),
+                                        **replays_alone(replay,
+                                                        "tt_fused2_kernel"))
+    timing["prefill 64"] = {k: prefill64[k] for k in (
+        "host_ms", "busy_ms", "kernels", "tt")}
+    print(f"replays alone, idle ({smi}): " + "; ".join(
+        f"{k} {v['host_ms']:.3f} ms host, {v['busy_ms']:.3f} ms busy, "
+        f"{v['kernels']:g} kernels, {v['tt']:g} tt_fused2_kernel"
+        for k, v in timing.items()), flush=True)
+    if [timing[k]["tt"] for k in ("decode", "mixed 1x64", "mixed 2x16")] != \
+            [per_pass, 2 * per_pass, 3 * per_pass]:
+        raise AssertionError(f"mixed replays traced alone: {timing}")
+    rec["replays"] = timing
+    return launches, rec
+
+
 def kernel_line(recs, launches) -> dict:
     """One entry per kernel: one decoder layer's launches of it (7
     projections, summed) at the decode batch in bf16, the main path's
@@ -1566,6 +1880,7 @@ def main() -> int:
     small_input_check()
     small_scheduler_check()
     small_paged_check()
+    small_chunked_check()
     launches, graph_recs = main_paths(smi)
     fused2, sched_rec = scheduler_path(smi)
     launches["tt_fused2"] += fused2

@@ -5,8 +5,10 @@ the continuous-batching scheduler.
         --variant full --batch 4 --prompt-len 64 --steps 32 --tt ffn,attn \\
         --tt-rank 16 --tt-backend auto [--tt-weights int8] [--device cpu] \\
         [--arrival-rate 50 --max-requests 16 --slots 4 --assert-no-replan
-         [--paged --block-size 16 [--num-blocks N]]]
-        [--prefix-smoke --paged --block-size 16 --prefix-len 48]
+         [--paged --block-size 16 [--num-blocks N]]
+         [--chunk-prefill [--chunk-size 64] [--prefill-budget 64]]]
+        [--prefix-smoke --paged --block-size 16 --prefix-len 48
+         [--chunk-prefill ...]]
 
 ``--tt-backend`` is one of ``kernels.plan.BACKENDS``: ``auto`` (d=2
 layers through the fused2 kernel), ``cuda_fused2``, ``cuda_fused`` (the
@@ -35,7 +37,13 @@ captured prefill of that bucket.  An interrupt drains the scheduler with
 ``cancel``.  ``--paged`` serves from the block-paged KV pool (DESIGN.md
 §7; ``--block-size`` tokens per block, ``--num-blocks`` blocks, default
 enough for every slot's whole length) and also reports the blocks, their
-high-water mark and the prefix cache's hits.
+high-water mark and the prefix cache's hits.  ``--chunk-prefill``
+(DESIGN.md §15) streams each prompt into the pool ``--chunk-size`` tokens
+at a time inside the decode step (``--prefill-budget`` prompt tokens per
+step: budget // chunk-size chunk lanes, default one; on a card every
+such step is a replay of the captured mixed step) instead of a
+monolithic admission prefill, trading TTFT against inter-token latency;
+it also reports the chunks run and the mixed and plain steps.
 
 ``--prefix-smoke`` (with ``--paged``) is the prefix-reuse check: two
 requests whose prompts share a ``--prefix-len``-token prefix, then the
@@ -45,6 +53,9 @@ prompt, copy its last block on write and recompute one token; every
 request's greedy tokens and logprobs are held against ``generate_fixed``'s
 for that prompt alone, within the repo's tolerance where logits tie
 (``check_greedy``), and its smallest top-1/top-2 logit gap is printed.
+With
+``--chunk-prefill`` each request is stepped until its prefill is done
+(its first token), and a hit skips the covered chunks.
 """
 from __future__ import annotations
 
@@ -193,11 +204,15 @@ def arrival_request(model, args, uid: int, seed: int) -> Request:
 
 def make_scheduler(model, params, args, cache_len: int) -> Scheduler:
     """A scheduler of ``--slots`` slots (default ``--batch``) over
-    ``cache_len`` positions, paged with ``--paged``."""
+    ``cache_len`` positions, paged with ``--paged``, chunked with
+    ``--chunk-prefill``."""
     return Scheduler(model, params, num_slots=args.slots or args.batch,
                      cache_len=cache_len, eos_id=args.eos_id,
                      seed=args.seed + 1, paged=args.paged,
-                     block_size=args.block_size, num_blocks=args.num_blocks)
+                     block_size=args.block_size, num_blocks=args.num_blocks,
+                     chunk_prefill=args.chunk_prefill,
+                     chunk_size=args.chunk_size,
+                     prefill_budget=args.prefill_budget)
 
 
 def print_pool_stats(sched: Scheduler) -> None:
@@ -293,10 +308,13 @@ def arrivals(sched: Scheduler, args) -> dict:
            "counted": since(t0["counted"], t1["counted"]),
            "replayed": since(t0["replayed"], t1["replayed"]),
            "peak_bytes": peak, "interrupted": interrupted, **st}
+    chunked = (f" chunk={sched.chunk_size}x{sched.chunk_lanes}"
+               if sched.chunk_prefill else "")
     print(f"arch={model.cfg.name} device={model.device} "
           f"slots={sched.num_slots} arrival_rate={args.arrival_rate}/s "
           f"requests={len(finished)} prompt={args.prompt_len} "
-          f"max_new={args.steps} prefill and decode step: "
+          f"max_new={args.steps} pool={'paged' if sched.paged else 'dense'}"
+          f"{chunked} prefill and decode step: "
           f"{'CUDA graphs' if sched.graph is not None else 'eager'}"
           f"{' (PARTIAL: interrupted)' if interrupted else ''}")
     print(f"steady state: {st['tokens_out']} tokens in {wall:.3f}s "
@@ -309,6 +327,10 @@ def arrivals(sched: Scheduler, args) -> dict:
           f"p95={out['ttft_p95_s'] * 1e3:.1f}ms | inter-token: "
           f"p50={out['itl_p50_s'] * 1e3:.1f}ms "
           f"p95={out['itl_p95_s'] * 1e3:.1f}ms")
+    if sched.chunk_prefill:
+        print(f"prefill chunks executed: {st['prefill_chunks']} (budget "
+              f"{st['prefill_budget']} tok/step); mixed steps "
+              f"{st['mixed_steps']}, plain decode steps {st['plain_steps']}")
     print_pool_stats(sched)
     print("peak device memory: " + ("n/a on cpu" if peak is None else
                                     f"{peak / 2**30:.3f} GiB allocated"))
@@ -428,15 +450,20 @@ def prefix_smoke(model, params, args) -> dict:
         raise SystemExit("--prefix-smoke needs --paged and a model whose "
                          "prefix blocks can be shared")
     blk = sched.block
-    admit_ms, blocks, counters, out = [], [], [], {}
+    admit_ms, blocks, counters, chunks, out = [], [], [], [], {}
     for uid, toks in enumerate(prompts):
         if uid == 2:                      # after both retired
             out.update(sched.run())
         t0 = time.perf_counter()
+        chunks0 = sched.prefill_chunks
         sched.submit(Request(uid=uid, inputs={"tokens": toks},
                              max_new_tokens=steps))
         sched.step()                      # the admission and a decode step
+        while any(s is not None and s.uid == uid and s.prefill_pos is not
+                  None for s in sched.slots):
+            sched.step()                  # chunked: to its first token
         _sync(model.device)
+        chunks.append(sched.prefill_chunks - chunks0)
         admit_ms.append((time.perf_counter() - t0) * 1e3)
         slot = next(i for i, s in enumerate(sched.slots)
                     if s is not None and s.uid == uid)
@@ -462,6 +489,8 @@ def prefix_smoke(model, params, args) -> dict:
     print(f"second admission: {shared[0]} shared blocks, {hits[1][1]} prefill "
           f"tokens skipped; resubmission: {hits[2][0]} tokens covered, "
           f"{hits[2][1]} skipped, last prompt block copied on write: {cow}")
+    if sched.chunk_prefill:
+        print(f"prefill chunks of {sched.chunk_size} per admission: {chunks}")
     print_pool_stats(sched)
     full = S % blk == 0                   # the whole prompt in full blocks
     want = {"shared": (P // blk, shared[0]),
@@ -484,7 +513,7 @@ def prefix_smoke(model, params, args) -> dict:
               f"smallest top-1/top-2 gap {g['gap']:.4g}")
     return {"sched": sched, "finished": out, "blocks": blocks,
             "shared_blocks": shared[0], "hits": hits, "cow": cow,
-            "admit_ms": admit_ms, "greedy": greedy,
+            "admit_ms": admit_ms, "greedy": greedy, "chunks": chunks,
             "prompts": prompts, **sched.stats()}
 
 
@@ -525,6 +554,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="KV blocks of the paged pool (default: every "
                          "slot's whole length)")
+    ap.add_argument("--chunk-prefill", action="store_true",
+                    help="prefill prompts in chunks inside the decode step "
+                         "(arrival mode and --prefix-smoke)")
+    ap.add_argument("--chunk-size", type=int, default=64,
+                    help="prompt tokens per prefill chunk (--chunk-prefill)")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="prompt tokens per step: budget // chunk-size "
+                         "chunk lanes (default: one lane)")
     ap.add_argument("--prefix-smoke", action="store_true",
                     help="prefix-reuse check: two prompts sharing a "
                          "--prefix-len prefix, then the first again "

@@ -17,7 +17,10 @@ block)): its static cache is then the paged pool (per-layer arenas,
 ``block_tables`` and ``pos``), captured over a zeroed pool whose tables
 are all the sentinel, so the warm-up writes only into the sentinel block.
 Such a graph also keeps one :class:`ResumeGraph` per suffix bucket, the
-prefix-reuse admission captured on the same pool.
+prefix-reuse admission captured on the same pool.  Any slot-pool decode
+graph, dense or paged, keeps one :class:`MixedGraph` per (lanes, chunk):
+the chunked-prefill step (``Model.mixed_step``) captured on its pool, the
+analogue of the reference's ``jitted_mixed_step(K, C)``.
 
 A :class:`PrefillGraph` belongs to one model and one (batch, padded
 prompt length, cache length).  Its static buffers are the tokens [B,S],
@@ -27,7 +30,7 @@ share; its temporaries live in one memory pool shared by every prefill
 graph of the model (no output lives there, and one replays at a time).
 
 Capture happens at a graph's first use (a decode graph's first ``load``
-or ``bind``, a prefill or resume graph's first call), and again when
+or ``bind``, a prefill, resume or mixed graph's first call), and again when
 ``params`` is another tree: the work first runs once eagerly on a side
 stream with the same shapes (this builds the kernel library, fills the
 launch-geometry memos and the chain's address tables, and opts each
@@ -121,6 +124,10 @@ class DecodeGraph:
     the captured prefix-reuse admission of the suffix's bucket
     (:class:`ResumeGraph`, dropped at a recapture).
 
+    Either slot pool: ``mixed(K, C)`` is the captured chunked-prefill step
+    of ``K`` lanes of ``C`` tokens (:class:`MixedGraph`, dropped at a
+    recapture).
+
     A host mirror of the position (an int, or a numpy [B]) refuses a
     replay outside the cache before it runs.
     """
@@ -135,8 +142,10 @@ class DecodeGraph:
                              f"(masked, T={T}, block={paged[1]})")
         self.model, self.B, self.T, self.masked = model, B, T, masked
         self.paged = paged
-        # the captured resume prefills of a paged pool, by suffix bucket
+        # the captured resume prefills of a paged pool, by suffix bucket,
+        # and the captured mixed steps, by (lanes, chunk)
         self.resumes: dict[int, ResumeGraph] = {}
+        self.mixed_graphs: dict[tuple[int, int], MixedGraph] = {}
         self.graph: torch.cuda.CUDAGraph | None = None
         # the captured step reads these parameters' memory at every replay,
         # so the graph keeps them alive
@@ -167,7 +176,9 @@ class DecodeGraph:
         ``active`` is all False, so the warm-up writes no k/v and advances
         no position."""
         self.graph = self.logits = None
-        self.resumes.clear()            # they address the pool replaced here
+        # they address the pool replaced here
+        self.resumes.clear()
+        self.mixed_graphs.clear()
         self.params, self.cache = params, cache
         try:
             graph, logits, self.captured = _capture(
@@ -266,6 +277,26 @@ class DecodeGraph:
         self.pos[slot] = start + true_suf
         return logits
 
+    def mixed(self, K: int, C: int) -> "MixedGraph":
+        """The chunked-prefill step of ``K`` lanes of ``C`` tokens on this
+        slot pool (captured at its first call)."""
+        if self.graph is None or not self.masked:
+            raise RuntimeError("bind the slot-pool graph before a mixed "
+                               "step")
+        graph = self.mixed_graphs.get((K, C))
+        if graph is None:
+            graph = self.mixed_graphs[(K, C)] = MixedGraph(self, K, C)
+        return graph
+
+    def _check_rows(self, active: np.ndarray) -> None:
+        """Refuse a replay that would decode an active row outside the
+        cache."""
+        bad = np.flatnonzero(active & (self.pos >= self.T))
+        if bad.size:
+            raise ValueError(
+                f"decode position {int(self.pos[bad[0]])} of row "
+                f"{int(bad[0])} outside the cache of {self.T}")
+
     def __call__(self, token: torch.Tensor,
                  active: np.ndarray | None = None) -> torch.Tensor:
         """Decode ``token [B,1]`` at the loaded position (in slot-pool mode
@@ -275,11 +306,7 @@ class DecodeGraph:
             raise RuntimeError("load a cache before replaying the graph")
         if self.masked:
             active = np.asarray(active, bool)
-            bad = np.flatnonzero(active & (self.pos >= self.T))
-            if bad.size:
-                raise ValueError(
-                    f"decode position {int(self.pos[bad[0]])} of row "
-                    f"{int(bad[0])} outside the cache of {self.T}")
+            self._check_rows(active)
             self.active.copy_(torch.from_numpy(active))
         elif not 0 <= self.pos < self.T:
             raise ValueError(f"decode position {self.pos} outside the cache "
@@ -433,3 +460,102 @@ class ResumeGraph:
         self.graph.replay()
         self.model.replayed_launches.update(self.captured)
         return self.logits
+
+
+class MixedGraph:
+    """``Model.mixed_step`` of ``K`` prefill-chunk lanes of ``C`` tokens
+    and the masked decode step on the pool of the slot-pool ``DecodeGraph``
+    ``decode`` (dense or paged), captured once (with the decode graph's
+    parameters) and replayed at every chunked-prefill step of a scheduler
+    with that (lanes, chunk) (``DecodeGraph.mixed``).
+
+    Its static inputs are the lanes' tokens [K, C], slots, starts and true
+    lengths [K] int32, active flags [K] bool and, paged, block tables [K,
+    max_blocks] int32; the decode pass reads the decode graph's own token
+    and ``active`` buffers.  A replay writes the pool (k/v, positions and,
+    paged, the lanes' tables) on the device and the decode logits [B,1,V]
+    and the lanes' logits [K,V] into static buffers.  The warm-up and the
+    capture run with every lane inactive (slot 0, start 0, true length 1,
+    tables all sentinel) and no decode row active: a dense lane writes back
+    the row it read and a paged one writes only the sentinel block, so the
+    capture may run while rows are live.  Temporaries live in the model's
+    prefill pool (one prefill, resume or mixed step replays at a time)."""
+
+    def __init__(self, decode: DecodeGraph, K: int, C: int):
+        model, dev = decode.model, decode.model.device
+        self.decode, self.model, self.K, self.C = decode, model, K, C
+        self.ck_tokens = torch.zeros((K, C), dtype=torch.int64, device=dev)
+        self.ck_slot = torch.zeros((K,), dtype=torch.int32, device=dev)
+        self.ck_start = torch.zeros((K,), dtype=torch.int32, device=dev)
+        self.ck_true = torch.ones((K,), dtype=torch.int32, device=dev)
+        self.ck_active = torch.zeros((K,), dtype=torch.bool, device=dev)
+        self.ck_tables = None
+        if decode.paged is not None:
+            mb = decode.cache["block_tables"].shape[1]
+            self.ck_tables = torch.full((K, mb), decode.paged[0],
+                                        dtype=torch.int32, device=dev)
+        V = model.cfg.vocab_size
+        self.logits = torch.empty((decode.B, 1, V), dtype=torch.float32,
+                                  device=dev)
+        self.ck_logits = torch.empty((K, V), dtype=torch.float32,
+                                     device=dev)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        # TT launches one replay makes, by kernel name
+        self.captured: dict[str, int] = {}
+
+    def _step(self) -> None:
+        d = self.decode
+        logits, ck_logits, new = self.model.mixed_step(
+            d.params, d.cache, d.token, d.active, self.ck_tokens,
+            self.ck_slot, self.ck_start, self.ck_true, self.ck_active,
+            self.ck_tables)
+        d.cache["pos"].copy_(new["pos"])
+        self.logits.copy_(logits)
+        self.ck_logits.copy_(ck_logits)
+
+    def _capture(self) -> None:
+        model, d = self.model, self.decode
+        d.active.zero_()
+        self.graph, _, self.captured = _capture(
+            model, self._step, f"the mixed step of {self.K} lanes of "
+            f"{self.C} tokens on the pool of {d.B} slots over {d.T}",
+            _prefill_pool(model))
+        model.graph_captures += 1
+
+    def __call__(self, token: torch.Tensor, active: np.ndarray,
+                 lanes: dict[str, np.ndarray]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One mixed step: decode ``token [B,1]`` for the rows ``active``
+        [B] bool marks (host arrays, as ``DecodeGraph.__call__`` takes
+        them) after the chunk lanes ``lanes`` (host arrays ``tokens`` [K,
+        C], ``slot``, ``start``, ``true`` [K], ``active`` [K] and, paged,
+        ``tables`` [K, max_blocks]).  Returns the static (decode logits
+        [B,1,V], lane logits [K,V])."""
+        d = self.decode
+        active = np.asarray(active, bool)
+        lane = np.asarray(lanes["active"], bool)
+        slot, start, true = (np.asarray(lanes[k])[lane]
+                             for k in ("slot", "start", "true"))
+        d._check_rows(active)
+        if np.any((slot < 0) | (slot >= d.B) | (true < 1) |
+                  (true > self.C) | (start < 0) | (start + true > d.T)) or \
+                np.any(active[slot]):
+            raise ValueError(f"chunk lanes (slot, start, true length) "
+                             f"{list(zip(slot, start, true))} outside the "
+                             f"pool of {d.B} slots over {d.T} with chunks "
+                             f"of {self.C}, or on a decoding row")
+        if self.graph is None:
+            self._capture()
+        d.token.copy_(token)
+        d.active.copy_(torch.from_numpy(active))
+        for buf, k in ((self.ck_tokens, "tokens"), (self.ck_slot, "slot"),
+                       (self.ck_start, "start"), (self.ck_true, "true"),
+                       (self.ck_active, "active")) + (
+                ((self.ck_tables, "tables"),)
+                if self.ck_tables is not None else ()):
+            buf.copy_(torch.from_numpy(np.asarray(lanes[k])))
+        self.graph.replay()
+        d.pos[slot] = start + true
+        d.pos += active
+        self.model.replayed_launches.update(self.captured)
+        return self.logits, self.ck_logits

@@ -5,7 +5,9 @@ a prompt-length bucket, or captured: ``padded_prefill``,
 ``quantize_params`` for the dense decoder; and for the block-paged pool
 (DESIGN.md §7), ``init_cache(..., paged=True)``, ``splice_cache_paged``
 and the prefix-reuse admission ``prefill_resume`` (``resume_prefill``
-buckets it and, on a card, replays it captured).
+buckets it and, on a card, replays it captured); and for chunked prefill
+(DESIGN.md §15), over either pool, ``chunk_step``, ``mixed_step`` (on a
+card replayed as ``models.graph.MixedGraph``) and ``copy_blocks``.
 
 Parameters are a dict tree of tensors: ``embed``, ``final_norm``,
 ``lm_head`` and one list per layer group ``g{gi}`` holding a dict
@@ -28,7 +30,8 @@ from .layers import (embed_apply, embed_spec, linear_apply, linear_spec,
                      quantize_tt_params, rmsnorm_apply, rmsnorm_spec)
 from .spec import init_tree, map_tree, tree_leaves
 from .transformer import (Group, block_cache_kinds, block_paged_cache_shape,
-                          group_decode, group_fwd, group_resume, group_spec)
+                          group_chunk, group_decode, group_fwd, group_resume,
+                          group_spec)
 
 
 # captured decode steps a model keeps, and captured prefills (the
@@ -372,6 +375,91 @@ class Model:
         _lru_put(self.eager_prefills, key, None)
         return self.prefill_resume(params, tokens, cache, slot, src_blocks,
                                    dst_blocks, start, S)[0]
+
+    @torch.no_grad()
+    def chunk_step(self, params, cache: dict, tokens: torch.Tensor, slot,
+                   start, true_len, active, table=None
+                   ) -> tuple[torch.Tensor, dict]:
+        """One prefill chunk of one slot, IN PLACE in the serving pool
+        (dense slots, or paged with ``table``), the reference's
+        ``chunk_step``.
+
+        ``tokens`` [1, C] (rows >= ``true_len`` are right-padding) are the
+        prompt slice [start, start + true_len); ``slot``, ``start``,
+        ``true_len`` (0-d int32) and ``active`` (0-d bool) are tensors on
+        the device, ``table`` [max_blocks] int32 the slot's block table
+        (None: the dense pool; all sentinel when ``active`` is False).
+        When ``active``, row ``slot``'s position becomes start + true_len
+        and, paged, its table ``table``; an inactive lane changes nothing.
+        Nothing is read on the host, so the step can be captured
+        (``models.graph.MixedGraph``).  Returns (logits [1,1,V] fp32 of
+        position start + true_len - 1, picked on the device, cache).  Ints
+        are taken too, for an eager call."""
+        dev = self.device
+
+        def index(v, dtype=torch.int32):
+            return torch.as_tensor(v, dtype=dtype, device=dev)
+
+        slot, start, true_len = index(slot), index(start), index(true_len)
+        active = index(active, torch.bool)
+        if table is not None:
+            table = index(table)
+        x = embed_apply(params["embed"], tokens.to(dev))
+        for gi, g in enumerate(self.groups):
+            x, cache[f"g{gi}"] = group_chunk(
+                params[f"g{gi}"], g, self.cfg, x, cache[f"g{gi}"], slot,
+                table, start, active, plans=self.plan_book)
+        pos = cache["pos"]
+        row = (torch.arange(pos.shape[0], device=pos.device) == slot) & \
+            active
+        pos.copy_(torch.where(row, start + true_len, pos))
+        if table is not None:
+            bt = cache["block_tables"]
+            bt.copy_(torch.where(row[:, None], table[None, :], bt))
+        last = x.index_select(1, (true_len - 1).reshape(1))
+        return self._logits(params, last), cache
+
+    @torch.no_grad()
+    def mixed_step(self, params, cache: dict, token: torch.Tensor,
+                   active: torch.Tensor, ck_tokens: torch.Tensor, ck_slot,
+                   ck_start, ck_true, ck_active, ck_tables=None
+                   ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+        """The chunked-prefill serving step, the reference's
+        ``mixed_step``: K prefill-chunk lanes (``chunk_step`` each), then
+        the masked decode step (``decode_step`` with ``active``), in this
+        order, so a lane that finishes its prompt decodes the next step.
+
+        ck_tokens [K, C], ck_slot/ck_start/ck_true [K] int32, ck_active [K]
+        bool and ck_tables [K, max_blocks] int32 (paged pools only; an
+        unused lane's row all sentinel) are tensors on the device.  Returns
+        (decode logits [B,1,V], chunk logits [K,V] at each lane's last true
+        position, the decode step's cache at ``pos + active``)."""
+        ck_logits = []
+        for j in range(ck_tokens.shape[0]):
+            lg, cache = self.chunk_step(
+                params, cache, ck_tokens[j:j + 1], ck_slot[j], ck_start[j],
+                ck_true[j], ck_active[j],
+                None if ck_tables is None else ck_tables[j])
+            ck_logits.append(lg[0, 0])
+        logits, cache = self.decode_step(params, cache, token, active)
+        return logits, torch.stack(ck_logits), cache
+
+    @torch.no_grad()
+    def copy_blocks(self, cache: dict, src: int, dst: int) -> None:
+        """Copy arena block ``src`` into block ``dst`` in every layer's k
+        and v, IN PLACE: the eager copy-on-write of a chunked admission
+        whose prefix covers the whole prompt (its last block is about to be
+        partly rewritten through the slot's own table); the reference's
+        ``copy_blocks``, which returns an updated copy."""
+        for arena in _kv_leaves(cache):
+            arena[dst].copy_(arena[src])
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Chunked prefill covers the ported mixer, full-attention GQA
+        (``transformer.block_chunk``)."""
+        return all(bd.mixer == "gqa" for period, _ in self.groups
+                   for bd in period)
 
     @property
     def supports_prefix_reuse(self) -> bool:

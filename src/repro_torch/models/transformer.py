@@ -12,8 +12,9 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .attention import (gqa_decode_attn, gqa_decode_attn_paged,
-                        gqa_resume_attn, gqa_self_attn, gqa_spec)
+from .attention import (gqa_chunk_attn, gqa_decode_attn,
+                        gqa_decode_attn_paged, gqa_resume_attn,
+                        gqa_self_attn, gqa_spec)
 from .layers import mlp_apply, mlp_spec, rmsnorm_apply, rmsnorm_spec
 
 
@@ -178,5 +179,65 @@ def group_resume(params: list, group: Group, cfg: ModelConfig, x,
             x, c[f"b{i}"] = block_resume(layer[f"b{i}"], cfg, bd, x,
                                          lc[f"b{i}"], src_b, dst_b, start,
                                          plans=plans)
+        new.append(c)
+    return x, new
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: one prompt chunk of one slot, inside the serving pool
+# ---------------------------------------------------------------------------
+
+def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
+                table, start, active, plans=None):
+    """One prefill chunk of one slot through one block, IN PLACE.
+
+    x [1, C, d] at absolute positions start + t (right-padded past the
+    chunk's true length: full attention writes the padding's k/v past the
+    row's new position, where every later step masks or overwrites it);
+    ``slot``, ``start`` (0-d int32) and ``active`` (0-d bool) are tensors
+    on the device, so nothing is read on the host.  ``table`` [max_blocks]
+    int32 addresses the paged arenas (None for the dense pool; the caller
+    makes it all sentinel when the lane is inactive): the gather, chunk
+    attention and scatter of ``block_resume`` with the slot's own table as
+    source and destination.
+    Dense: row ``slot`` of k/v is taken with C scratch rows appended,
+    attended, and written back as ``where(active, new, old)``, so an
+    inactive lane writes the bits it read.  Full attention only (the
+    reference's windowed-ring, MLA and SSM branches come with their
+    families)."""
+    if bd.mixer != "gqa":
+        raise ValueError(f"mixer {bd.mixer!r} has no chunked prefill")
+    if table is not None:
+        return block_resume(p, cfg, bd, x, cache, table, table, start,
+                            plans=plans)
+    C = x.shape[1]
+    h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    idx = slot.reshape(1).long()
+    old = {n: cache[n].index_select(0, idx) for n in ("k", "v")}
+    T = old["k"].shape[1]
+    dk, dv = (torch.cat([r, r.new_zeros((1, C, *r.shape[2:]))], 1)
+              for r in (old["k"], old["v"]))
+    y, dk, dv = gqa_chunk_attn(p["attn"], cfg, h, dk, dv, start,
+                               backend=plans)
+    for name, new in (("k", dk), ("v", dv)):
+        cache[name].index_copy_(0, idx, torch.where(active, new[:, :T],
+                                                    old[name]))
+    x = x + y
+    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["ffn"], h, plans), cache
+
+
+def group_chunk(params: list, group: Group, cfg: ModelConfig, x,
+                caches: list, slot, table, start, active, plans=None):
+    """One prefill chunk over a group's layers, in order (the reference
+    scans its stacked layers)."""
+    period, _ = group
+    new = []
+    for layer, lc in zip(params, caches):
+        c = {}
+        for i, bd in enumerate(period):
+            x, c[f"b{i}"] = block_chunk(layer[f"b{i}"], cfg, bd, x,
+                                        lc[f"b{i}"], slot, table, start,
+                                        active, plans=plans)
         new.append(c)
     return x, new

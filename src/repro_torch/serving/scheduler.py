@@ -15,6 +15,18 @@ are published under their chained content hash; a later prompt that
 shares them acquires them copy-on-write and prefills only its suffix
 (``Model.prefill_resume``), counted in ``prefill_tokens_skipped``.
 
+Chunked prefill (``chunk_prefill=True``, DESIGN.md §15): admission only
+reserves the slot (paged: the blocks, with the same prefix lookup,
+copy-on-write credit and rollback; a full cover copies its last block
+eagerly, ``Model.copy_blocks``) and arms the slot's chunk state; every
+step then runs up to ``chunk_lanes`` = max(1, ``prefill_budget`` //
+``chunk_size``) prompt chunks of ``chunk_size`` tokens, best rank first,
+before the masked decode of the decoding rows, in one
+``Model.mixed_step``.  A slot whose last chunk ran publishes its prompt's
+blocks and picks its first token from the lane's logits, through its own
+generator as an admission would; mid-prefill slots are not decoded and
+draw nothing.
+
 Lifecycle of a request:
 
   submit() ─→ queue ─→ admission into a free slot, best rank first
@@ -31,14 +43,17 @@ Lifecycle of a request:
 On a CUDA model every admission prefill is one replay of a captured
 prefill (``Model.graphed_prefill(1, bucket or prompt length, cache_len)``,
 captured the first time its key is met), every resume one replay of the
-resume captured for its suffix bucket (``DecodeGraph.resume``), and every
-decode step one replay of the slot-pool CUDA graph
+resume captured for its suffix bucket (``DecodeGraph.resume``), every
+chunked-prefill step one replay of the mixed step captured for its
+(lanes, chunk) (``DecodeGraph.mixed``), and every decode step one replay
+of the slot-pool CUDA graph
 ``Model.graphed_decode_step(num_slots, cache_len, masked=True, paged=...)``,
 whose static cache is the pool; the splice is a device copy (paged: a
 scatter) from the prefill graph's output cache into the pool, between
 replays.  On the CPU all are eager (``Model.decode_step`` with the
-``active`` mask).  ``graph=False`` asks for the eager prefill, resume and
-step on the card, to hold them against each other.
+``active`` mask, ``Model.mixed_step``).  ``graph=False`` asks for the
+eager prefill, resume, mixed and decode steps on the card, to hold them
+against each other.
 
 Sampling parameters ride on the ``Request`` (``temperature``, ``top_k``).
 A sampled request draws from its own ``torch.Generator`` on the model's
@@ -46,10 +61,12 @@ device (``Request.key``, or one seeded from the scheduler's ``seed`` and
 the request's uid, the counterpart of ``fold_in(base_key, uid)``); greedy
 requests draw nothing.
 
-Not ported (ROADMAP.md Queue 1): chunked prefill, preemption, deadlines,
-resize, snapshots, the mesh and ``drop``.  The constructor refuses their
-arguments.  With equal priorities the reference never preempts, so the
-two agree at their defaults.
+Not ported (ROADMAP.md Queue 1): preemption (mid-prefill included),
+deadlines, resize, snapshots (mid-prefill included), the mesh and
+``drop``; chunked prefill covers full-attention GQA only (the windowed
+ring, MLA and SSM chunk branches come with their families).  The
+constructor refuses the arguments.  With equal priorities the reference
+never preempts, so the two agree at their defaults.
 """
 from __future__ import annotations
 
@@ -69,8 +86,7 @@ NEG_INF = -1e30
 
 # the reference's Scheduler arguments this port leaves out, by the
 # ROADMAP.md Queue 1 item that brings them
-NOT_PORTED = {"chunk_prefill": 4, "chunk_size": 4, "prefill_budget": 4,
-              "preempt": 6, "clock": 6, "mesh": 10}
+NOT_PORTED = {"preempt": 6, "clock": 6, "mesh": 10}
 
 
 @dataclasses.dataclass
@@ -117,10 +133,20 @@ class _Slot:
     submit_time: float
     temperature: float = 0.0
     top_k: int = 0
+    priority: int = 0
     tokens: list[int] = dataclasses.field(default_factory=list)
     logprobs: list[float] = dataclasses.field(default_factory=list)
     last_tok: int = 0
     first_token_time: float | None = None
+    # the chunk state: ``prefill_pos`` is None once the prompt is
+    # prefilled (the slot decodes); while it prefills, the prompt tokens
+    # already processed.  ``prefill_toks`` is the prompt, ``prefill_table``
+    # the slot's sentinel-padded block table (paged pools).
+    prefill_pos: int | None = None
+    prefill_toks: np.ndarray | None = dataclasses.field(default=None,
+                                                        repr=False)
+    prefill_table: np.ndarray | None = dataclasses.field(default=None,
+                                                         repr=False)
 
 
 class Scheduler:
@@ -133,7 +159,8 @@ class Scheduler:
                  paged: bool = False, block_size: int = 64,
                  num_blocks: int | None = None, prefix_cache: bool = True,
                  bucket_prompts: bool = True, graph: bool = True,
-                 **left_out):
+                 chunk_prefill: bool = False, chunk_size: int = 64,
+                 prefill_budget: int | None = None, **left_out):
         for name in left_out:
             if name not in NOT_PORTED:
                 raise TypeError(f"Scheduler got an unexpected keyword "
@@ -145,6 +172,21 @@ class Scheduler:
                 f"{sorted({NOT_PORTED[n] for n in left_out})})")
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
+        # chunked prefill: ``prefill_budget`` caps the prompt tokens of a
+        # step, so a step runs floor(budget / chunk_size) chunk lanes
+        # beside the decode rows, trading the TTFT of admitted requests
+        # against the inter-token latency of running ones
+        self.chunk_prefill = bool(chunk_prefill)
+        self.chunk_size = int(chunk_size)
+        self.prefill_budget = (self.chunk_size if prefill_budget is None
+                               else int(prefill_budget))
+        self.chunk_lanes = max(1, self.prefill_budget //
+                               max(1, self.chunk_size))
+        if self.chunk_prefill:
+            if self.chunk_size < 1:
+                raise ValueError("chunk_size must be >= 1")
+            if not model.supports_chunked_prefill:
+                raise ValueError("model does not support chunked prefill")
         self.model = model
         self.params = params
         # every TT plan is resolved here, so admissions and decode steps
@@ -181,6 +223,9 @@ class Scheduler:
         self.admissions = 0               # admission prefills (or resumes)
         self.admit_s = 0.0                # host seconds in admissions
         self.cancelled = 0                # requests cancelled via cancel()
+        self.prefill_chunks = 0           # chunk lanes executed
+        self.mixed_steps = 0              # steps through the mixed step
+        self.plain_steps = 0              # steps through the decode step
         # on a card, the slot-pool decode step; its static cache is the pool
         self.graph: DecodeGraph | None = None
         geometry = (self.num_blocks, self.block) if paged else None
@@ -263,6 +308,13 @@ class Scheduler:
                "admissions": self.admissions, "admit_s": self.admit_s,
                "kv_pool_bytes": self.kv_pool_bytes(),
                "cancelled": self.cancelled}
+        if self.chunk_prefill:
+            out.update(chunk_size=self.chunk_size,
+                       prefill_budget=self.prefill_budget,
+                       chunk_lanes=self.chunk_lanes,
+                       prefill_chunks=self.prefill_chunks,
+                       mixed_steps=self.mixed_steps,
+                       plain_steps=self.plain_steps)
         if self.paged:
             out.update(
                 block_size=self.block, num_blocks=self.num_blocks,
@@ -284,7 +336,8 @@ class Scheduler:
         stays out of steady-state numbers)."""
         self.finished.clear()
         self.tokens_out = self.steps_run = self.admissions = 0
-        self.cancelled = 0
+        self.cancelled = self.prefill_chunks = 0
+        self.mixed_steps = self.plain_steps = 0
         self.admit_s = 0.0
         if self.paged:
             self.block_hwm = self.allocator.in_use
@@ -293,16 +346,21 @@ class Scheduler:
 
     def step(self) -> list[FinishedRequest]:
         """One scheduler tick: admit into free slots best-rank-first, then
-        run one masked decode step.  Returns the requests retired during
-        this call.  A scheduler whose decode graph another one has bound
-        since raises."""
+        run one masked decode step, or, while a slot is mid-prefill, one
+        mixed step (its chunk lanes, then the decode).  Returns the
+        requests retired during this call.  A scheduler whose decode graph
+        another one has bound since raises."""
         if self.graph is not None and self.graph.owner() is not self:
             raise RuntimeError("the slot-pool decode graph was bound by "
                                "another scheduler")
         done: list[FinishedRequest] = []
         self._admit_phase(done)
         if self.num_active:
-            self._decode_once(done)
+            if any(s is not None and s.prefill_pos is not None
+                   for s in self.slots):
+                self._mixed_once(done)
+            else:
+                self._decode_once(done)
         self.finished.extend(done)
         return done
 
@@ -366,6 +424,8 @@ class Scheduler:
                 prompt_len=q.prompt_len, submit_time=q.submit_time,
                 finish_time=time.perf_counter()))
             return True
+        if self.chunk_prefill:
+            return self._admit_chunked(q, slot_idx)
         if self.paged:
             return self._admit_paged(q, slot_idx, done)
         self._admit_dense(q, slot_idx, done)
@@ -411,7 +471,7 @@ class Scheduler:
                      key=self._req_key(req), prompt_len=q.prompt_len,
                      submit_time=q.submit_time,
                      temperature=float(req.temperature),
-                     top_k=int(req.top_k))
+                     top_k=int(req.top_k), priority=int(req.priority))
 
     def _emit(self, slot: _Slot, tok: int, lp: float) -> None:
         """Append one generated token to a slot, stamping the first."""
@@ -439,36 +499,28 @@ class Scheduler:
             self.slots[slot_idx] = slot
         self.admit_s += time.perf_counter() - t0
 
-    def _admit_paged(self, q: _Queued, slot_idx: int,
-                     done: list[FinishedRequest]) -> bool:
-        """Reserve the request's lifetime blocks, sharing the longest chain
-        of resident prefix blocks, then prefill the whole prompt and
-        scatter it into its blocks, or, on a prefix hit, prefill only the
-        suffix through the shared blocks (``Model.resume_prefill``; full
-        coverage copies the last shared block on write and recomputes its
-        final token).  Returns False, holding nothing, when the blocks do
-        not fit yet."""
-        t0 = time.perf_counter()
-        req = q.req
-        S, blk, alloc = q.prompt_len, self.block, self.allocator
-        need = logical_blocks(min(S + req.max_new_tokens, self.cache_len),
-                              blk)
-        # ---- prefix lookup: acquire the longest chain of resident blocks
-        hashes: list[bytes] = []
+    def _reserve(self, q: _Queued, slot_idx: int, hashes: list[bytes]
+                 ) -> tuple[list[int], list[int], int] | None:
+        """Reserve ``q``'s lifetime blocks for slot ``slot_idx``, sharing
+        the longest chain of resident blocks whose chained hashes are
+        ``hashes`` (empty without the prefix cache), and count them:
+        (source blocks, destination blocks, the first prompt position to
+        compute), or None, holding nothing, when they do not fit yet.  A
+        prefill computes >= 1 token for the logits, so full coverage takes
+        the last matched block copy on write (the one entry where the
+        destination differs) and recomputes its last token."""
+        S, alloc = q.prompt_len, self.allocator
+        need = logical_blocks(min(S + q.req.max_new_tokens, self.cache_len),
+                              self.block)
         shared: list[int] = []
-        if self.prefix_cache:
-            hashes = chain_hashes(req.inputs["tokens"].cpu().numpy(), blk)
-            for h in hashes:
-                bid = alloc.acquire(h)
-                if bid is None:
-                    break
-                shared.append(bid)
+        for h in hashes:
+            bid = alloc.acquire(h)
+            if bid is None:
+                break
+            shared.append(bid)
         matched = len(shared)
-        covered = matched * blk
+        covered = matched * self.block
         full_cover = matched > 0 and covered >= S
-        # the resume computes >= 1 token for the logits: full coverage
-        # copies the last matched block on write and recomputes its last
-        # token
         start = S - 1 if full_cover else covered
         fresh_needed = need - matched + (1 if full_cover else 0)
         # the COW source's only owner is this admission: its decref returns
@@ -479,26 +531,49 @@ class Scheduler:
         if fresh_needed > alloc.available + credit:
             for bid in shared:            # roll back: the request waits
                 alloc.decref(bid)
-            return False
-        # ---- source and destination tables (dst != src: a COW block)
+            return None
         src, dst = list(shared), list(shared)
         if full_cover:
             dst[-1] = alloc.cow(shared[-1])
         fresh = [alloc.alloc() for _ in range(need - len(dst))]
-        src += fresh
-        dst += fresh
+        self._slot_blocks[slot_idx] = dst + fresh
+        self.prefix_prompt_tokens += S
+        self.prefix_hit_tokens += min(covered, S)
+        self.prefill_tokens_skipped += start
+        self.block_hwm = max(self.block_hwm, alloc.in_use)
+        return src + fresh, dst + fresh, start
+
+    def _table(self, blocks: list[int]) -> np.ndarray:
+        """A block table row: ``blocks``, then the sentinel."""
+        table = np.full(self.max_blocks, self.num_blocks, np.int32)
+        table[:len(blocks)] = blocks
+        return table
+
+    def _admit_paged(self, q: _Queued, slot_idx: int,
+                     done: list[FinishedRequest]) -> bool:
+        """Reserve the request's lifetime blocks (``_reserve``), then
+        prefill the whole prompt and scatter it into its blocks, or, on a
+        prefix hit, prefill only the suffix through the shared blocks
+        (``Model.resume_prefill``; a full cover writes its last block's copy
+        on write).  Returns False, holding nothing, when the blocks do not
+        fit yet."""
+        t0 = time.perf_counter()
+        req = q.req
+        hashes = (chain_hashes(req.inputs["tokens"].cpu().numpy(),
+                               self.block) if self.prefix_cache else [])
+        reserved = self._reserve(q, slot_idx, hashes)
+        if reserved is None:
+            return False
+        src, dst, start = reserved
         dev = self.model.device
-        src_t = torch.full((self.max_blocks,), self.num_blocks,
-                           dtype=torch.int32)
-        dst_t = src_t.clone()
-        src_t[:len(src)] = torch.tensor(src, dtype=torch.int32)
-        dst_t[:len(dst)] = torch.tensor(dst, dtype=torch.int32)
-        src_t, dst_t = src_t.to(dev), dst_t.to(dev)
+        src_t = torch.from_numpy(self._table(src)).to(dev)
+        dst_t = torch.from_numpy(self._table(dst)).to(dev)
         # ---- prefill: the whole prompt (scatter) or the suffix (resume)
         if start == 0:
             logits, row_cache = self._row_prefill(self._admit_inputs(q))
             if self.graph is not None:
-                self.graph.splice_paged(row_cache, slot_idx, S, dst_t)
+                self.graph.splice_paged(row_cache, slot_idx, q.prompt_len,
+                                        dst_t)
             else:
                 self.model.splice_cache_paged(self.cache, row_cache,
                                               slot_idx, dst_t)
@@ -507,15 +582,9 @@ class Scheduler:
             logits = self.model.resume_prefill(
                 self.params, self.cache, req.inputs["tokens"][:, start:],
                 slot_idx, src_t, dst_t, start, self.graph)
-            self.prefill_tokens_skipped += start
         # ---- publish the prompt's full blocks for later sharing
-        if self.prefix_cache:
-            for i in range(min(len(hashes), len(dst))):
-                alloc.publish(dst[i], hashes[i])
-        self._slot_blocks[slot_idx] = dst
-        self.prefix_prompt_tokens += S
-        self.prefix_hit_tokens += min(covered, S)
-        self.block_hwm = max(self.block_hwm, alloc.in_use)
+        for bid, h in zip(dst, hashes):
+            self.allocator.publish(bid, h)
         # ---- first token
         slot = self._start_slot(q)
         tok, lp = self._pick(logits[:, -1], [slot])
@@ -525,6 +594,36 @@ class Scheduler:
             self._release_blocks(slot_idx)  # never occupied a decode slot
         else:
             self.slots[slot_idx] = slot
+        self.admit_s += time.perf_counter() - t0
+        return True
+
+    def _admit_chunked(self, q: _Queued, slot_idx: int) -> bool:
+        """Admit under chunked prefill: reserve the slot (paged: its blocks,
+        ``_reserve``) and arm its chunk state; no prefill runs here, the
+        mixed steps stream the prompt through the chunk lanes.  The chunks
+        read and write through the slot's own table, so a full cover's copy
+        on write is made here, eagerly (``Model.copy_blocks``).  Returns
+        False, holding nothing, when the blocks do not fit yet.  (The
+        reference builds its pool here on first use; the port's exists from
+        construction.)"""
+        t0 = time.perf_counter()
+        toks = q.req.inputs["tokens"].cpu().numpy().reshape(-1)
+        start, table = 0, None
+        if self.paged:
+            reserved = self._reserve(
+                q, slot_idx,
+                chain_hashes(toks, self.block) if self.prefix_cache else [])
+            if reserved is None:
+                return False
+            src, dst, start = reserved
+            for a, b in zip(src, dst):
+                if a != b:
+                    self.model.copy_blocks(self.cache, a, b)
+            table = self._table(dst)
+        slot = self._start_slot(q)
+        slot.prefill_pos, slot.prefill_toks = start, toks
+        slot.prefill_table = table
+        self.slots[slot_idx] = slot
         self.admit_s += time.perf_counter() - t0
         return True
 
@@ -564,12 +663,18 @@ class Scheduler:
                 lp.gather(-1, tok[:, None])[:, 0].tolist())
 
     # ---------------------------------------------------------------- decode
+    def _decoding(self) -> list[_Slot | None]:
+        """The slots that decode: mid-prefill ones read as empty."""
+        return [s if s is not None and s.prefill_pos is None else None
+                for s in self.slots]
+
     def _decode_arrays(self) -> tuple[np.ndarray, np.ndarray]:
-        """Host-side inputs of the masked decode step: each active slot's
-        last token, and the active mask."""
+        """Host-side inputs of the masked decode step: each decoding slot's
+        last token, and the active mask (a mid-prefill slot is not active:
+        the decode leaves its partly built row alone)."""
         toks = np.zeros((self.num_slots, 1), np.int64)
         active = np.zeros((self.num_slots,), bool)
-        for i, s in enumerate(self.slots):
+        for i, s in enumerate(self._decoding()):
             if s is not None:
                 toks[i, 0] = s.last_tok
                 active[i] = True
@@ -577,10 +682,12 @@ class Scheduler:
 
     def _finish_decode(self, logits: torch.Tensor,
                        done: list[FinishedRequest]) -> None:
-        """Pick, emit and retire for one decode step's logits [B, V]."""
-        tok, lp = self._pick(logits, self.slots)
+        """Pick, emit and retire for one decode step's logits [B, V];
+        mid-prefill slots draw nothing and get no token."""
+        decoding = self._decoding()
+        tok, lp = self._pick(logits, decoding)
         self.steps_run += 1
-        for i, s in enumerate(self.slots):
+        for i, s in enumerate(decoding):
             if s is None:
                 continue
             self._emit(s, tok[i], lp[i])
@@ -589,6 +696,7 @@ class Scheduler:
                 self._free_slot(i)
 
     def _decode_once(self, done: list[FinishedRequest]) -> None:
+        self.plain_steps += 1
         toks, active = self._decode_arrays()
         if self.graph is not None:
             logits = self.graph(torch.from_numpy(toks), active)
@@ -599,6 +707,76 @@ class Scheduler:
                 torch.from_numpy(active).to(dev))
         # the pick reads the graph's static logits before the next replay
         self._finish_decode(logits[:, 0], done)
+
+    def _mixed_once(self, done: list[FinishedRequest]) -> None:
+        """One mixed step: up to ``chunk_lanes`` prompt chunks of the
+        mid-prefill slots, best rank first (unused lanes inactive: slot 0,
+        start 0, true length 1, tables all sentinel), then the masked
+        decode of the decoding slots; a replay of ``DecodeGraph.mixed(K,
+        C)`` on the card, ``Model.mixed_step`` otherwise."""
+        K, C = self.chunk_lanes, self.chunk_size
+        toks, active = self._decode_arrays()
+        pref = sorted(((-s.priority, s.submit_time), i)
+                      for i, s in enumerate(self.slots)
+                      if s is not None and s.prefill_pos is not None)
+        lanes = {"tokens": np.zeros((K, C), np.int64),
+                 "slot": np.zeros((K,), np.int32),
+                 "start": np.zeros((K,), np.int32),
+                 "true": np.ones((K,), np.int32),
+                 "active": np.zeros((K,), bool)}
+        if self.paged:
+            lanes["tables"] = np.full((K, self.max_blocks), self.num_blocks,
+                                      np.int32)
+        run = []
+        for j, (_, i) in enumerate(pref[:K]):
+            s = self.slots[i]
+            start = s.prefill_pos
+            take = min(C, len(s.prefill_toks) - start)
+            lanes["tokens"][j, :take] = s.prefill_toks[start:start + take]
+            lanes["slot"][j], lanes["start"][j] = i, start
+            lanes["true"][j], lanes["active"][j] = take, True
+            if self.paged:
+                lanes["tables"][j] = s.prefill_table
+            run.append((i, start + take))
+        if self.graph is not None:
+            logits, ck_logits = self.graph.mixed(K, C)(
+                torch.from_numpy(toks), active, lanes)
+        else:
+            dev = self.model.device
+            arrays = {k: torch.from_numpy(v).to(dev)
+                      for k, v in lanes.items()}
+            logits, ck_logits, self.cache = self.model.mixed_step(
+                self.params, self.cache, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(active).to(dev), arrays["tokens"],
+                arrays["slot"], arrays["start"], arrays["true"],
+                arrays["active"], arrays.get("tables"))
+        self.mixed_steps += 1
+        self.prefill_chunks += len(run)
+        # the picks read the graph's static logits before the next replay
+        if active.any():
+            self._finish_decode(logits[:, 0], done)
+        for j, (i, pos) in enumerate(run):
+            s = self.slots[i]
+            s.prefill_pos = pos
+            if pos >= len(s.prefill_toks):
+                self._complete_prefill(i, s, ck_logits[j:j + 1], done)
+
+    def _complete_prefill(self, i: int, s: _Slot, logits: torch.Tensor,
+                          done: list[FinishedRequest]) -> None:
+        """Slot ``i`` ran its last chunk: publish its prompt's full blocks
+        for later sharing, pick its first token from the lane's logits
+        [1, V] (through its own generator, as an admission picks) and make
+        it a decoding slot."""
+        if self.paged and self.prefix_cache:
+            for bid, h in zip(self._slot_blocks[i],
+                              chain_hashes(s.prefill_toks, self.block)):
+                self.allocator.publish(bid, h)
+        s.prefill_pos = s.prefill_toks = s.prefill_table = None
+        tok, lp = self._pick(logits, [s])
+        self._emit(s, tok[0], lp[0])
+        if self._finished_reason(s):
+            done.append(self._retire(s))
+            self._free_slot(i)
 
     def _finished_reason(self, slot: _Slot) -> str | None:
         if self.eos_id is not None and slot.last_tok == self.eos_id:

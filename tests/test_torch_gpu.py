@@ -906,3 +906,173 @@ def test_paged_scheduler_graph_is_eager_and_dense_bit_for_bit(cuda):
         for uid in got:
             assert np.array_equal(got[uid].tokens, want[uid].tokens), uid
             assert np.array_equal(got[uid].logprobs, want[uid].logprobs), uid
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (DESIGN.md §15): the mixed step captured as a CUDA graph
+# per (lanes, chunk) on a live slot pool, dense or paged, against the eager
+# mixed step bit for bit; its capture changes no live row.
+# ---------------------------------------------------------------------------
+
+def _mixed_pools(model, params, paged):
+    """A bound slot-pool graph of 3 slots over 24 positions (paged: 12
+    blocks of 4) and an eager pool of the same layout, slot 0 holding a
+    16-token prompt (blocks 0-3 and 9) in both: (graph, eager pool, the
+    prompt's first greedy token)."""
+    first, cache, _ = _paged_rows(model, params)[0]
+    table = _table(0, 1, 2, 3, 9)
+    if paged:
+        graph = model.graphed_decode_step(3, 24, masked=True,
+                                          paged=(PAGED["num_blocks"],
+                                                 PAGED["block"]))
+        eager = model.init_cache(3, 24, paged=True, **PAGED)
+    else:
+        graph = model.graphed_decode_step(3, 24, masked=True)
+        eager = model.init_cache(3, 24, per_row=True)
+    graph.bind(_Owner(), params)
+    if paged:
+        graph.splice_paged(cache, 0, 16, table)
+        model.splice_cache_paged(eager, cache, 0, table)
+    else:
+        graph.splice(cache, 0, 16)
+        model.splice_cache(eager, cache, 0)
+    return graph, eager, first
+
+
+def _chunk_lanes(model, rows, paged, K=2, C=4):
+    """Host lane arrays for (slot, prompt [1, S], start, true length,
+    blocks) rows, the lanes past them inactive."""
+    lanes = {"tokens": np.zeros((K, C), np.int64),
+             "slot": np.zeros((K,), np.int32),
+             "start": np.zeros((K,), np.int32),
+             "true": np.ones((K,), np.int32),
+             "active": np.zeros((K,), bool)}
+    if paged:
+        lanes["tables"] = np.full((K, 6), SENTINEL, np.int32)
+    for j, (slot, prompt, start, n, blocks) in enumerate(rows):
+        lanes["tokens"][j, :n] = prompt[0, start:start + n].cpu().numpy()
+        lanes["slot"][j], lanes["start"][j] = slot, start
+        lanes["true"][j], lanes["active"][j] = n, True
+        if paged:
+            lanes["tables"][j, :len(blocks)] = blocks
+    return lanes
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_mixed_replay_is_the_eager_mixed_step_bit_for_bit(cuda, path, paged):
+    """Slot 0 decodes while slots 1 and 2 prefill 7 and 6 tokens in chunks
+    of 4 over two lanes (one lane unused in the last step): three replays
+    of the mixed graph against the eager mixed step, decode and chunk
+    logits bit for bit, pools equal, one capture, the host mirror of the
+    positions the device's."""
+    model, params = _smoke(path, "fp32", cuda)
+    graph, eager, first = _mixed_pools(model, params, paged)
+    p1 = _prompt(model, 40, B=1, S=7)["tokens"]
+    p2 = _prompt(model, 41, B=1, S=6)["tokens"]
+    tok = torch.zeros((3, 1), dtype=torch.int64, device=cuda)
+    tok[0] = first[0]
+    captures = model.graph_captures
+    for step, (rows, active) in enumerate((
+            ([(1, p1, 0, 4, [4, 5]), (2, p2, 0, 4, [6, 7])],
+             [True, False, False]),
+            ([(1, p1, 4, 3, [4, 5]), (2, p2, 4, 2, [6, 7])],
+             [True, False, False]),
+            ([], [True, True, True]))):
+        if step == 2:
+            tok[1] = want_ck[0].argmax()
+            tok[2] = want_ck[1].argmax()
+        lanes = _chunk_lanes(model, rows, paged)
+        active = np.array(active)
+        got, got_ck = graph.mixed(2, 4)(tok, active, lanes)
+        dev = {k: torch.from_numpy(v).to(cuda) for k, v in lanes.items()}
+        want, want_ck, eager = model.mixed_step(
+            params, eager, tok, torch.from_numpy(active).to(cuda),
+            dev["tokens"], dev["slot"], dev["start"], dev["true"],
+            dev["active"], dev.get("tables"))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), step
+        assert torch.equal(got_ck, want_ck), step
+        if paged:
+            assert _same_pool(graph.cache, eager), step
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(graph.cache), tree_leaves(eager))), step
+        assert graph.pos.tolist() == graph.cache["pos"].tolist(), step
+        tok[0] = want[0, -1].argmax()
+    assert graph.pos.tolist() == [19, 8, 7]
+    assert model.graph_captures - captures == 1
+    assert list(graph.mixed_graphs) == [(2, 4)]
+    assert graph.mixed_graphs[(2, 4)].captured
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_mixed_capture_leaves_live_rows_untouched(cuda, paged):
+    """The mixed step's warm-up and capture run while slot 0 is live (the
+    row every inactive lane points at): positions, tables, every k/v row
+    (paged: every block but the sentinel) stay as they were, bit for bit;
+    a lane outside the pool is refused; a recapture of the decode graph
+    drops the mixed graphs."""
+    from repro_torch.models.graph import MixedGraph
+    model, params = _smoke("fused2", "fp32", cuda)
+    graph, _, _ = _mixed_pools(model, params, paged)
+    before = _clone_pool(graph.cache)
+    mixed = graph.mixed_graphs[(2, 8)] = MixedGraph(graph, 2, 8)
+    mixed._capture()
+    torch.cuda.synchronize()
+    if paged:
+        assert _same_pool(graph.cache, before)
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(graph.cache), tree_leaves(before)))
+    assert mixed.captured and graph.pos.tolist() == [16, 0, 0]
+    lanes = _chunk_lanes(model, [(1, torch.zeros((1, 28), dtype=torch.int64),
+                                  20, 8, [4, 5])], paged, C=8)
+    with pytest.raises(ValueError, match="chunk lanes"):
+        mixed(torch.zeros((3, 1), dtype=torch.int64, device=cuda),
+              np.zeros(3, bool), lanes)
+    graph.bind(_Owner(), model.init(1))     # other parameters: a recapture
+    assert graph.mixed_graphs == {}
+
+
+def test_chunked_scheduler_paged_is_dense_is_eager(cuda):
+    """Prompts of 13, 9 and 16 tokens (the last sharing the first's 12
+    first) through a chunked scheduler of 2 slots over 32 positions, chunks
+    of 4 over 2 lanes: paged through the graphs, paged eager and dense
+    through the graphs give every token and logprob bit for bit, one mixed
+    capture each, and the monolithic scheduler's tokens; no block
+    leaked."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+    first = _prompt(model, 50, B=1, S=13)["tokens"]
+    prompts = [first, _prompt(model, 51, B=1, S=9)["tokens"],
+               torch.cat([first[:, :12],
+                          _prompt(model, 52, B=1, S=4)["tokens"]], 1)]
+
+    def run(**kw):
+        sched = Scheduler(model, params, num_slots=2, cache_len=32, **kw)
+        for uid, tokens in enumerate(prompts):
+            sched.submit(Request(uid=uid, inputs={"tokens": tokens},
+                                 max_new_tokens=8 - uid))
+            sched.step()
+        sched.run()
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+        return {f.uid: f for f in sched.finished}, sched
+
+    chunked = dict(chunk_prefill=True, chunk_size=4, prefill_budget=8)
+    captures = model.graph_captures
+    got, sched = run(paged=True, block_size=4, **chunked)
+    assert list(sched.graph.mixed_graphs) == [(2, 4)]
+    assert sched.stats()["prefix_hit_tokens"] == 12
+    assert model.graph_captures - captures == 2    # the step and the mixed
+    for kw in (dict(paged=True, block_size=4, graph=False, **chunked),
+               chunked):
+        want, _ = run(**kw)
+        assert sorted(got) == sorted(want) == [0, 1, 2]
+        for uid in got:
+            assert np.array_equal(got[uid].tokens, want[uid].tokens), uid
+            assert np.array_equal(got[uid].logprobs, want[uid].logprobs), uid
+    mono, _ = run()
+    for uid in got:
+        assert np.array_equal(got[uid].tokens, mono[uid].tokens), uid

@@ -332,8 +332,8 @@ def test_splice_cache_writes_what_the_reference_writes(pair2):
 
 def test_scheduler_refuses_what_is_not_ported(pair2):
     _, _, tm, tp, _ = pair2
-    with pytest.raises(NotImplementedError, match="chunk_prefill"):
-        Scheduler(tm, tp, num_slots=2, cache_len=T, chunk_prefill=True)
+    with pytest.raises(NotImplementedError, match="preempt"):
+        Scheduler(tm, tp, num_slots=2, cache_len=T, preempt=True)
     with pytest.raises(TypeError, match="unexpected keyword"):
         Scheduler(tm, tp, num_slots=2, cache_len=T, bogus=1)
     with pytest.raises(ValueError, match="num_slots"):
