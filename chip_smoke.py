@@ -11,7 +11,9 @@ Phases, each fatal on failure:
      full-width deepseek-7b shapes its main path gives it (256 and 4 rows,
      and untimed at 16, 32 and 64 rows, the admission buckets; fp32, bf16,
      int8 cores): fused2 at the length-2 shapes, the fused chain at the
-     length-3 shapes, the step kernel on every step of both;
+     length-3 shapes, the step kernel on every step of both; and fused2
+     (fp and int8 cores) at gemma3-4b's five projection shapes, at 256 and
+     4 rows and untimed at 1,024 (``gemma3_kernels``, timed as in 3);
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
      take; fused2, the fused chain and the length-2 steps also with L2
@@ -36,7 +38,11 @@ Phases, each fatal on failure:
      scheduler (chunks of 4 over 2 lanes, a prefix hit and a full cover),
      dense and paged, card (the mixed step captured per (lanes, chunk))
      against CPU on all six kernel paths: tokens, logprobs, slots, prompt
-     positions and block ids after every step, counters, launches;
+     positions and block ids after every step, counters, launches; and
+     gemma3 SMOKE (window 16) on the card against the CPU, fp32 and int8
+     cores: the fixed batch at prompts of 24 and 40 through the captured
+     prefill and decode, and the dense, paged and chunked (chunks of 8
+     and of 24) schedulers through the graphs (``small_gemma3_check``);
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -72,7 +78,14 @@ Phases, each fatal on failure:
      mixed step and 210 per plain step), the staggered run at chunks of 16
      over 2 lanes, both pools, graph and eager (bit-identical; held
      against ``generate_fixed`` by ``serve.check_greedy``), serve's prefix
-     smoke chunked, and the mixed replays traced alone.
+     smoke chunked, and the mixed replays traced alone; then full-width
+     gemma3-4b (``gemma3_path``: bf16, TT on ffn+attn at rank 16, tied
+     lm_head, 238 ``tt_fused2`` a pass): 4 × 1,152 + 64 tokens through
+     ``launch.serve.fixed`` with fp and int8 cores beside an eager warm
+     run (bit for bit), Poisson arrivals of 16 requests of 960 + 128
+     tokens on 4 slots, and a staggered run of 12 requests (prompts of
+     600–1,000), dense, paged and chunked, graph against eager and paged
+     against dense bit for bit, held against ``generate_fixed``.
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
@@ -80,7 +93,8 @@ the eager back-to-back time of each kernel is recorded beside them.  Every
 record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
 the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
-together.
+together, gemma3-4b's included (``tt_fused2_int8``: its int8 fixed batch
+too); its times are deepseek-7b's layer.
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits non-zero and prints no result.
@@ -181,6 +195,38 @@ PAGED_BLOCK, SMALL_POOL = 16, 12
 # serve's ``check_greedy`` holds each pick to the top logit within it
 PREFIX_LEN, PREFIX_SEED = 48, 0
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+# gemma3-4b (34 layers: 29 local with a window of 1,024, 5 global; tied
+# embeddings of 262,144 × 2,560): its TT projections at rank 16, length 2,
+# and how many of each one decoder layer runs (7 per layer, 238 a pass);
+# timed at ROWS, checked untimed at the 1,024-row admission bucket
+GEMMA3_SHAPES = {
+    "gemma3 attn q 2560->2048": (((8, 320), (256, 8), (1, 16, 1)), 1),
+    "gemma3 attn k/v 2560->1024": (((8, 320), (128, 8), (1, 16, 1)), 2),
+    "gemma3 attn o 2048->2560": (((8, 256), (320, 8), (1, 16, 1)), 1),
+    "gemma3 ffn gate/up 2560->10240": (((8, 320), (1280, 8), (1, 16, 1)),
+                                       2),
+    "gemma3 ffn down 10240->2560": (((8, 1280), (320, 8), (1, 16, 1)), 1),
+}
+GEMMA3_BUCKET_ROWS = (1024,)
+GEMMA3_LAYERS = 34
+# phase 5 at full width: a fixed batch of 4 prompts of 1,152 tokens (over
+# the window: the prefill's rings keep the last 1,024 positions) and 64
+# new tokens, cache 1,280; Poisson arrivals of 16 requests of 960 + 128
+# tokens at 50/s on 4 slots × 1,088 (each admission pads 960 to the 1,024
+# bucket; every ring wraps at 1,024); the staggered run of 12 requests,
+# prompts of 600–1,000 tokens, budgets of 16–64 (of 32–128 the eager
+# runs alone took 103 s), on 4 × 1,152, dense, paged (blocks of 64) and
+# chunked (chunks of 256 over 2 lanes)
+GEMMA3_ARGS = ["--arch", "gemma3-4b", "--variant", "full", "--tt",
+               "ffn,attn", "--tt-rank", "16", "--seed", "0",
+               "--tt-backend", "auto"]
+GEMMA3_FIXED = ["--batch", "4", "--prompt-len", "1152", "--steps", "64"]
+GEMMA3_ARRIVAL = ["--prompt-len", "960", "--steps", "128", "--slots", "4",
+                  "--max-requests", "16", "--arrival-rate", "50",
+                  "--assert-no-replan"]
+GEMMA3_STAGGER, GEMMA3_T = ((600, 1000), (16, 64)), 1152
+GEMMA3_BLOCK, GEMMA3_CHUNK = 64, dict(chunk_prefill=True, chunk_size=256,
+                                      prefill_budget=512)
 
 
 def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
@@ -455,23 +501,25 @@ def check_and_time(gen) -> list[dict]:
     return recs
 
 
-def layer_summary(recs) -> list[dict]:
+def layer_summary(recs, kernels=("tt_fused2", "tt_fused2_int8",
+                                  "tt_fused_chain", "tt_fused_chain_int8"),
+                  model: str = "deepseek-7b") -> list[dict]:
     """Each whole-layer kernel's times summed over one decoder layer's
-    projections (bf16 activations), per row count: device, cold-L2, eager
-    (back-to-back calls, the host's time where it is longer), plain,
-    ``torch.matmul`` and the bound."""
+    projections (bf16 activations) of ``model``, per row count: device,
+    cold-L2, eager (back-to-back calls, the host's time where it is
+    longer), plain, ``torch.matmul`` and the bound."""
     out = []
-    for kernel in ("tt_fused2", "tt_fused2_int8", "tt_fused_chain",
-                   "tt_fused_chain_int8"):
+    for kernel in kernels:
         for rows in ROWS:
             rs = [r for r in recs if r["kernel"] == kernel and
-                  r["rows"] == rows and r["act"] == "bfloat16"]
-            row = dict(kernel=kernel, rows=rows)
+                  r["rows"] == rows and r["act"] == "bfloat16" and
+                  r.get("model", "deepseek-7b") == model]
+            row = dict(kernel=kernel, rows=rows, model=model)
             for key in ("ms", "cold_ms", "eager_ms", "plain_ms",
                         "library_ms", "bound_ms"):
                 row[key] = sum(r[key] * r["per_layer"] for r in rs)
             out.append(row)
-            print(f"{kernel:19s} rows={rows:3d} per layer: device "
+            print(f"{model} {kernel:19s} rows={rows:3d} per layer: device "
                   f"{row['ms']:.4f} cold-L2 {row['cold_ms']:.4f} eager "
                   f"{row['eager_ms']:.4f} plain {row['plain_ms']:.4f} "
                   f"matmul {row['library_ms']:.4f} bound "
@@ -782,8 +830,8 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
     ``launch.serve.fixed`` serves ``model`` (a cold run that captures the
     prefill and the decode step, and a warm run of replays) and read just
     after.  Each capture must record ``per_pass`` launches of ``kernel``
-    and nothing else; the warm run must make ``per_pass`` × ``PASSES`` of
-    them, all replayed (none counted), capture nothing and resolve no
+    and nothing else; the warm run must make ``per_pass`` × ``--steps``
+    of them, all replayed (none counted), capture nothing and resolve no
     plan.  Returns serve's result and the kernel's launches over the whole
     call, counted and replayed."""
     tt_contract.reset_launch_counts()
@@ -794,7 +842,8 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
     T = args.prompt_len + args.steps
     graph = model.decode_graphs[(args.batch, T, False)]
     prefill = model.prefill_graphs[(args.batch, args.prompt_len, T)]
-    per_run = per_pass * PASSES
+    passes = args.steps
+    per_run = per_pass * passes
     print(f"main path ({label}): launches counted {counted}, by graph "
           f"replays {replayed} (one capture of the decode step: "
           f"{graph.captured}, of the prefill: {prefill.captured}); peak "
@@ -810,7 +859,7 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
         "cold run": ({kernel: per_run + 2 * WARMUP_STEPS * per_pass},
                      out["cold_launches"]),
         "counted": ({kernel: 2 * WARMUP_STEPS * per_pass}, counted),
-        "replayed": ({kernel: 2 * PASSES * per_pass}, replayed),
+        "replayed": ({kernel: 2 * passes * per_pass}, replayed),
         "decode captures cold, warm": ((1, 0), (out["cold_captures"],
                                                 out["captures"])),
         "prefill captures cold, warm": ((1, 0), (
@@ -821,8 +870,8 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
     if bad:
         raise AssertionError(f"{label}: (expected, got) {bad}")
     toks = out["tokens"]
-    if tuple(toks.shape) != (4, PASSES) or int(toks.min()) < 0 or \
-            int(toks.max()) >= 102400 or \
+    if tuple(toks.shape) != (args.batch, passes) or int(toks.min()) < 0 \
+            or int(toks.max()) >= model.cfg.vocab_size or \
             not bool(torch.isfinite(out["logprobs"]).all()):
         raise AssertionError(f"bad generation: {tuple(toks.shape)}")
     return out, counted[kernel] + replayed[kernel]
@@ -967,11 +1016,12 @@ def traced(label: str, kernel: str, per_pass: int, model, params,
     return rec
 
 
-def replays_alone(replay, source: str) -> dict:
+def replays_alone(replay, source: str, top: int = 0) -> dict:
     """``REPLAYS`` calls of ``replay`` traced alone (device kernels only,
     the trace opened by the pre-roll): per call, the device kernels, those
     of ``source``, the device busy ms and the host-clock wall ms (the
-    profiler's host cost included)."""
+    profiler's host cost included); with ``top``, the ``top`` kernels by
+    device time, each (name, ms, launches) per call."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profile_serve.preroll()
@@ -982,11 +1032,16 @@ def replays_alone(replay, source: str) -> dict:
         wall = time.perf_counter() - t0
         time.sleep(profile_serve.RECORDS_S)
     ks = profile_serve.device_kernels(prof)
-    return dict(kernels=sum(e.count for e in ks) / REPLAYS,
-                tt=sum(e.count for e in ks if source in e.key) / REPLAYS,
-                busy_ms=sum(e.self_device_time_total for e in ks) / 1e3
-                / REPLAYS,
-                wall_ms=wall * 1e3 / REPLAYS)
+    out = dict(kernels=sum(e.count for e in ks) / REPLAYS,
+               tt=sum(e.count for e in ks if source in e.key) / REPLAYS,
+               busy_ms=sum(e.self_device_time_total for e in ks) / 1e3
+               / REPLAYS,
+               wall_ms=wall * 1e3 / REPLAYS)
+    if top:
+        ks = sorted(ks, key=lambda e: -e.self_device_time_total)[:top]
+        out["top"] = [(e.key[:80], e.self_device_time_total / 1e3 / REPLAYS,
+                       e.count / REPLAYS) for e in ks]
+    return out
 
 
 def host_ms(fn, n: int = REPLAYS) -> float:
@@ -1087,29 +1142,31 @@ def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
     return launches, recs
 
 
-def stagger_requests(vocab: int) -> tuple[list, np.ndarray]:
-    """The staggered run's prompts [1, S] and budgets, drawn by numpy from
-    seed 0."""
+def stagger_requests(vocab: int, lens=STAGGER_LENS, budgets=STAGGER_BUDGETS
+                     ) -> tuple[list, np.ndarray]:
+    """The staggered run's ``STAGGER_N`` prompts [1, S] and budgets, their
+    lengths and budgets uniform within ``lens`` and ``budgets``, drawn by
+    numpy from seed 0."""
     rng = np.random.default_rng(0)
-    lens = rng.integers(STAGGER_LENS[0], STAGGER_LENS[1] + 1, STAGGER_N)
-    budgets = rng.integers(STAGGER_BUDGETS[0], STAGGER_BUDGETS[1] + 1,
-                           STAGGER_N)
-    return [torch.from_numpy(rng.integers(0, vocab, (1, n), dtype=np.int64))
-            for n in lens], budgets
+    n = rng.integers(lens[0], lens[1] + 1, STAGGER_N)
+    b = rng.integers(budgets[0], budgets[1] + 1, STAGGER_N)
+    return [torch.from_numpy(rng.integers(0, vocab, (1, k), dtype=np.int64))
+            for k in n], b
 
 
 def staggered_full(model, params, graph: bool, check=None,
-                   **paged) -> tuple[dict, dict]:
+                   stagger=(STAGGER_LENS, STAGGER_BUDGETS),
+                   cache_len: int = 64 + PASSES, **paged
+                   ) -> tuple[dict, dict]:
     """The step-indexed staggered run at full width: ``STAGGER_N`` requests
-    with prompt lengths and budgets drawn by numpy from seed 0 through a
-    4-slot pool over prompt + steps positions (``paged``: the paged pool's
+    (``stagger_requests`` of the (lengths, budgets) ``stagger``) through a
+    4-slot pool over ``cache_len`` positions (``paged``: the paged pool's
     and chunked prefill's ``Scheduler`` arguments); four are submitted
-    before the first
-    ``step()``, then one before every third; ``check(sched)`` after every
-    step.  A paged pool must leak no block.  ({uid: finished}, the
-    scheduler's stats with the wall seconds)."""
-    prompts, budgets = stagger_requests(model.cfg.vocab_size)
-    sched = Scheduler(model, params, num_slots=4, cache_len=64 + PASSES,
+    before the first ``step()``, then one before every third;
+    ``check(sched)`` after every step.  A paged pool must leak no block.
+    ({uid: finished}, the scheduler's stats with the wall seconds)."""
+    prompts, budgets = stagger_requests(model.cfg.vocab_size, *stagger)
+    sched = Scheduler(model, params, num_slots=4, cache_len=cache_len,
                       graph=graph, **paged)
 
     def submit(i):
@@ -1813,6 +1870,330 @@ def chunked_path(smi: str, model, params, dense: dict, paged: dict,
     return launches, rec
 
 
+def gemma3_kernels(gen) -> list[dict]:
+    """Phases 2 and 3 at gemma3-4b's five fused2 shapes: ``tt_fused2`` and
+    ``tt_fused2_int8`` against their plain versions and timed beside them,
+    ``torch.matmul`` of the dense layer and the bound, at ``ROWS`` (cold-L2
+    too), every case of ``CASES``; then checked untimed at
+    ``GEMMA3_BUCKET_ROWS``.  One record per (kernel, shape, rows, case),
+    marked ``model: gemma3-4b``."""
+    spec = hw.device_spec(torch.device("cuda"))
+    buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    recs = []
+    for label, (dims, per_layer) in GEMMA3_SHAPES.items():
+        for rows in ROWS + GEMMA3_BUCKET_ROWS:
+            for int8, act in CASES:
+                kernel, run, plain, library, moved, flops, *_ = \
+                    layer_cases(dims, rows, int8, act, gen)
+                if rows in ROWS:
+                    rec = measure(kernel, label, rows, act, per_layer, run,
+                                  plain, library, moved, flops, TOL[act],
+                                  spec, buf.zero_)
+                else:
+                    rec = check(kernel, label, rows, act, run, plain,
+                                TOL[act])
+                rec.update(length=2, model="gemma3-4b")
+                recs.append(rec)
+    worst = max(r["max_rel_err"] for r in recs
+                if r["rows"] in GEMMA3_BUCKET_ROWS)
+    print(f"gemma3 fused2 shapes at {GEMMA3_BUCKET_ROWS} rows: "
+          f"{sum(r['rows'] in GEMMA3_BUCKET_ROWS for r in recs)} calls "
+          f"within tolerance, worst relative error {worst:.2e}", flush=True)
+    return recs
+
+
+def gemma3_smoke_models(weights: str = "fp32"):
+    """gemma3 SMOKE (window 16) at length 2 ``auto``: (card model, its
+    params, cpu model, the same params there)."""
+    cfg = get_config("gemma3-4b", "smoke", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+        backend="auto", weights=weights))
+    gpu = build(cfg, device="cuda")
+    cpu = build(cfg, device="cpu")
+    p_gpu = gpu.init(0)
+    if weights == "int8":
+        p_gpu = gpu.quantize_params(p_gpu)
+    return gpu, p_gpu, cpu, map_tree(lambda t: t.cpu(), p_gpu)
+
+
+def gemma3_schedule(model, params, prompts, **kw) -> dict:
+    """The schedule of ``tests/test_torch_gemma3.py`` on SMOKE: 2 slots
+    over 48 positions (``kw``: pool and chunking); r0 (40 tokens, the
+    rings wrap twice) is admitted and steps once, r1 (24) and r2 (8)
+    follow, r2 queues; after the drain r3 (20).  The slots' (uid, prompt
+    position, blocks) after every step; no block may leak."""
+    sched = Scheduler(model, params, num_slots=2, cache_len=48, **kw)
+    history = []
+
+    def step():
+        sched.step()
+        history.append([None if s is None else (
+            s.uid, s.prefill_pos, list(sched._slot_blocks[i])
+            if sched.paged else None) for i, s in enumerate(sched.slots)])
+
+    def submit(uid):
+        sched.submit(Request(uid=uid, inputs={"tokens": prompts[uid]},
+                             max_new_tokens=(5, 6, 4, 3)[uid]))
+
+    submit(0)
+    step()
+    submit(1)
+    submit(2)
+    while not sched.idle:
+        step()
+    submit(3)
+    while not sched.idle:
+        step()
+    if sched.paged:
+        sched.allocator.assert_quiescent()
+    st = sched.stats()
+    return {"done": {f.uid: f for f in sched.finished}, "history": history,
+            "stats": {k: v for k, v in st.items()
+                      if k not in ("admit_s", "kv_pool_bytes")}}
+
+
+def small_gemma3_check() -> None:
+    """Phase 4, gemma3 SMOKE on the card against the CPU, same weights, fp32
+    and int8 cores: the fixed batch (prompts of 24 and 40, past the window
+    of 16, into caches of 48 and 64: the captured prefill, then 16 decode
+    replays fed the CPU's greedy tokens, logits within 1e-4, and
+    ``generate_fixed``'s greedy tokens identical); then the schedulers of
+    ``gemma3_schedule``, dense, paged (block 4) and chunked (chunks of 8
+    over 2 lanes and of 24, longer than the window, both pools), through
+    the graphs: tokens identical, logprobs within 1e-4, slots and counters
+    equal.  Only the path's fused2 kernel runs, none of the prefix cache's
+    hits."""
+    modes = {"dense": {}, "paged": dict(paged=True, block_size=4),
+             "chunk8 dense": dict(chunk_prefill=True, chunk_size=8,
+                                  prefill_budget=16),
+             "chunk8 paged": dict(chunk_prefill=True, chunk_size=8,
+                                  prefill_budget=16, paged=True,
+                                  block_size=4),
+             "chunk24 dense": dict(chunk_prefill=True, chunk_size=24),
+             "chunk24 paged": dict(chunk_prefill=True, chunk_size=24,
+                                   paged=True, block_size=8)}
+    for weights in ("fp32", "int8"):
+        gpu, p_gpu, cpu, p_cpu = gemma3_smoke_models(weights)
+        name = "tt_fused2" + ("_int8" if weights == "int8" else "")
+        tt_contract.reset_launch_counts()
+        replayed0 = dict(gpu.replayed_launches)
+        for S, T in ((24, 48), (40, 64)):
+            tokens = torch.from_numpy(np.random.default_rng(S).integers(
+                0, 256, (2, S), dtype=np.int64))
+            lc, cc = cpu.prefill(p_cpu, {"tokens": tokens, "cache_len": T})
+            want, forced = [lc], []
+            for _ in range(16):
+                forced.append(want[-1][:, -1].argmax(-1, keepdim=True))
+                lc, cc = cpu.decode_step(p_cpu, cc, forced[-1])
+                want.append(lc)
+            lg, cg = gpu.graphed_prefill(2, S, T)(p_gpu, tokens.cuda(), S)
+            step = gpu.graphed_decode_step(2, T)
+            step.load(p_gpu, cg, S)
+            got = [lg.clone()] + [step(t.cuda()).clone() for t in forced]
+            worst = max(float((g.cpu() - w).abs().max())
+                        for g, w in zip(got, want))
+            batch = {"tokens": tokens, "cache_len": T}
+            same = torch.equal(generate_fixed(gpu, p_gpu, batch,
+                                              16).tokens.cpu(),
+                               generate_fixed(cpu, p_cpu, batch, 16).tokens)
+            print(f"small input, gemma3 fixed batch ({weights} cores, prompt "
+                  f"{S}, cache {T}, window 16; captured prefill and decode): "
+                  f"logits card vs cpu max abs diff {worst:.3e} (tol 1e-4); "
+                  f"greedy tokens {'=' if same else '!='} cpu", flush=True)
+            if not worst <= 1e-4 or not same:
+                raise AssertionError(f"gemma3 SMOKE fixed batch {weights} "
+                                     f"prompt {S}: {worst:.3e}, tokens "
+                                     f"same {same}")
+        rng = np.random.default_rng(90)
+        prompts = [torch.from_numpy(rng.integers(0, 256, (1, n),
+                                                 dtype=np.int64))
+                   for n in (40, 24, 8, 20)]
+        for mode, kw in modes.items():
+            want = gemma3_schedule(cpu, p_cpu, prompts, **kw)
+            got = gemma3_schedule(gpu, p_gpu, prompts, **kw)
+            same = sorted(got["done"]) == sorted(want["done"]) == \
+                [0, 1, 2, 3] and all(
+                    np.array_equal(got["done"][u].tokens,
+                                   want["done"][u].tokens)
+                    for u in want["done"])
+            worst = max(float(np.abs(got["done"][u].logprobs -
+                                     want["done"][u].logprobs).max())
+                        for u in want["done"])
+            st = got["stats"]
+            slots = got["history"] == want["history"]
+            print(f"small input, gemma3 scheduler ({weights} cores, {mode}):"
+                  f" greedy tokens card {'=' if same else '!='} cpu, "
+                  f"logprobs max abs diff {worst:.3e} (tol 1e-4); slots "
+                  f"{'same' if slots else 'DIFFER'}, counters "
+                  f"{'same' if st == want['stats'] else 'DIFFER'};"
+                  f" {st['steps_run']} steps, {st.get('prefill_chunks', 0)} "
+                  f"chunks, prefix hits {st.get('prefix_hit_tokens', 0)}",
+                  flush=True)
+            if not same or not worst <= 1e-4 or not slots or \
+                    st != want["stats"] or st.get("prefix_hit_tokens", 0):
+                raise AssertionError(f"gemma3 SMOKE scheduler {weights} "
+                                     f"{mode}: tokens same {same}, logprobs "
+                                     f"{worst:.3e}, stats {st} vs "
+                                     f"{want['stats']}")
+        kernels = set(tt_contract.launch_counts()) | set(serve.since(
+            replayed0, gpu.replayed_launches))
+        if kernels != {name}:
+            raise AssertionError(f"gemma3 SMOKE {weights}: kernels "
+                                 f"{kernels}, expected only {name}")
+        del gpu, p_gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
+    """Phase 5, full-width gemma3-4b (bf16 params from seed 0, TT on
+    ffn+attn at rank 16, ``auto``: ``tt_fused2``, 238 a pass; lm_head tied).
+
+    The fixed batch (``GEMMA3_FIXED``) through ``launch.serve.fixed``, fp
+    then int8 cores (``drive``: launch counts set to 0 just before, read
+    just after; every projection replayed through its kernel, 0 captures
+    and 0 plan resolutions warm), beside one eager warm run
+    (``graph_against_eager``: prefill and first-step logits bit for bit,
+    tok/s, step ms, peak memory).  Then on one fp model: Poisson arrivals
+    (``GEMMA3_ARRIVAL`` through ``launch.serve.simulate``: 0 captures of
+    either kind and 0 plan resolutions steady, 238 ``tt_fused2`` per
+    admission and per step, all replayed), and the staggered run
+    (``GEMMA3_STAGGER``): dense graph ≡ dense eager ≡ paged (blocks of
+    64) bit for bit, chunked (chunks of 256 over 2 lanes) graph ≡ eager
+    and paged ≡ dense bit for bit, and every request of the dense run held
+    against ``generate_fixed`` by ``serve.check_greedy``.  Returns each
+    kernel's launches over the fixed-batch calls and the arrival and
+    staggered runs (``check_greedy`` aside), and the record."""
+    per_pass = PROJ * GEMMA3_LAYERS
+    launches, rec = {}, {"card": smi, "fixed": []}
+    t_phase = time.perf_counter()
+    for weights in ("fp32", "int8"):
+        kernel = "tt_fused2" + ("_int8" if weights == "int8" else "")
+        model, params, args = cli_model(GEMMA3_ARGS + GEMMA3_FIXED + [
+            "--tt-weights", weights])
+        label = f"gemma3-4b, 4 x 1152 + 64, {weights}"
+        eager = eager_runs(model, params, args)
+        out, launches[kernel] = drive(label, kernel, per_pass, model, params,
+                                      args)
+        r = dict(path=label, kernel=kernel, launches=launches[kernel],
+                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
+                 peak_bytes=out["peak_bytes"],
+                 peak_reserved_bytes=out["peak_reserved_bytes"])
+        r.update(graph_against_eager(label, model, params, args, out, eager,
+                                     smi))
+        # the decode replay traced alone, where its device time goes
+        batch = serve.prompt_batch(model, args)
+        logits, cache = model.prefill(params, batch)
+        step = model.graphed_decode_step(args.batch, batch["cache_len"])
+        step.load(params, cache, args.prompt_len)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
+                                    top=8)
+        print(f"profile ({label}): {REPLAYS} decode replays alone: "
+              f"{r['replay']['kernels']:g} device kernels, "
+              f"{r['replay']['tt']:g} tt_fused2_kernel, "
+              f"{r['replay']['busy_ms']:.3f} ms busy, "
+              f"{r['replay']['wall_ms']:.3f} ms wall per replay; top: " +
+              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
+                        for k, ms, n in r["replay"]["top"]), flush=True)
+        if r["replay"]["tt"] != per_pass:
+            raise AssertionError(f"{label}: {r['replay']['tt']} "
+                                 f"tt_fused2_kernel per decode replay")
+        rec["fixed"].append(r)
+        del model, params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    args = serve.parse_args(GEMMA3_ARGS + GEMMA3_ARRIVAL)
+    model, params = serve.setup(args)
+    tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
+    out = serve.simulate(model, params, args)
+    out.pop("sched")
+    fin = out["finished"]
+    T = 960 + 128
+    print(f"main path (gemma3-4b arrival mode, 4 slots x {T}; {smi}): "
+          f"{len(fin)} requests, {out['tokens_out']} tokens in "
+          f"{out['wall_s']:.3f} s = {out['tok_per_s']:.1f} tok/s; ttft "
+          f"p50/p95 {out['ttft_p50_s'] * 1e3:.1f}/"
+          f"{out['ttft_p95_s'] * 1e3:.1f} ms; inter-token p50/p95 "
+          f"{out['itl_p50_s'] * 1e3:.2f}/{out['itl_p95_s'] * 1e3:.2f} ms; "
+          f"{out['admissions']} admissions ({out['admit_share']:.1%} of the "
+          f"wall), {out['steps_run']} steps; pool "
+          f"{out['kv_pool_bytes'] / 2**20:.1f} MiB, peak "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB; launches {out['launches']}; "
+          f"prefill graphs {list(model.prefill_graphs)}", flush=True)
+    want = {
+        "steady launches": ({"tt_fused2": per_pass * (
+            out["admissions"] + out["steps_run"])}, out["launches"]),
+        "steady counted": ({}, out["counted"]),
+        "steady captures, prefill captures, plans": ((0, 0, 0), (
+            out["captures"], out["prefill_captures"], out["replans"])),
+        "prefill graphs": ([(1, 1024, T)], list(model.prefill_graphs)),
+        "requests": (list(range(16)), sorted(f.uid for f in fin)),
+    }
+    bad = {k: v for k, v in want.items() if v[0] != v[1]}
+    if bad or any(len(f.tokens) != 128 or f.finish_reason != "length" or
+                  int(f.tokens.max()) >= model.cfg.vocab_size or
+                  not np.isfinite(f.logprobs).all() for f in fin):
+        raise AssertionError(f"gemma3 arrival mode: (expected, got) {bad}")
+    rec["arrival"] = {k: v for k, v in out.items() if k != "finished"}
+
+    runs = {}
+    for label, graph, kw in (
+            ("dense graph", True, {}), ("dense eager", False, {}),
+            ("paged graph", True, dict(paged=True, block_size=GEMMA3_BLOCK)),
+            ("chunked graph", True, GEMMA3_CHUNK),
+            ("chunked eager", False, GEMMA3_CHUNK),
+            ("chunked paged graph", True, dict(
+                GEMMA3_CHUNK, paged=True, block_size=GEMMA3_BLOCK))):
+        runs[label] = staggered_full(model, params, graph, None,
+                                     GEMMA3_STAGGER, GEMMA3_T, **kw)
+    done = {k: v[0] for k, v in runs.items()}
+    checks = {"dense graph = eager": same_runs(done["dense graph"],
+                                               done["dense eager"]),
+              "paged = dense": same_runs(done["paged graph"],
+                                         done["dense graph"]),
+              "chunked graph = eager": same_runs(done["chunked graph"],
+                                                 done["chunked eager"]),
+              "chunked paged = dense": same_runs(
+                  done["chunked paged graph"], done["chunked graph"])}
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    launches["tt_fused2"] += counted.get("tt_fused2", 0) + replayed.get(
+        "tt_fused2", 0)
+    prompts, _ = stagger_requests(model.cfg.vocab_size, *GEMMA3_STAGGER)
+    greedy = {u: serve.check_greedy(model, params,
+                                    prompts[u].to(model.device), f, GEMMA3_T)
+              for u, f in done["dense graph"].items()}
+    st = {k: v[1] for k, v in runs.items()}
+    print(f"gemma3-4b staggered run ({STAGGER_N} requests, prompts "
+          f"{GEMMA3_STAGGER[0]}, budgets {GEMMA3_STAGGER[1]}, 4 x "
+          f"{GEMMA3_T}; {smi}): " + ", ".join(
+              f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps)"
+              for k, v in st.items()) + "; " +
+          ", ".join(f"{k} {'bit-identical' if v else 'DIFFER'}"
+                    for k, v in checks.items()) +
+          f"; chunked: {st['chunked graph']['prefill_chunks']} chunks; "
+          f"against generate_fixed: "
+          f"{sum(g['identical'] for g in greedy.values())} of {len(greedy)} "
+          f"identical, picks within "
+          f"{max(g['slack'] for g in greedy.values()):.3g} of the top logit, "
+          f"logprobs within "
+          f"{max(g['logprob_diff'] for g in greedy.values()):.3g} (tol "
+          f"{max(g['tol'] for g in greedy.values()):.3g})", flush=True)
+    if not all(checks.values()) or any(
+            len(f.tokens) == 0 for f in done["dense graph"].values()):
+        raise AssertionError(f"gemma3 staggered run: {checks}")
+    rec["staggered"] = dict(st, checks=checks, greedy=greedy)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"gemma3-4b phase 5: {rec['wall_s']:.1f} s", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def kernel_line(recs, launches) -> dict:
     """One entry per kernel: one decoder layer's launches of it (7
     projections, summed) at the decode batch in bf16, the main path's
@@ -1824,7 +2205,8 @@ def kernel_line(recs, launches) -> dict:
         length = 3 if kernel.startswith("tt_fused_chain") else 2
         mine = [r for r in recs if r["kernel"] == kernel]
         main = [r for r in mine if r["rows"] == 4 and r["act"] == "bfloat16"
-                and r["length"] == length]
+                and r["length"] == length and
+                r.get("model", "deepseek-7b") == "deepseek-7b"]
         keys = ["ms", "eager_ms", "plain_ms", "library_ms", "bytes", "flops"]
         if all("cold_ms" in r for r in main):
             keys.append("cold_ms")
@@ -1872,6 +2254,10 @@ def main() -> int:
     layers = layer_summary(recs)
     steps = step_breakdown(recs)
     recs += check_buckets(gen)
+    g_recs = gemma3_kernels(gen)
+    layers += layer_summary(g_recs, ("tt_fused2", "tt_fused2_int8"),
+                            "gemma3-4b")
+    recs += g_recs
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -1881,13 +2267,18 @@ def main() -> int:
     small_scheduler_check()
     small_paged_check()
     small_chunked_check()
+    small_gemma3_check()
     launches, graph_recs = main_paths(smi)
     fused2, sched_rec = scheduler_path(smi)
     launches["tt_fused2"] += fused2
+    g_launches, gemma3_rec = gemma3_path(smi)
+    for k, v in g_launches.items():
+        launches[k] += v
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps, "graph": graph_recs,
-                   "scheduler": sched_rec}, f, indent=1)
+                   "scheduler": sched_rec, "gemma3": gemma3_rec}, f,
+                  indent=1, default=str)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s",
           flush=True)
 

@@ -1,8 +1,9 @@
 """Config registry: ``get_config(arch, variant)`` + ``build(cfg)`` → Model.
 
-Only the dense GQA + GLU-MLP family is ported; every other architecture of
-the reference registry raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+The dense GQA + GLU-MLP decoders are ported: deepseek-7b and gemma3-4b
+(sliding-window local layers between global ones, qk-norm, tied and
+scaled embeddings); every other architecture of the reference registry
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -17,11 +18,11 @@ from .base import ModelConfig, TTConfig
 if TYPE_CHECKING:                      # avoid configs ↔ models import cycle
     from repro_torch.models.model import Model
 
-PORTED = ("deepseek_7b",)
+PORTED = ("deepseek_7b", "gemma3_4b")
 
 # architectures of the reference registry that are not ported yet
 PENDING = (
-    "qwen3_32b", "gemma3_4b", "granite_8b", "jamba_v0_1_52b",
+    "qwen3_32b", "granite_8b", "jamba_v0_1_52b",
     "deepseek_v2_lite_16b", "mixtral_8x7b", "internvl2_2b", "mamba2_2p7b",
     "seamless_m4t_large_v2",
 )
@@ -50,12 +51,24 @@ def get_config(arch: str, variant: str = "full",
 
 
 def make_layer_plan(cfg: ModelConfig) -> list:
-    """Groups ``[(period, count)]`` of the decoder stack (dense branch of
-    the reference's ``make_layer_plan``)."""
+    """Groups ``[(period, count)]`` of the decoder stack (the dense and
+    gemma3 local/global branches of the reference's ``make_layer_plan``):
+    a local block attends within ``local_window`` at RoPE theta 10,000,
+    the global one closes each period at ``rope_theta``, and the layers
+    past the last whole period are local."""
     from repro_torch.models.transformer import BlockDef
     if cfg.family != "dense":
         raise NotImplementedError(_PENDING_MSG.format(cfg.name))
-    return [((BlockDef("gqa", ffn="mlp"),), cfg.num_layers)]
+    L = cfg.num_layers
+    if cfg.local_global_period:
+        p = cfg.local_global_period
+        local = BlockDef("gqa", window=cfg.local_window, theta=10_000.0)
+        glob = BlockDef("gqa", theta=cfg.rope_theta)
+        groups = [(tuple([local] * (p - 1) + [glob]), L // p)]
+        if L % p:
+            groups.append(((local,), L % p))
+        return groups
+    return [((BlockDef("gqa", window=cfg.window, ffn="mlp"),), L)]
 
 
 def build(cfg: ModelConfig, param_dtype=torch.float32,

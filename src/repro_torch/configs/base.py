@@ -1,8 +1,10 @@
 """Configuration dataclasses: model architecture and TT compression.
 
-The dense GQA + GLU-MLP subset of ``repro.configs.base``; fields of the
-families the port does not run yet (MoE, MLA, SSM, cross-attention,
-frontends) are left out until they are ported.
+The dense GQA + GLU-MLP subset of ``repro.configs.base`` with its
+attention variants (qk-norm, sliding windows, gemma3's local/global
+period, tied embeddings); fields of the families the port does not run
+yet (MoE, MLA, SSM, cross-attention, frontends) are left out until they
+are ported.
 """
 from __future__ import annotations
 
@@ -53,9 +55,17 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
+    # attention variants
+    qk_norm: bool = False
     rope_theta: float = 1e6
+    window: int = 0                          # >0 → sliding-window attention
+    local_global_period: int = 0             # gemma3: every Nth layer global
+    local_window: int = 1024
+    tie_embeddings: bool = False
     norm_eps: float = 1e-6
     tt: TTConfig = TTConfig()
+    # attention-kind classification for shape applicability
+    subquadratic: bool = False               # can run long_500k decode
 
     @property
     def q_dim(self) -> int:

@@ -1,9 +1,10 @@
 """Serving CLI for the port: the fixed batch, or Poisson arrivals through
 the continuous-batching scheduler.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
-        --variant full --batch 4 --prompt-len 64 --steps 32 --tt ffn,attn \\
-        --tt-rank 16 --tt-backend auto [--tt-weights int8] [--device cpu] \\
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-7b|gemma3-4b --variant full --batch 4 \\
+        --prompt-len 64 --steps 32 --tt ffn,attn --tt-rank 16 \\
+        --tt-backend auto [--tt-weights int8] [--device cpu] \\
         [--arrival-rate 50 --max-requests 16 --slots 4 --assert-no-replan
          [--paged --block-size 16 [--num-blocks N]]
          [--chunk-prefill [--chunk-size 64] [--prefill-budget 64]]]

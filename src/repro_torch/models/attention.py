@@ -1,15 +1,20 @@
-"""Grouped-query attention for the dense decoder, in plain torch.
+"""Grouped-query attention for the dense decoders (qk-norm and sliding
+windows included), in plain torch.
 
 Every projection routes through ``linear_spec``/``linear_apply``, so the TT
 technique applies to q/k/v/o ("attn" family).  Scores and the softmax are
 fp32, as in ``repro.models.attention``.
 
-Cache contract: k, v [B, S_max, KV, hd]; decode writes the new position
-in place, at a position held on the device.  The block-paged pool
-(DESIGN.md §7) holds one arena per layer and leaf, [num_blocks + 1, block,
-KV, hd], addressed through per-slot block tables; its last block is the
-write sentinel.  The paged decode and the resume prefill gather the
-logical cache ``arena[table]`` and run the dense pool's arithmetic on it.
+Cache contract: full attention keeps k, v [B, S_max, KV, hd] and decode
+writes position ``pos``; a sliding-window layer keeps a ring [B, W, KV, hd]
+(W = min(window, S_max)) and writes ``pos % W``, slot s holding the latest
+absolute position p <= pos with p % W == s.  Decode writes in place, at a
+position held on the device.  The block-paged pool (DESIGN.md §7) holds
+one arena per layer and leaf, [num_blocks + 1, block, KV, hd], addressed
+through per-slot block tables; its last block is the write sentinel, and a
+ring uses the low ceil(W / block) entries of its slot's table.  The paged
+decode and the resume prefill gather the logical cache ``arena[table]``
+and run the dense pool's arithmetic on it.
 """
 from __future__ import annotations
 
@@ -19,28 +24,47 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .layers import linear_apply, linear_spec, rope
+from .layers import head_rmsnorm_apply, linear_apply, linear_spec, rope
+from .spec import ParamSpec
 
 NEG_INF = -1e30
 
 
 def gqa_spec(cfg: ModelConfig, dtype=torch.float32) -> dict:
     d, q_dim, kv_dim = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    return {"q": linear_spec(d, q_dim, cfg.tt, "attn", dtype),
-            "k": linear_spec(d, kv_dim, cfg.tt, "attn", dtype),
-            "v": linear_spec(d, kv_dim, cfg.tt, "attn", dtype),
-            "o": linear_spec(q_dim, d, cfg.tt, "attn", dtype)}
+    out = {"q": linear_spec(d, q_dim, cfg.tt, "attn", dtype),
+           "k": linear_spec(d, kv_dim, cfg.tt, "attn", dtype),
+           "v": linear_spec(d, kv_dim, cfg.tt, "attn", dtype),
+           "o": linear_spec(q_dim, d, cfg.tt, "attn", dtype)}
+    if cfg.qk_norm:
+        out["q_norm"] = ParamSpec((cfg.head_dim,), "ones", dtype=dtype)
+        out["k_norm"] = ParamSpec((cfg.head_dim,), "ones", dtype=dtype)
+    return out
 
 
-def _qkv(p, cfg: ModelConfig, x, positions, backend):
-    """(q [B,S,H,hd], k [B,S,KV,hd], v [B,S,KV,hd]) with RoPE applied."""
+def _qkv(p, cfg: ModelConfig, x, positions, theta, backend):
+    """(q [B,S,H,hd], k [B,S,KV,hd], v [B,S,KV,hd]): qk-norm when the
+    config has it, then RoPE at ``theta`` (None: ``cfg.rope_theta``)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    theta = cfg.rope_theta if theta is None else theta
     q = linear_apply(p["q"], x, backend).reshape(B, S, H, hd)
     k = linear_apply(p["k"], x, backend).reshape(B, S, KV, hd)
     v = linear_apply(p["v"], x, backend).reshape(B, S, KV, hd)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    if cfg.qk_norm:
+        q = head_rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
+        k = head_rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
+    return rope(q, positions, theta), rope(k, positions, theta), v
+
+
+def ring_positions(last: torch.Tensor, W: int) -> torch.Tensor:
+    """The absolute position each slot of a ring of ``W`` holds once
+    position ``last`` is written: slot s holds the latest p <= last with
+    p % W == s, that is last - ((last - s) mod W), negative where there is
+    none.  ``last`` 0-d → [W]; [B] → [B, W]."""
+    idx = torch.arange(W, dtype=last.dtype, device=last.device)
+    p = last[..., None] if last.dim() else last
+    return p - torch.remainder(p - idx, W)
 
 
 def _gqa_scores_ctx(q, k, v, mask, scale):
@@ -56,26 +80,35 @@ def _gqa_scores_ctx(q, k, v, mask, scale):
     return ctx.reshape(B, S, H * hd).to(q.dtype)
 
 
-def gqa_self_attn(p, cfg: ModelConfig, x, positions, *, backend="einsum"):
-    """Causal full-sequence self-attention (prefill).  Returns
-    (y [B,S,d], (k, v)) with k/v [B,S,KV,hd] for the cache."""
-    q, k, v = _qkv(p, cfg, x, positions, backend)
-    mask = positions[:, None, :] <= positions[:, :, None]     # [B,S,T]
+def gqa_self_attn(p, cfg: ModelConfig, x, positions, *, window: int = 0,
+                  theta: float | None = None, backend="einsum"):
+    """Causal full-sequence self-attention (prefill), within the last
+    ``window`` positions when it is > 0.  Returns (y [B,S,d], (k, v)) with
+    k/v [B,S,KV,hd] for the cache."""
+    q, k, v = _qkv(p, cfg, x, positions, theta, backend)
+    i, j = positions[:, :, None], positions[:, None, :]
+    mask = j <= i                                             # [B,S,T]
+    if window:
+        mask = mask & (j > i - window)
     ctx = _gqa_scores_ctx(q, k, v, mask[:, None, None],
                           1.0 / np.sqrt(cfg.head_dim))
     return linear_apply(p["o"], ctx, backend), (k, v)
 
 
 def gqa_decode_attn(p, cfg: ModelConfig, x, cache_k, cache_v,
-                    pos: torch.Tensor, *, backend="einsum", active=None):
-    """One-token decode against a full cache.
+                    pos: torch.Tensor, *, window: int = 0,
+                    theta: float | None = None, backend="einsum",
+                    active=None):
+    """One-token decode against a full or (``window`` > 0) ring cache.
 
-    x [B,1,d]; cache_k/v [B, T, KV, hd]; ``pos`` an integer tensor on the
-    cache's device: 0-d, the position shared by the whole batch, or [B],
-    one depth per row (the reference's per-slot branch; a row at a
-    position ≥ T writes nothing).  ``active`` (optional [B] bool on the
-    device, vector position only) gates each row's write: an inactive
-    slot of the scheduler's pool keeps its k/v.  The new k/v are written
+    x [B,1,d]; cache_k/v [B, T, KV, hd], T the cache length or the ring's
+    W; ``pos`` an integer tensor on the cache's device: 0-d, the position
+    shared by the whole batch, or [B], one depth per row (the reference's
+    per-slot branch; a full-attention row at a position ≥ T writes
+    nothing).  A ring writes slot ``pos % W`` and attends to the slots
+    that hold a position (``ring_positions``).  ``active`` (optional [B]
+    bool on the device, vector position only) gates each row's write: an
+    inactive slot of the scheduler's pool keeps its k/v.  The new k/v are written
     into the cache IN PLACE (the reference returns an updated copy).
     Nothing here reads a device value on the host, so the step can be
     captured in a CUDA graph and replayed at every position; a scalar
@@ -89,20 +122,22 @@ def gqa_decode_attn(p, cfg: ModelConfig, x, cache_k, cache_v,
     if active is not None and not per_row:
         raise ValueError("an active mask needs a per-row position [B]")
     positions = pos[:, None] if per_row else pos.reshape(1, 1).expand(B, 1)
-    q, k, v = _qkv(p, cfg, x, positions, backend)
+    q, k, v = _qkv(p, cfg, x, positions, theta, backend)
     idx = torch.arange(T, device=x.device)
+    slot = torch.remainder(pos, T) if window else pos
+    valid = ring_positions(pos, T) >= 0 if window else (
+        idx <= (pos[:, None] if per_row else pos))
     if per_row:
-        wr = (idx[None, :] == pos[:, None])[:, :, None, None]    # [B,T,1,1]
+        wr = (idx[None, :] == slot[:, None])[:, :, None, None]   # [B,T,1,1]
         if active is not None:
             wr = wr & active[:, None, None, None]
         torch.where(wr, k, cache_k, out=cache_k)
         torch.where(wr, v, cache_v, out=cache_v)
-        valid = (idx[None, :] <= pos[:, None])[:, None, None, None, :]
+        valid = valid[:, None, None, None, :]
     else:
-        at = pos.reshape(1).long()
+        at = slot.reshape(1).long()
         cache_k.index_copy_(1, at, k)
         cache_v.index_copy_(1, at, v)
-        valid = idx <= pos
     ctx = _gqa_scores_ctx(q, cache_k, cache_v, valid,
                           1.0 / np.sqrt(cfg.head_dim))
     return linear_apply(p["o"], ctx, backend), cache_k, cache_v
@@ -119,53 +154,67 @@ def gqa_decode_attn(p, cfg: ModelConfig, x, cache_k, cache_v,
 # (``paged_index``): in a captured step each op is a node of the graph.
 
 class PagedIndex(NamedTuple):
-    """What every layer's paged decode reads of the block tables, the same
-    for all layers of a step (``paged_index``): the gather index ``table``
-    [B, max_blocks] int64, each row's write address ``write`` = (block,
-    offset) [B] int64, and the attention mask ``valid`` [B,1,1,1,T]."""
+    """What every layer's paged decode of one kind reads of the block
+    tables, the same for all such layers of a step (``paged_index``): the
+    gather index ``table`` [B, blocks read] int64, each row's write address
+    ``write`` = (block, offset) [B] int64, and the attention mask ``valid``
+    [B,1,1,1,W] over the first W gathered positions."""
     table: torch.Tensor
     write: tuple[torch.Tensor, torch.Tensor]
     valid: torch.Tensor
 
 
 def paged_index(bt, pos: torch.Tensor, active: torch.Tensor, block: int,
-                sentinel: int) -> PagedIndex:
+                sentinel: int, window: int = 0) -> PagedIndex:
     """The ``PagedIndex`` of one decode step: bt [B, max_blocks] int32, pos
-    [B] int32, active [B] bool, on the cache's device.  An active row
-    writes at (bt[b, pos // block], pos % block), an inactive one into the
-    ``sentinel`` block (whatever its position: a row parked past its table
-    clamps to its last entry first); every row attends to its logical
-    positions ≤ pos.  Computed once per step and read by every layer: the
-    reference computes it in each layer, to the same values."""
+    [B] int32, active [B] bool, on the cache's device.
+
+    Full attention (``window`` 0): an active row writes at (bt[b, pos //
+    block], pos % block), an inactive one into the ``sentinel`` block
+    (whatever its position: a row parked past its table clamps to its last
+    entry first); every row attends to its logical positions ≤ pos.
+    A ring (``window`` > 0, W = min(window, max_blocks · block)): the
+    same through the table's low ceil(W / block) entries at the ring slot
+    pos % W, attending to the slots that hold a position.
+    Computed once per step and kind, and read by every layer of that kind:
+    the reference computes it in each layer, to the same values."""
     mb = bt.shape[1]
-    table = bt.long()
-    col = torch.clamp(pos // block, max=mb - 1).long()
+    W = min(window, mb * block) if window else mb * block
+    nblk = -(-W // block)
+    table = bt[:, :nblk].long()
+    wp = torch.remainder(pos, W) if window else pos
+    col = torch.clamp(wp // block, max=nblk - 1).long()
     phys = torch.where(active, table.gather(1, col[:, None])[:, 0], sentinel)
-    idx = torch.arange(mb * block, device=bt.device)
-    valid = (idx[None, :] <= pos[:, None])[:, None, None, None, :]
-    return PagedIndex(table, (phys, (pos % block).long()), valid)
+    if window:
+        valid = ring_positions(pos, W) >= 0
+    else:
+        valid = torch.arange(W, device=bt.device)[None, :] <= pos[:, None]
+    return PagedIndex(table, (phys, (wp % block).long()),
+                      valid[:, None, None, None, :])
 
 
 def gqa_decode_attn_paged(p, cfg: ModelConfig, x, arena_k, arena_v,
                           pos: torch.Tensor, index: PagedIndex, *,
-                          backend="einsum"):
-    """One-token decode against a block-paged cache (full attention).
+                          theta: float | None = None, backend="einsum"):
+    """One-token decode against a block-paged cache, full attention or a
+    ring (as ``index`` was made, ``paged_index``).
 
     x [B,1,d]; arena_k/v [nb+1, block, KV, hd]; pos [B] int32 on the
     cache's device; ``index`` the step's ``paged_index`` of the block
-    tables.  Each row's new k/v go to its write address (an inactive row's
-    to the sentinel block), IN PLACE (the reference returns updated
-    arenas); every row then attends over its gathered logical cache
-    ``arena[table[b]]`` [max_blocks · block] with the dense pool's mask and
-    arithmetic.  Nothing is read on the host, so the step can be captured.
-    Returns (y [B,1,d], arena_k, arena_v)."""
+    tables for this layer's kind.  Each row's new k/v go to its write
+    address (an inactive row's to the sentinel block), IN PLACE (the
+    reference returns updated arenas); every row then attends over the
+    first W positions of its gathered cache ``arena[table[b]]`` with the
+    dense pool's mask and arithmetic.  Nothing is read on the host, so the
+    step can be captured.  Returns (y [B,1,d], arena_k, arena_v)."""
     B = x.shape[0]
     KV, hd = arena_k.shape[2:]
-    q, k, v = _qkv(p, cfg, x, pos[:, None], backend)
+    W = index.valid.shape[-1]
+    q, k, v = _qkv(p, cfg, x, pos[:, None], theta, backend)
     arena_k.index_put_(index.write, k[:, 0])
     arena_v.index_put_(index.write, v[:, 0])
-    gk = arena_k[index.table].reshape(B, -1, KV, hd)
-    gv = arena_v[index.table].reshape(B, -1, KV, hd)
+    gk = arena_k[index.table].reshape(B, -1, KV, hd)[:, :W]
+    gv = arena_v[index.table].reshape(B, -1, KV, hd)[:, :W]
     ctx = _gqa_scores_ctx(q, gk, gv, index.valid,
                           1.0 / np.sqrt(cfg.head_dim))
     return linear_apply(p["o"], ctx, backend), arena_k, arena_v
@@ -204,7 +253,7 @@ def _resume_scatter(arena, dst_b, dense) -> None:
 
 
 def gqa_chunk_attn(p, cfg: ModelConfig, x, dk, dv, start: torch.Tensor, *,
-                   backend="einsum"):
+                   theta: float | None = None, backend="einsum"):
     """Chunk or suffix prefill against a *dense logical* cache buffer.
 
     x [1, S_pad, d] at absolute positions start + t (``start`` a 0-d int32
@@ -215,7 +264,7 @@ def gqa_chunk_attn(p, cfg: ModelConfig, x, dk, dv, start: torch.Tensor, *,
     S_pad = x.shape[1]
     positions = start + torch.arange(S_pad, dtype=torch.int32,
                                      device=x.device)[None, :]  # [1, S_pad]
-    q, k, v = _qkv(p, cfg, x, positions, backend)
+    q, k, v = _qkv(p, cfg, x, positions, theta, backend)
     rows = positions[0].long()
     dk.index_copy_(1, rows, k.to(dk.dtype))
     dv.index_copy_(1, rows, v.to(dv.dtype))
@@ -226,7 +275,8 @@ def gqa_chunk_attn(p, cfg: ModelConfig, x, dk, dv, start: torch.Tensor, *,
 
 
 def gqa_resume_attn(p, cfg: ModelConfig, x, arena_k, arena_v, src_b, dst_b,
-                    start: torch.Tensor, *, backend="einsum"):
+                    start: torch.Tensor, *, theta: float | None = None,
+                    backend="einsum"):
     """Suffix prefill (x [1, S_pad, d] at absolute positions start + t)
     attending to the prefix gathered through ``src_b`` and to itself; the
     updated logical cache goes back into the arenas through ``dst_b``, IN
@@ -234,7 +284,53 @@ def gqa_resume_attn(p, cfg: ModelConfig, x, arena_k, arena_v, src_b, dst_b,
     S_pad = x.shape[1]
     dk = _resume_dense(arena_k, src_b, S_pad)
     dv = _resume_dense(arena_v, src_b, S_pad)
-    y, dk, dv = gqa_chunk_attn(p, cfg, x, dk, dv, start, backend=backend)
+    y, dk, dv = gqa_chunk_attn(p, cfg, x, dk, dv, start, theta=theta,
+                               backend=backend)
     _resume_scatter(arena_k, dst_b, dk)
     _resume_scatter(arena_v, dst_b, dv)
     return y, arena_k, arena_v
+
+
+def gqa_chunk_attn_ring(p, cfg: ModelConfig, x, ring_k, ring_v,
+                        start: torch.Tensor, true_len: torch.Tensor, *,
+                        theta: float | None = None, backend="einsum"):
+    """Chunk prefill of a sliding-window layer against its ring.
+
+    x [1, C, d] at absolute positions start + t (rows >= ``true_len`` are
+    right-padding; ``start``, ``true_len`` 0-d int32 on the device);
+    ring_k/v [1, W, KV, hd] hold the state before the chunk: slot w the
+    k/v of the latest position p <= start - 1 with p % W == w, zeros where
+    there is none.  A chunk may span more than W positions, so the ring is
+    not written in place (a key still inside an earlier query's window
+    would be overwritten): the history is gathered densely in position
+    order, the chunk's keys appended, every query attends over absolute
+    positions within the window, and the ring is rebuilt for the state
+    after position start + true_len - 1 (from the history where that
+    position precedes the chunk, where it equals the old ring entry).
+    Returns (y, new ring_k, new ring_v), new tensors."""
+    C = x.shape[1]
+    W = ring_k.shape[1]
+    dev = x.device
+    chunk = torch.arange(C, dtype=torch.int32, device=dev)
+    positions = start + chunk[None, :]                        # [1, C]
+    q, k, v = _qkv(p, cfg, x, positions, theta, backend)
+    # history entry i is absolute position start - W + i, held at ring
+    # slot (start + i) mod W
+    i_idx = torch.arange(W, dtype=torch.int32, device=dev)
+    hist = torch.remainder(start + i_idx, W).long()
+    ck = torch.cat([ring_k.index_select(1, hist), k.to(ring_k.dtype)], 1)
+    cv = torch.cat([ring_v.index_select(1, hist), v.to(ring_v.dtype)], 1)
+    key_pos = torch.cat([start - W + i_idx, start + chunk])   # [W + C]
+    pq = positions[:, :, None]                                # [1, C, 1]
+    j = key_pos[None, None, :]                                # [1, 1, W+C]
+    mask = ((j <= pq) & (j > pq - W) & (j >= 0))[:, None, None]
+    ctx = _gqa_scores_ctx(q, ck, cv, mask, 1.0 / np.sqrt(cfg.head_dim))
+    y = linear_apply(p["o"], ctx, backend)
+    # slot w <- the position it holds after start + true_len - 1, at index
+    # p - start + W of the combined buffer
+    p_w = ring_positions(start + true_len - 1, W)
+    src = (p_w - start + W).long()
+    ok = (p_w >= 0)[None, :, None, None]
+    zero = torch.zeros((), dtype=ring_k.dtype, device=dev)
+    return (y, torch.where(ok, ck.index_select(1, src), zero),
+            torch.where(ok, cv.index_select(1, src), zero))

@@ -198,7 +198,9 @@ class DecodeGraph:
             raise ValueError("the fixed-batch graph decodes at one position "
                              "shared by the batch")
         src = tree_leaves(cache)
-        if any(t.shape[:2] != (self.B, self.T) for t in src if t.dim()) or (
+        layout = [sd[0] for sd in tree_leaves(
+            self.model.cache_shapes(self.B, self.T))]
+        if [tuple(t.shape) for t in src if t.dim()] != layout or (
                 self.cache is not None and
                 [(t.shape, t.dtype) for t in tree_leaves(self.cache)] !=
                 [(t.shape, t.dtype) for t in src]):

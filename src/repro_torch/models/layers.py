@@ -1,4 +1,5 @@
-"""Elementary layers: norms, RoPE, dense/TT linear, GLU MLP, embeddings.
+"""Elementary layers: norms (qk-norm included), RoPE, dense/TT linear,
+GLU MLP, embeddings.
 
 Every projection goes through ``linear_spec``/``linear_apply``, which
 consult the model's ``TTConfig``: a covered projection gets TT cores picked
@@ -7,6 +8,7 @@ by the DSE, the others a dense weight.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -127,6 +129,14 @@ def rmsnorm_apply(params: dict, x: torch.Tensor, eps: float = 1e-6
     return (x32 * torch.rsqrt(var + eps) * params["scale"]).to(x.dtype)
 
 
+def head_rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor,
+                       eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm: RMS over the head dim of [..., heads, head_dim]."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embedding
 # ---------------------------------------------------------------------------
@@ -172,5 +182,21 @@ def embed_spec(vocab: int, d: int, dtype=torch.float32) -> dict:
                                dtype)}
 
 
-def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed_apply(params: dict, tokens: torch.Tensor, d: int,
+                scale: bool = False) -> torch.Tensor:
+    """The rows of ``tokens``; with ``scale`` (gemma) times sqrt(d) rounded
+    to the table's dtype first, as the reference rounds it (in bf16,
+    sqrt(2560) = 50.596 becomes 50.5)."""
+    out = params["table"][tokens]
+    if scale:
+        out = out * _rounded(float(np.sqrt(d)), out.dtype)
+    return out
+
+
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to the nearest value of the float ``dtype`` (ties to
+    even), on the host without a tensor op, so a captured step neither
+    copies to the card nor reads back."""
+    bits = 1 - round(math.log2(torch.finfo(dtype).eps))
+    m, e = math.frexp(x)
+    return math.ldexp(round(m * 2 ** bits), e - bits)

@@ -2,16 +2,19 @@
 a prompt-length bucket, or captured: ``padded_prefill``,
 ``bucketed_prefill``, ``graphed_prefill``), ``decode_step``,
 ``splice_cache``, ``graphed_decode_step``, ``init_cache`` and
-``quantize_params`` for the dense decoder; and for the block-paged pool
-(DESIGN.md §7), ``init_cache(..., paged=True)``, ``splice_cache_paged``
-and the prefix-reuse admission ``prefill_resume`` (``resume_prefill``
-buckets it and, on a card, replays it captured); and for chunked prefill
-(DESIGN.md §15), over either pool, ``chunk_step``, ``mixed_step`` (on a
-card replayed as ``models.graph.MixedGraph``) and ``copy_blocks``.
+``quantize_params`` for the dense decoders (gemma3's sliding-window
+ring caches and tied, scaled embeddings included); and for the
+block-paged pool (DESIGN.md §7), ``init_cache(..., paged=True)``,
+``splice_cache_paged`` and the prefix-reuse admission ``prefill_resume``
+(``resume_prefill`` buckets it and, on a card, replays it captured); and
+for chunked prefill (DESIGN.md §15), over either pool, ``chunk_step``,
+``mixed_step`` (on a card replayed as ``models.graph.MixedGraph``) and
+``copy_blocks``.
 
 Parameters are a dict tree of tensors: ``embed``, ``final_norm``,
-``lm_head`` and one list per layer group ``g{gi}`` holding a dict
-``{"b0": block params}`` per layer.  ``convert.from_jax_params`` builds
+``lm_head`` (none with tied embeddings: the logits are ``x @ embed.T``)
+and one list per layer group ``g{gi}`` holding a dict ``{"b0": ..., "b1":
+...}`` of block params per layer.  ``convert.from_jax_params`` builds
 this tree from the reference's stacked one.
 """
 from __future__ import annotations
@@ -29,9 +32,9 @@ from .graph import DecodeGraph, PrefillGraph
 from .layers import (embed_apply, embed_spec, linear_apply, linear_spec,
                      quantize_tt_params, rmsnorm_apply, rmsnorm_spec)
 from .spec import init_tree, map_tree, tree_leaves
-from .transformer import (Group, block_cache_kinds, block_paged_cache_shape,
-                          group_chunk, group_decode, group_fwd, group_resume,
-                          group_spec)
+from .transformer import (Group, block_cache_kinds, block_cache_shape,
+                          block_paged_cache_shape, group_chunk, group_decode,
+                          group_fwd, group_resume, group_spec)
 
 
 # captured decode steps a model keeps, and captured prefills (the
@@ -50,8 +53,9 @@ def bucket_length(S: int, limit: int, floor: int = 16) -> int:
 
 
 class Model:
-    """One dense decoder.  ``device=None`` means the GPU; pass
-    ``device="cpu"`` for the plain path."""
+    """One dense decoder (full-attention or local/global GQA).
+    ``device=None`` means the GPU; pass ``device="cpu"`` for the plain
+    path."""
 
     def __init__(self, cfg: ModelConfig, groups: list[Group],
                  param_dtype: torch.dtype = torch.float32,
@@ -101,9 +105,10 @@ class Model:
     def param_specs(self) -> dict:
         cfg, dt = self.cfg, self.param_dtype
         specs: dict = {"embed": embed_spec(cfg.vocab_size, cfg.d_model, dt),
-                       "final_norm": rmsnorm_spec(cfg.d_model, dt),
-                       "lm_head": linear_spec(cfg.d_model, cfg.vocab_size,
-                                              cfg.tt, "lm_head", dt)}
+                       "final_norm": rmsnorm_spec(cfg.d_model, dt)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = linear_spec(cfg.d_model, cfg.vocab_size,
+                                           cfg.tt, "lm_head", dt)
         for gi, g in enumerate(self.groups):
             specs[f"g{gi}"] = group_spec(cfg, g, dt)
         return specs
@@ -122,8 +127,17 @@ class Model:
         return quantize_tt_params(params)
 
     # ---------------------------------------------------------------- serving
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embeddings, scaled by sqrt(d) when they are tied (every
+        path that embeds tokens comes here)."""
+        cfg = self.cfg
+        return embed_apply(params["embed"], tokens.to(self.device),
+                           cfg.d_model, scale=cfg.tie_embeddings)
+
     def _logits(self, params, x) -> torch.Tensor:
         x = rmsnorm_apply(params["final_norm"], x, self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            return (x @ params["embed"]["table"].T).float()
         return linear_apply(params["lm_head"], x, self.plan_book).float()
 
     @torch.no_grad()
@@ -144,11 +158,11 @@ class Model:
         (``graphed_prefill``).
 
         ``out`` (a cache of ``init_cache(B, cache_len)``'s layout) receives
-        the result in place: its k/v rows 0..S-1 are the prompt's, the rows
-        past S are zeroed, and its ``pos`` is set, bit for bit what a fresh
-        cache would hold."""
-        tokens = batch["tokens"].to(self.device)
-        x = embed_apply(params["embed"], tokens)
+        the result in place: its full-attention k/v rows 0..S-1 are the
+        prompt's, the rows past S are zeroed, each window ring holds the
+        last positions of the true prompt (``transformer.block_fwd``), and
+        its ``pos`` is set, bit for bit what a fresh cache would hold."""
+        x = self._embed(params, batch["tokens"])
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         T = batch.get("cache_len", S)
@@ -166,7 +180,7 @@ class Model:
             x, cache[f"g{gi}"] = group_fwd(
                 params[f"g{gi}"], g, self.cfg, x, positions, want_cache=True,
                 T_cache=T, plans=self.plan_book,
-                out=None if out is None else out[f"g{gi}"])
+                out=None if out is None else out[f"g{gi}"], true_len=pos)
         last = x.index_select(1, (pos - 1).reshape(1))
         return self._logits(params, last), cache
 
@@ -246,18 +260,18 @@ class Model:
         request reuses."""
         pos = cache["pos"]
         bt = cache.get("block_tables")
-        x = embed_apply(params["embed"], token.to(self.device))
+        x = self._embed(params, token)
         new_cache: dict = {"pos": pos + (1 if active is None
                                          else active.to(pos.dtype))}
         paged = None
         if bt is not None:
             new_cache["block_tables"] = bt
             arena = _kv_leaves(cache)[0]
-            paged = paged_index(
-                bt, pos, torch.ones(pos.shape, dtype=torch.bool,
-                                    device=pos.device)
-                if active is None else active, arena.shape[1],
-                arena.shape[0] - 1)
+            act = (torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
+                   if active is None else active)
+            paged = {w: paged_index(bt, pos, act, arena.shape[1],
+                                    arena.shape[0] - 1, w)
+                     for w in self.windows}
         for gi, g in enumerate(self.groups):
             x, new_cache[f"g{gi}"] = group_decode(
                 params[f"g{gi}"], g, self.cfg, x, cache[f"g{gi}"], pos,
@@ -335,7 +349,7 @@ class Model:
 
         slot, start, true_suf = index(slot), index(start), index(true_suf)
         src, dst = index(src_blocks), index(dst_blocks)
-        x = embed_apply(params["embed"], tokens.to(dev))
+        x = self._embed(params, tokens)
         for gi, g in enumerate(self.groups):
             x, cache[f"g{gi}"] = group_resume(
                 params[f"g{gi}"], g, self.cfg, x, cache[f"g{gi}"], src, dst,
@@ -404,11 +418,11 @@ class Model:
         active = index(active, torch.bool)
         if table is not None:
             table = index(table)
-        x = embed_apply(params["embed"], tokens.to(dev))
+        x = self._embed(params, tokens)
         for gi, g in enumerate(self.groups):
             x, cache[f"g{gi}"] = group_chunk(
                 params[f"g{gi}"], g, self.cfg, x, cache[f"g{gi}"], slot,
-                table, start, active, plans=self.plan_book)
+                table, start, true_len, active, plans=self.plan_book)
         pos = cache["pos"]
         row = (torch.arange(pos.shape[0], device=pos.device) == slot) & \
             active
@@ -447,7 +461,8 @@ class Model:
     @torch.no_grad()
     def copy_blocks(self, cache: dict, src: int, dst: int) -> None:
         """Copy arena block ``src`` into block ``dst`` in every layer's k
-        and v, IN PLACE: the eager copy-on-write of a chunked admission
+        and v (rings too, as the reference copies them), IN PLACE: the
+        eager copy-on-write of a chunked admission
         whose prefix covers the whole prompt (its last block is about to be
         partly rewritten through the slot's own table); the reference's
         ``copy_blocks``, which returns an updated copy."""
@@ -455,9 +470,16 @@ class Model:
             arena[dst].copy_(arena[src])
 
     @property
+    def windows(self) -> list[int]:
+        """The distinct attention windows of the blocks (0: full attention),
+        each with its own ``PagedIndex`` per paged decode step."""
+        return sorted({bd.window for period, _ in self.groups
+                       for bd in period})
+
+    @property
     def supports_chunked_prefill(self) -> bool:
-        """Chunked prefill covers the ported mixer, full-attention GQA
-        (``transformer.block_chunk``)."""
+        """Chunked prefill covers the ported mixer, GQA with full attention
+        or a window ring (``transformer.block_chunk``)."""
         return all(bd.mixer == "gqa" for period, _ in self.groups
                    for bd in period)
 
@@ -465,8 +487,8 @@ class Model:
     def supports_prefix_reuse(self) -> bool:
         """Prefix blocks are shareable when every cache leaf is a pure
         function of the token prefix and never overwritten in place: true
-        of full attention, the ported mixer (the reference also says no
-        for window rings, SSM state and frontends, not ported)."""
+        of full attention, not of a window ring, whose contents cycle (the
+        reference also says no for SSM state and frontends, not ported)."""
         return all(kind == "paged" for period, _ in self.groups
                    for bd in period for kind in block_cache_kinds(bd).values())
 
@@ -475,7 +497,8 @@ class Model:
                            dtype: torch.dtype | None = None) -> dict:
         """(shape, dtype) tree of a block-paged pool (DESIGN.md §7): every
         layer's k and v are arenas [num_blocks + 1, block, KV, hd] shared by
-        all slots through per-slot block tables; ``pos`` is [num_slots] and
+        all slots through per-slot block tables (a window ring through the
+        low entries of its slot's table); ``pos`` is [num_slots] and
         ``block_tables`` [num_slots, ceil(cache_len / block)], both int32.
         One arena per layer, in the per-layer list (the reference stacks
         them [layers, ...])."""
@@ -501,7 +524,6 @@ class Model:
         (``paged_cache_shapes``; ``num_blocks`` defaults to B ·
         ceil(T / block)), its block tables filled with the sentinel id
         ``num_blocks``."""
-        cfg = self.cfg
         dtype = self.param_dtype if dtype is None else dtype
         if paged:
             if num_blocks is None:
@@ -511,18 +533,26 @@ class Model:
                 sd[0], dtype=sd[1], device=self.device), shapes)
             cache["block_tables"].fill_(num_blocks)
             return cache
-        shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
         cache: dict = {"pos": torch.zeros((B,) if per_row else (),
                                           dtype=torch.int32,
                                           device=self.device)}
-        for gi, (period, count) in enumerate(self.groups):
-            cache[f"g{gi}"] = [
-                {f"b{i}": {n: torch.zeros(shape, dtype=dtype,
-                                          device=self.device)
-                           for n in ("k", "v")}
-                 for i in range(len(period))}
-                for _ in range(count)]
+        cache.update(map_tree(lambda sd: torch.zeros(
+            sd[0], dtype=sd[1], device=self.device),
+            self.cache_shapes(B, T, dtype)))
         return cache
+
+    def cache_shapes(self, B: int, T: int,
+                     dtype: torch.dtype | None = None) -> dict:
+        """(shape, dtype) tree of the k/v leaves of a dense cache of ``B``
+        rows and ``T`` positions (no ``pos``): full attention [B, T, KV,
+        hd], a window ring [B, min(window, T), KV, hd]
+        (``transformer.block_cache_shape``)."""
+        dtype = self.param_dtype if dtype is None else dtype
+        return {f"g{gi}": [{f"b{i}": block_cache_shape(self.cfg, bd, B, T,
+                                                       dtype)
+                            for i, bd in enumerate(period)}
+                           for _ in range(count)]
+                for gi, (period, count) in enumerate(self.groups)}
 
     def graphed_decode_step(self, B: int, T: int, masked: bool = False,
                             paged: tuple[int, int] | None = None

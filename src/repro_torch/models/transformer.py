@@ -1,4 +1,5 @@
-"""Block assembly for the dense decoder.
+"""Block assembly for the dense decoders: full-attention and
+sliding-window (ring-cache) GQA blocks with a GLU MLP.
 
 A model is a list of groups ``(period, count)``: ``period`` is a tuple of
 BlockDefs run in order and repeated ``count`` times.  Parameters of a group
@@ -12,16 +13,19 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .attention import (gqa_chunk_attn, gqa_decode_attn,
-                        gqa_decode_attn_paged, gqa_resume_attn,
-                        gqa_self_attn, gqa_spec)
+from .attention import (gqa_chunk_attn, gqa_chunk_attn_ring,
+                        gqa_decode_attn, gqa_decode_attn_paged,
+                        gqa_resume_attn, gqa_self_attn, gqa_spec,
+                        ring_positions)
 from .layers import mlp_apply, mlp_spec, rmsnorm_apply, rmsnorm_spec
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
     mixer: str = "gqa"        # only gqa is ported
+    window: int = 0           # >0 → sliding-window attention (ring cache)
     ffn: str = "mlp"          # only mlp is ported
+    theta: float | None = None  # RoPE theta; None: the config's
 
     def __post_init__(self):
         if self.mixer != "gqa" or self.ffn != "mlp":
@@ -46,51 +50,82 @@ def group_spec(cfg: ModelConfig, group: Group, dtype) -> list:
              for i, bd in enumerate(period)} for _ in range(count)]
 
 
+def block_cache_shape(cfg: ModelConfig, bd: BlockDef, B: int, T: int,
+                      dtype) -> dict:
+    """(shape, dtype) of each cache leaf of one block in a dense cache of
+    ``B`` rows and ``T`` positions: a windowed block keeps a ring of
+    min(window, T) positions."""
+    W = min(bd.window, T) if bd.window else T
+    shape = (B, W, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
 def block_cache_kinds(bd: BlockDef) -> dict[str, str]:
     """Paging kind of each cache leaf of one block (DESIGN.md §7):
-    'paged' — token-indexed, block-pageable and prefix-shareable.  The
-    ported mixer is full-attention GQA, whose k and v are both 'paged'
-    (the reference's 'ring' and 'slot' kinds come with the windowed, SSM
-    and cross-attention families)."""
-    return {"k": "paged", "v": "paged"}
+    'paged' — token-indexed, block-pageable and prefix-shareable (full
+    attention); 'ring' — a window ring, block-pageable through the low
+    entries of the slot's table but never prefix-shared (its contents are
+    overwritten in place).  The reference's 'slot' kind comes with the
+    SSM and cross-attention families."""
+    kind = "ring" if bd.window else "paged"
+    return {"k": kind, "v": kind}
 
 
 def block_paged_cache_shape(cfg: ModelConfig, bd: BlockDef, num_blocks: int,
                             block: int, dtype) -> dict:
     """(shape, dtype) of each cache leaf of one block in the paged pool:
-    'paged' leaves are arenas [num_blocks + 1, block, KV, hd] (the + 1 is
-    the write sentinel)."""
+    'paged' and 'ring' leaves are arenas [num_blocks + 1, block, KV, hd]
+    (the + 1 is the write sentinel)."""
     shape = (num_blocks + 1, block, cfg.num_kv_heads, cfg.head_dim)
-    return {name: (shape, dtype)
-            for name, kind in block_cache_kinds(bd).items() if kind == "paged"}
+    return {name: (shape, dtype) for name in block_cache_kinds(bd)}
 
 
 def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
-              want_cache: bool, T_cache: int = 0, plans=None, out=None):
+              want_cache: bool, T_cache: int = 0, plans=None, out=None,
+              true_len=None):
     """Full-sequence block (prefill).  Returns (x, cache or None); the
-    cache holds k/v zero-padded from S to ``T_cache`` positions, written
-    into ``out`` (``{"k", "v"}`` of that shape) when it is given."""
+    cache is written into ``out`` (``{"k", "v"}`` of ``block_cache_shape``)
+    when it is given.  Full attention keeps k/v zero-padded from S to
+    ``T_cache`` positions (rows past ``true_len`` are a bucket's padding,
+    beyond the cache position, masked by every later step).  A windowed
+    block keeps a ring of W = min(window, T_cache) positions built at
+    ``true_len`` (0-d int on the device, the prompt's true length): one
+    path for every prompt, where the reference rolls or pads an
+    exact-length prompt and takes this path for a bucketed one; at the
+    true length they agree value for value, and no padding row reaches
+    the ring."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    y, (k, v) = gqa_self_attn(p["attn"], cfg, h, positions, backend=plans)
+    y, (k, v) = gqa_self_attn(p["attn"], cfg, h, positions, window=bd.window,
+                              theta=bd.theta, backend=plans)
     cache = None
     if want_cache:
         B, S, KV, hd = k.shape
         if S > T_cache:
             raise ValueError(f"prompt of {S} tokens exceeds the cache of "
                              f"{T_cache}")
+        if bd.window:
+            # slot s takes the latest prompt position p with p % W == s
+            held = ring_positions(true_len.long() - 1, min(bd.window,
+                                                           T_cache))
+            take = held.clamp(min=0)
         cache = {}
         for name, t in (("k", k), ("v", v)):
-            shape = (B, T_cache, KV, hd)
+            shape, _ = block_cache_shape(cfg, bd, B, T_cache, t.dtype)[name]
             if out is None:
                 buf = torch.empty(shape, dtype=t.dtype, device=t.device)
             else:
                 buf = out[name]
-                if buf.shape != shape or buf.dtype != t.dtype:
+                if tuple(buf.shape) != shape or buf.dtype != t.dtype:
                     raise ValueError(
                         f"the output cache's {name} is {tuple(buf.shape)} "
                         f"{buf.dtype}, the prefill writes {shape} {t.dtype}")
-            buf[:, :S] = t
-            buf[:, S:] = 0
+            if bd.window:
+                torch.where(held[None, :, None, None] >= 0,
+                            t.index_select(1, take), t.new_zeros(()),
+                            out=buf)
+            else:
+                buf[:, :S] = t
+                buf[:, S:] = 0
             cache[name] = buf
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
@@ -103,16 +138,18 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
     with ``active`` [B] gating each row's write; see
     ``attention.gqa_decode_attn``); the cache's k/v are updated in
     place.  ``paged``: None for the dense layout, else the step's
-    ``attention.PagedIndex`` of the block tables, and k/v are block arenas
+    ``attention.PagedIndex`` of the block tables per window (0: full
+    attention), and k/v are block arenas
     (``attention.gqa_decode_attn_paged``)."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if paged is not None:
         y, nk, nv = gqa_decode_attn_paged(p["attn"], cfg, h, cache["k"],
-                                          cache["v"], pos, paged,
-                                          backend=plans)
+                                          cache["v"], pos, paged[bd.window],
+                                          theta=bd.theta, backend=plans)
     else:
         y, nk, nv = gqa_decode_attn(p["attn"], cfg, h, cache["k"],
-                                    cache["v"], pos, backend=plans,
+                                    cache["v"], pos, window=bd.window,
+                                    theta=bd.theta, backend=plans,
                                     active=active)
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
@@ -120,10 +157,11 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
 
 
 def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
-              *, want_cache: bool, T_cache: int = 0, plans=None, out=None):
+              *, want_cache: bool, T_cache: int = 0, plans=None, out=None,
+              true_len=None):
     """Run a group's repetitions in order.  Returns (x, per-layer caches),
     written into ``out`` (a cache group's per-layer list) when it is
-    given."""
+    given; rings are built at ``true_len`` (``block_fwd``)."""
     period, _ = group
     caches = []
     for li, layer in enumerate(params):
@@ -132,7 +170,8 @@ def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
             x, c[f"b{i}"] = block_fwd(
                 layer[f"b{i}"], cfg, bd, x, positions,
                 want_cache=want_cache, T_cache=T_cache, plans=plans,
-                out=None if out is None else out[li][f"b{i}"])
+                out=None if out is None else out[li][f"b{i}"],
+                true_len=true_len)
         caches.append(c)
     return x, (caches if want_cache else None)
 
@@ -157,11 +196,15 @@ def block_resume(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, src_b,
     """Suffix prefill of one block against its paged arenas: attends to the
     prefix gathered through ``src_b`` and scatters the updated logical
     cache back through ``dst_b`` (COW where the tables differ), in place.
-    Only prefix-shareable mixers get here (``Model.supports_prefix_reuse``;
-    the ported full-attention GQA is one)."""
+    Only prefix-shareable mixers get here (``Model.supports_prefix_reuse``:
+    full-attention GQA, not a window ring)."""
+    if bd.window:
+        raise ValueError(f"mixer {bd.mixer!r} (window={bd.window}) does not "
+                         f"support prefix-resume prefill")
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y, nk, nv = gqa_resume_attn(p["attn"], cfg, h, cache["k"], cache["v"],
-                                src_b, dst_b, start, backend=plans)
+                                src_b, dst_b, start, theta=bd.theta,
+                                backend=plans)
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     return x + mlp_apply(p["ffn"], h, plans), {"k": nk, "v": nv}
@@ -188,47 +231,75 @@ def group_resume(params: list, group: Group, cfg: ModelConfig, x,
 # ---------------------------------------------------------------------------
 
 def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
-                table, start, active, plans=None):
+                table, start, true_len, active, plans=None):
     """One prefill chunk of one slot through one block, IN PLACE.
 
-    x [1, C, d] at absolute positions start + t (right-padded past the
-    chunk's true length: full attention writes the padding's k/v past the
-    row's new position, where every later step masks or overwrites it);
-    ``slot``, ``start`` (0-d int32) and ``active`` (0-d bool) are tensors
-    on the device, so nothing is read on the host.  ``table`` [max_blocks]
-    int32 addresses the paged arenas (None for the dense pool; the caller
-    makes it all sentinel when the lane is inactive): the gather, chunk
-    attention and scatter of ``block_resume`` with the slot's own table as
-    source and destination.
-    Dense: row ``slot`` of k/v is taken with C scratch rows appended,
-    attended, and written back as ``where(active, new, old)``, so an
-    inactive lane writes the bits it read.  Full attention only (the
-    reference's windowed-ring, MLA and SSM branches come with their
-    families)."""
+    x [1, C, d] at absolute positions start + t, right-padded past the
+    chunk's true length ``true_len``; ``slot``, ``start``, ``true_len``
+    (0-d int32) and ``active`` (0-d bool) are tensors on the device, so
+    nothing is read on the host.  ``table`` [max_blocks] int32 addresses
+    the paged arenas (None for the dense pool; the caller makes it all
+    sentinel when the lane is inactive).
+
+    Full attention writes the padding's k/v past the row's new position,
+    where every later step masks or overwrites it: paged, the gather,
+    chunk attention and scatter of ``block_resume`` with the slot's own
+    table as source and destination; dense, row ``slot`` of k/v taken with
+    C scratch rows appended, attended, and written back as ``where(active,
+    new, old)``.  A window ring (``attention.gqa_chunk_attn_ring``) is
+    rebuilt from the history: dense, row ``slot``'s ring, written back as
+    ``where(active, new, old)``; paged, the table's low ceil(W / block)
+    blocks gathered, the ring (their first W rows) rebuilt and the blocks
+    scattered back.  An inactive lane writes back the bits it read (dense)
+    or only the sentinel block (paged)."""
     if bd.mixer != "gqa":
         raise ValueError(f"mixer {bd.mixer!r} has no chunked prefill")
-    if table is not None:
-        return block_resume(p, cfg, bd, x, cache, table, table, start,
-                            plans=plans)
     C = x.shape[1]
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     idx = slot.reshape(1).long()
-    old = {n: cache[n].index_select(0, idx) for n in ("k", "v")}
-    T = old["k"].shape[1]
-    dk, dv = (torch.cat([r, r.new_zeros((1, C, *r.shape[2:]))], 1)
-              for r in (old["k"], old["v"]))
-    y, dk, dv = gqa_chunk_attn(p["attn"], cfg, h, dk, dv, start,
-                               backend=plans)
-    for name, new in (("k", dk), ("v", dv)):
-        cache[name].index_copy_(0, idx, torch.where(active, new[:, :T],
-                                                    old[name]))
+    if bd.window and table is not None:
+        blk = cache["k"].shape[1]
+        W = min(bd.window, table.shape[0] * blk)
+        nblk = -(-W // blk)
+        tb = table[:nblk].long()
+        g = {n: cache[n][tb].reshape(1, nblk * blk, *cache[n].shape[2:])
+             for n in ("k", "v")}
+        y, nk, nv = gqa_chunk_attn_ring(p["attn"], cfg, h, g["k"][:, :W],
+                                        g["v"][:, :W], start, true_len,
+                                        theta=bd.theta, backend=plans)
+        for name, ring in (("k", nk), ("v", nv)):
+            g[name][:, :W] = ring
+            cache[name].index_put_((tb,), g[name][0].reshape(
+                nblk, blk, *cache[name].shape[2:]))
+    elif bd.window:
+        old = {n: cache[n].index_select(0, idx) for n in ("k", "v")}
+        y, nk, nv = gqa_chunk_attn_ring(p["attn"], cfg, h, old["k"],
+                                        old["v"], start, true_len,
+                                        theta=bd.theta, backend=plans)
+        for name, new in (("k", nk), ("v", nv)):
+            cache[name].index_copy_(0, idx, torch.where(active, new,
+                                                        old[name]))
+    elif table is not None:
+        return block_resume(p, cfg, bd, x, cache, table, table, start,
+                            plans=plans)
+    else:
+        old = {n: cache[n].index_select(0, idx) for n in ("k", "v")}
+        T = old["k"].shape[1]
+        dk, dv = (torch.cat([r, r.new_zeros((1, C, *r.shape[2:]))], 1)
+                  for r in (old["k"], old["v"]))
+        y, dk, dv = gqa_chunk_attn(p["attn"], cfg, h, dk, dv, start,
+                                   theta=bd.theta, backend=plans)
+        for name, new in (("k", dk), ("v", dv)):
+            cache[name].index_copy_(0, idx, torch.where(active, new[:, :T],
+                                                        old[name]))
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     return x + mlp_apply(p["ffn"], h, plans), cache
 
 
 def group_chunk(params: list, group: Group, cfg: ModelConfig, x,
-                caches: list, slot, table, start, active, plans=None):
+                caches: list, slot, table, start, true_len, active,
+                plans=None):
     """One prefill chunk over a group's layers, in order (the reference
     scans its stacked layers)."""
     period, _ = group
@@ -238,6 +309,6 @@ def group_chunk(params: list, group: Group, cfg: ModelConfig, x,
         for i, bd in enumerate(period):
             x, c[f"b{i}"] = block_chunk(layer[f"b{i}"], cfg, bd, x,
                                         lc[f"b{i}"], slot, table, start,
-                                        active, plans=plans)
+                                        true_len, active, plans=plans)
         new.append(c)
     return x, new

@@ -61,11 +61,16 @@ device (``Request.key``, or one seeded from the scheduler's ``seed`` and
 the request's uid, the counterpart of ``fold_in(base_key, uid)``); greedy
 requests draw nothing.
 
+A model with window rings (gemma3's local layers) serves through every
+pool and admission kind; its prefix blocks are never shared
+(``Model.supports_prefix_reuse`` is false, so ``prefix_cache`` is off in a
+paged pool), as in the reference.
+
 Not ported (ROADMAP.md Queue 1): preemption (mid-prefill included),
 deadlines, resize, snapshots (mid-prefill included), the mesh and
-``drop``; chunked prefill covers full-attention GQA only (the windowed
-ring, MLA and SSM chunk branches come with their families).  The
-constructor refuses the arguments.  With equal priorities the reference
+``drop``; chunked prefill covers GQA, full and windowed (the MLA and SSM
+chunk branches come with their families).  The constructor refuses the
+arguments.  With equal priorities the reference
 never preempts, so the two agree at their defaults.
 """
 from __future__ import annotations

@@ -310,3 +310,80 @@ def test_fused2_launch_passes_its_geometry(fake_launch, dims, B, int8):
     if B <= 37:   # decode-sized batches: the blocks cover most SMs
         assert 120 <= geo.grid[0] * geo.grid[1] * geo.grid[2] <= 132
     assert tt_contract.launch_counts() == {name: 1}
+
+
+# gemma3-4b's projections at rank 16, length 2 (``plan_for``): q
+# 2560→2048, k/v 2560→1024, o 2048→2560, gate/up 2560→10240, down
+# 10240→2560
+GEMMA3 = {"q": (8, 320, 256, 8, 16), "kv": (8, 320, 128, 8, 16),
+          "o": (8, 256, 320, 8, 16), "gate_up": (8, 320, 1280, 8, 16),
+          "down": (8, 1280, 320, 8, 16)}
+
+
+@pytest.mark.parametrize("B,name,want", [
+    # decode: one row tile × 8 i2 groups, m1 cut into slices of 16–80
+    # columns (m1 of 128 or 320 leaves 64 or 80 blocks)
+    (4, "q", (4, 1, 16, 112, 16, (1, 8, 16))),
+    (4, "kv", (4, 1, 16, 112, 16, (1, 8, 8))),
+    (4, "o", (4, 1, 32, 96, 32, (1, 8, 10))),
+    (4, "gate_up", (4, 1, 80, 112, 80, (1, 8, 16))),
+    (4, "down", (4, 1, 32, 208, 32, (1, 8, 10))),
+    # prefill and the 1,024-token admission bucket: whole-m2 blocks of 2
+    # rows, no slices
+    (256, "q", (2, 8, 256, 64, 256, (128, 1, 1))),
+    (256, "kv", (2, 8, 128, 64, 128, (128, 1, 1))),
+    (256, "o", (2, 8, 320, 64, 256, (128, 1, 1))),
+    (256, "gate_up", (2, 8, 1280, 64, 256, (128, 1, 1))),
+    (256, "down", (2, 8, 320, 64, 256, (128, 1, 1))),
+    (1024, "q", (2, 8, 256, 64, 256, (512, 1, 1))),
+    (1024, "kv", (2, 8, 128, 64, 128, (512, 1, 1))),
+    (1024, "o", (2, 8, 320, 64, 256, (512, 1, 1))),
+    (1024, "gate_up", (2, 8, 1280, 64, 256, (512, 1, 1))),
+    (1024, "down", (2, 8, 320, 64, 256, (512, 1, 1))),
+])
+def test_launch_geometry_at_gemma3_shapes(B, name, want):
+    dims = GEMMA3[name]
+    geo = tt_contract.fused2_geometry(B, dims, 2, 2, 132, 232_448)
+    assert (geo.bb, geo.g, geo.nc, geo.kc, geo.nct, geo.grid) == want
+    assert geo.smem == tt_contract.fused2_smem_bytes(
+        dims[0], dims[4], geo.bb, geo.g, geo.kc, geo.nct, 2, 2) <= 232_448
+
+
+@pytest.mark.parametrize("act_bytes,w_bytes", [(2, 2), (2, 1), (4, 4),
+                                               (4, 1)],
+                         ids=["bf16", "bf16-int8", "fp32", "fp32-int8"])
+@pytest.mark.parametrize("B", [4, 256, 1024])
+@pytest.mark.parametrize("name", list(GEMMA3))
+def test_fused2_launch_covers_gemma3_shapes(fake_launch, name, B, act_bytes,
+                                            w_bytes):
+    """Every activation and core dtype at gemma3's shapes: the arguments
+    the launch passes are its geometry, the grid covers every row and
+    output column without recomputing stage 1 across i2, the block fits
+    shared memory, and an fp32 stage tile gives each thread one column."""
+    n1, n2, m1, m2, r1 = dims = GEMMA3[name]
+    act = torch.bfloat16 if act_bytes == 2 else torch.float32
+    wd = torch.int8 if w_bytes == 1 else act
+    int8 = w_bytes == 1
+    x = torch.zeros(B, n1 * n2, dtype=act)
+    p2 = torch.zeros(n2, m2 * r1, dtype=wd)
+    p1 = torch.zeros(n1 * r1, m1, dtype=wd)
+    kernel = "tt_fused2_int8" if int8 else "tt_fused2"
+    y = tt_contract._launch_fused2(kernel, x, p2, p1,
+                                   torch.ones(2) if int8 else None, dims)
+    assert y.shape == (B, m1 * m2) and y.dtype == act
+    (fn, args), = fake_launch.calls
+    geo = tt_contract.fused2_geometry(B, dims, act_bytes, w_bytes, 132,
+                                      232_448)
+    k = 5 if int8 else 4
+    assert args[k:k + 6] == (B, n1, n2, m1, m2, r1)
+    assert args[k + 6:] == (geo.bb, geo.g, geo.nc, geo.kc, geo.nct,
+                            geo.smem, 7)
+    assert geo.g * geo.grid[1] >= m2 and geo.bb * geo.grid[0] >= B
+    assert geo.nc * geo.grid[2] >= m1 and geo.nc % 16 == 0
+    assert geo.smem <= 232_448
+    if act_bytes == 4:
+        n1p = tt_contract._stage1_width(geo.g, r1, 4)
+        for width in (n1p, geo.nct):
+            assert width >= 16 and width & (width - 1) == 0
+        assert -(-geo.g * geo.bb // 16) * 16 * geo.nct <= 4096
+    assert tt_contract.launch_counts() == {kernel: 1}

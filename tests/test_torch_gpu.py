@@ -1076,3 +1076,111 @@ def test_chunked_scheduler_paged_is_dense_is_eager(cuda):
     mono, _ = run()
     for uid in got:
         assert np.array_equal(got[uid].tokens, mono[uid].tokens), uid
+
+
+# --------------------------------------------------------------------------
+# gemma3: the ring paths captured against eager
+# --------------------------------------------------------------------------
+
+def _gemma3(device, weights="fp32"):
+    """gemma3 SMOKE (window 16), TT on ffn+attn at rank 4, ``auto``."""
+    cfg = get_config("gemma3-4b", "smoke", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+        backend="auto", weights=weights))
+    model = build(cfg, device=device)
+    params = model.init(0)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params
+
+
+@pytest.mark.parametrize("weights", ["fp32", "int8"])
+def test_gemma3_prefill_and_decode_replays_are_eager(cuda, weights):
+    """The captured prefill of prompts of 20 (bucket 32) and 40 into a
+    cache of 64 against the eager prefill (logits, rings and full caches
+    bit for bit), then the fixed-batch decode graph over 24 steps, the
+    rings wrapping, against the eager step bit for bit."""
+    model, params = _gemma3(cuda, weights)
+    for S, S_pad in ((20, 32), (40, 40)):
+        batch = _prompt(model, S, B=2, S=S, T=64)
+        tokens = torch.nn.functional.pad(batch["tokens"], (0, S_pad - S))
+        g_logits, g_cache = model.graphed_prefill(2, S_pad, 64)(
+            params, tokens, S)
+        e_logits, e_cache = model.prefill(params, {
+            "tokens": tokens, "cache_len": 64, "prompt_len": S})
+        assert torch.equal(g_logits, e_logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_cache),
+                                                     tree_leaves(e_cache)))
+        assert g_cache["g0"][0]["b0"]["k"].shape[1] == 16
+    step = model.graphed_decode_step(2, 64)
+    step.load(params, g_cache, 40)
+    tok = e_logits[:, -1].argmax(-1, keepdim=True)
+    for t in range(24):
+        want, e_cache = model.decode_step(params, e_cache, tok)
+        got = step(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(step.cache),
+                                                 tree_leaves(e_cache)))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(chunk_prefill=True, chunk_size=8, prefill_budget=16),
+    dict(chunk_prefill=True, chunk_size=24)],
+    ids=["monolithic", "chunk8x2", "chunk24"])
+def test_gemma3_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
+    """Prompts of 40, 24, 8 and 20 through 2 slots over 48 positions: the
+    dense pool through the graphs (masked decode, admissions or mixed
+    steps) against eager, and the paged pool (blocks of 4) through the
+    graphs, all bit for bit; no prefix hit, no block leaked."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _gemma3(cuda)
+    prompts = [_prompt(model, 60 + i, B=1, S=n)["tokens"]
+               for i, n in enumerate((40, 24, 8, 20))]
+
+    def run(**extra):
+        sched = Scheduler(model, params, num_slots=2, cache_len=48, **kw,
+                          **extra)
+        for uid, tokens in enumerate(prompts):
+            sched.submit(Request(uid=uid, inputs={"tokens": tokens},
+                                 max_new_tokens=6 - uid))
+            sched.step()
+        sched.run()
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+            assert sched.stats()["prefix_hit_tokens"] == 0
+        return {f.uid: f for f in sched.finished}
+
+    got = run()
+    for extra in (dict(graph=False), dict(paged=True, block_size=4),
+                  dict(paged=True, block_size=4, graph=False)):
+        want = run(**extra)
+        assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+        for uid in got:
+            assert np.array_equal(got[uid].tokens, want[uid].tokens), uid
+            assert np.array_equal(got[uid].logprobs, want[uid].logprobs), uid
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_gemma3_mixed_capture_leaves_live_rings_untouched(cuda, paged):
+    """A mixed step captured on a live pool (slot 0 holds a 40-token
+    prompt, its rings wrapped; every inactive lane points at it): every
+    ring and full k/v row (paged: every block but the sentinel), position
+    and table stays as it was, bit for bit."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _gemma3(cuda)
+    kw = dict(paged=True, block_size=4) if paged else {}
+    sched = Scheduler(model, params, num_slots=2, cache_len=48, **kw)
+    sched.submit(Request(uid=0, inputs={"tokens": _prompt(
+        model, 70, B=1, S=40)["tokens"]}, max_new_tokens=4))
+    sched.step()
+    graph = sched.graph
+    pool = graph.cache
+    before = [t.clone() for t in tree_leaves(pool)]
+    graph.mixed(2, 8)._capture()
+    torch.cuda.synchronize()
+    for a, b in zip(tree_leaves(pool), before):
+        if paged and a.dim() == 4:
+            a, b = a[:-1], b[:-1]              # the sentinel block
+        assert torch.equal(a, b)
