@@ -13,7 +13,13 @@ Phases, each fatal on failure:
      int8 cores): fused2 at the length-2 shapes, the fused chain at the
      length-3 shapes, the step kernel on every step of both; and fused2
      (fp and int8 cores) at gemma3-4b's five projection shapes, at 256 and
-     4 rows and untimed at 1,024 (``gemma3_kernels``, timed as in 3);
+     4 rows and untimed at 1,024 (``gemma3_kernels``, timed as in 3); and
+     at mixtral-8x7b's shapes (``mixtral_kernels``): the expert-batched
+     fused2 (``tt_fused2_experts[_int8]``, one launch across 8 experts) at
+     its three expert projections, at C = 640 and 8 rows an expert and
+     untimed at 20 and 128, and fused2 at the k/v projection at 2,048 and
+     4 rows, timed as in 3 (the library call of the expert kernel is one
+     ``torch.bmm`` over the dense expert stacks);
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
      take; fused2, the fused chain and the length-2 steps also with L2
@@ -42,7 +48,9 @@ Phases, each fatal on failure:
      gemma3 SMOKE (window 16) on the card against the CPU, fp32 and int8
      cores: the fixed batch at prompts of 24 and 40 through the captured
      prefill and decode, and the dense, paged and chunked (chunks of 8
-     and of 24) schedulers through the graphs (``small_gemma3_check``);
+     and of 24) schedulers through the graphs, drop counts included, and
+     the same for mixtral SMOKE (window 32, 4 experts top-2), also eagerly
+     (``small_ring_check``);
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -85,7 +93,17 @@ Phases, each fatal on failure:
      run (bit for bit), Poisson arrivals of 16 requests of 960 + 128
      tokens on 4 slots, and a staggered run of 12 requests (prompts of
      600–1,000), dense, paged and chunked, graph against eager and paged
-     against dense bit for bit, held against ``generate_fixed``.
+     against dense bit for bit, held against ``generate_fixed``; then
+     full-width mixtral-8x7b (``mixtral_path``: bf16, TT on ffn+attn at
+     rank 16, per pass 128 ``tt_fused2`` and 96 ``tt_fused2_experts``):
+     4 × (512 + 64) tokens through ``launch.serve.fixed`` with fp and int8
+     cores beside an eager warm run (bit for bit), the decode replay and
+     one MoE layer traced alone, Poisson arrivals of 16 requests of 256 +
+     64 tokens on 4 slots over the dense, paged and chunked pools, and a
+     staggered run of 12 requests (prompts of 64–256): dense graph ≡ eager
+     ≡ paged and chunked graph ≡ eager ≡ paged bit for bit, chunked ≡
+     monolithic and each request ≡ ``generate_fixed`` where neither side
+     dropped an assignment, every path's MoE drops printed.
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
@@ -93,14 +111,17 @@ the eager back-to-back time of each kernel is recorded beside them.  Every
 record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
 the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
-together, gemma3-4b's included (``tt_fused2_int8``: its int8 fixed batch
-too); its times are deepseek-7b's layer.
+together, gemma3-4b's and mixtral-8x7b's included (``tt_fused2_int8``:
+their int8 fixed batches too); its times are deepseek-7b's layer, and for
+the expert-batched kernels mixtral-8x7b's (3 expert projections, 8
+experts × 8 rows).
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import os
@@ -124,6 +145,7 @@ from repro_torch.core.quant import dequantize_cores, quantize_core  # noqa: E402
 from repro_torch.core.tt import tt_reconstruct  # noqa: E402
 from repro_torch.kernels import ref, tt_contract  # noqa: E402
 from repro_torch.launch import profile_serve, serve  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.graph import WARMUP_STEPS  # noqa: E402
 from repro_torch.models.model import bucket_length  # noqa: E402
 from repro_torch.models.spec import map_tree, tree_leaves  # noqa: E402
@@ -150,6 +172,9 @@ ROWS = (256, 4)          # prefill (batch 4 × prompt 64) and decode (batch 4)
 BUCKET_ROWS = (16, 32, 64)
 LAYERS, PASSES = 30, 32  # full depth; 1 prefill + 31 decode forward passes
 REPLAYS = 8              # decode steps traced alone
+# decode steps of the cold eager run before each path's warm one (of
+# ``--steps`` until mixtral-8x7b's phases joined the script)
+COLD_STEPS = 4
 PROJ = 7                 # TT projections per decoder layer
 # (int8 cores, activation dtype); the main path runs bf16 activations
 CASES = ((False, torch.float32), (False, torch.bfloat16),
@@ -174,6 +199,9 @@ KERNELS = {   # name → (source, TPU kernel it replaces)
     "tt_fused_chain_int8": ("tt_chain.cu", 478),
     "tt_step": ("tt_step.cu", 178),
     "tt_step_int8": ("tt_step.cu", 193),
+    # the Pallas fused2 kernels under ``vmap`` over a MoE layer's experts
+    "tt_fused2_experts": ("tt_fused2.cu", 287),
+    "tt_fused2_experts_int8": ("tt_fused2.cu", 310),
 }
 SERVE_ARGS = ["--arch", "deepseek-7b", "--variant", "full", "--batch", "4",
               "--prompt-len", "64", "--steps", str(PASSES), "--tt",
@@ -183,8 +211,10 @@ SERVE_ARGS = ["--arch", "deepseek-7b", "--variant", "full", "--batch", "4",
 ARRIVAL_ARGS = SERVE_ARGS + ["--tt-backend", "auto", "--slots", "4",
                              "--max-requests", "16", "--arrival-rate", "50",
                              "--assert-no-replan"]
-# the step-indexed staggered run: requests, prompt lengths, budgets
-STAGGER_N, STAGGER_LENS, STAGGER_BUDGETS = 12, (16, 64), (8, 32)
+# the step-indexed staggered run: requests, prompt lengths, budgets (of
+# 8–32 until mixtral-8x7b's phases joined the script, cut to keep it near
+# 750 s)
+STAGGER_N, STAGGER_LENS, STAGGER_BUDGETS = 12, (16, 64), (8, 16)
 # the paged pool of phase 5: blocks of 16 positions, 6 per slot, 24 + 1
 # sentinel by default, 12 in the memory-limited run
 PAGED_ARGS = ["--paged", "--block-size", "16"]
@@ -214,9 +244,10 @@ GEMMA3_LAYERS = 34
 # new tokens, cache 1,280; Poisson arrivals of 16 requests of 960 + 128
 # tokens at 50/s on 4 slots × 1,088 (each admission pads 960 to the 1,024
 # bucket; every ring wraps at 1,024); the staggered run of 12 requests,
-# prompts of 600–1,000 tokens, budgets of 16–64 (of 32–128 the eager
-# runs alone took 103 s), on 4 × 1,152, dense, paged (blocks of 64) and
-# chunked (chunks of 256 over 2 lanes)
+# prompts of 600–1,000 tokens, budgets of 8–32 (of 32–128 the eager runs
+# alone took 103 s; 16–64 until mixtral-8x7b's phases joined the script),
+# on 4 × 1,152, dense, paged (blocks of 64) and chunked (chunks of 256
+# over 2 lanes)
 GEMMA3_ARGS = ["--arch", "gemma3-4b", "--variant", "full", "--tt",
                "ffn,attn", "--tt-rank", "16", "--seed", "0",
                "--tt-backend", "auto"]
@@ -224,9 +255,45 @@ GEMMA3_FIXED = ["--batch", "4", "--prompt-len", "1152", "--steps", "64"]
 GEMMA3_ARRIVAL = ["--prompt-len", "960", "--steps", "128", "--slots", "4",
                   "--max-requests", "16", "--arrival-rate", "50",
                   "--assert-no-replan"]
-GEMMA3_STAGGER, GEMMA3_T = ((600, 1000), (16, 64)), 1152
+GEMMA3_STAGGER, GEMMA3_T = ((600, 1000), (8, 32)), 1152
 GEMMA3_BLOCK, GEMMA3_CHUNK = 64, dict(chunk_prefill=True, chunk_size=256,
                                       prefill_budget=512)
+# mixtral-8x7b (32 layers of GQA with a window of 4,096, 8 KV heads; a
+# mixture of 8 experts, top-2, expert_ff 14,336, capacity factor 1.25):
+# its expert stacks' TT projections at rank 16, length 2 (one launch of
+# ``tt_fused2_experts`` across the 8 experts each) and the one attention
+# shape deepseek-7b does not have (k/v; q and o are deepseek's
+# 4096→4096), with how many of each one decoder layer runs (3 expert
+# launches and 4 attention ones: 224 a pass)
+MIXTRAL_EXPERT_SHAPES = {
+    "mixtral experts gate/up 4096->14336": (((8, 512), (1792, 8),
+                                             (1, 16, 1)), 2),
+    "mixtral experts down 14336->4096": (((8, 1792), (512, 8), (1, 16, 1)),
+                                         1),
+}
+MIXTRAL_ATTN_SHAPES = {
+    "mixtral attn k/v 4096->1024": (((8, 512), (128, 8), (1, 16, 1)), 2),
+}
+MIXTRAL_E, MIXTRAL_LAYERS = 8, 32
+# rows an expert takes (the capacity C): the 4 × 512 prefill and decode,
+# timed; a 64-token chunk and a one-row admission at the 256 bucket,
+# checked untimed.  The attention shape at the prefill's and decode's rows
+MIXTRAL_C, MIXTRAL_C_CHECKED, MIXTRAL_ROWS = (640, 8), (20, 128), (2048, 4)
+# phase 5 at full width: the fixed batch of 4 prompts of 512 tokens and 64
+# new ones (rings of 4,096 do not wrap here: gemma3's phase covers the
+# wrap); Poisson arrivals of 16 requests of 256 + 64 tokens at 50/s on 4
+# slots, over the dense pool, the paged one (blocks of 16) and chunked at
+# 64 (one lane); the staggered run of 12 requests, prompts of 64–256
+# tokens, budgets of 16–32, on 4 × 320
+MIXTRAL_ARGS = ["--arch", "mixtral-8x7b", "--variant", "full", "--tt",
+                "ffn,attn", "--tt-rank", "16", "--seed", "0",
+                "--tt-backend", "auto"]
+MIXTRAL_FIXED = ["--batch", "4", "--prompt-len", "512", "--steps", "64"]
+MIXTRAL_ARRIVAL = ["--prompt-len", "256", "--steps", "64", "--slots", "4",
+                   "--max-requests", "16", "--arrival-rate", "50",
+                   "--assert-no-replan"]
+MIXTRAL_STAGGER, MIXTRAL_T = ((64, 256), (16, 32)), 320
+MIXTRAL_BLOCK, MIXTRAL_CHUNK = 16, dict(chunk_prefill=True, chunk_size=64)
 
 
 def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
@@ -345,12 +412,18 @@ def layer_cases(dims, rows, int8, act, gen):
     library = lambda: torch.matmul(x, w_dense)  # noqa: E731
     weight_bytes = chain_weight_elems(ns, ms, ranks) * (
         packed[0].element_size()) + (4 * len(ns) if int8 else 0)
-    sizes = chain_state_sizes(ns, ms, ranks)
-    macs = sum(sizes[j] * ms[t] * ranks[t] for j, t in
-               enumerate(range(len(ns) - 1, -1, -1)))
-    moved = (x.numel() + rows * sizes[-1]) * x.element_size() + weight_bytes
+    moved = (x.numel() + rows * chain_state_sizes(ns, ms, ranks)[-1]) * \
+        x.element_size() + weight_bytes
     return (kernel + ("_int8" if int8 else ""), run, plain, library, moved,
-            2 * rows * macs, x, cores, scales)
+            2 * rows * chain_macs(dims), x, cores, scales)
+
+
+def chain_macs(dims) -> int:
+    """Multiply-adds of one row through the TT chain ``dims``."""
+    ns, ms, ranks = dims
+    sizes = chain_state_sizes(ns, ms, ranks)
+    return sum(sizes[j] * ms[t] * ranks[t] for j, t in
+               enumerate(range(len(ns) - 1, -1, -1)))
 
 
 def step_cases(x, cores, scales, int8, act):
@@ -400,14 +473,18 @@ def check(kernel, label, rows, act, run, plain, tol) -> dict:
 
 
 def measure(kernel, label, rows, act, per_layer, run, plain, library,
-            moved, flops, tol, spec, flush=None) -> dict:
+            moved, flops, tol, spec, flush=None, plain_iters: int = 50
+            ) -> dict:
     """Compare one kernel call with its plain version (``check``), then
     time kernel, plain and library, and with ``flush`` the kernel with L2
-    evicted before each call."""
+    evicted before each call.  ``plain_iters`` calls of a plain version
+    that launches many kernels keep the device's launch queue from filling
+    behind the spin kernel (which would block the host)."""
     rec = check(kernel, label, rows, act, run, plain, tol)
     bound_s, bound_by = hw.bound_seconds(moved, flops, DT_NAME[act], spec)
     rec.update(per_layer=per_layer, eager_ms=cuda_ms(run), ms=device_ms(run),
-               plain_ms=device_ms(plain), library_ms=device_ms(library),
+               plain_ms=device_ms(plain, plain_iters),
+               library_ms=device_ms(library),
                bound_ms=bound_s * 1e3, bound_by=bound_by, bytes=moved,
                flops=flops)
     cold = ""
@@ -503,14 +580,14 @@ def check_and_time(gen) -> list[dict]:
 
 def layer_summary(recs, kernels=("tt_fused2", "tt_fused2_int8",
                                   "tt_fused_chain", "tt_fused_chain_int8"),
-                  model: str = "deepseek-7b") -> list[dict]:
+                  model: str = "deepseek-7b", rows_of=ROWS) -> list[dict]:
     """Each whole-layer kernel's times summed over one decoder layer's
-    projections (bf16 activations) of ``model``, per row count: device,
-    cold-L2, eager (back-to-back calls, the host's time where it is
-    longer), plain, ``torch.matmul`` and the bound."""
+    projections (bf16 activations) of ``model``, per row count of
+    ``rows_of``: device, cold-L2, eager (back-to-back calls, the host's
+    time where it is longer), plain, the library call and the bound."""
     out = []
     for kernel in kernels:
-        for rows in ROWS:
+        for rows in rows_of:
             rs = [r for r in recs if r["kernel"] == kernel and
                   r["rows"] == rows and r["act"] == "bfloat16" and
                   r.get("model", "deepseek-7b") == model]
@@ -522,7 +599,7 @@ def layer_summary(recs, kernels=("tt_fused2", "tt_fused2_int8",
             print(f"{model} {kernel:19s} rows={rows:3d} per layer: device "
                   f"{row['ms']:.4f} cold-L2 {row['cold_ms']:.4f} eager "
                   f"{row['eager_ms']:.4f} plain {row['plain_ms']:.4f} "
-                  f"matmul {row['library_ms']:.4f} bound "
+                  f"library {row['library_ms']:.4f} bound "
                   f"{row['bound_ms']:.5f} ms", flush=True)
     return out
 
@@ -825,17 +902,19 @@ def small_paged_check() -> None:
 
 
 def drive(label: str, kernel: str, per_pass: int, model, params,
-          args) -> tuple[dict, int]:
+          args, also: dict | None = None) -> tuple[dict, int]:
     """One main path: launch counts set to 0 just before
     ``launch.serve.fixed`` serves ``model`` (a cold run that captures the
     prefill and the decode step, and a warm run of replays) and read just
     after.  Each capture must record ``per_pass`` launches of ``kernel``
-    and nothing else; the warm run must make ``per_pass`` × ``--steps``
-    of them, all replayed (none counted), capture nothing and resolve no
-    plan.  Returns serve's result and the kernel's launches over the whole
-    call, counted and replayed."""
+    (and ``also``'s launches per pass of its kernels) and nothing else;
+    the warm run must make ``--steps`` times that, all replayed (none
+    counted), capture nothing and resolve no plan.  Returns serve's result
+    (with every kernel's launches over the call in ``path_launches``) and
+    ``kernel``'s launches over the whole call, counted and replayed."""
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
+    per = {kernel: per_pass, **(also or {})}
     out = serve.fixed(model, params, args)
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
@@ -843,7 +922,6 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
     graph = model.decode_graphs[(args.batch, T, False)]
     prefill = model.prefill_graphs[(args.batch, args.prompt_len, T)]
     passes = args.steps
-    per_run = per_pass * passes
     print(f"main path ({label}): launches counted {counted}, by graph "
           f"replays {replayed} (one capture of the decode step: "
           f"{graph.captured}, of the prefill: {prefill.captured}); peak "
@@ -851,15 +929,17 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
           f"{out['peak_reserved_bytes'] / 2**30:.3f} GiB reserved; "
           f"{out['tok_per_s']:.1f} tok/s; warm run {out['warm_s']:.3f} s",
           flush=True)
+    def times(n: int) -> dict:
+        return {k: n * v for k, v in per.items()}
+
     want = {
-        "decode capture": ({kernel: per_pass}, graph.captured),
-        "prefill capture": ({kernel: per_pass}, prefill.captured),
-        "warm run": ({kernel: per_run}, out["launches"]),
+        "decode capture": (per, graph.captured),
+        "prefill capture": (per, prefill.captured),
+        "warm run": (times(passes), out["launches"]),
         "warm run counted": ({}, out["counted"]),
-        "cold run": ({kernel: per_run + 2 * WARMUP_STEPS * per_pass},
-                     out["cold_launches"]),
-        "counted": ({kernel: 2 * WARMUP_STEPS * per_pass}, counted),
-        "replayed": ({kernel: 2 * passes * per_pass}, replayed),
+        "cold run": (times(passes + 2 * WARMUP_STEPS), out["cold_launches"]),
+        "counted": (times(2 * WARMUP_STEPS), counted),
+        "replayed": (times(2 * passes), replayed),
         "decode captures cold, warm": ((1, 0), (out["cold_captures"],
                                                 out["captures"])),
         "prefill captures cold, warm": ((1, 0), (
@@ -874,6 +954,8 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
             or int(toks.max()) >= model.cfg.vocab_size or \
             not bool(torch.isfinite(out["logprobs"]).all()):
         raise AssertionError(f"bad generation: {tuple(toks.shape)}")
+    out["path_launches"] = {k: counted.get(k, 0) + replayed.get(k, 0)
+                            for k in per}
     return out, counted[kernel] + replayed[kernel]
 
 
@@ -906,10 +988,13 @@ def decode_steps(model, params, batch, graph: bool, n: int = 16):
 
 
 def eager_runs(model, params, args) -> dict:
-    """Before the graph exists: a cold and a warm eager run of the served
-    prompts; the warm one's tok/s, peak memory and tokens."""
+    """Before the graph exists: a cold eager run of the served prompts
+    (their prefill and ``COLD_STEPS`` decode steps: the set-up a first
+    call makes) and a warm one of ``--steps``; the warm one's tok/s, peak
+    memory and tokens."""
     batch = serve.prompt_batch(model, args)
-    serve.timed_run(model, params, batch, args, graph=False)
+    serve.timed_run(model, params, batch, argparse.Namespace(
+        **dict(vars(args), steps=min(args.steps, COLD_STEPS))), graph=False)
     torch.cuda.reset_peak_memory_stats()
     res, warm = serve.timed_run(model, params, batch, args, graph=False)
     out = dict(tok_per_s=args.batch * args.steps / warm, warm_s=warm,
@@ -1164,7 +1249,8 @@ def staggered_full(model, params, graph: bool, check=None,
     and chunked prefill's ``Scheduler`` arguments); four are submitted
     before the first ``step()``, then one before every third;
     ``check(sched)`` after every step.  A paged pool must leak no block.
-    ({uid: finished}, the scheduler's stats with the wall seconds)."""
+    ({uid: finished}, the scheduler's stats with the wall seconds and the
+    MoE assignments dropped in the run)."""
     prompts, budgets = stagger_requests(model.cfg.vocab_size, *stagger)
     sched = Scheduler(model, params, num_slots=4, cache_len=cache_len,
                       graph=graph, **paged)
@@ -1173,6 +1259,7 @@ def staggered_full(model, params, graph: bool, check=None,
         sched.submit(Request(uid=i, inputs={"tokens": prompts[i]},
                              max_new_tokens=int(budgets[i])))
 
+    moe.reset_drops()
     t0 = time.perf_counter()
     for i in range(4):
         submit(i)
@@ -1186,7 +1273,8 @@ def staggered_full(model, params, graph: bool, check=None,
             check(sched)
         k += 1
     torch.cuda.synchronize()
-    stats = dict(sched.stats(), wall_s=time.perf_counter() - t0)
+    stats = dict(sched.stats(), wall_s=time.perf_counter() - t0,
+                 drops=moe.read_drops())
     if sched.paged:
         sched.allocator.assert_quiescent()
     return {f.uid: f for f in sched.finished}, stats
@@ -1902,10 +1990,11 @@ def gemma3_kernels(gen) -> list[dict]:
     return recs
 
 
-def gemma3_smoke_models(weights: str = "fp32"):
-    """gemma3 SMOKE (window 16) at length 2 ``auto``: (card model, its
-    params, cpu model, the same params there)."""
-    cfg = get_config("gemma3-4b", "smoke", tt=TTConfig(
+def smoke_models(weights: str = "fp32", arch: str = "gemma3-4b"):
+    """SMOKE of ``arch`` (gemma3: window 16; mixtral: window 32, 4
+    experts top-2, dropless) at length 2 ``auto``, TT on ffn+attn: (card
+    model, its params, cpu model, the same params there)."""
+    cfg = get_config(arch, "smoke", tt=TTConfig(
         enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
         backend="auto", weights=weights))
     gpu = build(cfg, device="cuda")
@@ -1916,13 +2005,16 @@ def gemma3_smoke_models(weights: str = "fp32"):
     return gpu, p_gpu, cpu, map_tree(lambda t: t.cpu(), p_gpu)
 
 
-def gemma3_schedule(model, params, prompts, **kw) -> dict:
-    """The schedule of ``tests/test_torch_gemma3.py`` on SMOKE: 2 slots
-    over 48 positions (``kw``: pool and chunking); r0 (40 tokens, the
-    rings wrap twice) is admitted and steps once, r1 (24) and r2 (8)
-    follow, r2 queues; after the drain r3 (20).  The slots' (uid, prompt
-    position, blocks) after every step; no block may leak."""
+def smoke_schedule(model, params, prompts, **kw) -> dict:
+    """The schedule of ``tests/test_torch_gemma3.py`` and
+    ``tests/test_torch_mixtral.py`` on SMOKE: 2 slots over 48 positions
+    (``kw``: pool and chunking); r0 (40 tokens, the rings wrap) is
+    admitted and steps once, r1 (24) and r2 (8) follow, r2 queues; after
+    the drain r3 (20).  The slots' (uid, prompt position, blocks) after
+    every step, and the counters with the MoE assignments dropped; no
+    block may leak."""
     sched = Scheduler(model, params, num_slots=2, cache_len=48, **kw)
+    moe.reset_drops()
     history = []
 
     def step():
@@ -1947,22 +2039,25 @@ def gemma3_schedule(model, params, prompts, **kw) -> dict:
     if sched.paged:
         sched.allocator.assert_quiescent()
     st = sched.stats()
+    st["drops"] = moe.read_drops()
     return {"done": {f.uid: f for f in sched.finished}, "history": history,
             "stats": {k: v for k, v in st.items()
                       if k not in ("admit_s", "kv_pool_bytes")}}
 
 
-def small_gemma3_check() -> None:
-    """Phase 4, gemma3 SMOKE on the card against the CPU, same weights, fp32
-    and int8 cores: the fixed batch (prompts of 24 and 40, past the window
-    of 16, into caches of 48 and 64: the captured prefill, then 16 decode
-    replays fed the CPU's greedy tokens, logits within 1e-4, and
-    ``generate_fixed``'s greedy tokens identical); then the schedulers of
-    ``gemma3_schedule``, dense, paged (block 4) and chunked (chunks of 8
-    over 2 lanes and of 24, longer than the window, both pools), through
-    the graphs: tokens identical, logprobs within 1e-4, slots and counters
-    equal.  Only the path's fused2 kernel runs, none of the prefix cache's
-    hits."""
+def small_ring_check(arch: str = "gemma3-4b") -> None:
+    """Phase 4, SMOKE of a ring-cache model (gemma3: window 16; mixtral:
+    window 32 and 4 experts top-2, dropless) on the card against the CPU,
+    same weights, fp32 and int8 cores: the fixed batch (prompts of 24 and
+    40 into caches of 48 and 64; gemma3's rings wrap): the prefill and 16
+    decode steps fed the CPU's greedy tokens, eagerly and through the
+    captured prefill and decode, logits within 1e-4, and
+    ``generate_fixed``'s greedy tokens identical; then the schedulers of
+    ``smoke_schedule``, dense, paged (block 4) and chunked (chunks of 8
+    over 2 lanes and of 24, both pools), through the graphs: tokens
+    identical, logprobs within 1e-4, slots, counters and drop counts
+    equal.  Only the path's fused2 kernels run (mixtral's experts through
+    ``tt_fused2_experts``), none of the prefix cache's hits."""
     modes = {"dense": {}, "paged": dict(paged=True, block_size=4),
              "chunk8 dense": dict(chunk_prefill=True, chunk_size=8,
                                   prefill_budget=16),
@@ -1973,8 +2068,10 @@ def small_gemma3_check() -> None:
              "chunk24 paged": dict(chunk_prefill=True, chunk_size=24,
                                    paged=True, block_size=8)}
     for weights in ("fp32", "int8"):
-        gpu, p_gpu, cpu, p_cpu = gemma3_smoke_models(weights)
-        name = "tt_fused2" + ("_int8" if weights == "int8" else "")
+        gpu, p_gpu, cpu, p_cpu = smoke_models(weights, arch)
+        sfx = "_int8" if weights == "int8" else ""
+        names = {"tt_fused2" + sfx} | (
+            {"tt_fused2_experts" + sfx} if gpu.has_moe else set())
         tt_contract.reset_launch_counts()
         replayed0 = dict(gpu.replayed_launches)
         for S, T in ((24, 48), (40, 64)):
@@ -1993,24 +2090,33 @@ def small_gemma3_check() -> None:
             worst = max(float((g.cpu() - w).abs().max())
                         for g, w in zip(got, want))
             batch = {"tokens": tokens, "cache_len": T}
+            lg, cg = gpu.prefill(p_gpu, batch)
+            eager = [lg]
+            for t in forced:
+                lg, cg = gpu.decode_step(p_gpu, cg, t.cuda())
+                eager.append(lg)
+            worst_eager = max(float((g.cpu() - w).abs().max())
+                              for g, w in zip(eager, want))
             same = torch.equal(generate_fixed(gpu, p_gpu, batch,
                                               16).tokens.cpu(),
                                generate_fixed(cpu, p_cpu, batch, 16).tokens)
-            print(f"small input, gemma3 fixed batch ({weights} cores, prompt "
-                  f"{S}, cache {T}, window 16; captured prefill and decode): "
-                  f"logits card vs cpu max abs diff {worst:.3e} (tol 1e-4); "
+            print(f"small input, {arch} fixed batch ({weights} cores, prompt "
+                  f"{S}, cache {T}, window {gpu.windows[-1]}): logits card "
+                  f"vs cpu max abs diff {worst:.3e} through the captured "
+                  f"prefill and decode, {worst_eager:.3e} eager (tol 1e-4); "
                   f"greedy tokens {'=' if same else '!='} cpu", flush=True)
-            if not worst <= 1e-4 or not same:
-                raise AssertionError(f"gemma3 SMOKE fixed batch {weights} "
-                                     f"prompt {S}: {worst:.3e}, tokens "
-                                     f"same {same}")
+            if not max(worst, worst_eager) <= 1e-4 or not same:
+                raise AssertionError(f"{arch} SMOKE fixed batch {weights} "
+                                     f"prompt {S}: {worst:.3e}, eager "
+                                     f"{worst_eager:.3e}, tokens same "
+                                     f"{same}")
         rng = np.random.default_rng(90)
         prompts = [torch.from_numpy(rng.integers(0, 256, (1, n),
                                                  dtype=np.int64))
                    for n in (40, 24, 8, 20)]
         for mode, kw in modes.items():
-            want = gemma3_schedule(cpu, p_cpu, prompts, **kw)
-            got = gemma3_schedule(gpu, p_gpu, prompts, **kw)
+            want = smoke_schedule(cpu, p_cpu, prompts, **kw)
+            got = smoke_schedule(gpu, p_gpu, prompts, **kw)
             same = sorted(got["done"]) == sorted(want["done"]) == \
                 [0, 1, 2, 3] and all(
                     np.array_equal(got["done"][u].tokens,
@@ -2021,25 +2127,26 @@ def small_gemma3_check() -> None:
                         for u in want["done"])
             st = got["stats"]
             slots = got["history"] == want["history"]
-            print(f"small input, gemma3 scheduler ({weights} cores, {mode}):"
+            print(f"small input, {arch} scheduler ({weights} cores, {mode}):"
                   f" greedy tokens card {'=' if same else '!='} cpu, "
                   f"logprobs max abs diff {worst:.3e} (tol 1e-4); slots "
                   f"{'same' if slots else 'DIFFER'}, counters "
                   f"{'same' if st == want['stats'] else 'DIFFER'};"
                   f" {st['steps_run']} steps, {st.get('prefill_chunks', 0)} "
-                  f"chunks, prefix hits {st.get('prefix_hit_tokens', 0)}",
+                  f"chunks, prefix hits {st.get('prefix_hit_tokens', 0)}, "
+                  f"drops {st['drops']} (cpu {want['stats']['drops']})",
                   flush=True)
             if not same or not worst <= 1e-4 or not slots or \
                     st != want["stats"] or st.get("prefix_hit_tokens", 0):
-                raise AssertionError(f"gemma3 SMOKE scheduler {weights} "
+                raise AssertionError(f"{arch} SMOKE scheduler {weights} "
                                      f"{mode}: tokens same {same}, logprobs "
                                      f"{worst:.3e}, stats {st} vs "
                                      f"{want['stats']}")
         kernels = set(tt_contract.launch_counts()) | set(serve.since(
             replayed0, gpu.replayed_launches))
-        if kernels != {name}:
-            raise AssertionError(f"gemma3 SMOKE {weights}: kernels "
-                                 f"{kernels}, expected only {name}")
+        if kernels != names:
+            raise AssertionError(f"{arch} SMOKE {weights}: kernels "
+                                 f"{kernels}, expected only {names}")
         del gpu, p_gpu
         gc.collect()
         torch.cuda.empty_cache()
@@ -2193,20 +2300,315 @@ def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
     torch.cuda.empty_cache()
     return launches, rec
 
+def expert_cases(dims, C, int8, act, gen):
+    """The expert-batched fused2 kernel at one expert shape: ``MIXTRAL_E``
+    experts with the model's TT init, ``C`` rows each.  (kernel, run,
+    plain, library, bytes, flops): the library call is one ``torch.bmm``
+    over the dense expert stacks ``[E, N, M]`` (dequantized for int8
+    cores) in the activation dtype."""
+    ns, ms, ranks = dims
+    made = [random_cores(dims, act, int8, gen) for _ in range(MIXTRAL_E)]
+    p2 = pack_core(torch.stack([c[1] for c, _, _ in made]))
+    p1 = pack_core(torch.stack([c[0] for c, _, _ in made]))
+    x = torch.randn((MIXTRAL_E, C, int(np.prod(ns))), generator=gen,
+                    device="cuda").to(act)
+    d2 = (ns[0], ns[1], ms[0], ms[1], ranks[1])
+    if int8:
+        s = torch.stack([torch.stack([sc[1], sc[0]]) for _, sc, _ in made]
+                        ).float().contiguous()
+        run = lambda: tt_contract.tt_fused2_experts_int8(x, p2, p1, s, d2)  # noqa: E731
+        plain = lambda: ref.tt_fused2_experts_ref(x, p2, p1, d2, s)  # noqa: E731
+    else:
+        run = lambda: tt_contract.tt_fused2_experts(x, p2, p1, d2)  # noqa: E731
+        plain = lambda: ref.tt_fused2_experts_ref(x, p2, p1, d2)  # noqa: E731
+    w = torch.stack([dense.T for _, _, dense in made]).contiguous().to(act)
+    library = lambda: torch.bmm(x, w)  # noqa: E731
+    weight_bytes = MIXTRAL_E * (chain_weight_elems(ns, ms, ranks) *
+                                p2.element_size() + (8 if int8 else 0))
+    moved = (x.numel() + MIXTRAL_E * C * int(np.prod(ms))) * \
+        x.element_size() + weight_bytes
+    return ("tt_fused2_experts" + ("_int8" if int8 else ""), run, plain,
+            library, moved, 2 * MIXTRAL_E * C * chain_macs(dims))
+
+
+def mixtral_kernels(gen) -> list[dict]:
+    """Phases 2 and 3 at mixtral-8x7b's shapes: ``tt_fused2_experts[_int8]``
+    at the three expert projections (8 experts, one launch across them)
+    against its plain version and timed beside it (cold-L2 too), with
+    ``torch.bmm`` over the dense expert stacks and the bound, at C = 640
+    (the 4 × 512 prefill) and C = 8 (decode), every case of ``CASES``, and
+    checked untimed at C = 20 and 128; then ``tt_fused2[_int8]`` at the k/v
+    projection at 2,048 and 4 rows.  One record per (kernel, shape, rows,
+    case), marked ``model: mixtral-8x7b``."""
+    spec = hw.device_spec(torch.device("cuda"))
+    buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    recs = []
+    for label, (dims, per_layer) in MIXTRAL_EXPERT_SHAPES.items():
+        for C in MIXTRAL_C + MIXTRAL_C_CHECKED:
+            for int8, act in CASES:
+                kernel, run, plain, library, moved, flops = expert_cases(
+                    dims, C, int8, act, gen)
+                if C in MIXTRAL_C:
+                    # the plain version loops over the 8 experts
+                    rec = measure(kernel, label, C, act, per_layer, run,
+                                  plain, library, moved, flops, TOL[act],
+                                  spec, buf.zero_, plain_iters=10)
+                else:
+                    rec = check(kernel, label, C, act, run, plain, TOL[act])
+                rec.update(length=2, model="mixtral-8x7b",
+                           experts=MIXTRAL_E)
+                recs.append(rec)
+    for label, (dims, per_layer) in MIXTRAL_ATTN_SHAPES.items():
+        for rows in MIXTRAL_ROWS:
+            for int8, act in CASES:
+                kernel, run, plain, library, moved, flops, *_ = \
+                    layer_cases(dims, rows, int8, act, gen)
+                rec = measure(kernel, label, rows, act, per_layer, run,
+                              plain, library, moved, flops, TOL[act], spec,
+                              buf.zero_)
+                rec.update(length=2, model="mixtral-8x7b")
+                recs.append(rec)
+    return recs
+
+
+def moe_layer_alone(model, params, args) -> dict:
+    """One MoE layer's ``moe_apply`` at the decode's tokens ([batch, 1]
+    rows of the first layer's input width), eager, traced alone
+    (``replays_alone``): its device kernels, the expert kernel's launches
+    and the busy ms per call."""
+    p = params["g0"][0]["b0"]["ffn"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    h = torch.randn((args.batch, 1, model.cfg.d_model), generator=gen,
+                    device="cuda").to(model.param_dtype)
+    return replays_alone(lambda: moe.moe_apply(p, model.cfg, h,
+                                               model.plan_book),
+                         "tt_fused2_experts_kernel", top=6)
+
+
+def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
+    """Phase 5, full-width mixtral-8x7b (bf16 params from seed 0, nothing
+    cut, TT on ffn+attn at rank 16, ``auto``: per pass 128 ``tt_fused2``
+    for the attention and 96 ``tt_fused2_experts``, one launch across the
+    8 experts for each expert projection; 224 TT launches).
+
+    The fixed batch (``MIXTRAL_FIXED``) through ``launch.serve.fixed``, fp
+    then int8 cores (``drive``: every projection replayed through its
+    kernel, 0 captures and 0 plan resolutions warm), beside one eager warm
+    run (``graph_against_eager``: prefill and first-step logits bit for
+    bit), the decode replay traced alone and one MoE layer traced alone
+    (the MoE's share of a replay).  Then on one fp model the arrivals
+    (``MIXTRAL_ARRIVAL``) over the dense pool, the paged one and chunked
+    at 64 (0 captures and plan resolutions steady, 224 TT launches per
+    admission, per decode step and per pass of a mixed step, all
+    replayed), and the staggered run: dense graph ≡ eager ≡ paged and
+    chunked graph ≡ eager ≡ paged, bit for bit; chunked ≡ monolithic and
+    scheduler ≡ ``generate_fixed`` (other token groupings: another
+    capacity) asserted where both sides dropped nothing, the drops printed
+    either way.  Returns each kernel's launches over the fixed-batch
+    calls and the arrival and staggered runs, and the record."""
+    attn, experts = 4 * MIXTRAL_LAYERS, 3 * MIXTRAL_LAYERS
+    launches, rec = {}, {"card": smi, "fixed": []}
+    t_phase = time.perf_counter()
+    for weights in ("fp32", "int8"):
+        sfx = "_int8" if weights == "int8" else ""
+        kernel, ekernel = "tt_fused2" + sfx, "tt_fused2_experts" + sfx
+        model, params, args = cli_model(MIXTRAL_ARGS + MIXTRAL_FIXED + [
+            "--tt-weights", weights])
+        label = f"mixtral-8x7b, 4 x 512 + 64, {weights}"
+        eager = eager_runs(model, params, args)
+        out, _ = drive(label, kernel, attn, model, params, args,
+                       also={ekernel: experts})
+        launches.update(out["path_launches"])
+        r = dict(path=label, launches=out["path_launches"],
+                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
+                 peak_bytes=out["peak_bytes"], drops=out["drops"],
+                 cold_drops=out["cold_drops"],
+                 peak_reserved_bytes=out["peak_reserved_bytes"])
+        r.update(graph_against_eager(label, model, params, args, out, eager,
+                                     smi))
+        batch = serve.prompt_batch(model, args)
+        logits, cache = model.prefill(params, batch)
+        step = model.graphed_decode_step(args.batch, batch["cache_len"])
+        step.load(params, cache, args.prompt_len)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
+                                    top=8)
+        r["replay_experts"] = replays_alone(
+            lambda: step(tok), "tt_fused2_experts_kernel")["tt"]
+        r["moe_layer"] = moe_layer_alone(model, params, args)
+        share = r["moe_layer"]["busy_ms"] * MIXTRAL_LAYERS / \
+            r["replay"]["busy_ms"]
+        r["moe_share"] = share
+        print(f"profile ({label}): {REPLAYS} decode replays alone: "
+              f"{r['replay']['kernels']:g} device kernels, "
+              f"{r['replay']['tt']:g} tt_fused2_kernel and "
+              f"{r['replay_experts']:g} tt_fused2_experts_kernel, "
+              f"{r['replay']['busy_ms']:.3f} ms busy, "
+              f"{r['replay']['wall_ms']:.3f} ms wall per replay; top: " +
+              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
+                        for k, ms, n in r["replay"]["top"]) +
+              f"; one MoE layer alone (eager, {args.batch} tokens): "
+              f"{r['moe_layer']['kernels']:g} kernels, "
+              f"{r['moe_layer']['busy_ms']:.4f} ms busy, x "
+              f"{MIXTRAL_LAYERS} layers = {share:.1%} of the replay; top: " +
+              "; ".join(f"{k} {ms:.4f} ms x{n:g}"
+                        for k, ms, n in r["moe_layer"]["top"]) +
+              f"; MoE drops warm {out['drops']}, cold {out['cold_drops']}",
+              flush=True)
+        if (r["replay"]["tt"], r["replay_experts"]) != (attn, experts):
+            raise AssertionError(f"{label}: {r['replay']['tt']} and "
+                                 f"{r['replay_experts']} TT kernels per "
+                                 f"decode replay")
+        rec["fixed"].append(r)
+        del model, params, out, step, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    args = serve.parse_args(MIXTRAL_ARGS + MIXTRAL_ARRIVAL)
+    model, params = serve.setup(args)
+    tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
+    T = 256 + 64
+    rec["arrival"] = {}
+    for pool, extra in (("dense", []), ("paged", PAGED_ARGS),
+                        ("chunked", ["--chunk-prefill", "--chunk-size",
+                                     "64"])):
+        aargs = serve.parse_args(MIXTRAL_ARGS + MIXTRAL_ARRIVAL + extra)
+        out = serve.simulate(model, params, aargs)
+        sched = out.pop("sched")
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+        fin = out["finished"]
+        # a mixed step runs its lane's chunk and the decode: two passes
+        passes = out["admissions"] + (
+            2 * out["mixed_steps"] + out["plain_steps"] if pool == "chunked"
+            else out["steps_run"])
+        print(f"main path (mixtral-8x7b arrival mode, {pool} pool, 4 slots x "
+              f"{T}; {smi}): {len(fin)} requests, {out['tokens_out']} tokens "
+              f"in {out['wall_s']:.3f} s = {out['tok_per_s']:.1f} tok/s; ttft "
+              f"p50/p95 {out['ttft_p50_s'] * 1e3:.1f}/"
+              f"{out['ttft_p95_s'] * 1e3:.1f} ms; inter-token p50/p95 "
+              f"{out['itl_p50_s'] * 1e3:.2f}/{out['itl_p95_s'] * 1e3:.2f} ms; "
+              f"drops {out['drops']}; "
+              f"{out['admissions']} admissions ({out['admit_share']:.1%} of "
+              f"the wall), {out['steps_run']} steps"
+              + (f" ({out['mixed_steps']} mixed, {out['prefill_chunks']} "
+                 f"chunks)" if pool == "chunked" else "") +
+              f"; pool {out['kv_pool_bytes'] / 2**20:.1f} MiB, peak "
+              f"{out['peak_bytes'] / 2**30:.3f} GiB; launches "
+              f"{out['launches']}", flush=True)
+        want = {
+            "steady launches": ({"tt_fused2": attn * passes,
+                                 "tt_fused2_experts": experts * passes},
+                                out["launches"]),
+            "steady counted": ({}, out["counted"]),
+            "steady captures, prefill captures, plans": ((0, 0, 0), (
+                out["captures"], out["prefill_captures"], out["replans"])),
+            "requests": (list(range(16)), sorted(f.uid for f in fin)),
+        }
+        bad = {k: v for k, v in want.items() if v[0] != v[1]}
+        if bad or any(len(f.tokens) != 64 or f.finish_reason != "length" or
+                      int(f.tokens.max()) >= model.cfg.vocab_size or
+                      not np.isfinite(f.logprobs).all() for f in fin):
+            raise AssertionError(f"mixtral arrival mode ({pool}): (expected,"
+                                 f" got) {bad}")
+        rec["arrival"][pool] = {k: v for k, v in out.items()
+                                if k != "finished"}
+
+    runs = {}
+    chunk = dict(MIXTRAL_CHUNK)
+    for label, graph, kw in (
+            ("dense graph", True, {}), ("dense eager", False, {}),
+            ("paged graph", True, dict(paged=True, block_size=MIXTRAL_BLOCK)),
+            ("chunked graph", True, chunk),
+            ("chunked eager", False, chunk),
+            ("chunked paged graph", True, dict(
+                chunk, paged=True, block_size=MIXTRAL_BLOCK))):
+        runs[label] = staggered_full(model, params, graph, None,
+                                     MIXTRAL_STAGGER, MIXTRAL_T, **kw)
+    done = {k: v[0] for k, v in runs.items()}
+    st = {k: v[1] for k, v in runs.items()}
+    checks = {"dense graph = eager": same_runs(done["dense graph"],
+                                               done["dense eager"]),
+              "paged = dense": same_runs(done["paged graph"],
+                                         done["dense graph"]),
+              "chunked graph = eager": same_runs(done["chunked graph"],
+                                                 done["chunked eager"]),
+              "chunked paged = dense": same_runs(
+                  done["chunked paged graph"], done["chunked graph"])}
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    for k in ("tt_fused2", "tt_fused2_experts"):
+        launches[k] += counted.get(k, 0) + replayed.get(k, 0)
+    # other token groupings: asserted only where neither side dropped
+    drops = {k: v["drops"] for k, v in st.items()}
+    as_mono = same_runs(done["chunked graph"], done["dense graph"])
+    if drops["chunked graph"] == drops["dense graph"] == 0:
+        checks["chunked = monolithic (no drops)"] = as_mono
+    # scheduler ≡ generate_fixed, where the scheduler's run dropped nothing
+    # (with drops there it asserts nothing, and is not run)
+    prompts, _ = stagger_requests(model.cfg.vocab_size, *MIXTRAL_STAGGER)
+    greedy = {}
+    for u, f in done["dense graph"].items() if drops["dense graph"] == 0 \
+            else ():
+        moe.reset_drops()
+        try:
+            g = serve.check_greedy(model, params, prompts[u].to(model.device),
+                                   f, MIXTRAL_T)
+        except AssertionError as err:
+            g = dict(failed=str(err)[:200])
+        g["drops"] = moe.read_drops()
+        greedy[u] = g
+    held = [g for g in greedy.values() if g["drops"] == 0]
+    print(f"mixtral-8x7b staggered run ({STAGGER_N} requests, prompts "
+          f"{MIXTRAL_STAGGER[0]}, budgets {MIXTRAL_STAGGER[1]}, 4 x "
+          f"{MIXTRAL_T}; {smi}): " + ", ".join(
+              f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps, "
+              f"{v['drops']} drops)" for k, v in st.items()) + "; " +
+          ", ".join(f"{k} {'bit-identical' if v else 'DIFFER'}"
+                    for k, v in checks.items()) +
+          f"; chunked {'=' if as_mono else '!='} monolithic (drops "
+          f"{drops['chunked graph']} / {drops['dense graph']}); against "
+          f"generate_fixed: {len(held)} of {STAGGER_N} requests without a "
+          f"drop on either side, "
+          f"{sum(g.get('identical', False) for g in held)} of "
+          f"them identical, "
+          f"{sum('failed' in g for g in held)} outside the bf16 tolerance; "
+          f"{sum('failed' in g for g in greedy.values())} outside it over "
+          f"all", flush=True)
+    if not all(checks.values()) or any(
+            len(f.tokens) == 0 for f in done["dense graph"].values()) or \
+            any("failed" in g for g in held):
+        raise AssertionError(f"mixtral staggered run: {checks}, drops "
+                             f"{drops}, greedy {greedy}")
+    rec["staggered"] = dict(st, checks=checks, greedy=greedy,
+                            chunked_as_monolithic=as_mono)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"mixtral-8x7b phase 5: {rec['wall_s']:.1f} s", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
 
 def kernel_line(recs, launches) -> dict:
     """One entry per kernel: one decoder layer's launches of it (7
     projections, summed) at the decode batch in bf16, the main path's
     dominant case, at the length of its main path (fused chain: 3; fused2
-    and step: 2); errors are the worst over every compared case."""
+    and step: 2), deepseek-7b's layer; for the expert-batched fused2,
+    mixtral-8x7b's layer (3 expert projections at 8 rows an expert); errors
+    are the worst over every compared case."""
     spec = hw.device_spec(torch.device("cuda"))
     out = []
     for kernel, (source, line) in KERNELS.items():
         length = 3 if kernel.startswith("tt_fused_chain") else 2
+        experts = kernel.startswith("tt_fused2_experts")
         mine = [r for r in recs if r["kernel"] == kernel]
-        main = [r for r in mine if r["rows"] == 4 and r["act"] == "bfloat16"
-                and r["length"] == length and
-                r.get("model", "deepseek-7b") == "deepseek-7b"]
+        main = [r for r in mine if r["rows"] == (8 if experts else 4) and
+                r["act"] == "bfloat16" and r["length"] == length and
+                r.get("model", "deepseek-7b") == (
+                    "mixtral-8x7b" if experts else "deepseek-7b")]
         keys = ["ms", "eager_ms", "plain_ms", "library_ms", "bytes", "flops"]
         if all("cold_ms" in r for r in main):
             keys.append("cold_ms")
@@ -2222,7 +2624,11 @@ def kernel_line(recs, launches) -> dict:
             bound_by=bound_by, library_ms=tot["library_ms"],
             eager_ms=tot["eager_ms"],
             **({"cold_ms": tot["cold_ms"]} if "cold_ms" in tot else {}),
-            measured_at="one layer's 7 projections, 4 rows, bf16"))
+            measured_at=(
+                "mixtral-8x7b: one layer's 3 expert projections, 8 experts "
+                "x 8 rows (decode), bf16; library: torch.bmm over the "
+                "dense expert stacks" if experts else
+                "one layer's 7 projections, 4 rows, bf16")))
     return {"kernels": out}
 
 
@@ -2248,38 +2654,57 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
+    walls = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t
+        return out
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    recs = check_and_time(gen)
+    recs = timed("kernels deepseek", check_and_time, gen)
     layers = layer_summary(recs)
     steps = step_breakdown(recs)
-    recs += check_buckets(gen)
-    g_recs = gemma3_kernels(gen)
+    recs += timed("kernels buckets", check_buckets, gen)
+    g_recs = timed("kernels gemma3", gemma3_kernels, gen)
     layers += layer_summary(g_recs, ("tt_fused2", "tt_fused2_int8"),
                             "gemma3-4b")
     recs += g_recs
+    m_recs = timed("kernels mixtral", mixtral_kernels, gen)
+    layers += layer_summary(m_recs, ("tt_fused2_experts",
+                                     "tt_fused2_experts_int8"),
+                            "mixtral-8x7b", MIXTRAL_C)
+    recs += m_recs
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps}, f, indent=1)
-    small_input_check()
-    small_scheduler_check()
-    small_paged_check()
-    small_chunked_check()
-    small_gemma3_check()
-    launches, graph_recs = main_paths(smi)
-    fused2, sched_rec = scheduler_path(smi)
+    timed("smoke deepseek", small_input_check)
+    timed("smoke scheduler", small_scheduler_check)
+    timed("smoke paged", small_paged_check)
+    timed("smoke chunked", small_chunked_check)
+    timed("smoke gemma3", small_ring_check, "gemma3-4b")
+    timed("smoke mixtral", small_ring_check, "mixtral-8x7b")
+    launches, graph_recs = timed("deepseek fixed batch", main_paths, smi)
+    fused2, sched_rec = timed("deepseek scheduler", scheduler_path, smi)
     launches["tt_fused2"] += fused2
-    g_launches, gemma3_rec = gemma3_path(smi)
+    g_launches, gemma3_rec = timed("gemma3", gemma3_path, smi)
     for k, v in g_launches.items():
         launches[k] += v
+    m_launches, mixtral_rec = timed("mixtral", mixtral_path, smi)
+    for k, v in m_launches.items():
+        launches[k] = launches.get(k, 0) + v
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps, "graph": graph_recs,
-                   "scheduler": sched_rec, "gemma3": gemma3_rec}, f,
+                   "scheduler": sched_rec, "gemma3": gemma3_rec,
+                   "mixtral": mixtral_rec, "walls": walls}, f,
                   indent=1, default=str)
-    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s",
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s; by "
+          f"phase: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()),
           flush=True)
 
     print(json.dumps(kernel_line(recs, launches)))

@@ -1,10 +1,10 @@
 """Configuration dataclasses: model architecture and TT compression.
 
-The dense GQA + GLU-MLP subset of ``repro.configs.base`` with its
-attention variants (qk-norm, sliding windows, gemma3's local/global
-period, tied embeddings); fields of the families the port does not run
-yet (MoE, MLA, SSM, cross-attention, frontends) are left out until they
-are ported.
+The GQA subset of ``repro.configs.base`` with its attention variants
+(qk-norm, sliding windows, gemma3's local/global period, tied
+embeddings) and both FFNs, the GLU MLP and the mixture of experts
+(``MoEConfig``); fields of the families the port does not run yet (MLA,
+SSM, cross-attention, frontends) are left out until they are ported.
 """
 from __future__ import annotations
 
@@ -45,6 +45,18 @@ class TTConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 2
+    expert_ff: int = 0
+    num_shared: int = 0
+    shared_ff: int = 0
+    capacity_factor: float = 1.25
+    every_n_layers: int = 1                  # MoE at layers where idx % n == n-1
+    first_dense_ff: int = 0                  # dense FFN width for layer 0 (dsv2)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: Family
@@ -61,6 +73,8 @@ class ModelConfig:
     window: int = 0                          # >0 → sliding-window attention
     local_global_period: int = 0             # gemma3: every Nth layer global
     local_window: int = 1024
+    # mixture of experts
+    moe: MoEConfig | None = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     tt: TTConfig = TTConfig()

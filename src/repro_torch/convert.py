@@ -4,7 +4,8 @@ The reference stacks each layer group's parameters on a leading layer axis
 (``g0/b0/...`` leaves of shape ``[L, ...]``); the port keeps one dict per
 layer.  ``from_jax_params`` unstacks, checks every leaf's shape against the
 port's own specs and raises on any mismatch.  int8 bundles carry their
-``scales [L, d]``.  Leaves arrive as numpy arrays (``jax.tree.map(np.asarray,
+``scales [L, d]``, or ``[L, E, d]`` for a stack of experts (whose cores are
+``[L, E, r0, n, m, r1]`` and router ``[L, d, E]``).  Leaves arrive as numpy arrays (``jax.tree.map(np.asarray,
 params)`` on the reference side), so this module needs no JAX.
 """
 from __future__ import annotations
@@ -51,7 +52,8 @@ def _quantized_bundle(node: dict, spec: dict, path: str, layer, device
                              f"{arr.dtype}")
         out[name] = _leaf(arr, ParamSpec(s.shape, dtype=torch.int8),
                           f"{path}/{name}", layer, device)
-    out["scales"] = _leaf(node["scales"], ParamSpec((d,)),
+    lead = tuple(next(iter(spec.values())).shape[:-4])   # experts axis
+    out["scales"] = _leaf(node["scales"], ParamSpec(lead + (d,)),
                           f"{path}/scales", layer, device)
     return out
 

@@ -8,11 +8,15 @@ from .flops import prod
 
 
 def pack_core(G: torch.Tensor) -> torch.Tensor:
-    """``G [r_{t-1}, n_t, m_t, r_t]`` → ``P [(n_t·r_t), (m_t·r_{t-1})]``
-    so that the step contraction becomes ``state2 @ P`` (the layout of
-    ``repro.core.packing.pack_core``).  Returns a contiguous tensor."""
-    r0, n, m, r1 = G.shape
-    return G.permute(1, 3, 2, 0).reshape(n * r1, m * r0).contiguous()
+    """``G [..., r_{t-1}, n_t, m_t, r_t]`` → ``P [..., (n_t·r_t),
+    (m_t·r_{t-1})]`` so that the step contraction becomes ``state2 @ P``
+    (the layout of ``repro.core.packing.pack_core``), each core of a stack
+    (leading axes, e.g. an experts axis) packed on its own.  Returns a
+    contiguous tensor."""
+    *lead, r0, n, m, r1 = G.shape
+    L = len(lead)
+    return G.permute(*range(L), L + 1, L + 3, L + 2, L).reshape(
+        *lead, n * r1, m * r0).contiguous()
 
 
 def chain_state_sizes(ns, ms, ranks) -> list[int]:

@@ -90,6 +90,22 @@ def tt_apply_batched(cores: Sequence[torch.Tensor], x: torch.Tensor
     return state
 
 
+def tt_apply_experts(cores: Sequence[torch.Tensor], x: torch.Tensor
+                     ) -> torch.Tensor:
+    """``tt_apply_batched`` of every expert of a stack: cores ``[E, r_{t-1},
+    n_t, m_t, r_t]``, ``x [E, T, N] → y [E, T, M]``, expert ``e``'s rows
+    through its own cores (the reference's chain under ``vmap``)."""
+    E, T = x.shape[:2]
+    state = x
+    for t in range(len(cores) - 1, -1, -1):
+        G = cores[t]
+        _, r0, nt, mt, r1 = G.shape
+        state = state.reshape(E, T, -1, nt, r1)
+        state = torch.einsum("ernmk,etbnk->etmbr", G.to(state.dtype), state)
+        state = state.reshape(E, T, -1)
+    return state
+
+
 def tt_apply(cores: Sequence[torch.Tensor], x: torch.Tensor,
              bias: torch.Tensor | None = None) -> torch.Tensor:
     """Apply a TT layer to ``x [..., N]`` → ``[..., M]``."""

@@ -39,6 +39,18 @@
 //    stage-2 tile) give 128 blocks with no recompute; each block reads only
 //    its own rows of x and writes its rows of y in whole 16-byte runs.
 //
+// Experts.  The expert-batched entries (tt_fused2_experts_*, kernel
+// tt_fused2_experts_kernel) run the same block body on E independent
+// problems of one stack in one launch, the port of the Pallas kernels
+// under jax.vmap over a mixture-of-experts layer's experts: x [E, C,
+// n1*n2], P2 [E, n2, m2*r1], P1 [E, n1*r1, m1], scales [E, 2] and y [E, C,
+// m1*m2], every block on one expert.  The grid's three axes are all in
+// use, so the expert index is folded into the first: block x = e *
+// row_tiles + row tile, and each block offsets its operands by e.  A
+// block's work is that of the plain entry at C rows; the host
+// (fused2_geometry(..., experts=E)) counts the blocks of all experts when
+// it cuts m1, so decode (8 experts x 8 rows) takes 2 slices, not 16.
+//
 // Staging.  Operands go through shared memory with 16-byte cp.async copies
 // (adjacent threads on adjacent addresses, per-thread offsets stepped by
 // adds) in rings: stage 1 keeps kStages1 chunks of kc n2 values of the x
@@ -85,7 +97,7 @@ constexpr int kRegK = 8;      // stage-2 k-steps whose A operands stay in
 // make_geo (and, for the fit rule and the launch, by
 // tt_contract.fused2_smem_bytes, which must agree).
 struct Geo {
-  int B, n1, n2, m1, m2, r1;
+  int B, n1, n2, m1, m2, r1;  // B: rows of one expert's problem
   int bb, g, nc, kc, nct;   // row tile, i2 group, i1 slice, chunk sizes
   int M1p, N1p, K2, K2p, M2p;
   int ldx, ldp2, ldp2c, ldS, ldA, ldp1, ldp1c, ldO;
@@ -430,17 +442,20 @@ __device__ __forceinline__ WarpTiles warp_tiles(int warp, int T, int ntc,
   return w;
 }
 
+// One block's work: row tile `tile` of one problem (x, P2, P1, scales, y
+// already at that problem's operands), i2 group blockIdx.y, i1 slice
+// blockIdx.z.
 template <typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
-tt_fused2_kernel(const T* __restrict__ x, const W* __restrict__ p2,
-                 const W* __restrict__ p1, const float* __restrict__ scales,
-                 T* __restrict__ y, const Geo s) {
+__device__ __forceinline__ void fused2_block(
+    const T* __restrict__ x, const W* __restrict__ p2,
+    const W* __restrict__ p1, const float* __restrict__ scales,
+    T* __restrict__ y, const Geo& s, const int tile) {
   constexpr bool tc = std::is_same<T, bf16>::value;
   constexpr bool conv = tc && std::is_same<W, int8_t>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32;
 
-  const int row0 = blockIdx.x * s.bb;
+  const int row0 = tile * s.bb;
   const int rows = min(s.bb, s.B - row0);
   const int i20 = blockIdx.y * s.g;
   const int gn = min(s.g, s.m2 - i20);
@@ -742,9 +757,36 @@ tt_fused2_kernel(const T* __restrict__ x, const W* __restrict__ p2,
 }
 
 template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads)
+tt_fused2_kernel(const T* __restrict__ x, const W* __restrict__ p2,
+                 const W* __restrict__ p1, const float* __restrict__ scales,
+                 T* __restrict__ y, const Geo s) {
+  fused2_block<T, W>(x, p2, p1, scales, y, s, blockIdx.x);
+}
+
+// The expert-batched launch: block x = e * row_tiles + row tile, each
+// block on expert e's operands.  A kernel of its own name, so that a trace
+// tells the experts' projections from the plain ones.
+template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads)
+tt_fused2_experts_kernel(const T* __restrict__ x, const W* __restrict__ p2,
+                         const W* __restrict__ p1,
+                         const float* __restrict__ scales,
+                         T* __restrict__ y, const Geo s) {
+  const int tiles = (s.B + s.bb - 1) / s.bb;
+  const int e = blockIdx.x / tiles;
+  fused2_block<T, W>(x + (size_t)e * s.B * s.n1 * s.n2,
+                     p2 + (size_t)e * s.n2 * s.m2 * s.r1,
+                     p1 + (size_t)e * s.n1 * s.r1 * s.m1,
+                     scales != nullptr ? scales + 2 * e : nullptr,
+                     y + (size_t)e * s.B * s.m1 * s.m2, s,
+                     blockIdx.x - e * tiles);
+}
+
+template <typename T, typename W, bool kExperts>
 int launch(const void* x, const void* p2, const void* p1,
-           const float* scales, void* y, int B, int n1, int n2, int m1,
-           int m2, int r1, int bb, int g, int nc, int kc, int nct,
+           const float* scales, void* y, int E, int B, int n1, int n2,
+           int m1, int m2, int r1, int bb, int g, int nc, int kc, int nct,
            int smem_expected, cudaStream_t stream) {
   const Geo s = make_geo<T, W>(B, n1, n2, m1, m2, r1, bb, g, nc, kc, nct);
   // the host's fit rule (tt_contract.fused2_smem_bytes) and this layout
@@ -755,9 +797,11 @@ int launch(const void* x, const void* p2, const void* p1,
   constexpr bool tc = std::is_same<T, bf16>::value;
   if (s.size != smem_expected || kc % 16 != 0 || nct % 16 != 0 ||
       nc % 16 != 0 || s.M1p * s.N1p > max_tile || s.M2p * nct > max_tile ||
-      (!tc && (nct & (nct - 1)) != 0))
+      (!tc && (nct & (nct - 1)) != 0) || E < 1 || (!kExperts && E != 1) ||
+      (long long)E * ((B + bb - 1) / bb) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  auto kernel = tt_fused2_kernel<T, W>;
+  auto kernel = kExperts ? tt_fused2_experts_kernel<T, W>
+                         : tt_fused2_kernel<T, W>;
   // Above the 48 KB default, dynamic shared memory must be opted into.
   static int opted = 48 * 1024;
   if (s.size > opted) {
@@ -766,7 +810,8 @@ int launch(const void* x, const void* p2, const void* p1,
     if (err != cudaSuccess) return (int)err;
     opted = s.size;
   }
-  const dim3 grid((B + bb - 1) / bb, (m2 + g - 1) / g, (m1 + nc - 1) / nc);
+  const dim3 grid(E * ((B + bb - 1) / bb), (m2 + g - 1) / g,
+                  (m1 + nc - 1) / nc);
   kernel<<<grid, kThreads, s.size, stream>>>(
       static_cast<const T*>(x), static_cast<const W*>(p2),
       static_cast<const W*>(p1), scales, static_cast<T*>(y), s);
@@ -785,34 +830,75 @@ extern "C" {
 int tt_fused2_f32(const void* x, const void* p2, const void* p1, void* y,
                   int B, int n1, int n2, int m1, int m2, int r1, int bb,
                   int g, int nc, int kc, int nct, int smem, void* stream) {
-  return launch<float, float>(x, p2, p1, nullptr, y, B, n1, n2, m1, m2, r1,
-                              bb, g, nc, kc, nct, smem,
-                              (cudaStream_t)stream);
+  return launch<float, float, false>(x, p2, p1, nullptr, y, 1, B, n1, n2,
+                                     m1, m2, r1, bb, g, nc, kc, nct, smem,
+                                     (cudaStream_t)stream);
 }
 
 int tt_fused2_bf16(const void* x, const void* p2, const void* p1, void* y,
                    int B, int n1, int n2, int m1, int m2, int r1, int bb,
                    int g, int nc, int kc, int nct, int smem, void* stream) {
-  return launch<bf16, bf16>(x, p2, p1, nullptr, y, B, n1, n2, m1, m2, r1,
-                            bb, g, nc, kc, nct, smem, (cudaStream_t)stream);
+  return launch<bf16, bf16, false>(x, p2, p1, nullptr, y, 1, B, n1, n2, m1,
+                                   m2, r1, bb, g, nc, kc, nct, smem,
+                                   (cudaStream_t)stream);
 }
 
 int tt_fused2_int8_f32(const void* x, const void* p2, const void* p1,
                        const void* scales, void* y, int B, int n1, int n2,
                        int m1, int m2, int r1, int bb, int g, int nc, int kc,
                        int nct, int smem, void* stream) {
-  return launch<float, int8_t>(x, p2, p1, (const float*)scales, y, B, n1,
-                               n2, m1, m2, r1, bb, g, nc, kc, nct, smem,
-                               (cudaStream_t)stream);
+  return launch<float, int8_t, false>(x, p2, p1, (const float*)scales, y, 1,
+                                      B, n1, n2, m1, m2, r1, bb, g, nc, kc,
+                                      nct, smem, (cudaStream_t)stream);
 }
 
 int tt_fused2_int8_bf16(const void* x, const void* p2, const void* p1,
                         const void* scales, void* y, int B, int n1, int n2,
                         int m1, int m2, int r1, int bb, int g, int nc,
                         int kc, int nct, int smem, void* stream) {
-  return launch<bf16, int8_t>(x, p2, p1, (const float*)scales, y, B, n1, n2,
-                              m1, m2, r1, bb, g, nc, kc, nct, smem,
-                              (cudaStream_t)stream);
+  return launch<bf16, int8_t, false>(x, p2, p1, (const float*)scales, y, 1,
+                                     B, n1, n2, m1, m2, r1, bb, g, nc, kc,
+                                     nct, smem, (cudaStream_t)stream);
+}
+
+// Expert-batched: E problems of B rows each (x [E, B, n1*n2], P2 [E, n2,
+// m2*r1], P1 [E, n1*r1, m1], scales [E, 2], y [E, B, m1*m2]), one launch.
+int tt_fused2_experts_f32(const void* x, const void* p2, const void* p1,
+                          void* y, int E, int B, int n1, int n2, int m1,
+                          int m2, int r1, int bb, int g, int nc, int kc,
+                          int nct, int smem, void* stream) {
+  return launch<float, float, true>(x, p2, p1, nullptr, y, E, B, n1, n2, m1,
+                                    m2, r1, bb, g, nc, kc, nct, smem,
+                                    (cudaStream_t)stream);
+}
+
+int tt_fused2_experts_bf16(const void* x, const void* p2, const void* p1,
+                           void* y, int E, int B, int n1, int n2, int m1,
+                           int m2, int r1, int bb, int g, int nc, int kc,
+                           int nct, int smem, void* stream) {
+  return launch<bf16, bf16, true>(x, p2, p1, nullptr, y, E, B, n1, n2, m1,
+                                  m2, r1, bb, g, nc, kc, nct, smem,
+                                  (cudaStream_t)stream);
+}
+
+int tt_fused2_experts_int8_f32(const void* x, const void* p2, const void* p1,
+                               const void* scales, void* y, int E, int B,
+                               int n1, int n2, int m1, int m2, int r1, int bb,
+                               int g, int nc, int kc, int nct, int smem,
+                               void* stream) {
+  return launch<float, int8_t, true>(x, p2, p1, (const float*)scales, y, E,
+                                     B, n1, n2, m1, m2, r1, bb, g, nc, kc,
+                                     nct, smem, (cudaStream_t)stream);
+}
+
+int tt_fused2_experts_int8_bf16(const void* x, const void* p2,
+                                const void* p1, const void* scales, void* y,
+                                int E, int B, int n1, int n2, int m1, int m2,
+                                int r1, int bb, int g, int nc, int kc,
+                                int nct, int smem, void* stream) {
+  return launch<bf16, int8_t, true>(x, p2, p1, (const float*)scales, y, E,
+                                    B, n1, n2, m1, m2, r1, bb, g, nc, kc,
+                                    nct, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

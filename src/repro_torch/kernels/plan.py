@@ -135,7 +135,9 @@ def resolve_plan(ns, ms, ranks, *, backend: str = "auto",
 def chain_signature(core_shapes: Sequence[Sequence[int]]
                     ) -> tuple[tuple[int, ...], tuple[int, ...],
                                tuple[int, ...]]:
-    """(ns, ms, ranks) of a core list from its per-core shapes."""
+    """(ns, ms, ranks) of a core list from its per-core shapes: the
+    trailing ``[r0, n, m, r1]`` of each, so a stack of experts' cores
+    ``[E, r0, n, m, r1]`` keys as one expert's."""
     quads = [tuple(int(v) for v in s[-4:]) for s in core_shapes]
     return (tuple(q[1] for q in quads), tuple(q[2] for q in quads),
             tuple(q[0] for q in quads) + (quads[-1][3],))
@@ -188,7 +190,8 @@ class PlanBook:
 
     def prime(self, spec_tree) -> int:
         """Resolve a plan for every TT bundle of a param-spec tree
-        (``models.spec.ParamSpec`` leaves; dicts and lists).  Returns the
+        (``models.spec.ParamSpec`` leaves; dicts and lists), an expert
+        stack's by its trailing core shape (once per shape).  Returns the
         number of distinct plans resolved."""
         before = len(self._plans)
 

@@ -36,6 +36,22 @@ def tt_fused2_ref(x: torch.Tensor, p2: torch.Tensor, p1: torch.Tensor,
     return y.reshape(B, m1 * m2).to(x.dtype)
 
 
+def tt_fused2_experts_ref(x: torch.Tensor, p2: torch.Tensor,
+                          p1: torch.Tensor,
+                          dims: tuple[int, int, int, int, int],
+                          scales: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """The fused d=2 layer of every expert, ``x [E, C, n1·n2] → y [E, C,
+    m1·m2]``: ``tt_fused2_ref`` on each expert's rows with its own packed
+    cores ``p2 [E, n2, m2·r1]``, ``p1 [E, n1·r1, m1]`` and, for int8 codes,
+    its own ``scales [E, 2]`` (the reference runs the fused2 body under
+    ``vmap`` over the experts)."""
+    return torch.stack([
+        tt_fused2_ref(x[e], p2[e], p1[e], dims,
+                      None if scales is None else scales[e])
+        for e in range(x.shape[0])])
+
+
 def tt_fused_chain_ref(x: torch.Tensor, packed: Sequence[torch.Tensor],
                        dims: tuple[tuple[int, ...], tuple[int, ...],
                                    tuple[int, ...]],

@@ -4,6 +4,9 @@ Each wrapper replaces one Pallas kernel of ``repro.kernels.tt_contract``:
 
 ``tt_fused2[_int8]``       the whole d=2 layer in one launch
                            (``csrc/tt_fused2.cu``; ``tt_fused2[_int8]_pallas``)
+``tt_fused2_experts[_int8]`` the d=2 layer of every expert of a stack in
+                           one launch (same source; the Pallas kernels
+                           under ``vmap`` over the experts)
 ``tt_fused_chain[_int8]``  the whole chain of any depth d ≥ 2 in one launch
                            (``csrc/tt_chain.cu``;
                            ``tt_fused_chain[_int8]_pallas``)
@@ -37,7 +40,8 @@ import torch
 
 from repro_torch.core import hw
 from repro_torch.core.packing import chain_state_sizes
-from .ref import tt_fused2_ref, tt_fused_chain_ref, tt_step_ref
+from .ref import (tt_fused2_experts_ref, tt_fused2_ref, tt_fused_chain_ref,
+                  tt_step_ref)
 
 # kernel launches per kernel name; the CPU plain path does not count
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
@@ -173,6 +177,16 @@ def _lib() -> ctypes.CDLL:
             for name in ("tt_fused2_int8_f32", "tt_fused2_int8_bf16"):
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, p, p] + [i] * 12 + [p]
+                fn.restype = i
+            # the expert-batched entries: E before B
+            for name in ("tt_fused2_experts_f32", "tt_fused2_experts_bf16"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p] + [i] * 13 + [p]
+                fn.restype = i
+            for name in ("tt_fused2_experts_int8_f32",
+                         "tt_fused2_experts_int8_bf16"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p, p] + [i] * 13 + [p]
                 fn.restype = i
             # x, packed (host void*[d]), ns, ms, ranks (host int[]), d,
             # [scales,] tables, y, B, bb, g, g2, ncc, stages, smem, stream
@@ -324,10 +338,16 @@ class Fused2Geometry:
 
 @functools.lru_cache(maxsize=None)
 def fused2_geometry(B: int, dims: tuple, act_bytes: int, w_bytes: int,
-                    sm_count: int, smem_bytes: int) -> Fused2Geometry:
+                    sm_count: int, smem_bytes: int,
+                    experts: int = 1) -> Fused2Geometry:
     """Tiles of one fused2 launch (memoized: a decode step asks for the
     same few every time); stage 1 is never recomputed across i2
-    groups.
+    groups.  ``experts`` > 1 is the expert-batched launch: ``B`` rows for
+    each of ``experts`` problems, every block on one expert, the experts
+    folded into the grid's first axis (``experts`` × row tiles).  Every
+    count of blocks below is over all the experts, so a decode batch of 8
+    experts × 8 rows cuts m1 into 2 slices, not the 16 one problem would
+    take.
 
     * Many rows (prefill): the widest i2 group g (a divisor of m2) whose
       blocks of 16 // g rows, one 16-row stage-2 tile each, still give
@@ -355,12 +375,12 @@ def fused2_geometry(B: int, dims: tuple, act_bytes: int, w_bytes: int,
                                   w_bytes))
     for wide in range(m2, g, -1):
         rows = min(B, max(1, 16 // wide))
-        if m2 % wide == 0 and -(-B // rows) * (m2 // wide) >= \
+        if m2 % wide == 0 and experts * -(-B // rows) * (m2 // wide) >= \
                 sm_count * 9 // 10 and _fused2_block_fits(
                     n1, r1, wide, rows, smem_bytes, act_bytes, w_bytes):
             g, bb = wide, rows
             break
-    blocks = -(-B // bb) * -(-m2 // g)
+    blocks = experts * -(-B // bb) * -(-m2 // g)
     splits = max(1, min(sm_count // blocks, -(-m1 // 16)))
     nc = _up(-(-m1 // splits), 16)
     M1p, M2p = _up(bb * n1, 16), _up(g * bb, 16)
@@ -389,7 +409,7 @@ def fused2_geometry(B: int, dims: tuple, act_bytes: int, w_bytes: int,
             kc -= 16
         else:
             nct = narrower(nct)  # ≥ 16: fused2_batch_tile fit at 16
-    grid = (-(-B // bb), -(-m2 // g), -(-m1 // nc))
+    grid = (experts * -(-B // bb), -(-m2 // g), -(-m1 // nc))
     if max(grid[1:]) > 65535:
         raise ValueError(f"fused2 grid {grid} exceeds 65535 blocks per axis")
     return Fused2Geometry(bb, g, nc, kc, nct, smem, grid)
@@ -414,46 +434,63 @@ def _check_scales(scales, x, n: int, what: str) -> None:
         raise ValueError("scales must be contiguous")
 
 
-def _check(x, p2, p1, dims, weight_dtype, scales=None) -> None:
+def _check(x, p2, p1, dims, weight_dtype, scales=None,
+           experts: bool = False) -> None:
+    """Arguments of one fused2 launch; ``experts``: a leading experts axis
+    E on ``x`` ([E, C, N]), the packed cores and the scales ([E, 2])."""
     n1, n2, m1, m2, r1 = (int(v) for v in dims)
     if x.dtype not in _ACT_SUFFIX:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     want = x.dtype if weight_dtype is None else weight_dtype
     _check_device(x, [("x", x), ("p2", p2), ("p1", p1)])
-    for name, t, shape in (("p2", p2, (n2, m2 * r1)),
-                           ("p1", p1, (n1 * r1, m1))):
+    lead = tuple(x.shape[:1]) if experts else ()
+    for name, t, shape in (("p2", p2, lead + (n2, m2 * r1)),
+                           ("p1", p1, lead + (n1 * r1, m1))):
         if tuple(t.shape) != shape:
             raise ValueError(
                 f"{name} has shape {tuple(t.shape)}, expected {shape} "
                 f"for dims {tuple(dims)}")
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
-    if x.dim() != 2 or x.shape[1] != n1 * n2:
+    if x.dim() != 2 + experts or x.shape[-1] != n1 * n2:
         raise ValueError(
-            f"x must be [B, {n1 * n2}] for dims {tuple(dims)}, got "
-            f"{tuple(x.shape)}")
+            f"x must be [{'E, C' if experts else 'B'}, {n1 * n2}] for dims "
+            f"{tuple(dims)}, got {tuple(x.shape)}")
     if scales is not None:
-        _check_scales(scales, x, 2, "[s2, s1]")
+        _check_scales(scales, x, 2 * (lead[0] if experts else 1),
+                      "[E, 2]: [s2, s1] per expert" if experts
+                      else "[s2, s1]")
+        if experts and tuple(scales.shape) != lead + (2,):
+            raise ValueError(f"scales must be [E, 2] = {lead + (2,)}, got "
+                             f"{tuple(scales.shape)}")
 
 
 def _launch_fused2(name: str, x, p2, p1, scales, dims):
+    """One launch of ``name``: a 3-D ``x [E, C, N]`` goes to the
+    expert-batched entry (E passed before the rows), a 2-D one to the
+    plain entry."""
     n1, n2, m1, m2, r1 = (int(v) for v in dims)
-    B = x.shape[0]
-    y = torch.empty((B, m1 * m2), dtype=x.dtype, device=x.device)
-    if B == 0:
+    lead = tuple(x.shape[:-1])
+    E, B = (1, lead[0]) if len(lead) == 1 else lead
+    y = torch.empty(lead + (m1 * m2,), dtype=x.dtype, device=x.device)
+    if E * B == 0:
         return y
     spec = hw.device_spec(x.device)
     geo = fused2_geometry(B, (n1, n2, m1, m2, r1), x.element_size(),
                           p2.element_size(), spec.sm_count,
-                          spec.smem_per_block)
+                          spec.smem_per_block, *((E,) if len(lead) == 2
+                                                 else ()))
     fn = getattr(_lib(), f"{name}_{_ACT_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [x.data_ptr(), p2.data_ptr(), p1.data_ptr()]
     if scales is not None:
         ptrs.append(scales.data_ptr())
+    ptrs.append(y.data_ptr())
+    if len(lead) == 2:
+        ptrs.append(E)
     with torch.cuda.device(x.device):
-        err = fn(*ptrs, y.data_ptr(), B, n1, n2, m1, m2, r1, geo.bb, geo.g,
-                 geo.nc, geo.kc, geo.nct, geo.smem, stream)
+        err = fn(*ptrs, B, n1, n2, m1, m2, r1, geo.bb, geo.g, geo.nc,
+                 geo.kc, geo.nct, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     _count(name)
@@ -490,6 +527,39 @@ def tt_fused2_int8(x: torch.Tensor, p2: torch.Tensor, p1: torch.Tensor,
         raise ValueError(f"tt_fused2_int8 runs on cuda or cpu, not "
                          f"{x.device}")
     return _launch_fused2("tt_fused2_int8", x, p2, p1, scales, dims)
+
+
+def tt_fused2_experts(x: torch.Tensor, p2: torch.Tensor, p1: torch.Tensor,
+                      dims: tuple[int, int, int, int, int]) -> torch.Tensor:
+    """The fused d=2 TT layer of every expert of a stack in one launch:
+    ``x [E, C, n1·n2]`` → ``y [E, C, m1·m2]`` in ``x.dtype``, expert ``e``'s
+    rows through its own packed cores ``p2 [E, n2, m2·r1]`` and ``p1 [E,
+    n1·r1, m1]`` (``core.packing.pack_core`` over the stack), with the body
+    of ``tt_fused2``.  The tiles come from ``fused2_geometry(...,
+    experts=E)``."""
+    _check(x, p2, p1, dims, None, experts=True)
+    if x.device.type == "cpu":
+        return tt_fused2_experts_ref(x, p2, p1, dims)
+    if x.device.type != "cuda":
+        raise ValueError(f"tt_fused2_experts runs on cuda or cpu, not "
+                         f"{x.device}")
+    return _launch_fused2("tt_fused2_experts", x, p2, p1, None, dims)
+
+
+def tt_fused2_experts_int8(x: torch.Tensor, p2: torch.Tensor,
+                           p1: torch.Tensor, scales: torch.Tensor,
+                           dims: tuple[int, int, int, int, int]
+                           ) -> torch.Tensor:
+    """int8 ``tt_fused2_experts``: int8 packed cores and each expert's fp32
+    scales ``scales [E, 2]`` (``[s2, s1]``, execution order), a device
+    tensor on ``x``'s device."""
+    _check(x, p2, p1, dims, torch.int8, scales, experts=True)
+    if x.device.type == "cpu":
+        return tt_fused2_experts_ref(x, p2, p1, dims, scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"tt_fused2_experts_int8 runs on cuda or cpu, not "
+                         f"{x.device}")
+    return _launch_fused2("tt_fused2_experts_int8", x, p2, p1, scales, dims)
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,8 @@ PREROLL = 1024
 SPIN_KERNEL = "spin_kernel"
 # the device kernel of each source, by the wrappers that launch it
 TT_KERNELS = {"tt_fused2_kernel": ("tt_fused2", "tt_fused2_int8"),
+              "tt_fused2_experts_kernel": ("tt_fused2_experts",
+                                           "tt_fused2_experts_int8"),
               "tt_chain_kernel": ("tt_fused_chain", "tt_fused_chain_int8"),
               "tt_step_kernel": ("tt_step", "tt_step_int8")}
 # the device kernel of ``torch.where``: in serving, only the per-row KV

@@ -2,7 +2,8 @@
 the continuous-batching scheduler.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch deepseek-7b|gemma3-4b --variant full --batch 4 \\
+        --arch deepseek-7b|gemma3-4b|granite-8b|mixtral-8x7b \\
+        --variant full --batch 4 \\
         --prompt-len 64 --steps 32 --tt ffn,attn --tt-rank 16 \\
         --tt-backend auto [--tt-weights int8] [--device cpu] \\
         [--arrival-rate 50 --max-requests 16 --slots 4 --assert-no-replan
@@ -21,7 +22,10 @@ the captures of the prefill's and the decode step's CUDA graphs on a card)
 and a warm run that is timed and must capture nothing, make no new prefill
 entry and resolve no TT plan.  TT launches are those the kernel wrappers
 counted plus those the graph replays made (the launches each capture
-recorded, times its replays); on a card a warm run's are all replayed.
+recorded, times its replays); on a card a warm run's are all replayed.  A
+mixture-of-experts model (mixtral-8x7b) also reports the assignments its
+MoE layers dropped past their capacity (``models.moe.read_drops``: counted
+on the device, read once per run).
 
 With ``--arrival-rate`` it runs ``simulate`` instead, the reference's
 arrival mode: a ``Scheduler`` of ``--slots`` slots over ``--prompt-len`` +
@@ -70,6 +74,7 @@ from repro_torch.configs import build, get_config
 from repro_torch.configs.base import TTConfig
 from repro_torch.kernels import plan as ttplan
 from repro_torch.kernels import tt_contract
+from repro_torch.models import moe
 from repro_torch.serving.engine import generate_fixed
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -114,12 +119,14 @@ def tally(model) -> dict:
     """What a run is checked by, so far: TT launches counted by the kernel
     wrappers, TT launches made by replays of the model's captured prefills
     and decode steps, the decode captures, the prefill entries (captures
-    on a card) and the plan resolutions."""
+    on a card), the plan resolutions and the MoE layers' dropped
+    assignments (a host read of the device counter; 0 without experts)."""
     return {"counted": tt_contract.launch_counts(),
             "replayed": dict(model.replayed_launches),
             "captures": model.graph_captures,
             "prefills": model.prefill_builds,
-            "plans": ttplan.plan_resolutions()}
+            "plans": ttplan.plan_resolutions(),
+            "drops": moe.read_drops() if model.has_moe else 0}
 
 
 def launches_between(a: dict, b: dict) -> dict:
@@ -162,6 +169,10 @@ def fixed(model, params, args) -> dict:
     print(f"cold run {cold:.3f}s, warm run {warm:.3f}s: {toks} tokens "
           f"({toks / warm:.1f} tok/s incl. prefill)")
     print("sample tokens[0]:", res.tokens[0].tolist())
+    drops = t2["drops"] - t1["drops"]
+    if model.has_moe:
+        print(f"MoE assignments dropped past capacity: {drops} in the warm "
+              f"run, {t1['drops'] - t0['drops']} in the cold run")
     print(f"warm run: {replans} plan resolutions (model plans: "
           f"{len(model.plan_book)}), {captures} decode captures and "
           f"{prefills} prefill builds (cold run: "
@@ -185,6 +196,7 @@ def fixed(model, params, args) -> dict:
             "cold_captures": t1["captures"] - t0["captures"],
             "cold_prefill_captures": t1["prefills"] - t0["prefills"],
             "launches": launches, "cold_launches": launches_between(t0, t1),
+            "drops": drops, "cold_drops": t1["drops"] - t0["drops"],
             "counted": since(t1["counted"], t2["counted"]),
             "peak_bytes": peak, "peak_reserved_bytes": reserved}
 
@@ -305,7 +317,7 @@ def arrivals(sched: Scheduler, args) -> dict:
            "itl_p95_s": _percentile(itls, 95),
            "admit_share": st["admit_s"] / wall, "replans": replans,
            "captures": captures, "prefill_captures": prefills,
-           "launches": launches,
+           "launches": launches, "drops": t1["drops"] - t0["drops"],
            "counted": since(t0["counted"], t1["counted"]),
            "replayed": since(t0["replayed"], t1["replayed"]),
            "peak_bytes": peak, "interrupted": interrupted, **st}
@@ -333,6 +345,8 @@ def arrivals(sched: Scheduler, args) -> dict:
               f"{st['prefill_budget']} tok/step); mixed steps "
               f"{st['mixed_steps']}, plain decode steps {st['plain_steps']}")
     print_pool_stats(sched)
+    if model.has_moe:
+        print(f"MoE assignments dropped past capacity: {out['drops']}")
     print("peak device memory: " + ("n/a on cpu" if peak is None else
                                     f"{peak / 2**30:.3f} GiB allocated"))
     print(f"steady state: {replans} plan resolutions (model plans: "

@@ -74,7 +74,10 @@ def linear_apply(params: dict, x: torch.Tensor,
     resolved at build time, is looked up by chain signature.  TT storage is
     float cores ``{c0..c{d-1}}`` or the quantized layout ``{c0..c{d-1}
     int8, scales [d] fp32}`` of ``quantize_tt_params``; int8 cores run the
-    int8 kernel."""
+    int8 kernel.  A stack of experts (cores ``[E, r0, n, m, r1]``, scales
+    ``[E, d]``, or a dense ``w [E, N, M]``) takes ``x [E, C, N]`` and
+    applies expert ``e``'s projection to ``x[e]``: for TT cores one batched
+    chain or one launch across all experts (``kernels.ops.tt_forward``)."""
     if "tt" not in params:
         return x @ params["w"]
     tt = params["tt"]
@@ -89,9 +92,11 @@ def linear_apply(params: dict, x: torch.Tensor,
 
 def quantize_tt_params(params):
     """Offline weight quantization of a parameter tree: every TT bundle
-    ``{c0..c{d-1}}`` becomes int8 cores + ``scales [d]`` fp32; every other
-    leaf is shared with the input tree.  Already quantized bundles are
-    returned as they are."""
+    ``{c0..c{d-1}}`` becomes int8 cores + ``scales [*stack, d]`` fp32, each
+    core of a stack (the experts axis) on its own scale, as the reference's
+    ``quant_nd`` peels every leading stack axis; every other leaf is shared
+    with the input tree.  Already quantized bundles are returned as they
+    are."""
     def bundle(tt: dict) -> dict:
         if "scales" in tt or tt["c0"].dtype == torch.int8:
             return tt
@@ -100,7 +105,7 @@ def quantize_tt_params(params):
         for t in range(d):
             out[f"c{t}"], s = quantize_core(tt[f"c{t}"])
             ss.append(s)
-        out["scales"] = torch.stack(ss).float()
+        out["scales"] = torch.stack(ss, -1).float()
         return out
 
     def walk(node):

@@ -2,8 +2,9 @@
 a prompt-length bucket, or captured: ``padded_prefill``,
 ``bucketed_prefill``, ``graphed_prefill``), ``decode_step``,
 ``splice_cache``, ``graphed_decode_step``, ``init_cache`` and
-``quantize_params`` for the dense decoders (gemma3's sliding-window
-ring caches and tied, scaled embeddings included); and for the
+``quantize_params`` for the GQA decoders (gemma3's sliding-window
+ring caches and tied, scaled embeddings, and mixtral's mixture-of-experts
+FFN, included); and for the
 block-paged pool (DESIGN.md §7), ``init_cache(..., paged=True)``,
 ``splice_cache_paged`` and the prefix-reuse admission ``prefill_resume``
 (``resume_prefill`` buckets it and, on a card, replays it captured); and
@@ -31,6 +32,7 @@ from .attention import paged_index
 from .graph import DecodeGraph, PrefillGraph
 from .layers import (embed_apply, embed_spec, linear_apply, linear_spec,
                      quantize_tt_params, rmsnorm_apply, rmsnorm_spec)
+from .moe import drop_counter
 from .spec import init_tree, map_tree, tree_leaves
 from .transformer import (Group, block_cache_kinds, block_cache_shape,
                           block_paged_cache_shape, group_chunk, group_decode,
@@ -53,9 +55,9 @@ def bucket_length(S: int, limit: int, floor: int = 16) -> int:
 
 
 class Model:
-    """One dense decoder (full-attention or local/global GQA).
-    ``device=None`` means the GPU; pass ``device="cpu"`` for the plain
-    path."""
+    """One GQA decoder (full-attention, windowed or local/global; a GLU MLP
+    or a mixture-of-experts FFN in each block).  ``device=None`` means the
+    GPU; pass ``device="cpu"`` for the plain path."""
 
     def __init__(self, cfg: ModelConfig, groups: list[Group],
                  param_dtype: torch.dtype = torch.float32,
@@ -90,6 +92,16 @@ class Model:
         self.eager_prefills: collections.OrderedDict = \
             collections.OrderedDict()
         self.prefill_builds = 0
+        # the device's drop counter exists before any capture records it
+        if self.has_moe:
+            drop_counter(self.device)
+
+    @property
+    def has_moe(self) -> bool:
+        """Whether a block's FFN is a mixture of experts (its dropped
+        assignments are counted on the device, ``moe.read_drops``)."""
+        return any(bd.ffn == "moe" for period, _ in self.groups
+                   for bd in period)
 
     @property
     def plan_book(self) -> PlanBook:
@@ -121,9 +133,9 @@ class Model:
         return init_tree(self.param_specs(), gen, self.device)
 
     def quantize_params(self, params: dict) -> dict:
-        """int8-quantize every TT core bundle (a checkpoint transform); the
-        result is served by the same entry points through the int8
-        kernel."""
+        """int8-quantize every TT core bundle (a checkpoint transform), each
+        expert of a stack on its own scales; the result is served by the
+        same entry points through the int8 kernel."""
         return quantize_tt_params(params)
 
     # ---------------------------------------------------------------- serving

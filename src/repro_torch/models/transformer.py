@@ -1,5 +1,6 @@
-"""Block assembly for the dense decoders: full-attention and
-sliding-window (ring-cache) GQA blocks with a GLU MLP.
+"""Block assembly for the GQA decoders: full-attention and
+sliding-window (ring-cache) GQA blocks with a GLU MLP or a
+mixture-of-experts FFN (``ffn_apply``).
 
 A model is a list of groups ``(period, count)``: ``period`` is a tuple of
 BlockDefs run in order and repeated ``count`` times.  Parameters of a group
@@ -18,30 +19,43 @@ from .attention import (gqa_chunk_attn, gqa_chunk_attn_ring,
                         gqa_resume_attn, gqa_self_attn, gqa_spec,
                         ring_positions)
 from .layers import mlp_apply, mlp_spec, rmsnorm_apply, rmsnorm_spec
+from .moe import moe_apply, moe_spec
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
     mixer: str = "gqa"        # only gqa is ported
     window: int = 0           # >0 → sliding-window attention (ring cache)
-    ffn: str = "mlp"          # only mlp is ported
+    ffn: str = "mlp"          # mlp | moe
     theta: float | None = None  # RoPE theta; None: the config's
 
     def __post_init__(self):
-        if self.mixer != "gqa" or self.ffn != "mlp":
+        if self.mixer != "gqa" or self.ffn not in ("mlp", "moe"):
             raise NotImplementedError(
                 f"block {self.mixer}+{self.ffn} is not ported yet (ROADMAP.md "
-                f"Queue 1, \"Remaining families\"); only gqa+mlp is")
+                f"Queue 1, \"Remaining families\"); only gqa with mlp or "
+                f"moe is")
 
 
 Group = tuple[tuple[BlockDef, ...], int]
 
 
 def block_spec(cfg: ModelConfig, bd: BlockDef, dtype) -> dict:
+    ffn = (moe_spec(cfg, dtype) if bd.ffn == "moe"
+           else mlp_spec(cfg.d_model, cfg.d_ff, cfg.tt, dtype))
     return {"ln1": rmsnorm_spec(cfg.d_model, dtype),
             "attn": gqa_spec(cfg, dtype),
             "ln2": rmsnorm_spec(cfg.d_model, dtype),
-            "ffn": mlp_spec(cfg.d_model, cfg.d_ff, cfg.tt, dtype)}
+            "ffn": ffn}
+
+
+def ffn_apply(p, cfg: ModelConfig, bd: BlockDef, h, plans=None):
+    """The block's FFN on ``h [B, S, d]``: the GLU MLP, or the
+    mixture-of-experts FFN over the B·S tokens of this call (its capacity
+    depends on them, so each path passes the reference's token set)."""
+    if bd.ffn == "moe":
+        return moe_apply(p, cfg, h, plans)
+    return mlp_apply(p, h, plans)
 
 
 def group_spec(cfg: ModelConfig, group: Group, dtype) -> list:
@@ -129,7 +143,7 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
             cache[name] = buf
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["ffn"], h, plans), cache
+    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), cache
 
 
 def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
@@ -153,7 +167,7 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
                                     active=active)
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["ffn"], h, plans), {"k": nk, "v": nv}
+    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), {"k": nk, "v": nv}
 
 
 def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
@@ -207,7 +221,7 @@ def block_resume(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, src_b,
                                 backend=plans)
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["ffn"], h, plans), {"k": nk, "v": nv}
+    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), {"k": nk, "v": nv}
 
 
 def group_resume(params: list, group: Group, cfg: ModelConfig, x,
@@ -294,7 +308,7 @@ def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
                                                         old[name]))
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["ffn"], h, plans), cache
+    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), cache
 
 
 def group_chunk(params: list, group: Group, cfg: ModelConfig, x,

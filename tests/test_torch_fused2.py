@@ -2,7 +2,9 @@
 against the reference's Pallas kernels in interpret mode, plus the
 wrapper's argument checks, the launch's tiles and shared-memory rule
 (``tt_contract.fused2_geometry``, ``fused2_smem_bytes``) and the arguments
-the launch passes, recorded by a stand-in library."""
+the launch passes, recorded by a stand-in library, at deepseek-7b's,
+gemma3-4b's and mixtral-8x7b's shapes, and for the expert-batched entries
+(``tt_fused2_experts[_int8]``, the experts folded into the grid)."""
 import contextlib
 
 import jax.numpy as jnp
@@ -386,4 +388,134 @@ def test_fused2_launch_covers_gemma3_shapes(fake_launch, name, B, act_bytes,
         for width in (n1p, geo.nct):
             assert width >= 16 and width & (width - 1) == 0
         assert -(-geo.g * geo.bb // 16) * 16 * geo.nct <= 4096
+    assert tt_contract.launch_counts() == {kernel: 1}
+
+
+# mixtral-8x7b's projections at rank 16, length 2 (``plan_for``; granite-8b
+# has the same): q and o 4096→4096, k/v 4096→1024, and the experts' gate/up
+# 4096→14336 and down 14336→4096
+MIXTRAL = {"q": (8, 512, 512, 8, 16), "kv": (8, 512, 128, 8, 16),
+           "o": (8, 512, 512, 8, 16), "gate_up": (8, 512, 1792, 8, 16),
+           "down": (8, 1792, 512, 8, 16)}
+
+
+@pytest.mark.parametrize("B,name,want", [
+    # decode: one row tile × 8 i2 groups, m1 cut into 8–16 slices
+    (4, "q", (4, 1, 32, 176, 32, (1, 8, 16))),
+    (4, "kv", (4, 1, 16, 176, 16, (1, 8, 8))),
+    (4, "o", (4, 1, 32, 176, 32, (1, 8, 16))),
+    (4, "gate_up", (4, 1, 112, 176, 112, (1, 8, 16))),
+    (4, "down", (4, 1, 32, 208, 32, (1, 8, 16))),
+    # the 4 × 512 prefill: whole-m2 blocks of 2 rows, no slices
+    (2048, "q", (2, 8, 512, 64, 256, (1024, 1, 1))),
+    (2048, "kv", (2, 8, 128, 64, 128, (1024, 1, 1))),
+    (2048, "o", (2, 8, 512, 64, 256, (1024, 1, 1))),
+    (2048, "gate_up", (2, 8, 1792, 64, 256, (1024, 1, 1))),
+    (2048, "down", (2, 8, 512, 64, 256, (1024, 1, 1))),
+])
+def test_launch_geometry_at_mixtral_shapes(B, name, want):
+    dims = MIXTRAL[name]
+    geo = tt_contract.fused2_geometry(B, dims, 2, 2, 132, 232_448)
+    assert (geo.bb, geo.g, geo.nc, geo.kc, geo.nct, geo.grid) == want
+    assert geo.smem == tt_contract.fused2_smem_bytes(
+        dims[0], dims[4], geo.bb, geo.g, geo.kc, geo.nct, 2, 2) <= 232_448
+
+
+@pytest.mark.parametrize("C,name,want,alone", [
+    # decode (4 tokens, C = 8 rows an expert): 8 experts × 8 i2 groups
+    # already give 64 blocks, so m1 is cut in 2, not in the 16 slices one
+    # problem of 8 rows would take
+    (8, "gate_up", (8, 1, 896, 112, 256, (8, 8, 2)), (1, 8, 16)),
+    (8, "down", (8, 1, 256, 112, 256, (8, 8, 2)), (1, 8, 16)),
+    # a 64-token chunk (C = 20): two 16-row tiles an expert, no slices
+    (20, "gate_up", (16, 1, 1792, 64, 256, (16, 8, 1)), (2, 8, 8)),
+    (20, "down", (16, 1, 512, 64, 256, (16, 8, 1)), (2, 8, 8)),
+    # the 4 × 512 prefill (C = 640): whole-m2 blocks of 2 rows
+    (640, "gate_up", (2, 8, 1792, 64, 256, (2560, 1, 1)), (320, 1, 1)),
+    (640, "down", (2, 8, 512, 64, 256, (2560, 1, 1)), (320, 1, 1)),
+])
+def test_expert_launch_geometry_counts_every_experts_blocks(C, name, want,
+                                                            alone):
+    """``fused2_geometry(..., experts=8)``: the experts fold into the first
+    grid axis (8 × row tiles) and the m1 split counts all their blocks."""
+    dims = MIXTRAL[name]
+    geo = tt_contract.fused2_geometry(C, dims, 2, 2, 132, 232_448, 8)
+    assert (geo.bb, geo.g, geo.nc, geo.kc, geo.nct, geo.grid) == want
+    assert tt_contract.fused2_geometry(C, dims, 2, 2, 132,
+                                       232_448).grid == alone
+    assert geo.smem == tt_contract.fused2_smem_bytes(
+        dims[0], dims[4], geo.bb, geo.g, geo.kc, geo.nct, 2, 2) <= 232_448
+    assert geo.grid[0] * geo.grid[1] * geo.grid[2] >= 118
+
+
+@pytest.mark.parametrize("act_bytes,w_bytes", [(2, 2), (2, 1), (4, 4),
+                                               (4, 1)],
+                         ids=["bf16", "bf16-int8", "fp32", "fp32-int8"])
+@pytest.mark.parametrize("B", [4, 2048])
+@pytest.mark.parametrize("name", list(MIXTRAL))
+def test_fused2_launch_covers_mixtral_shapes(fake_launch, name, B, act_bytes,
+                                             w_bytes):
+    """Every activation and core dtype at mixtral's (and granite's) shapes
+    through the plain entry: the arguments are the geometry, the grid
+    covers every row and column, the block fits shared memory."""
+    n1, n2, m1, m2, r1 = dims = MIXTRAL[name]
+    act = torch.bfloat16 if act_bytes == 2 else torch.float32
+    int8 = w_bytes == 1
+    wd = torch.int8 if int8 else act
+    x = torch.zeros(B, n1 * n2, dtype=act)
+    p2 = torch.zeros(n2, m2 * r1, dtype=wd)
+    p1 = torch.zeros(n1 * r1, m1, dtype=wd)
+    kernel = "tt_fused2_int8" if int8 else "tt_fused2"
+    y = tt_contract._launch_fused2(kernel, x, p2, p1,
+                                   torch.ones(2) if int8 else None, dims)
+    assert y.shape == (B, m1 * m2) and y.dtype == act
+    (fn, args), = fake_launch.calls
+    geo = tt_contract.fused2_geometry(B, dims, act_bytes, w_bytes, 132,
+                                      232_448)
+    k = 5 if int8 else 4
+    assert args[k:k + 6] == (B, n1, n2, m1, m2, r1)
+    assert args[k + 6:] == (geo.bb, geo.g, geo.nc, geo.kc, geo.nct,
+                            geo.smem, 7)
+    assert geo.g * geo.grid[1] >= m2 and geo.bb * geo.grid[0] >= B
+    assert geo.nc * geo.grid[2] >= m1 and geo.smem <= 232_448
+    assert tt_contract.launch_counts() == {kernel: 1}
+
+
+@pytest.mark.parametrize("act_bytes,w_bytes", [(2, 2), (2, 1), (4, 4),
+                                               (4, 1)],
+                         ids=["bf16", "bf16-int8", "fp32", "fp32-int8"])
+@pytest.mark.parametrize("C", [8, 20, 128, 640])
+@pytest.mark.parametrize("name", ["gate_up", "down"])
+def test_expert_launch_passes_its_geometry(fake_launch, name, C, act_bytes,
+                                           w_bytes):
+    """One launch across the 8 experts: the entry ``tt_fused2_experts[_int8]
+    _<act>`` gets the pointers, E = 8 before the rows per expert, the dims
+    and ``fused2_geometry(..., experts=8)``; the grid covers every expert's
+    rows and columns."""
+    n1, n2, m1, m2, r1 = dims = MIXTRAL[name]
+    E = 8
+    act = torch.bfloat16 if act_bytes == 2 else torch.float32
+    int8 = w_bytes == 1
+    wd = torch.int8 if int8 else act
+    x = torch.zeros(E, C, n1 * n2, dtype=act)
+    p2 = torch.zeros(E, n2, m2 * r1, dtype=wd)
+    p1 = torch.zeros(E, n1 * r1, m1, dtype=wd)
+    scales = torch.ones(E, 2) if int8 else None
+    kernel = "tt_fused2_experts" + ("_int8" if int8 else "")
+    y = tt_contract._launch_fused2(kernel, x, p2, p1, scales, dims)
+    assert y.shape == (E, C, m1 * m2) and y.dtype == act
+    (fn, args), = fake_launch.calls
+    assert fn == f"{kernel}_{'bf16' if act_bytes == 2 else 'f32'}"
+    ptrs = [x.data_ptr(), p2.data_ptr(), p1.data_ptr()] + (
+        [scales.data_ptr()] if int8 else []) + [y.data_ptr()]
+    k = len(ptrs)
+    assert list(args[:k]) == ptrs
+    assert args[k:k + 7] == (E, C, n1, n2, m1, m2, r1)
+    geo = tt_contract.fused2_geometry(C, dims, act_bytes, w_bytes, 132,
+                                      232_448, E)
+    assert args[k + 7:] == (geo.bb, geo.g, geo.nc, geo.kc, geo.nct,
+                            geo.smem, 7)
+    assert geo.grid[0] % E == 0 and geo.bb * geo.grid[0] // E >= C
+    assert geo.g * geo.grid[1] >= m2 and geo.nc * geo.grid[2] >= m1
+    assert geo.smem <= 232_448
     assert tt_contract.launch_counts() == {kernel: 1}

@@ -1184,3 +1184,149 @@ def test_gemma3_mixed_capture_leaves_live_rings_untouched(cuda, paged):
         if paged and a.dim() == 4:
             a, b = a[:-1], b[:-1]              # the sentinel block
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# mixtral: the expert-batched fused2 kernel and the MoE paths captured
+# --------------------------------------------------------------------------
+
+# (E, C, n1, n2, m1, m2, r1): small ragged stacks, then mixtral-8x7b's
+# expert projections at decode (C = 8) and at the 4 × 512 prefill (C = 640)
+EXPERT_CASES = [(3, 5, 2, 8, 4, 2, 3), (4, 13, 2, 86, 43, 2, 4)] + [
+    (8, C, *dims) for C in (8, 640)
+    for dims in ((8, 512, 1792, 8, 16), (8, 1792, 512, 8, 16))]
+
+
+def _expert_inputs(E, C, dims, act, int8, device, seed=0):
+    n1, n2, m1, m2, r1 = dims
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    G1 = torch.randn((E, 1, n1, m1, r1), generator=gen, device=device) * 0.3
+    G2 = torch.randn((E, r1, n2, m2, 1), generator=gen, device=device) * 0.05
+    x = torch.randn((E, C, n1 * n2), generator=gen, device=device).to(act)
+    if int8:
+        (q1, s1), (q2, s2) = quantize_core(G1), quantize_core(G2)
+        return x, pack_core(q2), pack_core(q1), torch.stack(
+            [s2, s1], -1).float().contiguous()
+    return x, pack_core(G2.to(act)), pack_core(G1.to(act)), None
+
+
+def _experts(x, p2, p1, scales, dims):
+    if scales is None:
+        return tt_contract.tt_fused2_experts(x, p2, p1, dims)
+    return tt_contract.tt_fused2_experts_int8(x, p2, p1, scales, dims)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("E,C,n1,n2,m1,m2,r1", EXPERT_CASES)
+def test_expert_fused2_kernel_matches_plain(cuda, E, C, n1, n2, m1, m2, r1,
+                                            act, int8):
+    """One launch across the stack, each expert within the tolerance of
+    its plain version, and the same bits on a second call."""
+    dims = (n1, n2, m1, m2, r1)
+    x, p2, p1, scales = _expert_inputs(E, C, dims, act, int8, cuda)
+    name = "tt_fused2_experts" + ("_int8" if int8 else "")
+    before = tt_contract.launch_counts().get(name, 0)
+    y = _experts(x, p2, p1, scales, dims)
+    assert tt_contract.launch_counts()[name] == before + 1
+    want = ref.tt_fused2_experts_ref(x, p2, p1, dims, scales)
+    torch.cuda.synchronize()
+    assert y.shape == want.shape == (E, C, m1 * m2) and y.dtype == act
+    err = float((y.float() - want.float()).abs().max())
+    assert err <= TOL[act] * float(want.float().abs().max()), err
+    assert torch.equal(_experts(x, p2, p1, scales, dims), y)
+
+
+def _mixtral(device, weights="fp32", **moe_kw):
+    """mixtral SMOKE (window 32, 4 experts top-2), TT on ffn+attn at rank
+    4, ``auto``; ``moe_kw`` replaces MoEConfig fields."""
+    import dataclasses
+    cfg = get_config("mixtral-8x7b", "smoke", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+        backend="auto", weights=weights))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           **moe_kw))
+    model = build(cfg, device=device)
+    params = model.init(0)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params
+
+
+@pytest.mark.parametrize("cf", [16.0, 0.25], ids=["dropless", "drops"])
+@pytest.mark.parametrize("weights", ["fp32", "int8"])
+def test_mixtral_prefill_and_decode_replays_are_eager(cuda, weights, cf):
+    """The captured prefill (prompts of 20 in the 32 bucket and of 40 into
+    a cache of 64) and 24 decode replays against the eager prefill and
+    steps, bit for bit, with the experts' launches inside the graphs; at a
+    capacity factor of 0.25 the replays drop what the eager calls drop,
+    counted on the device."""
+    from repro_torch.models import moe
+    model, params = _mixtral(cuda, weights, capacity_factor=cf)
+    for S, S_pad in ((20, 32), (40, 40)):
+        batch = _prompt(model, S, B=2, S=S, T=64)
+        tokens = torch.nn.functional.pad(batch["tokens"], (0, S_pad - S))
+        graph = model.graphed_prefill(2, S_pad, 64)
+        graph(params, tokens, S)                    # the capture
+        moe.reset_drops()
+        g_logits, g_cache = graph(params, tokens, S)
+        g_drops = moe.read_drops()
+        moe.reset_drops()
+        e_logits, e_cache = model.prefill(params, {
+            "tokens": tokens, "cache_len": 64, "prompt_len": S})
+        assert moe.read_drops() == g_drops and (g_drops > 0) == (cf < 1)
+        assert torch.equal(g_logits, e_logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_cache),
+                                                     tree_leaves(e_cache)))
+    step = model.graphed_decode_step(2, 64)
+    step.load(params, g_cache, 40)
+    tok = e_logits[:, -1].argmax(-1, keepdim=True)
+    for t in range(24):
+        want, e_cache = model.decode_step(params, e_cache, tok)
+        got = step(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    name = "tt_fused2_experts" + ("_int8" if weights == "int8" else "")
+    assert step.captured.get(name) == 3 * 2          # 3 a layer, 2 layers
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(chunk_prefill=True, chunk_size=8, prefill_budget=16),
+    dict(chunk_prefill=True, chunk_size=24)],
+    ids=["monolithic", "chunk8x2", "chunk24"])
+def test_mixtral_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
+    """Prompts of 40, 24, 8 and 20 through 2 slots over 48 positions: the
+    dense pool through the graphs against eager, and the paged pool
+    (blocks of 4) through the graphs and eagerly, all bit for bit, with
+    the same drop counts (none: SMOKE is dropless)."""
+    from repro_torch.models import moe
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _mixtral(cuda)
+    prompts = [_prompt(model, 80 + i, B=1, S=n)["tokens"]
+               for i, n in enumerate((40, 24, 8, 20))]
+
+    def run(**extra):
+        sched = Scheduler(model, params, num_slots=2, cache_len=48, **kw,
+                          **extra)
+        moe.reset_drops()
+        for uid, tokens in enumerate(prompts):
+            sched.submit(Request(uid=uid, inputs={"tokens": tokens},
+                                 max_new_tokens=6 - uid))
+            sched.step()
+        sched.run()
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+        assert moe.read_drops() == 0
+        return {f.uid: f for f in sched.finished}
+
+    got = run()
+    for extra in (dict(graph=False), dict(paged=True, block_size=4),
+                  dict(paged=True, block_size=4, graph=False)):
+        want = run(**extra)
+        assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+        for uid in got:
+            assert np.array_equal(got[uid].tokens, want[uid].tokens), uid
+            assert np.array_equal(got[uid].logprobs, want[uid].logprobs), uid
