@@ -16,8 +16,8 @@ Phases, each fatal on failure:
      4 rows and untimed at 1,024 (``gemma3_kernels``, timed as in 3); and
      at mixtral-8x7b's shapes (``mixtral_kernels``): the expert-batched
      fused2 (``tt_fused2_experts[_int8]``, one launch across 8 experts) at
-     its three expert projections, at C = 640 and 8 rows an expert and
-     untimed at 20 and 128, and fused2 at the k/v projection at 2,048 and
+     its three expert projections, at C = 640, 128 and 8 rows an expert
+     and untimed at 20 and 1, and fused2 at the k/v projection at 2,048 and
      4 rows, timed as in 3 (the library call of the expert kernel is one
      ``torch.bmm`` over the dense expert stacks);
   3. time each kernel beside its plain version, one PyTorch call computing
@@ -97,8 +97,9 @@ Phases, each fatal on failure:
      full-width mixtral-8x7b (``mixtral_path``: bf16, TT on ffn+attn at
      rank 16, per pass 128 ``tt_fused2`` and 96 ``tt_fused2_experts``):
      4 × (512 + 64) tokens through ``launch.serve.fixed`` with fp and int8
-     cores beside an eager warm run (bit for bit), the decode replay and
-     one MoE layer traced alone, Poisson arrivals of 16 requests of 256 +
+     cores beside an eager warm run (bit for bit), the decode replay, the
+     prefill replay (busy ms and the expert kernel's share) and one MoE
+     layer traced alone, Poisson arrivals of 16 requests of 256 +
      64 tokens on 4 slots over the dense, paged and chunked pools, and a
      staggered run of 12 requests (prompts of 64–256): dense graph ≡ eager
      ≡ paged and chunked graph ≡ eager ≡ paged bit for bit, chunked ≡
@@ -275,10 +276,12 @@ MIXTRAL_ATTN_SHAPES = {
     "mixtral attn k/v 4096->1024": (((8, 512), (128, 8), (1, 16, 1)), 2),
 }
 MIXTRAL_E, MIXTRAL_LAYERS = 8, 32
-# rows an expert takes (the capacity C): the 4 × 512 prefill and decode,
-# timed; a 64-token chunk and a one-row admission at the 256 bucket,
-# checked untimed.  The attention shape at the prefill's and decode's rows
-MIXTRAL_C, MIXTRAL_C_CHECKED, MIXTRAL_ROWS = (640, 8), (20, 128), (2048, 4)
+# rows an expert takes (the capacity C): the 4 × 512 prefill, an
+# admission at the 256 bucket and decode, timed; a 64-token chunk and one
+# row, checked untimed.  The attention shape at the prefill's and decode's
+# rows
+MIXTRAL_C, MIXTRAL_C_CHECKED, MIXTRAL_ROWS = (640, 128, 8), (20, 1), \
+    (2048, 4)
 # phase 5 at full width: the fixed batch of 4 prompts of 512 tokens and 64
 # new ones (rings of 4,096 do not wrap here: gemma3's phase covers the
 # wrap); Poisson arrivals of 16 requests of 256 + 64 tokens at 50/s on 4
@@ -1105,8 +1108,9 @@ def replays_alone(replay, source: str, top: int = 0) -> dict:
     """``REPLAYS`` calls of ``replay`` traced alone (device kernels only,
     the trace opened by the pre-roll): per call, the device kernels, those
     of ``source``, the device busy ms and the host-clock wall ms (the
-    profiler's host cost included); with ``top``, the ``top`` kernels by
-    device time, each (name, ms, launches) per call."""
+    profiler's host cost included), and the device ms of ``source``'s
+    kernels; with ``top``, the ``top`` kernels by device time, each (name,
+    ms, launches) per call."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profile_serve.preroll()
@@ -1121,6 +1125,8 @@ def replays_alone(replay, source: str, top: int = 0) -> dict:
                tt=sum(e.count for e in ks if source in e.key) / REPLAYS,
                busy_ms=sum(e.self_device_time_total for e in ks) / 1e3
                / REPLAYS,
+               tt_ms=sum(e.self_device_time_total for e in ks
+                         if source in e.key) / 1e3 / REPLAYS,
                wall_ms=wall * 1e3 / REPLAYS)
     if top:
         ks = sorted(ks, key=lambda e: -e.self_device_time_total)[:top]
@@ -2336,10 +2342,11 @@ def mixtral_kernels(gen) -> list[dict]:
     at the three expert projections (8 experts, one launch across them)
     against its plain version and timed beside it (cold-L2 too), with
     ``torch.bmm`` over the dense expert stacks and the bound, at C = 640
-    (the 4 × 512 prefill) and C = 8 (decode), every case of ``CASES``, and
-    checked untimed at C = 20 and 128; then ``tt_fused2[_int8]`` at the k/v
-    projection at 2,048 and 4 rows.  One record per (kernel, shape, rows,
-    case), marked ``model: mixtral-8x7b``."""
+    (the 4 × 512 prefill), 128 (an admission at the 256 bucket) and 8
+    (decode), every case of ``CASES``, and checked untimed at C = 20 and 1;
+    then ``tt_fused2[_int8]`` at the k/v projection at 2,048 and 4 rows.
+    One record per (kernel, shape, rows, case), marked ``model:
+    mixtral-8x7b``."""
     spec = hw.device_spec(torch.device("cuda"))
     buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     recs = []
@@ -2396,8 +2403,9 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
     then int8 cores (``drive``: every projection replayed through its
     kernel, 0 captures and 0 plan resolutions warm), beside one eager warm
     run (``graph_against_eager``: prefill and first-step logits bit for
-    bit), the decode replay traced alone and one MoE layer traced alone
-    (the MoE's share of a replay).  Then on one fp model the arrivals
+    bit), the decode replay traced alone, the prefill replay traced alone
+    (its busy ms and the expert kernel's share) and one MoE layer traced
+    alone (the MoE's share of a replay).  Then on one fp model the arrivals
     (``MIXTRAL_ARRIVAL``) over the dense pool, the paged one and chunked
     at 64 (0 captures and plan resolutions steady, 224 TT launches per
     admission, per decode step and per pass of a mixed step, all
@@ -2434,20 +2442,38 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
         tok = logits[:, -1].argmax(-1, keepdim=True)
         r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
                                     top=8)
-        r["replay_experts"] = replays_alone(
-            lambda: step(tok), "tt_fused2_experts_kernel")["tt"]
+        ex = replays_alone(lambda: step(tok), "tt_fused2_experts_kernel")
+        r["replay_experts"], r["replay_experts_ms"] = ex["tt"], ex["tt_ms"]
+        tokens = batch["tokens"]
+        pre = model.graphed_prefill(*tokens.shape, batch["cache_len"])
+        pre(params, tokens, args.prompt_len)     # captured in the cold run
+        torch.cuda.synchronize()
+        r["prefill_replay"] = replays_alone(
+            lambda: pre(params, tokens, args.prompt_len),
+            "tt_fused2_experts_kernel", top=6)
         r["moe_layer"] = moe_layer_alone(model, params, args)
         share = r["moe_layer"]["busy_ms"] * MIXTRAL_LAYERS / \
             r["replay"]["busy_ms"]
         r["moe_share"] = share
+        pre_share = (r["prefill_replay"]["tt_ms"] /
+                     r["prefill_replay"]["busy_ms"])
         print(f"profile ({label}): {REPLAYS} decode replays alone: "
               f"{r['replay']['kernels']:g} device kernels, "
               f"{r['replay']['tt']:g} tt_fused2_kernel and "
-              f"{r['replay_experts']:g} tt_fused2_experts_kernel, "
+              f"{r['replay_experts']:g} tt_fused2_experts_kernel "
+              f"({r['replay_experts_ms']:.3f} ms), "
               f"{r['replay']['busy_ms']:.3f} ms busy, "
               f"{r['replay']['wall_ms']:.3f} ms wall per replay; top: " +
               "; ".join(f"{k} {ms:.3f} ms x{n:g}"
                         for k, ms, n in r["replay"]["top"]) +
+              f"; prefill replay of {args.batch} x {args.prompt_len} "
+              f"alone: {r['prefill_replay']['kernels']:g} device kernels, "
+              f"{r['prefill_replay']['busy_ms']:.3f} ms busy, "
+              f"{r['prefill_replay']['tt']:g} tt_fused2_experts_kernel "
+              f"{r['prefill_replay']['tt_ms']:.3f} ms ({pre_share:.1%}), "
+              f"{r['prefill_replay']['wall_ms']:.3f} ms wall; top: " +
+              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
+                        for k, ms, n in r["prefill_replay"]["top"]) +
               f"; one MoE layer alone (eager, {args.batch} tokens): "
               f"{r['moe_layer']['kernels']:g} kernels, "
               f"{r['moe_layer']['busy_ms']:.4f} ms busy, x "
@@ -2456,10 +2482,13 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
                         for k, ms, n in r["moe_layer"]["top"]) +
               f"; MoE drops warm {out['drops']}, cold {out['cold_drops']}",
               flush=True)
-        if (r["replay"]["tt"], r["replay_experts"]) != (attn, experts):
+        if (r["replay"]["tt"], r["replay_experts"],
+                r["prefill_replay"]["tt"]) != (attn, experts, experts):
             raise AssertionError(f"{label}: {r['replay']['tt']} and "
                                  f"{r['replay_experts']} TT kernels per "
-                                 f"decode replay")
+                                 f"decode replay, "
+                                 f"{r['prefill_replay']['tt']} experts' per "
+                                 f"prefill replay")
         rec["fixed"].append(r)
         del model, params, out, step, cache
         gc.collect()

@@ -69,6 +69,12 @@ FUSED2_RING1 = 80 * 1024
 FUSED2_NCT = 256
 FUSED2_WARPS = 16
 FUSED2_MAX_TILE = {2: 8192, 4: 4096}
+# the tall body of the expert-batched launch with bf16 activations (the
+# source's fused2_tall_block): the most rows of either stage's block tile
+# and of stage 1's columns (kTallRows: 16 warps of one 32×32 tile), and
+# the groups of 4 warps that run stage 2 apart (kGroups)
+FUSED2_TALL_ROWS = 128
+FUSED2_TALL_GROUPS = 4
 # fused chain (csrc/tt_chain.cu): the most rows one block takes
 MAX_CHAIN_TILE = 32
 # step kernel (csrc/tt_step.cu): threads per block (kThreads), b rows and
@@ -415,6 +421,146 @@ def fused2_geometry(B: int, dims: tuple, act_bytes: int, w_bytes: int,
     return Fused2Geometry(bb, g, nc, kc, nct, smem, grid)
 
 
+def fused2_tall_smem_bytes(n1: int, r1: int, bm: int, g: int, kc: int,
+                           nct: int, w_bytes: int) -> int:
+    """Shared memory of one block of the tall body (bf16 activations): each
+    stage-2 group's ring of ``FUSED2_STAGES[1]`` P1 column chunks (and
+    their bf16 widening for int8 cores), then A ``[g·bm, n1·r1]`` as a bf16
+    high and low part and a region for stage 1's fp32 partial sums and, in
+    stage 2, each group's bf16 output staging ``[g·bm, nct]``.  During
+    stage 1, when A is dead, the ring of ``FUSED2_STAGES[0]`` (x, P2)
+    chunks spans A and that region.  The layout of ``csrc/tt_fused2.cu``'s
+    ``make_tall``, which refuses a launch whose byte count differs."""
+    conv = w_bytes == 1
+    s1, s2 = FUSED2_STAGES
+    groups = FUSED2_TALL_GROUPS
+    M1p, N1p = _up(bm * n1, 16), _up(g * r1, 16)
+    K2p, M2p = _up(n1 * r1, 16), _up(g * bm, 16)
+    ring2 = groups * (s2 * _up(K2p * (nct + 16 // w_bytes) * w_bytes, 128)
+                      + (_up(K2p * (nct + 8) * 2, 128) if conv else 0))
+    a_part = _up(M2p * (K2p + 8) * 2, 128)
+    slot1 = (_up(M1p * (kc + 8) * 2, 128)
+             + _up(kc * (N1p + 16 // w_bytes) * w_bytes, 128))
+    ring1 = s1 * slot1 + (_up(kc * (N1p + 8) * 2, 128) if conv else 0)
+    split1 = _ksplit(-(-M1p // 32) * -(-N1p // 32))
+    region = max(split1 * M1p * (N1p + 4) * 4,
+                 groups * _up(M2p * (nct + 8) * 2, 128))
+    return ring2 + max(2 * a_part + _up(region, 128), _up(ring1, 128))
+
+
+def _tall_chunks(dims: tuple, bm: int, g: int, nc: int, w_bytes: int,
+                 smem_bytes: int):
+    """(kc, nct, smem) of one tall block, or None when its tiles pass
+    ``FUSED2_TALL_ROWS`` or it does not fit ``smem_bytes`` at 16-wide
+    chunks.  Stage 2's chunks split the slice evenly into a multiple of
+    ``FUSED2_TALL_GROUPS`` chunks of at most 32 columns (one 32×32 tile for
+    each warp of a group at 128 rows); stage 1's are the widest that fit,
+    up to the width at which the chunks issued before the first wait cover
+    n2 (one block a SM: the ring takes what shared memory is left)."""
+    n1, n2, m1, m2, r1 = dims
+    M1p, N1p, M2p = _up(bm * n1, 16), _up(g * r1, 16), _up(g * bm, 16)
+    if max(M1p, N1p, M2p) > FUSED2_TALL_ROWS:
+        return None
+    groups = FUSED2_TALL_GROUPS
+    nct = _up(-(-nc // (groups * -(-nc // (groups * 32)))), 16)
+    kc = _up(-(-n2 // (FUSED2_STAGES[0] - 1)), 16)
+    while True:
+        smem = fused2_tall_smem_bytes(n1, r1, bm, g, kc, nct, w_bytes)
+        if smem <= smem_bytes:
+            return kc, nct, smem
+        if kc > 16:
+            kc -= 16
+        else:
+            return None
+
+
+@functools.lru_cache(maxsize=None)
+def fused2_expert_geometry(C: int, dims: tuple, act_bytes: int,
+                           w_bytes: int, sm_count: int, smem_bytes: int,
+                           experts: int) -> Fused2Geometry:
+    """Tiles of one expert-batched launch (``tt_fused2_experts[_int8]``):
+    ``C`` rows for each of ``experts`` problems, the experts folded into
+    the grid's first axis (``experts`` × row tiles).  fp32 activations
+    take the plain entry's body and ``fused2_geometry(..., experts)``.
+
+    bf16 activations take the tall body.  A block owns ``bm`` rows of one
+    expert (``bb`` in the geometry), a group of ``g`` i2 values (a divisor
+    of m2) and a slice of ``nc`` columns of m1; stage 1 is ``[bm·n1, n2] @
+    [n2, g·r1]`` and stage 2 ``[g·bm, n1·r1] @ [n1·r1, nct]`` per chunk,
+    each tile at most ``FUSED2_TALL_ROWS`` rows.  The rule:
+
+    * for each g, row tiles from the tallest (``bm = min(C, 128 / n1, 128
+      / g)``) down to as many as fit in the same number of waves of
+      blocks, each even (``bm = ceil(C / tiles)``, so a ragged C wastes at
+      most a row a tile);
+    * m1 cut into the fewest 16-column slices that give 90% of the SMs a
+      block, counting every expert's blocks;
+    * of those, the one with the fewest bytes staged a block (its rows of
+      x, its P2 slice and its P1 slice, and for int8 cores their bf16
+      widening) times its waves of blocks over the SMs; where no choice
+      fills 90% of the SMs, the one with the most blocks.  Ties go to the
+      wider i2 group, then to the taller row tile.
+
+    So a last partial wave is filled by shorter row tiles, not by an m1
+    split, which would stage x twice.  At mixtral-8x7b's expert shapes
+    (n1 = 8, r1 = 16, m2 = 8; gate/up n2 512, m1 1,792; down n2 1,792, m1
+    512) over 8 experts on 132 SMs (``tests/test_torch_fused2.py`` pins
+    these):
+
+    * C = 640 (the 4 × 512 prefill): all 8 i2 and 14 rows, a 112-row tile
+      in both stages: 368 blocks, the 3 waves that 16-row tiles (320
+      blocks) take.  Each expert's P1 (gate/up) or P2 (down) is staged 46
+      times, against 320 before.
+    * C = 128 (an admission at the 256 bucket): gate/up 16 rows, all i2 and
+      m1 in 2; down 8 rows and all i2 (64-row tiles, no recompute of its
+      1,792-deep stage 1); 128 blocks each.
+    * C = 8 (decode): gate/up 8 rows, g = 4 and 8 m1 slices, 184 KB staged
+      a block (x 64 KB, P2 64, P1 56) against 304 KB at g = 1 (the plain
+      body's 2 slices) and 220 KB at g = 8 with 16 slices; down 4 rows, g
+      = 2 and 2 slices (x 112 KB, P2 112, P1 64).  128 blocks either
+      way."""
+    if act_bytes == 4:
+        return fused2_geometry(C, dims, act_bytes, w_bytes, sm_count,
+                               smem_bytes, experts)
+    n1, n2, m1, m2, r1 = (int(v) for v in dims)
+    most = FUSED2_TALL_ROWS
+    full = sm_count * 9 // 10
+    core = w_bytes + 2 * (w_bytes == 1)      # int8 also writes its widening
+    best = None
+    for g in (v for v in range(min(m2, most // r1), 0, -1) if m2 % v == 0):
+        bmax = min(C, most // n1, most // g)
+        if bmax < 1:
+            continue
+        groups = m2 // g
+        waves = -(-experts * -(-C // bmax) * groups // sm_count)
+        for tiles in sorted({-(-C // bm) for bm in range(bmax, 0, -1)}):
+            bm = -(-C // tiles)
+            row_blocks = experts * tiles * groups
+            if row_blocks > waves * sm_count:
+                break
+            splits = min(-(-m1 // 16), max(1, -(-full // row_blocks)))
+            nc = _up(-(-m1 // splits), 16)
+            splits = -(-m1 // nc)
+            fit = _tall_chunks((n1, n2, m1, m2, r1), bm, g, nc, w_bytes,
+                               smem_bytes)
+            if fit is None or max(groups, splits) > 65535:
+                continue
+            blocks = row_blocks * splits
+            staged = bm * n1 * n2 * 2 + (n2 * g * r1 + n1 * r1 * nc) * core
+            key = ((0, -(-blocks // sm_count) * staged) if blocks >= full
+                   else (1, -blocks))
+            if best is None or key < best[0]:
+                best = (key, Fused2Geometry(bm, g, nc, *fit,
+                                            (experts * tiles, groups,
+                                             splits)))
+    if best is None:
+        raise ValueError(f"no tall fused2 block of one row fits dims "
+                         f"{tuple(dims)} in {smem_bytes} bytes of shared "
+                         f"memory with tiles of at most {FUSED2_TALL_ROWS} "
+                         f"rows")
+    return best[1]
+
+
 def _check_device(x, named) -> None:
     for name, t in named:
         if t.device != x.device:
@@ -467,8 +613,9 @@ def _check(x, p2, p1, dims, weight_dtype, scales=None,
 
 def _launch_fused2(name: str, x, p2, p1, scales, dims):
     """One launch of ``name``: a 3-D ``x [E, C, N]`` goes to the
-    expert-batched entry (E passed before the rows), a 2-D one to the
-    plain entry."""
+    expert-batched entry (E passed before the rows; tiles from
+    ``fused2_expert_geometry``), a 2-D one to the plain entry (from
+    ``fused2_geometry``)."""
     n1, n2, m1, m2, r1 = (int(v) for v in dims)
     lead = tuple(x.shape[:-1])
     E, B = (1, lead[0]) if len(lead) == 1 else lead
@@ -476,10 +623,10 @@ def _launch_fused2(name: str, x, p2, p1, scales, dims):
     if E * B == 0:
         return y
     spec = hw.device_spec(x.device)
-    geo = fused2_geometry(B, (n1, n2, m1, m2, r1), x.element_size(),
-                          p2.element_size(), spec.sm_count,
-                          spec.smem_per_block, *((E,) if len(lead) == 2
-                                                 else ()))
+    args = (B, (n1, n2, m1, m2, r1), x.element_size(), p2.element_size(),
+            spec.sm_count, spec.smem_per_block)
+    geo = (fused2_expert_geometry(*args, E) if len(lead) == 2
+           else fused2_geometry(*args))
     fn = getattr(_lib(), f"{name}_{_ACT_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [x.data_ptr(), p2.data_ptr(), p1.data_ptr()]
@@ -535,8 +682,8 @@ def tt_fused2_experts(x: torch.Tensor, p2: torch.Tensor, p1: torch.Tensor,
     ``x [E, C, n1·n2]`` → ``y [E, C, m1·m2]`` in ``x.dtype``, expert ``e``'s
     rows through its own packed cores ``p2 [E, n2, m2·r1]`` and ``p1 [E,
     n1·r1, m1]`` (``core.packing.pack_core`` over the stack), with the body
-    of ``tt_fused2``.  The tiles come from ``fused2_geometry(...,
-    experts=E)``."""
+    of ``tt_fused2`` (fp32 activations) or the tall body (bf16).  The tiles
+    come from ``fused2_expert_geometry``."""
     _check(x, p2, p1, dims, None, experts=True)
     if x.device.type == "cpu":
         return tt_fused2_experts_ref(x, p2, p1, dims)

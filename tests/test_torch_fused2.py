@@ -422,29 +422,38 @@ def test_launch_geometry_at_mixtral_shapes(B, name, want):
 
 
 @pytest.mark.parametrize("C,name,want,alone", [
-    # decode (4 tokens, C = 8 rows an expert): 8 experts × 8 i2 groups
-    # already give 64 blocks, so m1 is cut in 2, not in the 16 slices one
-    # problem of 8 rows would take
-    (8, "gate_up", (8, 1, 896, 112, 256, (8, 8, 2)), (1, 8, 16)),
-    (8, "down", (8, 1, 256, 112, 256, (8, 8, 2)), (1, 8, 16)),
-    # a 64-token chunk (C = 20): two 16-row tiles an expert, no slices
-    (20, "gate_up", (16, 1, 1792, 64, 256, (16, 8, 1)), (2, 8, 8)),
-    (20, "down", (16, 1, 512, 64, 256, (16, 8, 1)), (2, 8, 8)),
-    # the 4 × 512 prefill (C = 640): whole-m2 blocks of 2 rows
-    (640, "gate_up", (2, 8, 1792, 64, 256, (2560, 1, 1)), (320, 1, 1)),
-    (640, "down", (2, 8, 512, 64, 256, (2560, 1, 1)), (320, 1, 1)),
+    # one row: 128 blocks, m1 cut to fill the SMs
+    (1, "gate_up", (1, 4, 224, 176, 32, (8, 2, 8)), (1, 8, 16)),
+    (1, "down", (1, 1, 256, 464, 32, (8, 8, 2)), (1, 8, 16)),
+    # decode (4 tokens, C = 8 rows an expert): 4 i2 a block and 8 m1
+    # slices for gate/up (184 KB staged a block: x 64, P2 64, P1 56), 4
+    # rows and 2 i2 for down (x 112 KB, P2 112, P1 64); 128 blocks
+    (8, "gate_up", (8, 4, 224, 128, 32, (8, 2, 8)), (1, 8, 16)),
+    (8, "down", (4, 2, 256, 256, 32, (16, 4, 2)), (1, 8, 16)),
+    # a 64-token chunk (C = 20): even row tiles, 128 blocks
+    (20, "gate_up", (10, 4, 448, 112, 32, (16, 2, 4)), (2, 8, 8)),
+    (20, "down", (5, 2, 512, 208, 32, (32, 4, 1)), (2, 8, 8)),
+    # an admission at the 256 bucket (C = 128): gate/up 128-row tiles with
+    # m1 cut in 2, down 64-row tiles of 8 rows and every i2
+    (128, "gate_up", (16, 8, 896, 64, 32, (64, 1, 2)), (8, 8, 2)),
+    (128, "down", (8, 8, 512, 80, 32, (128, 1, 1)), (8, 8, 2)),
+    # the 4 × 512 prefill (C = 640): 14 rows and every i2, one 112-row
+    # tile in both stages, 368 blocks: the 3 waves 16-row tiles take
+    (640, "gate_up", (14, 8, 1792, 64, 32, (368, 1, 1)), (320, 1, 1)),
+    (640, "down", (14, 8, 512, 64, 32, (368, 1, 1)), (320, 1, 1)),
 ])
 def test_expert_launch_geometry_counts_every_experts_blocks(C, name, want,
                                                             alone):
-    """``fused2_geometry(..., experts=8)``: the experts fold into the first
-    grid axis (8 × row tiles) and the m1 split counts all their blocks."""
+    """``fused2_expert_geometry`` in bf16 (the tall body): the experts fold
+    into the first grid axis (8 × row tiles) and the m1 split counts all
+    their blocks, so every capacity gives 90% of the 132 SMs a block."""
     dims = MIXTRAL[name]
-    geo = tt_contract.fused2_geometry(C, dims, 2, 2, 132, 232_448, 8)
+    geo = tt_contract.fused2_expert_geometry(C, dims, 2, 2, 132, 232_448, 8)
     assert (geo.bb, geo.g, geo.nc, geo.kc, geo.nct, geo.grid) == want
     assert tt_contract.fused2_geometry(C, dims, 2, 2, 132,
                                        232_448).grid == alone
-    assert geo.smem == tt_contract.fused2_smem_bytes(
-        dims[0], dims[4], geo.bb, geo.g, geo.kc, geo.nct, 2, 2) <= 232_448
+    assert geo.smem == tt_contract.fused2_tall_smem_bytes(
+        dims[0], dims[4], geo.bb, geo.g, geo.kc, geo.nct, 2) <= 232_448
     assert geo.grid[0] * geo.grid[1] * geo.grid[2] >= 118
 
 
@@ -484,14 +493,15 @@ def test_fused2_launch_covers_mixtral_shapes(fake_launch, name, B, act_bytes,
 @pytest.mark.parametrize("act_bytes,w_bytes", [(2, 2), (2, 1), (4, 4),
                                                (4, 1)],
                          ids=["bf16", "bf16-int8", "fp32", "fp32-int8"])
-@pytest.mark.parametrize("C", [8, 20, 128, 640])
+@pytest.mark.parametrize("C", [1, 8, 20, 128, 640])
 @pytest.mark.parametrize("name", ["gate_up", "down"])
 def test_expert_launch_passes_its_geometry(fake_launch, name, C, act_bytes,
                                            w_bytes):
     """One launch across the 8 experts: the entry ``tt_fused2_experts[_int8]
     _<act>`` gets the pointers, E = 8 before the rows per expert, the dims
-    and ``fused2_geometry(..., experts=8)``; the grid covers every expert's
-    rows and columns."""
+    and ``fused2_expert_geometry`` (the tall body's tiles in bf16, the
+    plain body's ``fused2_geometry(..., experts=8)`` in fp32); the grid
+    covers every expert's rows and columns."""
     n1, n2, m1, m2, r1 = dims = MIXTRAL[name]
     E = 8
     act = torch.bfloat16 if act_bytes == 2 else torch.float32
@@ -511,11 +521,228 @@ def test_expert_launch_passes_its_geometry(fake_launch, name, C, act_bytes,
     k = len(ptrs)
     assert list(args[:k]) == ptrs
     assert args[k:k + 7] == (E, C, n1, n2, m1, m2, r1)
-    geo = tt_contract.fused2_geometry(C, dims, act_bytes, w_bytes, 132,
-                                      232_448, E)
+    geo = tt_contract.fused2_expert_geometry(C, dims, act_bytes, w_bytes,
+                                             132, 232_448, E)
+    if act_bytes == 4:
+        assert geo == tt_contract.fused2_geometry(C, dims, 4, w_bytes, 132,
+                                                  232_448, E)
     assert args[k + 7:] == (geo.bb, geo.g, geo.nc, geo.kc, geo.nct,
                             geo.smem, 7)
     assert geo.grid[0] % E == 0 and geo.bb * geo.grid[0] // E >= C
     assert geo.g * geo.grid[1] >= m2 and geo.nc * geo.grid[2] >= m1
     assert geo.smem <= 232_448
     assert tt_contract.launch_counts() == {kernel: 1}
+
+
+# ---------------------------------------------------------------------------
+# the tall body of the expert-batched launch (bf16 activations)
+# ---------------------------------------------------------------------------
+
+# the plain entry's tiles (bb, g, nc, kc, nct, grid) at one row count of
+# each family's shapes in bf16: the tall body must leave them as they are
+PLAIN_TILES = [
+    (4, GATE_UP, (4, 1, 96, 176, 96, (1, 8, 15))),
+    (256, DOWN, (2, 8, 512, 64, 256, (128, 1, 1))),
+    (4, GEMMA3["down"], (4, 1, 32, 208, 32, (1, 8, 10))),
+    (1024, GEMMA3["gate_up"], (2, 8, 1280, 64, 256, (512, 1, 1))),
+    (4, MIXTRAL["kv"], (4, 1, 16, 176, 16, (1, 8, 8))),
+    (2048, MIXTRAL["gate_up"], (2, 8, 1792, 64, 256, (1024, 1, 1))),
+]
+RAGGED_EXPERT = (2, 86, 43, 2, 3)
+
+
+def _tall_mirror(x, p2, p1, scales, dims, geo):
+    """The tall body's blocks on the CPU, in the kernel's order: per (expert,
+    row tile, i2 group, m1 slice) stage 1 in fp32 times s2, A with rows (i2,
+    b) as a bf16 high and a low part, stage 2 of both parts per column
+    chunk times s1, rounded to bf16 and written to the block's outputs.
+    Returns y and how many blocks wrote each output."""
+    n1, n2, m1, m2, r1 = dims
+    E, C, _ = x.shape
+    y = torch.zeros(E, C, m1 * m2, dtype=x.dtype)
+    writes = torch.zeros(E, C, m1 * m2, dtype=torch.int32)
+    f32 = torch.float32
+    tiles = geo.grid[0] // E
+    assert tiles == -(-C // geo.bb)
+    for e in range(E):
+        s2, s1 = (1.0, 1.0) if scales is None else scales[e].tolist()
+        for tile in range(tiles):
+            row0 = tile * geo.bb
+            rows = min(geo.bb, C - row0)
+            xt = x[e, row0:row0 + rows].reshape(rows * n1, n2).to(f32)
+            for grp in range(geo.grid[1]):
+                i20 = grp * geo.g
+                gn = min(geo.g, m2 - i20)
+                S = xt @ p2[e, :, i20 * r1:(i20 + gn) * r1].to(f32) * s2
+                A = S.reshape(rows, n1, gn, r1).permute(2, 0, 1, 3).reshape(
+                    gn * rows, n1 * r1)
+                hi = A.to(torch.bfloat16).to(f32)
+                lo = (A - hi).to(torch.bfloat16).to(f32)
+                for sl in range(geo.grid[2]):
+                    cbeg = sl * geo.nc
+                    ncols = min(m1, cbeg + geo.nc) - cbeg
+                    for c0 in range(0, ncols, geo.nct):
+                        cn = min(geo.nct, ncols - c0)
+                        P = p1[e, :, cbeg + c0:cbeg + c0 + cn].to(f32)
+                        O = ((hi @ P + lo @ P) * s1).to(x.dtype)
+                        O = O.reshape(gn, rows, cn).permute(1, 2, 0)
+                        cols = ((cbeg + c0 + torch.arange(cn))[:, None] * m2
+                                + i20 + torch.arange(gn)).reshape(-1)
+                        y[e, row0:row0 + rows, cols] = O.reshape(rows, -1)
+                        writes[e, row0:row0 + rows, cols] += 1
+    return y, writes
+
+
+def _expert_inputs(E, C, dims, int8, seed=0):
+    n1, n2, m1, m2, r1 = dims
+    rng = np.random.default_rng(seed)
+    G1 = rng.standard_normal((E, 1, n1, m1, r1)).astype(np.float32) * 0.3
+    G2 = rng.standard_normal((E, r1, n2, m2, 1)).astype(np.float32) * 0.3
+    x = torch.from_numpy(rng.standard_normal((E, C, n1 * n2)).astype(
+        np.float32)).to(torch.bfloat16)
+    if int8:
+        q = [[pack_core_int8(jnp.asarray(G[e])) for e in range(E)]
+             for G in (G2, G1)]
+        p2, p1 = (torch.from_numpy(np.stack([np.array(c) for c, _ in qs]))
+                  for qs in q)
+        scales = torch.tensor([[float(q[0][e][1]), float(q[1][e][1])]
+                               for e in range(E)], dtype=torch.float32)
+        return x, p2, p1, scales, G1, G2
+    p2 = pack_core(torch.from_numpy(G2).to(torch.bfloat16))
+    p1 = pack_core(torch.from_numpy(G1).to(torch.bfloat16))
+    return x, p2, p1, None, G1, G2
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("E,C,dims", [
+    (3, 5, (2, 8, 4, 2, 3)), (2, 13, RAGGED_EXPERT), (2, 37, RAGGED_EXPERT),
+    (3, 20, (4, 16, 32, 4, 4)), (2, 1, (2, 86, 43, 2, 4))])
+def test_tall_blocks_match_pallas(E, C, dims, int8):
+    """The tall blocks of ``fused2_expert_geometry`` on the CPU cover every
+    output of every expert once and agree with the reference's Pallas
+    kernel (interpret mode) run on each expert: bf16 in and out, 1e-2 of
+    the largest |y| (the output rounds to bf16)."""
+    x, p2, p1, scales, G1, G2 = _expert_inputs(E, C, dims, int8)
+    geo = tt_contract.fused2_expert_geometry(C, dims, 2, 1 if int8 else 2,
+                                             132, 232_448, E)
+    got, writes = _tall_mirror(x, p2, p1, scales, dims, geo)
+    assert bool((writes == 1).all())
+    xf = np.asarray(x.float().numpy())
+    bf = jnp.bfloat16
+    for e in range(E):
+        if int8:
+            want = tt_fused2_int8_pallas(
+                jnp.asarray(xf[e]).astype(bf), jnp.asarray(p2[e].numpy()),
+                jnp.asarray(p1[e].numpy()), [scales[e, 0], scales[e, 1]],
+                dims, interpret=True)
+        else:
+            want = tt_fused2_pallas(
+                jnp.asarray(xf[e]).astype(bf),
+                jpack(jnp.asarray(G2[e]).astype(bf)),
+                jpack(jnp.asarray(G1[e]).astype(bf)), dims, interpret=True)
+        want = np.asarray(want.astype(jnp.float32))
+        np.testing.assert_allclose(got[e].float().numpy(), want, rtol=1e-2,
+                                   atol=1e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("C", [1, 8, 20])
+@pytest.mark.parametrize("name", ["gate_up", "down"])
+def test_tall_blocks_cover_mixtral_experts(name, C):
+    """At mixtral's expert shapes and the small capacities (one row,
+    decode, a 64-token chunk) the tall blocks write every output of the 8
+    experts once and agree with the plain version."""
+    from repro_torch.kernels.ref import tt_fused2_experts_ref
+    dims = MIXTRAL[name]
+    x, p2, p1, _, _, _ = _expert_inputs(8, C, dims, False, seed=3)
+    geo = tt_contract.fused2_expert_geometry(C, dims, 2, 2, 132, 232_448, 8)
+    got, writes = _tall_mirror(x, p2, p1, None, dims, geo)
+    assert bool((writes == 1).all())
+    want = tt_fused2_experts_ref(x, p2, p1, dims).float()
+    err = float((got.float() - want).abs().max())
+    assert err <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("w_bytes", [2, 1], ids=["bf16", "int8"])
+@pytest.mark.parametrize("C", [1, 8, 20, 128, 640])
+@pytest.mark.parametrize("name", ["gate_up", "down", "ragged"])
+def test_expert_tall_geometry_covers_and_fits(name, C, w_bytes):
+    """``fused2_expert_geometry`` in bf16 at every capacity the paths run:
+    the grid covers every expert's rows, i2 values and m1 columns; the
+    block's shared memory (``fused2_tall_smem_bytes``) fits 232,448 bytes;
+    each stage's tile is at most ``FUSED2_TALL_ROWS`` rows (one 32×32 tile
+    per warp); at least 90% of the SMs get a block where the rows allow;
+    and the plain entry's tiles are unchanged."""
+    n1, n2, m1, m2, r1 = dims = (RAGGED_EXPERT if name == "ragged"
+                                 else MIXTRAL[name])
+    E = 8
+    geo = tt_contract.fused2_expert_geometry(C, dims, 2, w_bytes, 132,
+                                             232_448, E)
+    tiles = geo.grid[0] // E
+    assert geo.grid[0] == E * tiles and geo.bb * tiles >= C > \
+        geo.bb * (tiles - 1)
+    assert geo.g * geo.grid[1] >= m2 and m2 % geo.g == 0
+    assert geo.nc * geo.grid[2] >= m1 > geo.nc * (geo.grid[2] - 1)
+    assert geo.nc % 16 == 0 and geo.nct % 16 == 0 and geo.kc % 16 == 0
+    # stage 2's chunks: at most 32 columns, one for each group where the
+    # slice has 64 columns
+    assert geo.nct <= min(geo.nc, 32)
+    assert -(-geo.nc // geo.nct) >= min(4, geo.nc // 16)
+    assert geo.smem == tt_contract.fused2_tall_smem_bytes(
+        n1, r1, geo.bb, geo.g, geo.kc, geo.nct, w_bytes) <= 232_448
+    most = tt_contract.FUSED2_TALL_ROWS
+    assert -(-geo.bb * n1 // 16) * 16 <= most        # stage 1 rows
+    assert -(-geo.g * r1 // 16) * 16 <= most         # stage 1 columns
+    assert -(-geo.g * geo.bb // 16) * 16 <= most     # stage 2 rows
+    blocks = geo.grid[0] * geo.grid[1] * geo.grid[2]
+    assert blocks >= 118 or blocks == E * C * m2 * -(-m1 // 16)
+    for B, plain_dims, want in PLAIN_TILES:
+        plain = tt_contract.fused2_geometry(B, plain_dims, 2, 2, 132,
+                                            232_448, 1)
+        assert (plain.bb, plain.g, plain.nc, plain.kc, plain.nct,
+                plain.grid) == want
+
+
+@pytest.mark.parametrize("w_bytes,nct,want", [
+    # bf16 cores: four groups' rings of two P1 chunks [128, 40] bf16
+    # 81,920; then the larger of A hi + lo [128, 136] bf16 69,632 with the
+    # fp32 partial sums [128, 132] 67,584 (the groups' staging 4 × [128,
+    # 40] bf16, 40,960, fits in them), and four (x [128, 72], P2 [64, 136])
+    # bf16 chunks 143,360
+    (2, 32, 81_920 + 143_360),
+    # int8 cores, stage 2 on mma.sync: four groups' rings of two P1 chunks
+    # [128, 48] int8 49,152 and their widening [128, 40] bf16 40,960; A and
+    # the partial sums 137,216 (more than the four (x, P2 [64, 144] int8)
+    # chunks 110,592 and the P2 widening [64, 136] bf16 17,408)
+    (1, 32, 49_152 + 40_960 + 69_632 + 67_584),
+])
+def test_fused2_tall_smem_bytes_at_prefill(w_bytes, nct, want):
+    """The tall block of 16 rows, all 8 i2 (128-row tiles in both stages)
+    and 64-value chunks of n2."""
+    assert tt_contract.fused2_tall_smem_bytes(8, 16, 16, 8, 64, nct,
+                                              w_bytes) == want
+
+
+def test_expert_geometry_keeps_the_plain_body_for_fp32():
+    """fp32 activations take the plain entry's body and its tiles."""
+    for C in (8, 640):
+        for w in (4, 1):
+            assert tt_contract.fused2_expert_geometry(
+                C, MIXTRAL["gate_up"], 4, w, 132, 232_448, 8) == \
+                tt_contract.fused2_geometry(C, MIXTRAL["gate_up"], 4, w, 132,
+                                            232_448, 8)
+
+
+@pytest.mark.parametrize("w_bytes", [2, 1], ids=["bf16", "int8"])
+@pytest.mark.parametrize("C", [333, 640, 2048])
+@pytest.mark.parametrize("name", ["gate_up", "down"])
+def test_expert_geometry_fills_the_last_wave_with_rows(name, C, w_bytes):
+    """From prefill sizes on, every i2 in one block and no m1 split: the
+    row tiles are the shortest that keep the waves of 16-row tiles, so the
+    last wave is filled by rows and x is staged once."""
+    dims = MIXTRAL[name]
+    geo = tt_contract.fused2_expert_geometry(C, dims, 2, w_bytes, 132,
+                                             232_448, 8)
+    assert (geo.g, geo.grid[1], geo.grid[2]) == (8, 1, 1)
+    waves = -(-8 * -(-C // 16) // 132)
+    assert -(-geo.grid[0] // 132) == waves
+    assert 8 * -(-C // (geo.bb - 1)) > waves * 132

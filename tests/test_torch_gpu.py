@@ -1191,10 +1191,13 @@ def test_gemma3_mixed_capture_leaves_live_rings_untouched(cuda, paged):
 # --------------------------------------------------------------------------
 
 # (E, C, n1, n2, m1, m2, r1): small ragged stacks, then mixtral-8x7b's
-# expert projections at decode (C = 8) and at the 4 × 512 prefill (C = 640)
-EXPERT_CASES = [(3, 5, 2, 8, 4, 2, 3), (4, 13, 2, 86, 43, 2, 4)] + [
-    (8, C, *dims) for C in (8, 640)
-    for dims in ((8, 512, 1792, 8, 16), (8, 1792, 512, 8, 16))]
+# expert projections at every capacity its paths run: one row, decode (C =
+# 8), a 64-token chunk (20), an admission at the 256 bucket (128) and the
+# 4 × 512 prefill (640)
+MIXTRAL_EXPERTS = ((8, 512, 1792, 8, 16), (8, 1792, 512, 8, 16))
+EXPERT_CASES = [(3, 5, 2, 8, 4, 2, 3), (4, 13, 2, 86, 43, 2, 4),
+                (4, 37, 2, 86, 43, 2, 3)] + [
+    (8, C, *dims) for C in (1, 8, 20, 128, 640) for dims in MIXTRAL_EXPERTS]
 
 
 def _expert_inputs(E, C, dims, act, int8, device, seed=0):
@@ -1237,6 +1240,30 @@ def test_expert_fused2_kernel_matches_plain(cuda, E, C, n1, n2, m1, m2, r1,
     err = float((y.float() - want.float()).abs().max())
     assert err <= TOL[act] * float(want.float().abs().max()), err
     assert torch.equal(_experts(x, p2, p1, scales, dims), y)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("C", [8, 128])
+def test_expert_fused2_kernel_replays_as_captured(cuda, C, int8):
+    """The launch captured into a CUDA graph (nothing read on the host):
+    one recorded launch, and a replay on new inputs gives the eager call's
+    bits."""
+    dims = MIXTRAL_EXPERTS[0]
+    x, p2, p1, scales = _expert_inputs(8, C, dims, torch.bfloat16, int8,
+                                       cuda)
+    name = "tt_fused2_experts" + ("_int8" if int8 else "")
+    _experts(x, p2, p1, scales, dims)            # build and opt in first
+    torch.cuda.synchronize()
+    before = tt_contract.capture_counts().get(name, 0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = _experts(x, p2, p1, scales, dims)
+    assert tt_contract.capture_counts()[name] == before + 1
+    x.copy_(torch.randn(x.shape, device=cuda).to(x.dtype))
+    graph.replay()
+    want = _experts(x, p2, p1, scales, dims)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
 
 
 def _mixtral(device, weights="fp32", **moe_kw):
