@@ -19,7 +19,12 @@ Phases, each fatal on failure:
      its three expert projections, at C = 640, 128 and 8 rows an expert
      and untimed at 20 and 1, and fused2 at the k/v projection at 2,048 and
      4 rows, timed as in 3 (the library call of the expert kernel is one
-     ``torch.bmm`` over the dense expert stacks);
+     ``torch.bmm`` over the dense expert stacks); at deepseek-v2-lite-16b's
+     (``dsv2_kernels``): fused2 at its six plain shapes (q, o, the shared
+     experts, the dense first layer's ragged 1,368 modes) at 256 and 4
+     rows, and the expert kernel across 64 experts at C = 256, 128 and 8,
+     untimed at 1 and 20; and fused2 at qwen3-32b's five shapes at 256 and
+     4 rows (``qwen3_kernels``);
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
      take; fused2, the fused chain and the length-2 steps also with L2
@@ -50,7 +55,11 @@ Phases, each fatal on failure:
      prefill and decode, and the dense, paged and chunked (chunks of 8
      and of 24) schedulers through the graphs, drop counts included, and
      the same for mixtral SMOKE (window 32, 4 experts top-2), also eagerly
-     (``small_ring_check``);
+     (``small_ring_check``), and for deepseek-v2-lite SMOKE (MLA, a dense
+     first layer, 4 experts top-2 with a shared one), with its paged
+     shared-prefix pair and full cover (resumes, a copy on write) card
+     against CPU, prefix counters and drops (0) included
+     (``small_prefix_check``);
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -68,11 +77,12 @@ Phases, each fatal on failure:
      device busy share, kernels per pass, the TT kernels in the trace
      against the launches expected), then the decode step's and the
      prefill's replays traced alone; then continuous batching at length 2,
-     auto, fp cores on one slot-pool graph of 4 slots × 96 positions, each
+     auto, fp cores, at ``CUT_LAYERS`` layers, on one slot-pool graph of 4
+     slots × 96 positions, each
      admission a replay of its bucket's captured prefill: the arrival mode
      through ``launch.serve.simulate`` (16 requests at 50/s; 0 captures of
      either kind and 0 plan resolutions in the steady state, ``tt_fused2``
-     replayed 210 times per admission and per decode step), a
+     replayed 70 times per admission and per decode step), a
      step-indexed staggered run of 12 requests (prompts of 16 to 64
      tokens) through the graphs and eagerly (bit-identical; one prefill
      capture per new bucket), each bucket's prefill replays traced alone
@@ -82,8 +92,8 @@ Phases, each fatal on failure:
      then chunked prefill on that model: the arrival mode with
      ``--chunk-prefill`` (chunks of 64, one lane) over the dense and the
      paged pool beside the monolithic runs (0 captures and plan
-     resolutions steady, 16 chunks, ``tt_fused2`` replayed 420 times per
-     mixed step and 210 per plain step), the staggered run at chunks of 16
+     resolutions steady, 16 chunks, ``tt_fused2`` replayed 140 times per
+     mixed step and 70 per plain step), the staggered run at chunks of 16
      over 2 lanes, both pools, graph and eager (bit-identical; held
      against ``generate_fixed`` by ``serve.check_greedy``), serve's prefix
      smoke chunked, and the mixed replays traced alone; then full-width
@@ -94,7 +104,7 @@ Phases, each fatal on failure:
      tokens on 4 slots, and a staggered run of 12 requests (prompts of
      600–1,000), dense, paged and chunked, graph against eager and paged
      against dense bit for bit, held against ``generate_fixed``; then
-     full-width mixtral-8x7b (``mixtral_path``: bf16, TT on ffn+attn at
+     full-width mixtral-8x7b (``moe_path``: bf16, TT on ffn+attn at
      rank 16, per pass 128 ``tt_fused2`` and 96 ``tt_fused2_experts``):
      4 × (512 + 64) tokens through ``launch.serve.fixed`` with fp and int8
      cores beside an eager warm run (bit for bit), the decode replay, the
@@ -104,7 +114,16 @@ Phases, each fatal on failure:
      staggered run of 12 requests (prompts of 64–256): dense graph ≡ eager
      ≡ paged and chunked graph ≡ eager ≡ paged bit for bit, chunked ≡
      monolithic and each request ≡ ``generate_fixed`` where neither side
-     dropped an assignment, every path's MoE drops printed.
+     dropped an assignment, every path's MoE drops printed; then the same
+     for full-width deepseek-v2-lite-16b (``moe_path``; per pass 135
+     ``tt_fused2`` and 78 ``tt_fused2_experts`` across 64 experts), with
+     one layer's MLA decode attention traced alone and serve's prefix
+     smoke on the paged pool (hits, skipped prefill tokens, drops); then
+     full-width qwen3-32b (``qwen3_path``: 448 ``tt_fused2`` a pass), 4 ×
+     (256 + 32) through ``launch.serve.fixed``, fp and int8 cores, beside
+     an eager warm run (bit for bit).  deepseek-7b's length-3 and
+     ``cuda_step`` fixed-batch paths and its continuous-batching paths run
+     at ``CUT_LAYERS`` of its 30 layers.
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
@@ -112,10 +131,11 @@ the eager back-to-back time of each kernel is recorded beside them.  Every
 record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
 the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
-together, gemma3-4b's and mixtral-8x7b's included (``tt_fused2_int8``:
-their int8 fixed batches too); its times are deepseek-7b's layer, and for
-the expert-batched kernels mixtral-8x7b's (3 expert projections, 8
-experts × 8 rows).
+together, gemma3-4b's, mixtral-8x7b's, deepseek-v2-lite-16b's and
+qwen3-32b's included (``tt_fused2_int8``: their int8 fixed batches too;
+the expert kernels: mixtral's and deepseek-v2's); its times are
+deepseek-7b's layer, and for the expert-batched kernels mixtral-8x7b's (3
+expert projections, 8 experts × 8 rows).
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits non-zero and prints no result.
@@ -297,6 +317,64 @@ MIXTRAL_ARRIVAL = ["--prompt-len", "256", "--steps", "64", "--slots", "4",
                    "--assert-no-replan"]
 MIXTRAL_STAGGER, MIXTRAL_T = ((64, 256), (16, 32)), 320
 MIXTRAL_BLOCK, MIXTRAL_CHUNK = 16, dict(chunk_prefill=True, chunk_size=64)
+# deepseek-v2-lite-16b (27 layers of MLA: q/o through TT, kv_down/kv_up
+# dense; layer 0 a dense GLU MLP of 10,944, layers 1–26 a mixture of 64
+# experts, top-6, expert_ff 1,408, and 2 shared experts of 1,408): its TT
+# projections at rank 16, length 2, with how many of each one pass runs
+# (135 ``tt_fused2`` = 27 × 2 + 3 + 26 × 3, 78 ``tt_fused2_experts`` =
+# 26 × 3).  dense0's m1 and n2 of 1,368 are the first modes on the card
+# that are no multiple of 16
+DSV2_SHAPES = {
+    "dsv2 attn q 2048->3072": (((8, 256), (384, 8), (1, 16, 1)), 27),
+    "dsv2 attn o 2048->2048": (((8, 256), (256, 8), (1, 16, 1)), 27),
+    "dsv2 shared gate/up 2048->2816": (((8, 256), (352, 8), (1, 16, 1)),
+                                       52),
+    "dsv2 shared down 2816->2048": (((8, 352), (256, 8), (1, 16, 1)), 26),
+    "dsv2 dense0 gate/up 2048->10944": (((8, 256), (1368, 8), (1, 16, 1)),
+                                        2),
+    "dsv2 dense0 down 10944->2048": (((8, 1368), (256, 8), (1, 16, 1)), 1),
+}
+DSV2_EXPERT_SHAPES = {
+    "dsv2 experts gate/up 2048->1408": (((8, 256), (176, 8), (1, 16, 1)),
+                                        52),
+    "dsv2 experts down 1408->2048": (((8, 176), (256, 8), (1, 16, 1)), 26),
+}
+DSV2_E, DSV2_LAYERS, DSV2_MOE_LAYERS = 64, 27, 26
+# rows an expert takes: the 4 × 512 prefill (C = 256), an admission at the
+# 256 bucket (128) and decode (8; a 64-token chunk's too), timed; one row
+# and 20, checked untimed
+DSV2_C, DSV2_C_CHECKED = (256, 128, 8), (1, 20)
+# phase 5 at full width: the fixed batch of 4 prompts of 512 tokens and 64
+# new ones; Poisson arrivals of 16 requests of 256 + 64 tokens at 50/s on
+# 4 slots over the dense pool, the paged one (blocks of 16) and chunked at
+# 64 (one lane); serve's prefix smoke on the paged pool; the staggered run
+# of 12 requests, prompts of 64–256 tokens, budgets of 16–32, on 4 × 320
+DSV2_ARGS = ["--arch", "deepseek-v2-lite-16b", "--variant", "full", "--tt",
+             "ffn,attn", "--tt-rank", "16", "--seed", "0", "--tt-backend",
+             "auto"]
+DSV2_PREFIX = ["--prefix-smoke", "--paged", "--block-size", "16",
+               "--prefix-len", "48", "--steps", "32"]
+# qwen3-32b (64 layers of GQA with qk-norm, 8 KV heads, d_ff 25,600): its
+# five TT shapes at rank 16, length 2, 7 launches a layer (448 a pass);
+# phase 5 serves 4 × (256 + 32), fp and int8 cores
+QWEN3_SHAPES = {
+    "qwen3 attn q 5120->8192": (((8, 640), (1024, 8), (1, 16, 1)), 1),
+    "qwen3 attn k/v 5120->1024": (((8, 640), (128, 8), (1, 16, 1)), 2),
+    "qwen3 attn o 8192->5120": (((8, 1024), (640, 8), (1, 16, 1)), 1),
+    "qwen3 ffn gate/up 5120->25600": (((8, 640), (3200, 8), (1, 16, 1)),
+                                      2),
+    "qwen3 ffn down 25600->5120": (((8, 3200), (640, 8), (1, 16, 1)), 1),
+}
+QWEN3_LAYERS = 64
+QWEN3_ARGS = ["--arch", "qwen3-32b", "--variant", "full", "--tt",
+              "ffn,attn", "--tt-rank", "16", "--seed", "0", "--tt-backend",
+              "auto", "--batch", "4", "--prompt-len", "256", "--steps", "32"]
+# deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
+# continuous-batching paths (dense, paged, chunked) run at this depth (of
+# 30), to keep the script within its time on a slower host with the two
+# families above (806.7 s on one host, 1,055.0 on another, before the
+# continuous-batching paths were cut)
+CUT_LAYERS = 10
 
 
 def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
@@ -583,10 +661,12 @@ def check_and_time(gen) -> list[dict]:
 
 def layer_summary(recs, kernels=("tt_fused2", "tt_fused2_int8",
                                   "tt_fused_chain", "tt_fused_chain_int8"),
-                  model: str = "deepseek-7b", rows_of=ROWS) -> list[dict]:
+                  model: str = "deepseek-7b", rows_of=ROWS,
+                  per: str = "layer") -> list[dict]:
     """Each whole-layer kernel's times summed over one decoder layer's
-    projections (bf16 activations) of ``model``, per row count of
-    ``rows_of``: device, cold-L2, eager (back-to-back calls, the host's
+    projections (bf16 activations) of ``model`` (``per="pass"``: over one
+    pass, where the records count the launches of a pass), per row count
+    of ``rows_of``: device, cold-L2, eager (back-to-back calls, the host's
     time where it is longer), plain, the library call and the bound."""
     out = []
     for kernel in kernels:
@@ -594,12 +674,12 @@ def layer_summary(recs, kernels=("tt_fused2", "tt_fused2_int8",
             rs = [r for r in recs if r["kernel"] == kernel and
                   r["rows"] == rows and r["act"] == "bfloat16" and
                   r.get("model", "deepseek-7b") == model]
-            row = dict(kernel=kernel, rows=rows, model=model)
+            row = dict(kernel=kernel, rows=rows, model=model, per=per)
             for key in ("ms", "cold_ms", "eager_ms", "plain_ms",
                         "library_ms", "bound_ms"):
                 row[key] = sum(r[key] * r["per_layer"] for r in rs)
             out.append(row)
-            print(f"{model} {kernel:19s} rows={rows:3d} per layer: device "
+            print(f"{model} {kernel:19s} rows={rows:3d} per {per}: device "
                   f"{row['ms']:.4f} cold-L2 {row['cold_ms']:.4f} eager "
                   f"{row['eager_ms']:.4f} plain {row['plain_ms']:.4f} "
                   f"library {row['library_ms']:.4f} bound "
@@ -1178,17 +1258,22 @@ def cli_model(argv):
     return (*serve.setup(args), args)
 
 
-def length3_model(weights: str):
-    """(model, params, serve flags) of full-width deepseek-7b at TT length
-    3, backend auto, built through ``get_config``/``build``/``init`` with
-    the flags of the other main paths (the CLI has no length flag)."""
-    args = serve.parse_args(SERVE_ARGS + ["--tt-weights", weights])
+def cut_model(argv, length: int = 2):
+    """(model, params, serve flags) of deepseek-7b at full width and
+    ``CUT_LAYERS`` layers, at TT ``length``, built as ``launch.serve.setup``
+    builds it from the serve flags ``argv`` (backend, weights), through
+    ``get_config``/``build``/``init`` (the CLI has no length or depth
+    flag)."""
+    import dataclasses
+    args = serve.parse_args(argv)
     cfg = get_config("deepseek-7b", "full", tt=TTConfig(
-        enabled=True, families=("ffn", "attn"), rank=16, length=3,
-        min_factor=8, backend="auto", weights=weights))
+        enabled=True, families=("ffn", "attn"), rank=args.tt_rank,
+        length=length, min_factor=8, backend=args.tt_backend,
+        weights=args.tt_weights))
+    cfg = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
     model = build(cfg, param_dtype=torch.bfloat16)
     params = model.init(args.seed)
-    if weights == "int8":
+    if args.tt_weights == "int8":
         params = model.quantize_params(params)
     return model, params, args
 
@@ -1199,8 +1284,9 @@ def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
     path's call, and per path the graph against an eager warm run (made
     before the capture, so that each has its own peak memory) and the
     trace of one more warm run of the graph, after the launches were
-    read."""
-    per_pass = PROJ * LAYERS
+    read.  Length 2 ``auto`` serves all 30 layers; length 3 and
+    ``cuda_step`` serve ``CUT_LAYERS``."""
+    per_pass, cut = PROJ * LAYERS, PROJ * CUT_LAYERS
     launches, recs = {}, []
     for weights in ("fp32", "int8"):
         sfx = "_int8" if weights == "int8" else ""
@@ -1209,10 +1295,10 @@ def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
         paths = (
             ("length 2, auto", "tt_fused2", per_pass,
              lambda: cli_model(cli["auto"])),
-            ("length 3, auto", "tt_fused_chain", per_pass,
-             lambda: length3_model(weights)),
-            ("length 2, cuda_step", "tt_step", 2 * per_pass,
-             lambda: cli_model(cli["cuda_step"])),
+            (f"length 3, auto, {CUT_LAYERS} layers", "tt_fused_chain", cut,
+             lambda: cut_model(cli["auto"], 3)),
+            (f"length 2, cuda_step, {CUT_LAYERS} layers", "tt_step", 2 * cut,
+             lambda: cut_model(cli["cuda_step"])),
         )
         for label, kernel, n, built in paths:
             model, params, args = built()
@@ -1287,14 +1373,15 @@ def staggered_full(model, params, graph: bool, check=None,
 
 
 def scheduler_path(smi: str) -> tuple[int, dict]:
-    """Phase 5, continuous batching: full-width deepseek-7b at length 2
-    ``auto`` (fp cores, bf16 params) built from the serve flags, on one
+    """Phase 5, continuous batching: deepseek-7b at full width and
+    ``CUT_LAYERS`` layers, length 2 ``auto`` (fp cores, bf16 params)
+    built from the serve flags (``cut_model``), on one
     slot-pool graph of 4 slots × 96 positions, admissions bucketed (the
     default) and each a replay of the captured prefill of its bucket.  The
     arrival mode through ``launch.serve.simulate`` (launch counts set to 0
     just before, read just after): 0 captures of either kind and 0 plan
-    resolutions in the steady state, and ``tt_fused2`` launched 210 times
-    per admission prefill plus 210 per decode step, all replayed (none
+    resolutions in the steady state, and ``tt_fused2`` launched 70 times
+    per admission prefill plus 70 per decode step, all replayed (none
     counted).  Then the step-indexed staggered run (prompts of 16 to 64
     tokens) through the graphs and eagerly (``graph=False``), both
     bucketed: every token and logprob bit for bit, one prefill capture per
@@ -1304,9 +1391,8 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
     share, admissions' share of the wall, the per-row ``torch.where`` KV
     writes.  Returns ``tt_fused2``'s launches over the ``simulate`` call
     and the record."""
-    per_pass = PROJ * LAYERS
-    args = serve.parse_args(ARRIVAL_ARGS)
-    model, params = serve.setup(args)
+    per_pass = PROJ * CUT_LAYERS
+    model, params, args = cut_model(ARRIVAL_ARGS)
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
     out = serve.simulate(model, params, args)
@@ -1413,8 +1499,8 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
     print(f"profile (continuous batching; {smi}): device busy "
           f"{prof['busy_s'] / prof['wall_s']:.1%} of {prof['wall_s']:.3f} s; "
           f"admissions {prof['admit_share']:.1%} of the wall; per-row KV "
-          f"writes {prof['where_count']} kernels ({2 * LAYERS} per step "
-          f"expected: {2 * LAYERS * prof['steps_run']}), "
+          f"writes {prof['where_count']} kernels ({2 * CUT_LAYERS} per step "
+          f"expected: {2 * CUT_LAYERS * prof['steps_run']}), "
           f"{prof['where_s'] * 1e3:.3f} ms; tt_fused2_kernel {tt}",
           flush=True)
     if tt["found"] != tt["expected"] or model.graph_captures != 1 or \
@@ -1446,7 +1532,7 @@ def paged_path(smi: str, model, params, args, dense: dict, dense_done: dict,
     model of ``scheduler_path``, whose dense runs are ``dense`` (arrival
     mode) and ``dense_done`` (staggered, graphs): the arrival mode with
     ``--paged`` (0 captures and plan resolutions in the steady state,
-    ``tt_fused2`` replayed 210 × (admissions + steps), no leaked block);
+    ``tt_fused2`` replayed 70 × (admissions + steps), no leaked block);
     the staggered run paged through the graphs against the dense one and
     against paged eager, bit for bit; the staggered run over 12 blocks
     (admission by memory: live blocks within the pool after every step, a
@@ -1460,7 +1546,7 @@ def paged_path(smi: str, model, params, args, dense: dict, dense_done: dict,
     bucket-64 prefill replay's ``prefill64``; and a traced paged arrival
     run.  Returns ``tt_fused2``'s launches over the paged runs (all but the
     timing and the trace) and the record."""
-    per_pass = PROJ * LAYERS
+    per_pass = PROJ * CUT_LAYERS
     T = 64 + PASSES
     key = (4, T, True, (4 * T // PAGED_BLOCK, PAGED_BLOCK))
     pargs = serve.parse_args(ARRIVAL_ARGS + PAGED_ARGS)
@@ -1589,11 +1675,13 @@ def paged_path(smi: str, model, params, args, dense: dict, dense_done: dict,
           f"{prof['busy_s'] / prof['wall_s']:.1%} of {prof['wall_s']:.3f} s; "
           f"admissions {prof['admit_share']:.1%} of the wall; block-table "
           f"scatters {prof['scatter_count']} kernels, "
-          f"{prof['scatter_s'] * 1e3:.3f} ms ({2 * LAYERS} per step and per "
-          f"admission expected: {2 * LAYERS * passes}); gathers with the "
+          f"{prof['scatter_s'] * 1e3:.3f} ms ({2 * CUT_LAYERS} per step and "
+          f"per admission expected: {2 * CUT_LAYERS * passes}); gathers with "
+          f"the "
           f"embedding lookups {prof['gather_count']} kernels, "
-          f"{prof['gather_s'] * 1e3:.3f} ms ({2 * LAYERS} per step and one "
-          f"per pass expected: {2 * LAYERS * prof['steps_run'] + passes}); "
+          f"{prof['gather_s'] * 1e3:.3f} ms ({2 * CUT_LAYERS} per step and one"
+          f" "
+          f"per pass expected: {2 * CUT_LAYERS * prof['steps_run'] + passes}); "
           f"torch.where {prof['where_count']} kernels, "
           f"{prof['where_s'] * 1e3:.3f} ms; tt_fused2_kernel {tt}",
           flush=True)
@@ -1665,7 +1753,7 @@ def resume_checks(smi: str, model, params, smoke: dict,
           f"kernels, {alone['tt']:g} tt_fused2_kernel; the bucket-64 prefill "
           f"replay {prefill64['host_ms']:.3f} ms host, "
           f"{prefill64['busy_ms']:.3f} ms busy", flush=True)
-    if not same or diff > 2e-2 * scale or alone["tt"] != PROJ * LAYERS:
+    if not same or diff > 2e-2 * scale or alone["tt"] != PROJ * CUT_LAYERS:
         raise AssertionError(f"resume: bit-identical {same}, {diff:.3e} "
                              f"from the full prefill, {alone['tt']} "
                              f"tt_fused2_kernel per replay")
@@ -1803,7 +1891,7 @@ def chunked_path(smi: str, model, params, dense: dict, paged: dict,
     run is ``dense_done``: the arrival mode with ``--chunk-prefill`` at
     the reference's defaults (chunks of 64, one lane) over the dense and
     the paged pool (0 captures and plan resolutions in the steady state,
-    16 chunks, ``tt_fused2`` replayed 420 times per mixed step and 210 per
+    16 chunks, ``tt_fused2`` replayed 140 times per mixed step and 70 per
     plain step, none counted, no leaked block), beside the monolithic run;
     the staggered run at chunks of 16 over 2 lanes (budget 32) over both
     pools, through the graphs and eagerly: graph ≡ eager and paged ≡ dense
@@ -1815,7 +1903,7 @@ def chunked_path(smi: str, model, params, dense: dict, paged: dict,
     replay's and the bucket-64 prefill replay's ``prefill64``.  Returns
     ``tt_fused2``'s launches over the chunked runs (all but the timing)
     and the record."""
-    per_pass = PROJ * LAYERS
+    per_pass = PROJ * CUT_LAYERS
     T = 64 + PASSES
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
@@ -1964,41 +2052,51 @@ def chunked_path(smi: str, model, params, dense: dict, paged: dict,
     return launches, rec
 
 
-def gemma3_kernels(gen) -> list[dict]:
-    """Phases 2 and 3 at gemma3-4b's five fused2 shapes: ``tt_fused2`` and
+def fused2_kernels(gen, shapes: dict, model: str, rows_of=ROWS,
+                   checked=()) -> list[dict]:
+    """Phases 2 and 3 at one model's fused2 shapes (``shapes``: label →
+    (dims, launches per layer or pass)): ``tt_fused2`` and
     ``tt_fused2_int8`` against their plain versions and timed beside them,
-    ``torch.matmul`` of the dense layer and the bound, at ``ROWS`` (cold-L2
-    too), every case of ``CASES``; then checked untimed at
-    ``GEMMA3_BUCKET_ROWS``.  One record per (kernel, shape, rows, case),
-    marked ``model: gemma3-4b``."""
+    ``torch.matmul`` of the dense layer and the bound, at ``rows_of``
+    (cold-L2 too), every case of ``CASES``; then checked untimed at
+    ``checked`` rows.  One record per (kernel, shape, rows, case), marked
+    ``model``."""
     spec = hw.device_spec(torch.device("cuda"))
     buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     recs = []
-    for label, (dims, per_layer) in GEMMA3_SHAPES.items():
-        for rows in ROWS + GEMMA3_BUCKET_ROWS:
+    for label, (dims, per_layer) in shapes.items():
+        for rows in tuple(rows_of) + tuple(checked):
             for int8, act in CASES:
                 kernel, run, plain, library, moved, flops, *_ = \
                     layer_cases(dims, rows, int8, act, gen)
-                if rows in ROWS:
+                if rows in rows_of:
                     rec = measure(kernel, label, rows, act, per_layer, run,
                                   plain, library, moved, flops, TOL[act],
                                   spec, buf.zero_)
                 else:
                     rec = check(kernel, label, rows, act, run, plain,
                                 TOL[act])
-                rec.update(length=2, model="gemma3-4b")
+                rec.update(length=2, model=model)
                 recs.append(rec)
-    worst = max(r["max_rel_err"] for r in recs
-                if r["rows"] in GEMMA3_BUCKET_ROWS)
-    print(f"gemma3 fused2 shapes at {GEMMA3_BUCKET_ROWS} rows: "
-          f"{sum(r['rows'] in GEMMA3_BUCKET_ROWS for r in recs)} calls "
-          f"within tolerance, worst relative error {worst:.2e}", flush=True)
+    if checked:
+        worst = max(r["max_rel_err"] for r in recs if r["rows"] in checked)
+        print(f"{model} fused2 shapes at {checked} rows: "
+              f"{sum(r['rows'] in checked for r in recs)} calls within "
+              f"tolerance, worst relative error {worst:.2e}", flush=True)
     return recs
+
+
+def gemma3_kernels(gen) -> list[dict]:
+    """``fused2_kernels`` at gemma3-4b's five shapes, at ``ROWS`` and
+    untimed at ``GEMMA3_BUCKET_ROWS``."""
+    return fused2_kernels(gen, GEMMA3_SHAPES, "gemma3-4b", ROWS,
+                          GEMMA3_BUCKET_ROWS)
 
 
 def smoke_models(weights: str = "fp32", arch: str = "gemma3-4b"):
     """SMOKE of ``arch`` (gemma3: window 16; mixtral: window 32, 4
-    experts top-2, dropless) at length 2 ``auto``, TT on ffn+attn: (card
+    experts top-2, dropless; deepseek-v2-lite: MLA, 4 experts top-2 and a
+    shared one, dropless) at length 2 ``auto``, TT on ffn+attn: (card
     model, its params, cpu model, the same params there)."""
     cfg = get_config(arch, "smoke", tt=TTConfig(
         enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
@@ -2052,8 +2150,10 @@ def smoke_schedule(model, params, prompts, **kw) -> dict:
 
 
 def small_ring_check(arch: str = "gemma3-4b") -> None:
-    """Phase 4, SMOKE of a ring-cache model (gemma3: window 16; mixtral:
-    window 32 and 4 experts top-2, dropless) on the card against the CPU,
+    """Phase 4, SMOKE of a ring-cache or MoE model (gemma3: window 16;
+    mixtral: window 32 and 4 experts top-2, dropless; deepseek-v2-lite:
+    MLA over latent caches, 4 experts top-2 and a shared one, dropless; the
+    staggered prompts share no prefix) on the card against the CPU,
     same weights, fp32 and int8 cores: the fixed batch (prompts of 24 and
     40 into caches of 48 and 64; gemma3's rings wrap): the prefill and 16
     decode steps fed the CPU's greedy tokens, eagerly and through the
@@ -2062,7 +2162,7 @@ def small_ring_check(arch: str = "gemma3-4b") -> None:
     ``smoke_schedule``, dense, paged (block 4) and chunked (chunks of 8
     over 2 lanes and of 24, both pools), through the graphs: tokens
     identical, logprobs within 1e-4, slots, counters and drop counts
-    equal.  Only the path's fused2 kernels run (mixtral's experts through
+    equal.  Only the path's fused2 kernels run (the experts through
     ``tt_fused2_experts``), none of the prefix cache's hits."""
     modes = {"dense": {}, "paged": dict(paged=True, block_size=4),
              "chunk8 dense": dict(chunk_prefill=True, chunk_size=8,
@@ -2153,6 +2253,51 @@ def small_ring_check(arch: str = "gemma3-4b") -> None:
         if kernels != names:
             raise AssertionError(f"{arch} SMOKE {weights}: kernels "
                                  f"{kernels}, expected only {names}")
+        del gpu, p_gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def small_prefix_check(arch: str = "deepseek-v2-lite-16b") -> None:
+    """Phase 4, prefix reuse through a mixture of experts: ``paged_smoke``
+    (the staggered schedule, then a shared-prefix pair and a full cover:
+    resumes, the second with a copy on write) on SMOKE of ``arch`` (MLA,
+    whose latent cache is shared; 4 experts top-2, dropless), fp32 and
+    int8 cores, on the card (the paged slot-pool graph, the captured
+    prefills and resumes) against the CPU, same weights: greedy tokens
+    identical, logprobs within 1e-4, block ids per step, prefix counters
+    and block high-water equal, prefix hits, and no drop on either
+    side."""
+    for weights in ("fp32", "int8"):
+        gpu, p_gpu, cpu, p_cpu = smoke_models(weights, arch)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, gpu.cfg.vocab_size, (5, 16), dtype=np.int64))
+        moe.reset_drops()
+        want = paged_smoke(cpu, p_cpu, prompts)
+        want_drops = moe.read_drops()
+        moe.reset_drops()
+        got = paged_smoke(gpu, p_gpu, prompts)
+        got_drops = moe.read_drops()
+        same = sorted(got["done"]) == sorted(want["done"]) and all(
+            np.array_equal(got["done"][u].tokens, want["done"][u].tokens)
+            for u in want["done"])
+        worst = max(float(np.abs(got["done"][u].logprobs -
+                                 want["done"][u].logprobs).max())
+                    for u in want["done"])
+        hits = got["stats"][1]["prefix_hit_tokens"]
+        print(f"small input, {arch} paged prefix reuse ({weights} cores, "
+              f"block 4): greedy tokens card {'=' if same else '!='} cpu, "
+              f"logprobs max abs diff {worst:.3e} (tol 1e-4); block ids "
+              f"{'same' if got['blocks'] == want['blocks'] else 'DIFFER'}; "
+              f"counters card {got['stats']} cpu {want['stats']}; drops "
+              f"card {got_drops} cpu {want_drops}", flush=True)
+        if not same or not worst <= 1e-4 or got["blocks"] != want["blocks"] \
+                or got["stats"] != want["stats"] or not hits or got_drops \
+                or want_drops:
+            raise AssertionError(
+                f"{arch} SMOKE prefix reuse {weights}: tokens same {same}, "
+                f"logprobs {worst:.3e}, counters {got['stats']} != "
+                f"{want['stats']}, drops {got_drops} / {want_drops}")
         del gpu, p_gpu
         gc.collect()
         torch.cuda.empty_cache()
@@ -2306,17 +2451,17 @@ def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
     torch.cuda.empty_cache()
     return launches, rec
 
-def expert_cases(dims, C, int8, act, gen):
-    """The expert-batched fused2 kernel at one expert shape: ``MIXTRAL_E``
-    experts with the model's TT init, ``C`` rows each.  (kernel, run,
-    plain, library, bytes, flops): the library call is one ``torch.bmm``
-    over the dense expert stacks ``[E, N, M]`` (dequantized for int8
-    cores) in the activation dtype."""
+def expert_cases(dims, C, int8, act, gen, E):
+    """The expert-batched fused2 kernel at one expert shape: ``E`` experts
+    with the model's TT init, ``C`` rows each.  (kernel, run, plain,
+    library, bytes, flops): the library call is one ``torch.bmm`` over the
+    dense expert stacks ``[E, N, M]`` (dequantized for int8 cores) in the
+    activation dtype."""
     ns, ms, ranks = dims
-    made = [random_cores(dims, act, int8, gen) for _ in range(MIXTRAL_E)]
+    made = [random_cores(dims, act, int8, gen) for _ in range(E)]
     p2 = pack_core(torch.stack([c[1] for c, _, _ in made]))
     p1 = pack_core(torch.stack([c[0] for c, _, _ in made]))
-    x = torch.randn((MIXTRAL_E, C, int(np.prod(ns))), generator=gen,
+    x = torch.randn((E, C, int(np.prod(ns))), generator=gen,
                     device="cuda").to(act)
     d2 = (ns[0], ns[1], ms[0], ms[1], ranks[1])
     if int8:
@@ -2329,12 +2474,42 @@ def expert_cases(dims, C, int8, act, gen):
         plain = lambda: ref.tt_fused2_experts_ref(x, p2, p1, d2)  # noqa: E731
     w = torch.stack([dense.T for _, _, dense in made]).contiguous().to(act)
     library = lambda: torch.bmm(x, w)  # noqa: E731
-    weight_bytes = MIXTRAL_E * (chain_weight_elems(ns, ms, ranks) *
-                                p2.element_size() + (8 if int8 else 0))
-    moved = (x.numel() + MIXTRAL_E * C * int(np.prod(ms))) * \
+    weight_bytes = E * (chain_weight_elems(ns, ms, ranks) *
+                        p2.element_size() + (8 if int8 else 0))
+    moved = (x.numel() + E * C * int(np.prod(ms))) * \
         x.element_size() + weight_bytes
     return ("tt_fused2_experts" + ("_int8" if int8 else ""), run, plain,
-            library, moved, 2 * MIXTRAL_E * C * chain_macs(dims))
+            library, moved, 2 * E * C * chain_macs(dims))
+
+
+def expert_kernels(gen, shapes: dict, E: int, timed, checked, model: str
+                   ) -> list[dict]:
+    """Phases 2 and 3 at one model's expert shapes: ``tt_fused2_experts
+    [_int8]`` (one launch across ``E`` experts) against its plain version
+    and timed beside it (cold-L2 too), with ``torch.bmm`` over the dense
+    expert stacks and the bound, at ``timed`` rows an expert, every case
+    of ``CASES``, and checked untimed at ``checked``.  One record per
+    (kernel, shape, rows, case), marked ``model`` and ``experts``."""
+    spec = hw.device_spec(torch.device("cuda"))
+    buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    recs = []
+    for label, (dims, per_layer) in shapes.items():
+        for C in tuple(timed) + tuple(checked):
+            for int8, act in CASES:
+                kernel, run, plain, library, moved, flops = expert_cases(
+                    dims, C, int8, act, gen, E)
+                if C in timed:
+                    # the plain version loops over the experts, ~10
+                    # kernels each: few calls fit the device's queue
+                    rec = measure(kernel, label, C, act, per_layer, run,
+                                  plain, library, moved, flops, TOL[act],
+                                  spec, buf.zero_,
+                                  plain_iters=max(1, 80 // E))
+                else:
+                    rec = check(kernel, label, C, act, run, plain, TOL[act])
+                rec.update(length=2, model=model, experts=E)
+                recs.append(rec)
+    return recs
 
 
 def mixtral_kernels(gen) -> list[dict]:
@@ -2347,43 +2522,36 @@ def mixtral_kernels(gen) -> list[dict]:
     then ``tt_fused2[_int8]`` at the k/v projection at 2,048 and 4 rows.
     One record per (kernel, shape, rows, case), marked ``model:
     mixtral-8x7b``."""
-    spec = hw.device_spec(torch.device("cuda"))
-    buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    recs = []
-    for label, (dims, per_layer) in MIXTRAL_EXPERT_SHAPES.items():
-        for C in MIXTRAL_C + MIXTRAL_C_CHECKED:
-            for int8, act in CASES:
-                kernel, run, plain, library, moved, flops = expert_cases(
-                    dims, C, int8, act, gen)
-                if C in MIXTRAL_C:
-                    # the plain version loops over the 8 experts
-                    rec = measure(kernel, label, C, act, per_layer, run,
-                                  plain, library, moved, flops, TOL[act],
-                                  spec, buf.zero_, plain_iters=10)
-                else:
-                    rec = check(kernel, label, C, act, run, plain, TOL[act])
-                rec.update(length=2, model="mixtral-8x7b",
-                           experts=MIXTRAL_E)
-                recs.append(rec)
-    for label, (dims, per_layer) in MIXTRAL_ATTN_SHAPES.items():
-        for rows in MIXTRAL_ROWS:
-            for int8, act in CASES:
-                kernel, run, plain, library, moved, flops, *_ = \
-                    layer_cases(dims, rows, int8, act, gen)
-                rec = measure(kernel, label, rows, act, per_layer, run,
-                              plain, library, moved, flops, TOL[act], spec,
-                              buf.zero_)
-                rec.update(length=2, model="mixtral-8x7b")
-                recs.append(rec)
-    return recs
+    return (expert_kernels(gen, MIXTRAL_EXPERT_SHAPES, MIXTRAL_E, MIXTRAL_C,
+                           MIXTRAL_C_CHECKED, "mixtral-8x7b") +
+            fused2_kernels(gen, MIXTRAL_ATTN_SHAPES, "mixtral-8x7b",
+                           MIXTRAL_ROWS))
+
+
+def dsv2_kernels(gen) -> list[dict]:
+    """Phases 2 and 3 at deepseek-v2-lite-16b's shapes: ``tt_fused2
+    [_int8]`` at its six plain shapes (the ragged 1,368 modes of the dense
+    first layer included) at ``ROWS``, and ``tt_fused2_experts[_int8]``
+    across 64 experts at C = 256, 128 and 8, checked untimed at C = 1 and
+    20.  ``per_layer`` of these records is the launches of one pass."""
+    return (fused2_kernels(gen, DSV2_SHAPES, "deepseek-v2-lite-16b") +
+            expert_kernels(gen, DSV2_EXPERT_SHAPES, DSV2_E, DSV2_C,
+                           DSV2_C_CHECKED, "deepseek-v2-lite-16b"))
+
+
+def qwen3_kernels(gen) -> list[dict]:
+    """``fused2_kernels`` at qwen3-32b's five shapes, at ``ROWS``."""
+    return fused2_kernels(gen, QWEN3_SHAPES, "qwen3-32b")
 
 
 def moe_layer_alone(model, params, args) -> dict:
-    """One MoE layer's ``moe_apply`` at the decode's tokens ([batch, 1]
-    rows of the first layer's input width), eager, traced alone
+    """The first MoE layer's ``moe_apply`` at the decode's tokens ([batch,
+    1] rows of the model's width), eager, traced alone
     (``replays_alone``): its device kernels, the expert kernel's launches
     and the busy ms per call."""
-    p = params["g0"][0]["b0"]["ffn"]
+    gi = next(i for i, (period, _) in enumerate(model.groups)
+              if period[0].ffn == "moe")
+    p = params[f"g{gi}"][0]["b0"]["ffn"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     h = torch.randn((args.batch, 1, model.cfg.d_model), generator=gen,
@@ -2393,37 +2561,117 @@ def moe_layer_alone(model, params, args) -> dict:
                          "tt_fused2_experts_kernel", top=6)
 
 
-def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
-    """Phase 5, full-width mixtral-8x7b (bf16 params from seed 0, nothing
-    cut, TT on ffn+attn at rank 16, ``auto``: per pass 128 ``tt_fused2``
-    for the attention and 96 ``tt_fused2_experts``, one launch across the
-    8 experts for each expert projection; 224 TT launches).
+def mla_alone(model, params, args) -> dict:
+    """The first layer's absorbed-form MLA decode (``mla_decode_attn``: the
+    projections, the fp32 casts of ``kv_up`` and of the latent cache, the
+    latent scores and context) at the decode's batch over a cache of
+    prompt + steps positions at the prompt's length, eager, traced alone
+    (``replays_alone``; its q/o ``tt_fused2`` launches counted)."""
+    from repro_torch.models.attention import mla_decode_attn
+    p = params["g0"][0]["b0"]["attn"]
+    m = model.cfg.mla
+    T = args.prompt_len + args.steps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    dt = model.param_dtype
+    h = torch.randn((args.batch, 1, model.cfg.d_model), generator=gen,
+                    device="cuda").to(dt)
+    ckv = torch.randn((args.batch, T, m.kv_lora), generator=gen,
+                      device="cuda").to(dt)
+    kr = torch.randn((args.batch, T, m.rope_head_dim), generator=gen,
+                     device="cuda").to(dt)
+    pos = torch.tensor(args.prompt_len, dtype=torch.int32, device="cuda")
+    return replays_alone(lambda: mla_decode_attn(p, model.cfg, h, ckv, kr,
+                                                 pos, model.plan_book),
+                         "tt_fused2_kernel", top=6)
 
-    The fixed batch (``MIXTRAL_FIXED``) through ``launch.serve.fixed``, fp
-    then int8 cores (``drive``: every projection replayed through its
-    kernel, 0 captures and 0 plan resolutions warm), beside one eager warm
-    run (``graph_against_eager``: prefill and first-step logits bit for
-    bit), the decode replay traced alone, the prefill replay traced alone
-    (its busy ms and the expert kernel's share) and one MoE layer traced
-    alone (the MoE's share of a replay).  Then on one fp model the arrivals
-    (``MIXTRAL_ARRIVAL``) over the dense pool, the paged one and chunked
-    at 64 (0 captures and plan resolutions steady, 224 TT launches per
-    admission, per decode step and per pass of a mixed step, all
-    replayed), and the staggered run: dense graph ≡ eager ≡ paged and
-    chunked graph ≡ eager ≡ paged, bit for bit; chunked ≡ monolithic and
-    scheduler ≡ ``generate_fixed`` (other token groupings: another
-    capacity) asserted where both sides dropped nothing, the drops printed
-    either way.  Returns each kernel's launches over the fixed-batch
-    calls and the arrival and staggered runs, and the record."""
-    attn, experts = 4 * MIXTRAL_LAYERS, 3 * MIXTRAL_LAYERS
+
+# phase 5 of each mixture-of-experts family: its serve flags, the fixed
+# batch, the arrival mode, the staggered run (prompt lengths, budgets;
+# cache), the paged block and the chunking, its decoder layers and MoE
+# layers, and its ``tt_fused2`` and ``tt_fused2_experts`` launches a pass;
+# deepseek-v2 adds the MLA trace and serve's prefix smoke
+MOE_PATHS = {
+    "mixtral-8x7b": dict(
+        args=MIXTRAL_ARGS, fixed=MIXTRAL_FIXED, arrival=MIXTRAL_ARRIVAL,
+        stagger=MIXTRAL_STAGGER, T=MIXTRAL_T, block=MIXTRAL_BLOCK,
+        chunk=MIXTRAL_CHUNK, layers=MIXTRAL_LAYERS,
+        moe_layers=MIXTRAL_LAYERS, prefix=None,
+        per_pass=(4 * MIXTRAL_LAYERS, 3 * MIXTRAL_LAYERS)),
+    "deepseek-v2-lite-16b": dict(
+        args=DSV2_ARGS, fixed=MIXTRAL_FIXED, arrival=MIXTRAL_ARRIVAL,
+        stagger=MIXTRAL_STAGGER, T=MIXTRAL_T, block=MIXTRAL_BLOCK,
+        chunk=MIXTRAL_CHUNK, layers=DSV2_LAYERS, moe_layers=DSV2_MOE_LAYERS,
+        prefix=DSV2_PREFIX,
+        per_pass=(sum(n for _, n in DSV2_SHAPES.values()),
+                  sum(n for _, n in DSV2_EXPERT_SHAPES.values()))),
+}
+
+
+def moe_prefix_smoke(smi: str, arch: str, model, params, argv) -> dict:
+    """serve's prefix smoke (``--prefix-smoke --paged``) on a full-width
+    MoE model whose cache is shareable: the second admission shares the
+    prefix's blocks and skips their prefill (a resume), the third covers
+    its prompt (a copy on write); each request held against
+    ``generate_fixed`` where neither side dropped an assignment (the
+    resume routes the suffix alone: another capacity), the drops
+    printed."""
+    sargs = serve.parse_args(argv)
+    smoke = serve.prefix_smoke(model, params, sargs)
+    smoke.pop("sched")
+    greedy = smoke["greedy"]
+    held = [u for u, g in greedy.items() if "failed" not in g]
+    print(f"{arch} prefix smoke ({smi}): hits (tokens, prefill skipped) "
+          f"{smoke['hits']}, {smoke['shared_blocks']} shared blocks, copy "
+          f"on write {smoke['cow']}; drops {smoke['drops']} in the "
+          f"scheduler's run, " + ", ".join(
+              f"request {u} {g['drops']}" for u, g in greedy.items()) +
+          f" in generate_fixed's; requests held against generate_fixed "
+          f"{held}", flush=True)
+    if not smoke["hits"][1][1] or not smoke["hits"][2][0]:
+        raise AssertionError(f"{arch} prefix smoke: no hit {smoke['hits']}")
+    return {k: smoke[k] for k in ("hits", "blocks", "shared_blocks", "cow",
+                                  "admit_ms", "greedy", "drops")}
+
+
+def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
+    """Phase 5, a full-width mixture-of-experts family (bf16 params from
+    seed 0, nothing cut, TT on ffn+attn at rank 16, ``auto``): mixtral-8x7b
+    (per pass 128 ``tt_fused2`` for the attention and 96
+    ``tt_fused2_experts``, one launch across the 8 experts for each expert
+    projection) or deepseek-v2-lite-16b (135 ``tt_fused2``: q/o, the dense
+    first layer and the shared experts; 78 ``tt_fused2_experts`` across
+    64 experts), with the flags of ``MOE_PATHS[arch]``.
+
+    The fixed batch through ``launch.serve.fixed``, fp then int8 cores
+    (``drive``: every projection replayed through its kernel, 0 captures
+    and 0 plan resolutions warm), beside one eager warm run
+    (``graph_against_eager``: prefill and first-step logits bit for bit),
+    the decode replay traced alone, the prefill replay traced alone (its
+    busy ms and the expert kernel's share), one MoE layer traced alone
+    (the MoE's share of a replay) and, with MLA, one layer's decode
+    attention alone (its share).  Then on one fp model the arrivals over
+    the dense pool, the paged one and chunked at 64 (0 captures and plan
+    resolutions steady, every TT launch per admission, per decode step and
+    per pass of a mixed step replayed), serve's prefix smoke where the
+    cache is shareable (hits and skipped prefill tokens, drops printed),
+    and the staggered run: dense graph ≡ eager ≡ paged and chunked graph
+    ≡ eager ≡ paged, bit for bit; chunked ≡ monolithic and scheduler ≡
+    ``generate_fixed`` (other token groupings: another capacity) asserted
+    where both sides dropped nothing, the drops printed either way.
+    Returns each kernel's launches over the fixed-batch calls and the
+    arrival and staggered runs, and the record."""
+    cfg = MOE_PATHS[arch]
     launches, rec = {}, {"card": smi, "fixed": []}
     t_phase = time.perf_counter()
     for weights in ("fp32", "int8"):
         sfx = "_int8" if weights == "int8" else ""
         kernel, ekernel = "tt_fused2" + sfx, "tt_fused2_experts" + sfx
-        model, params, args = cli_model(MIXTRAL_ARGS + MIXTRAL_FIXED + [
+        model, params, args = cli_model(cfg["args"] + cfg["fixed"] + [
             "--tt-weights", weights])
-        label = f"mixtral-8x7b, 4 x 512 + 64, {weights}"
+        attn, experts = cfg["per_pass"]
+        label = (f"{arch}, {args.batch} x {args.prompt_len} + "
+                 f"{args.steps}, {weights}")
         eager = eager_runs(model, params, args)
         out, _ = drive(label, kernel, attn, model, params, args,
                        also={ekernel: experts})
@@ -2452,9 +2700,21 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
             lambda: pre(params, tokens, args.prompt_len),
             "tt_fused2_experts_kernel", top=6)
         r["moe_layer"] = moe_layer_alone(model, params, args)
-        share = r["moe_layer"]["busy_ms"] * MIXTRAL_LAYERS / \
+        share = r["moe_layer"]["busy_ms"] * cfg["moe_layers"] / \
             r["replay"]["busy_ms"]
         r["moe_share"] = share
+        mla = ""
+        if model.cfg.mla is not None:
+            r["mla_layer"] = mla_alone(model, params, args)
+            r["mla_share"] = r["mla_layer"]["busy_ms"] * cfg["layers"] / \
+                r["replay"]["busy_ms"]
+            mla = (f"; one layer's MLA decode attention alone: "
+                   f"{r['mla_layer']['kernels']:g} kernels, "
+                   f"{r['mla_layer']['busy_ms']:.4f} ms busy, x "
+                   f"{cfg['layers']} = {r['mla_share']:.1%} of the replay; "
+                   f"top: " + "; ".join(
+                       f"{k} {ms:.4f} ms x{n:g}"
+                       for k, ms, n in r["mla_layer"]["top"]))
         pre_share = (r["prefill_replay"]["tt_ms"] /
                      r["prefill_replay"]["busy_ms"])
         print(f"profile ({label}): {REPLAYS} decode replays alone: "
@@ -2477,11 +2737,11 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
               f"; one MoE layer alone (eager, {args.batch} tokens): "
               f"{r['moe_layer']['kernels']:g} kernels, "
               f"{r['moe_layer']['busy_ms']:.4f} ms busy, x "
-              f"{MIXTRAL_LAYERS} layers = {share:.1%} of the replay; top: " +
-              "; ".join(f"{k} {ms:.4f} ms x{n:g}"
-                        for k, ms, n in r["moe_layer"]["top"]) +
-              f"; MoE drops warm {out['drops']}, cold {out['cold_drops']}",
-              flush=True)
+              f"{cfg['moe_layers']} layers = {share:.1%} of the replay; "
+              f"top: " + "; ".join(f"{k} {ms:.4f} ms x{n:g}"
+                                   for k, ms, n in r["moe_layer"]["top"]) +
+              mla + f"; MoE drops warm {out['drops']}, cold "
+              f"{out['cold_drops']}", flush=True)
         if (r["replay"]["tt"], r["replay_experts"],
                 r["prefill_replay"]["tt"]) != (attn, experts, experts):
             raise AssertionError(f"{label}: {r['replay']['tt']} and "
@@ -2494,16 +2754,16 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
         gc.collect()
         torch.cuda.empty_cache()
 
-    args = serve.parse_args(MIXTRAL_ARGS + MIXTRAL_ARRIVAL)
+    args = serve.parse_args(cfg["args"] + cfg["arrival"])
     model, params = serve.setup(args)
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
-    T = 256 + 64
+    T = args.prompt_len + args.steps
     rec["arrival"] = {}
     for pool, extra in (("dense", []), ("paged", PAGED_ARGS),
                         ("chunked", ["--chunk-prefill", "--chunk-size",
                                      "64"])):
-        aargs = serve.parse_args(MIXTRAL_ARGS + MIXTRAL_ARRIVAL + extra)
+        aargs = serve.parse_args(cfg["args"] + cfg["arrival"] + extra)
         out = serve.simulate(model, params, aargs)
         sched = out.pop("sched")
         if sched.paged:
@@ -2513,7 +2773,7 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
         passes = out["admissions"] + (
             2 * out["mixed_steps"] + out["plain_steps"] if pool == "chunked"
             else out["steps_run"])
-        print(f"main path (mixtral-8x7b arrival mode, {pool} pool, 4 slots x "
+        print(f"main path ({arch} arrival mode, {pool} pool, 4 slots x "
               f"{T}; {smi}): {len(fin)} requests, {out['tokens_out']} tokens "
               f"in {out['wall_s']:.3f} s = {out['tok_per_s']:.1f} tok/s; ttft "
               f"p50/p95 {out['ttft_p50_s'] * 1e3:.1f}/"
@@ -2540,22 +2800,25 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
         if bad or any(len(f.tokens) != 64 or f.finish_reason != "length" or
                       int(f.tokens.max()) >= model.cfg.vocab_size or
                       not np.isfinite(f.logprobs).all() for f in fin):
-            raise AssertionError(f"mixtral arrival mode ({pool}): (expected,"
+            raise AssertionError(f"{arch} arrival mode ({pool}): (expected,"
                                  f" got) {bad}")
         rec["arrival"][pool] = {k: v for k, v in out.items()
                                 if k != "finished"}
+    if cfg["prefix"]:
+        rec["prefix"] = moe_prefix_smoke(smi, arch, model, params,
+                                         cfg["args"] + cfg["prefix"])
 
     runs = {}
-    chunk = dict(MIXTRAL_CHUNK)
+    chunk = dict(cfg["chunk"])
     for label, graph, kw in (
             ("dense graph", True, {}), ("dense eager", False, {}),
-            ("paged graph", True, dict(paged=True, block_size=MIXTRAL_BLOCK)),
+            ("paged graph", True, dict(paged=True, block_size=cfg["block"])),
             ("chunked graph", True, chunk),
             ("chunked eager", False, chunk),
             ("chunked paged graph", True, dict(
-                chunk, paged=True, block_size=MIXTRAL_BLOCK))):
+                chunk, paged=True, block_size=cfg["block"]))):
         runs[label] = staggered_full(model, params, graph, None,
-                                     MIXTRAL_STAGGER, MIXTRAL_T, **kw)
+                                     cfg["stagger"], cfg["T"], **kw)
     done = {k: v[0] for k, v in runs.items()}
     st = {k: v[1] for k, v in runs.items()}
     checks = {"dense graph = eager": same_runs(done["dense graph"],
@@ -2577,22 +2840,22 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
         checks["chunked = monolithic (no drops)"] = as_mono
     # scheduler ≡ generate_fixed, where the scheduler's run dropped nothing
     # (with drops there it asserts nothing, and is not run)
-    prompts, _ = stagger_requests(model.cfg.vocab_size, *MIXTRAL_STAGGER)
+    prompts, _ = stagger_requests(model.cfg.vocab_size, *cfg["stagger"])
     greedy = {}
     for u, f in done["dense graph"].items() if drops["dense graph"] == 0 \
             else ():
         moe.reset_drops()
         try:
             g = serve.check_greedy(model, params, prompts[u].to(model.device),
-                                   f, MIXTRAL_T)
+                                   f, cfg["T"])
         except AssertionError as err:
             g = dict(failed=str(err)[:200])
         g["drops"] = moe.read_drops()
         greedy[u] = g
     held = [g for g in greedy.values() if g["drops"] == 0]
-    print(f"mixtral-8x7b staggered run ({STAGGER_N} requests, prompts "
-          f"{MIXTRAL_STAGGER[0]}, budgets {MIXTRAL_STAGGER[1]}, 4 x "
-          f"{MIXTRAL_T}; {smi}): " + ", ".join(
+    print(f"{arch} staggered run ({STAGGER_N} requests, prompts "
+          f"{cfg['stagger'][0]}, budgets {cfg['stagger'][1]}, 4 x "
+          f"{cfg['T']}; {smi}): " + ", ".join(
               f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps, "
               f"{v['drops']} drops)" for k, v in st.items()) + "; " +
           ", ".join(f"{k} {'bit-identical' if v else 'DIFFER'}"
@@ -2609,15 +2872,69 @@ def mixtral_path(smi: str) -> tuple[dict[str, int], dict]:
     if not all(checks.values()) or any(
             len(f.tokens) == 0 for f in done["dense graph"].values()) or \
             any("failed" in g for g in held):
-        raise AssertionError(f"mixtral staggered run: {checks}, drops "
+        raise AssertionError(f"{arch} staggered run: {checks}, drops "
                              f"{drops}, greedy {greedy}")
     rec["staggered"] = dict(st, checks=checks, greedy=greedy,
                             chunked_as_monolithic=as_mono)
     rec["wall_s"] = time.perf_counter() - t_phase
-    print(f"mixtral-8x7b phase 5: {rec['wall_s']:.1f} s", flush=True)
+    print(f"{arch} phase 5: {rec['wall_s']:.1f} s", flush=True)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, rec
+
+
+def qwen3_path(smi: str) -> tuple[dict[str, int], dict]:
+    """Phase 5, full-width qwen3-32b (bf16 params from seed 0, nothing cut,
+    TT on ffn+attn at rank 16, ``auto``: 448 ``tt_fused2`` a pass): 4 ×
+    (256 + 32) through ``launch.serve.fixed``, fp then int8 cores
+    (``drive``: every projection replayed through its kernel, 0 captures
+    and 0 plan resolutions warm) beside one eager warm run
+    (``graph_against_eager``: bit for bit), and the decode replay traced
+    alone.  Returns the launches over the fixed-batch calls and the
+    record."""
+    per_pass = PROJ * QWEN3_LAYERS
+    launches, rec = {}, {"card": smi, "fixed": []}
+    t_phase = time.perf_counter()
+    for weights in ("fp32", "int8"):
+        kernel = "tt_fused2" + ("_int8" if weights == "int8" else "")
+        model, params, args = cli_model(QWEN3_ARGS + ["--tt-weights",
+                                                      weights])
+        label = (f"qwen3-32b, {args.batch} x {args.prompt_len} + "
+                 f"{args.steps}, {weights}")
+        eager = eager_runs(model, params, args)
+        out, launches[kernel] = drive(label, kernel, per_pass, model, params,
+                                      args)
+        r = dict(path=label, launches=out["path_launches"],
+                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
+                 peak_bytes=out["peak_bytes"],
+                 peak_reserved_bytes=out["peak_reserved_bytes"])
+        r.update(graph_against_eager(label, model, params, args, out, eager,
+                                     smi))
+        batch = serve.prompt_batch(model, args)
+        logits, cache = model.prefill(params, batch)
+        step = model.graphed_decode_step(args.batch, batch["cache_len"])
+        step.load(params, cache, args.prompt_len)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
+                                    top=6)
+        print(f"profile ({label}): {REPLAYS} decode replays alone: "
+              f"{r['replay']['kernels']:g} device kernels, "
+              f"{r['replay']['tt']:g} tt_fused2_kernel "
+              f"({r['replay']['tt_ms']:.3f} ms), "
+              f"{r['replay']['busy_ms']:.3f} ms busy, "
+              f"{r['replay']['wall_ms']:.3f} ms wall per replay; top: " +
+              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
+                        for k, ms, n in r["replay"]["top"]), flush=True)
+        if r["replay"]["tt"] != per_pass:
+            raise AssertionError(f"{label}: {r['replay']['tt']} TT kernels "
+                                 f"per decode replay, expected {per_pass}")
+        rec["fixed"].append(r)
+        del model, params, out, step, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"qwen3-32b phase 5: {rec['wall_s']:.1f} s", flush=True)
     return launches, rec
 
 
@@ -2706,6 +3023,17 @@ def main() -> int:
                                      "tt_fused2_experts_int8"),
                             "mixtral-8x7b", MIXTRAL_C)
     recs += m_recs
+    d_recs = timed("kernels deepseek-v2", dsv2_kernels, gen)
+    layers += layer_summary(d_recs, ("tt_fused2", "tt_fused2_int8"),
+                            "deepseek-v2-lite-16b", per="pass")
+    layers += layer_summary(d_recs, ("tt_fused2_experts",
+                                     "tt_fused2_experts_int8"),
+                            "deepseek-v2-lite-16b", DSV2_C, per="pass")
+    recs += d_recs
+    q_recs = timed("kernels qwen3", qwen3_kernels, gen)
+    layers += layer_summary(q_recs, ("tt_fused2", "tt_fused2_int8"),
+                            "qwen3-32b")
+    recs += q_recs
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -2717,20 +3045,28 @@ def main() -> int:
     timed("smoke chunked", small_chunked_check)
     timed("smoke gemma3", small_ring_check, "gemma3-4b")
     timed("smoke mixtral", small_ring_check, "mixtral-8x7b")
+    timed("smoke deepseek-v2", small_ring_check, "deepseek-v2-lite-16b")
+    timed("smoke deepseek-v2 prefix", small_prefix_check,
+          "deepseek-v2-lite-16b")
     launches, graph_recs = timed("deepseek fixed batch", main_paths, smi)
     fused2, sched_rec = timed("deepseek scheduler", scheduler_path, smi)
     launches["tt_fused2"] += fused2
     g_launches, gemma3_rec = timed("gemma3", gemma3_path, smi)
     for k, v in g_launches.items():
         launches[k] += v
-    m_launches, mixtral_rec = timed("mixtral", mixtral_path, smi)
-    for k, v in m_launches.items():
-        launches[k] = launches.get(k, 0) + v
+    moe_recs = {}
+    for arch in MOE_PATHS:
+        m_launches, moe_recs[arch] = timed(arch, moe_path, smi, arch)
+        for k, v in m_launches.items():
+            launches[k] = launches.get(k, 0) + v
+    q_launches, qwen3_rec = timed("qwen3-32b", qwen3_path, smi)
+    for k, v in q_launches.items():
+        launches[k] += v
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps, "graph": graph_recs,
                    "scheduler": sched_rec, "gemma3": gemma3_rec,
-                   "mixtral": mixtral_rec, "walls": walls}, f,
+                   **moe_recs, "qwen3-32b": qwen3_rec, "walls": walls}, f,
                   indent=1, default=str)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s; by "
           f"phase: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()),

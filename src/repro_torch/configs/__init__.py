@@ -1,11 +1,13 @@
 """Config registry: ``get_config(arch, variant)`` + ``build(cfg)`` → Model.
 
-The GQA decoders are ported: with a GLU MLP, deepseek-7b, granite-8b and
-gemma3-4b (sliding-window local layers between global ones, qk-norm,
-tied and scaled embeddings); with a mixture-of-experts FFN, mixtral-8x7b
-(sliding-window attention, 8 experts top-2).  Every other architecture
-of the reference registry raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+The GQA decoders are ported: with a GLU MLP, deepseek-7b, granite-8b,
+qwen3-32b (qk-norm) and gemma3-4b (sliding-window local layers between
+global ones, qk-norm, tied and scaled embeddings); with a
+mixture-of-experts FFN, mixtral-8x7b (sliding-window attention, 8 experts
+top-2).  So is deepseek-v2-lite-16b: multi-head latent attention, a dense
+first layer, then 64 experts top-6 with shared experts.  Every other
+architecture of the reference registry raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -20,12 +22,13 @@ from .base import ModelConfig, TTConfig
 if TYPE_CHECKING:                      # avoid configs ↔ models import cycle
     from repro_torch.models.model import Model
 
-PORTED = ("deepseek_7b", "gemma3_4b", "granite_8b", "mixtral_8x7b")
+PORTED = ("deepseek_7b", "gemma3_4b", "granite_8b", "mixtral_8x7b",
+          "qwen3_32b", "deepseek_v2_lite_16b")
 
 # architectures of the reference registry that are not ported yet
 PENDING = (
-    "qwen3_32b", "jamba_v0_1_52b", "deepseek_v2_lite_16b", "internvl2_2b",
-    "mamba2_2p7b", "seamless_m4t_large_v2",
+    "jamba_v0_1_52b", "internvl2_2b", "mamba2_2p7b",
+    "seamless_m4t_large_v2",
 )
 
 _PENDING_MSG = ("architecture {!r} is not ported yet (ROADMAP.md Queue 1, "
@@ -53,14 +56,16 @@ def get_config(arch: str, variant: str = "full",
 
 def make_layer_plan(cfg: ModelConfig) -> list:
     """Groups ``[(period, count)]`` of the decoder stack (the gemma3
-    local/global branch and the last branch of the reference's
+    local/global, the MLA and the last branch of the reference's
     ``make_layer_plan``): a local block attends within ``local_window`` at
     RoPE theta 10,000, the global one closes each period at
     ``rope_theta``, and the layers past the last whole period are local;
-    otherwise every layer is one GQA block (windowed when ``window`` is
-    set) with a mixture-of-experts FFN when the config has experts, else
-    the GLU MLP.  The MoE families with another mixer (MLA, the SSM
-    hybrid) are not ported."""
+    with MLA (deepseek-v2) the first layer's FFN is the dense
+    ``first_dense_ff`` MLP and every other layer's the mixture of experts
+    (every layer the GLU MLP without ``first_dense_ff``); otherwise every
+    layer is one GQA block (windowed when ``window`` is set) with a
+    mixture-of-experts FFN when the config has experts, else the GLU MLP.
+    The SSM hybrid is not ported."""
     from repro_torch.models.transformer import BlockDef
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(_PENDING_MSG.format(cfg.name))
@@ -73,6 +78,11 @@ def make_layer_plan(cfg: ModelConfig) -> list:
         if L % p:
             groups.append(((local,), L % p))
         return groups
+    if cfg.mla is not None:
+        if cfg.moe and cfg.moe.first_dense_ff:
+            return [((BlockDef("mla", ffn="dense0"),), 1),
+                    ((BlockDef("mla", ffn="moe"),), L - 1)]
+        return [((BlockDef("mla"),), L)]
     ffn = "moe" if (cfg.moe and cfg.moe.num_experts) else "mlp"
     return [((BlockDef("gqa", window=cfg.window, ffn=ffn),), L)]
 

@@ -1,10 +1,11 @@
 """Configuration dataclasses: model architecture and TT compression.
 
-The GQA subset of ``repro.configs.base`` with its attention variants
+The attention subset of ``repro.configs.base``: GQA with its variants
 (qk-norm, sliding windows, gemma3's local/global period, tied
-embeddings) and both FFNs, the GLU MLP and the mixture of experts
-(``MoEConfig``); fields of the families the port does not run yet (MLA,
-SSM, cross-attention, frontends) are left out until they are ported.
+embeddings) and multi-head latent attention (``MLAConfig``), and both
+FFNs, the GLU MLP and the mixture of experts (``MoEConfig``); fields of
+the families the port does not run yet (SSM, cross-attention, frontends)
+are left out until they are ported.
 """
 from __future__ import annotations
 
@@ -57,6 +58,14 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora: int = 512
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: Family
@@ -75,6 +84,8 @@ class ModelConfig:
     local_window: int = 1024
     # mixture of experts
     moe: MoEConfig | None = None
+    # multi-head latent attention (deepseek-v2)
+    mla: MLAConfig | None = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     tt: TTConfig = TTConfig()

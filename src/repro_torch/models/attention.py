@@ -1,8 +1,10 @@
-"""Grouped-query attention for the dense decoders (qk-norm and sliding
-windows included), in plain torch.
+"""Grouped-query attention (qk-norm and sliding windows included) and
+multi-head latent attention (MLA, deepseek-v2), in plain torch.
 
 Every projection routes through ``linear_spec``/``linear_apply``, so the TT
-technique applies to q/k/v/o ("attn" family).  Scores and the softmax are
+technique applies to q/k/v/o ("attn" family).  MLA's ``kv_down`` and
+``kv_up`` stay dense: MLA is itself a low-rank factorization of the KV
+path, so TT composes with it on q/o only.  Scores and the softmax are
 fp32, as in ``repro.models.attention``.
 
 Cache contract: full attention keeps k, v [B, S_max, KV, hd] and decode
@@ -14,7 +16,9 @@ one arena per layer and leaf, [num_blocks + 1, block, KV, hd], addressed
 through per-slot block tables; its last block is the write sentinel, and a
 ring uses the low ceil(W / block) entries of its slot's table.  The paged
 decode and the resume prefill gather the logical cache ``arena[table]``
-and run the dense pool's arithmetic on it.
+and run the dense pool's arithmetic on it.  MLA keeps the latent cache
+instead: ckv [B, S_max, kv_lora] and krope [B, S_max, rope_hd] (arenas
+[num_blocks + 1, block, kv_lora | rope_hd]), full attention only.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .layers import head_rmsnorm_apply, linear_apply, linear_spec, rope
+from .layers import (head_rmsnorm_apply, linear_apply, linear_spec,
+                     rmsnorm_apply, rmsnorm_spec, rope)
 from .spec import ParamSpec
 
 NEG_INF = -1e30
@@ -334,3 +339,194 @@ def gqa_chunk_attn_ring(p, cfg: ModelConfig, x, ring_k, ring_v,
     zero = torch.zeros((), dtype=ring_k.dtype, device=dev)
     return (y, torch.where(ok, ck.index_select(1, src), zero),
             torch.where(ok, cv.index_select(1, src), zero))
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+#
+# Prefill runs the expanded form: kv_up is applied to every position and
+# the scores are nope + rope.  Decode, the paged step, the chunk and the
+# resume run the absorbed form: q_nope is folded through kv_up's key half
+# and the scores and context are taken in the latent space, so a step
+# reads O(T · kv_lora) of cache, not O(T · H · head_dim).  The two forms
+# agree to rounding, not bit for bit, as in the reference.
+
+def mla_spec(cfg: ModelConfig, dtype=torch.float32) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk_head = m.nope_head_dim + m.rope_head_dim
+    return {"q": linear_spec(d, H * qk_head, cfg.tt, "attn", dtype),
+            # the low-rank KV path: dense by construction
+            "kv_down": linear_spec(d, m.kv_lora + m.rope_head_dim, None,
+                                   "mla", dtype),
+            "kv_norm": rmsnorm_spec(m.kv_lora, dtype),
+            "kv_up": linear_spec(m.kv_lora,
+                                 H * (m.nope_head_dim + m.v_head_dim), None,
+                                 "mla", dtype),
+            "o": linear_spec(H * m.v_head_dim, d, cfg.tt, "attn", dtype)}
+
+
+def _mla_q(p, cfg: ModelConfig, x, positions, backend):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope_hd] rotated)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = linear_apply(p["q"], x, backend).reshape(
+        B, S, cfg.num_heads, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], -1)
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_compress(p, cfg: ModelConfig, x, positions, backend):
+    """The latent cache entries of ``x``: (ckv [B,S,kv_lora] normed,
+    krope [B,S,rope_hd] rotated, one head shared by all)."""
+    m = cfg.mla
+    c = linear_apply(p["kv_down"], x, backend)
+    ckv, krope = c.split([m.kv_lora, m.rope_head_dim], -1)
+    ckv = rmsnorm_apply(p["kv_norm"], ckv, cfg.norm_eps)
+    krope = rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return ckv, krope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / np.sqrt(cfg.mla.nope_head_dim + cfg.mla.rope_head_dim)
+
+
+def mla_self_attn(p, cfg: ModelConfig, x, positions, backend="einsum"):
+    """Expanded-form causal MLA over the whole prompt (prefill).  Returns
+    (y [B,S,d], (ckv [B,S,kv_lora], krope [B,S,rope_hd])) for the cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend)
+    ckv, krope = _mla_compress(p, cfg, x, positions, backend)
+    kv = linear_apply(p["kv_up"], ckv, backend).reshape(
+        B, S, cfg.num_heads, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], -1)
+    i, j = positions[:, :, None], positions[:, None, :]
+    mask = (j <= i)[:, None]                                  # [B,1,S,T]
+    s = (torch.einsum("bshn,bthn->bhst", q_nope.float(), k_nope.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), krope.float())
+         ) * _mla_scale(cfg)
+    probs = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhst,bthv->bshv", probs, v.float())
+    y = linear_apply(p["o"], ctx.reshape(B, S, -1).to(x.dtype), backend)
+    return y, (ckv, krope)
+
+
+def _mla_absorbed_ctx(p, cfg: ModelConfig, q_nope, q_rope, cache_ckv,
+                      cache_krope, valid) -> torch.Tensor:
+    """Absorbed-form scores and context over a latent cache: q_nope/q_rope
+    [B,S,H,·], cache_ckv [B,T,kv_lora], cache_krope [B,T,rope_hd], valid
+    broadcastable to [B,H,S,T].  kv_up's weight is read as [kv_lora, H,
+    nope + v] (a view of the dense leaf, split into its key and value
+    halves).  Returns the context [B, S, H · v_head_dim] in fp32, before
+    the o projection."""
+    m = cfg.mla
+    B, S = q_nope.shape[:2]
+    w_up = p["kv_up"]["w"].view(m.kv_lora, cfg.num_heads,
+                                m.nope_head_dim + m.v_head_dim)
+    w_uk, w_uv = w_up.split([m.nope_head_dim, m.v_head_dim], -1)
+    q_eff = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk.float())
+    ckv = cache_ckv.float()
+    s = (torch.einsum("bshl,btl->bhst", q_eff, ckv)
+         + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                        cache_krope.float())) * _mla_scale(cfg)
+    probs = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
+    ctx_l = torch.einsum("bhst,btl->bshl", probs, ckv)       # latent context
+    ctx = torch.einsum("bshl,lhv->bshv", ctx_l, w_uv.float())
+    return ctx.reshape(B, S, -1)
+
+
+def mla_decode_attn(p, cfg: ModelConfig, x, cache_ckv, cache_krope,
+                    pos: torch.Tensor, backend="einsum", active=None):
+    """Absorbed-form one-token decode against the dense latent cache.
+
+    x [B,1,d]; cache_ckv [B, T, kv_lora], cache_krope [B, T, rope_hd];
+    ``pos`` and ``active`` as in ``gqa_decode_attn`` (0-d, or [B] with an
+    optional [B] bool write gate; a row at a position ≥ T writes
+    nothing).  The new latent entries are written IN PLACE.  Returns
+    (y [B,1,d], cache_ckv, cache_krope)."""
+    B, T = x.shape[0], cache_ckv.shape[1]
+    per_row = pos.dim() == 1
+    if active is not None and not per_row:
+        raise ValueError("an active mask needs a per-row position [B]")
+    positions = pos[:, None] if per_row else pos.reshape(1, 1).expand(B, 1)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend)
+    ckv, krope = _mla_compress(p, cfg, x, positions, backend)
+    idx = torch.arange(T, device=x.device)
+    if per_row:
+        wr = (idx[None, :] == pos[:, None])[:, :, None]         # [B,T,1]
+        if active is not None:
+            wr = wr & active[:, None, None]
+        torch.where(wr, ckv, cache_ckv, out=cache_ckv)
+        torch.where(wr, krope, cache_krope, out=cache_krope)
+        valid = (idx[None, :] <= pos[:, None])[:, None, None, :]  # [B,1,1,T]
+    else:
+        at = pos.reshape(1).long()
+        cache_ckv.index_copy_(1, at, ckv)
+        cache_krope.index_copy_(1, at, krope)
+        valid = (idx <= pos)[None, None, None, :]
+    ctx = _mla_absorbed_ctx(p, cfg, q_nope, q_rope, cache_ckv, cache_krope,
+                            valid)
+    return (linear_apply(p["o"], ctx.to(x.dtype), backend), cache_ckv,
+            cache_krope)
+
+
+def mla_decode_attn_paged(p, cfg: ModelConfig, x, arena_ckv, arena_kr,
+                          pos: torch.Tensor, index: PagedIndex,
+                          backend="einsum"):
+    """Absorbed-form one-token decode against block-paged latent arenas
+    [nb+1, block, kv_lora | rope_hd], through the step's full-attention
+    ``paged_index`` (its table and write address; its mask [B,1,1,1,T]
+    read as [B,1,1,T]).  Writes IN PLACE, as
+    ``gqa_decode_attn_paged``.  Returns (y [B,1,d], arena_ckv,
+    arena_kr)."""
+    B = x.shape[0]
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend)
+    ckv, krope = _mla_compress(p, cfg, x, positions, backend)
+    arena_ckv.index_put_(index.write, ckv[:, 0])
+    arena_kr.index_put_(index.write, krope[:, 0])
+    gc = arena_ckv[index.table].reshape(B, -1, arena_ckv.shape[2])
+    gr = arena_kr[index.table].reshape(B, -1, arena_kr.shape[2])
+    ctx = _mla_absorbed_ctx(p, cfg, q_nope, q_rope, gc, gr,
+                            index.valid[:, 0])                # [B,1,1,T]
+    return (linear_apply(p["o"], ctx.to(x.dtype), backend), arena_ckv,
+            arena_kr)
+
+
+def mla_chunk_attn(p, cfg: ModelConfig, x, dckv, dkr, start: torch.Tensor,
+                   backend="einsum"):
+    """Absorbed-form chunk or suffix prefill against dense latent buffers
+    dckv [1, T + S_pad, kv_lora], dkr [1, T + S_pad, rope_hd] (S_pad
+    scratch rows appended), as ``gqa_chunk_attn``: the chunk's entries are
+    written at their absolute positions, in place, and it attends causally
+    to prefix + itself.  Returns (y, dckv, dkr)."""
+    S_pad = x.shape[1]
+    positions = start + torch.arange(S_pad, dtype=torch.int32,
+                                     device=x.device)[None, :]  # [1, S_pad]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend)
+    ckv, krope = _mla_compress(p, cfg, x, positions, backend)
+    rows = positions[0].long()
+    dckv.index_copy_(1, rows, ckv.to(dckv.dtype))
+    dkr.index_copy_(1, rows, krope.to(dkr.dtype))
+    j = torch.arange(dckv.shape[1], device=x.device)[None, None, :]
+    valid = (j <= positions[:, :, None])[:, None]             # [1,1,S,T]
+    ctx = _mla_absorbed_ctx(p, cfg, q_nope, q_rope, dckv, dkr, valid)
+    return linear_apply(p["o"], ctx.to(x.dtype), backend), dckv, dkr
+
+
+def mla_resume_attn(p, cfg: ModelConfig, x, arena_ckv, arena_kr, src_b,
+                    dst_b, start: torch.Tensor, backend="einsum"):
+    """Absorbed-form suffix prefill over the latent arenas gathered through
+    ``src_b``, scattered back through ``dst_b`` IN PLACE (copy-on-write
+    where they differ), as ``gqa_resume_attn``.  Returns (y, arena_ckv,
+    arena_kr)."""
+    S_pad = x.shape[1]
+    dckv = _resume_dense(arena_ckv, src_b, S_pad)
+    dkr = _resume_dense(arena_kr, src_b, S_pad)
+    y, dckv, dkr = mla_chunk_attn(p, cfg, x, dckv, dkr, start,
+                                  backend=backend)
+    _resume_scatter(arena_ckv, dst_b, dckv)
+    _resume_scatter(arena_kr, dst_b, dkr)
+    return y, arena_ckv, arena_kr

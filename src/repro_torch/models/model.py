@@ -2,9 +2,9 @@
 a prompt-length bucket, or captured: ``padded_prefill``,
 ``bucketed_prefill``, ``graphed_prefill``), ``decode_step``,
 ``splice_cache``, ``graphed_decode_step``, ``init_cache`` and
-``quantize_params`` for the GQA decoders (gemma3's sliding-window
-ring caches and tied, scaled embeddings, and mixtral's mixture-of-experts
-FFN, included); and for the
+``quantize_params`` for the decoders (gemma3's sliding-window
+ring caches and tied, scaled embeddings, mixtral's mixture-of-experts
+FFN, and deepseek-v2's latent-cache MLA, included); and for the
 block-paged pool (DESIGN.md §7), ``init_cache(..., paged=True)``,
 ``splice_cache_paged`` and the prefix-reuse admission ``prefill_resume``
 (``resume_prefill`` buckets it and, on a card, replays it captured); and
@@ -55,9 +55,9 @@ def bucket_length(S: int, limit: int, floor: int = 16) -> int:
 
 
 class Model:
-    """One GQA decoder (full-attention, windowed or local/global; a GLU MLP
-    or a mixture-of-experts FFN in each block).  ``device=None`` means the
-    GPU; pass ``device="cpu"`` for the plain path."""
+    """One decoder (GQA full-attention, windowed or local/global, or MLA;
+    a GLU MLP or a mixture-of-experts FFN in each block).  ``device=None``
+    means the GPU; pass ``device="cpu"`` for the plain path."""
 
     def __init__(self, cfg: ModelConfig, groups: list[Group],
                  param_dtype: torch.dtype = torch.float32,
@@ -326,10 +326,11 @@ class Model:
         idx = blocks.to(device=bt.device, dtype=torch.long)
         for arena, row in zip(_kv_leaves(cache), _kv_leaves(row_cache)):
             blk = arena.shape[1]
-            r = row[0]                                # [T_row, KV, hd]
+            r = row[0]                          # [T_row, KV, hd] or [T_row, L]
             nblk = -(-r.shape[0] // blk)
             if nblk * blk != r.shape[0]:
-                r = F.pad(r, (0, 0, 0, 0, 0, nblk * blk - r.shape[0]))
+                r = F.pad(r, (0, 0) * (r.dim() - 1) +
+                          (0, nblk * blk - r.shape[0]))
             arena.index_put_((idx[:nblk],),
                              r.reshape(nblk, blk, *r.shape[1:]).to(
                                  arena.dtype))
@@ -490,17 +491,18 @@ class Model:
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """Chunked prefill covers the ported mixer, GQA with full attention
-        or a window ring (``transformer.block_chunk``)."""
-        return all(bd.mixer == "gqa" for period, _ in self.groups
+        """Chunked prefill covers the ported mixers, GQA with full attention
+        or a window ring, and MLA (``transformer.block_chunk``)."""
+        return all(bd.mixer in ("gqa", "mla") for period, _ in self.groups
                    for bd in period)
 
     @property
     def supports_prefix_reuse(self) -> bool:
         """Prefix blocks are shareable when every cache leaf is a pure
         function of the token prefix and never overwritten in place: true
-        of full attention, not of a window ring, whose contents cycle (the
-        reference also says no for SSM state and frontends, not ported)."""
+        of full attention and of MLA's latent leaves, not of a window ring,
+        whose contents cycle (the reference also says no for SSM state and
+        frontends, not ported)."""
         return all(kind == "paged" for period, _ in self.groups
                    for bd in period for kind in block_cache_kinds(bd).values())
 
@@ -508,7 +510,8 @@ class Model:
                            block: int, cache_len: int,
                            dtype: torch.dtype | None = None) -> dict:
         """(shape, dtype) tree of a block-paged pool (DESIGN.md §7): every
-        layer's k and v are arenas [num_blocks + 1, block, KV, hd] shared by
+        layer's k and v are arenas [num_blocks + 1, block, KV, hd] (MLA's
+        ckv and krope [num_blocks + 1, block, kv_lora | rope_hd]) shared by
         all slots through per-slot block tables (a window ring through the
         low entries of its slot's table); ``pos`` is [num_slots] and
         ``block_tables`` [num_slots, ceil(cache_len / block)], both int32.
@@ -557,8 +560,8 @@ class Model:
                      dtype: torch.dtype | None = None) -> dict:
         """(shape, dtype) tree of the k/v leaves of a dense cache of ``B``
         rows and ``T`` positions (no ``pos``): full attention [B, T, KV,
-        hd], a window ring [B, min(window, T), KV, hd]
-        (``transformer.block_cache_shape``)."""
+        hd], a window ring [B, min(window, T), KV, hd], MLA [B, T, kv_lora]
+        and [B, T, rope_hd] (``transformer.block_cache_shape``)."""
         dtype = self.param_dtype if dtype is None else dtype
         return {f"g{gi}": [{f"b{i}": block_cache_shape(self.cfg, bd, B, T,
                                                        dtype)

@@ -1,5 +1,6 @@
-"""Block assembly for the GQA decoders: full-attention and
-sliding-window (ring-cache) GQA blocks with a GLU MLP or a
+"""Block assembly for the decoders: full-attention and sliding-window
+(ring-cache) GQA blocks, and MLA blocks over a latent cache, with a GLU
+MLP (deepseek-v2's wider first-layer ``dense0`` included) or a
 mixture-of-experts FFN (``ffn_apply``).
 
 A model is a list of groups ``(period, count)``: ``period`` is a tuple of
@@ -17,42 +18,57 @@ from repro_torch.configs.base import ModelConfig
 from .attention import (gqa_chunk_attn, gqa_chunk_attn_ring,
                         gqa_decode_attn, gqa_decode_attn_paged,
                         gqa_resume_attn, gqa_self_attn, gqa_spec,
-                        ring_positions)
+                        mla_chunk_attn, mla_decode_attn,
+                        mla_decode_attn_paged, mla_resume_attn,
+                        mla_self_attn, mla_spec, ring_positions)
 from .layers import mlp_apply, mlp_spec, rmsnorm_apply, rmsnorm_spec
 from .moe import moe_apply, moe_spec
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
-    mixer: str = "gqa"        # only gqa is ported
+    mixer: str = "gqa"        # gqa | mla
     window: int = 0           # >0 → sliding-window attention (ring cache)
-    ffn: str = "mlp"          # mlp | moe
+    ffn: str = "mlp"          # mlp | moe | dense0 (the first_dense_ff MLP)
     theta: float | None = None  # RoPE theta; None: the config's
 
     def __post_init__(self):
-        if self.mixer != "gqa" or self.ffn not in ("mlp", "moe"):
+        if self.mixer not in ("gqa", "mla") or self.ffn not in (
+                "mlp", "moe", "dense0") or (self.mixer == "mla" and
+                                            self.window):
             raise NotImplementedError(
-                f"block {self.mixer}+{self.ffn} is not ported yet (ROADMAP.md "
-                f"Queue 1, \"Remaining families\"); only gqa with mlp or "
-                f"moe is")
+                f"block {self.mixer}+{self.ffn} (window {self.window}) is "
+                f"not ported yet (ROADMAP.md Queue 1, \"Remaining "
+                f"families\"); gqa and full-attention mla with mlp, moe "
+                f"or dense0 are")
+
+    @property
+    def cache_names(self) -> tuple[str, str]:
+        """The block's two cache leaves: k/v, or MLA's latent ckv/krope."""
+        return ("ckv", "krope") if self.mixer == "mla" else ("k", "v")
 
 
 Group = tuple[tuple[BlockDef, ...], int]
 
 
 def block_spec(cfg: ModelConfig, bd: BlockDef, dtype) -> dict:
-    ffn = (moe_spec(cfg, dtype) if bd.ffn == "moe"
-           else mlp_spec(cfg.d_model, cfg.d_ff, cfg.tt, dtype))
+    if bd.ffn == "moe":
+        ffn = moe_spec(cfg, dtype)
+    else:
+        ff = cfg.moe.first_dense_ff if (bd.ffn == "dense0" and cfg.moe) \
+            else cfg.d_ff
+        ffn = mlp_spec(cfg.d_model, ff, cfg.tt, dtype)
     return {"ln1": rmsnorm_spec(cfg.d_model, dtype),
-            "attn": gqa_spec(cfg, dtype),
+            "attn": (mla_spec if bd.mixer == "mla" else gqa_spec)(cfg, dtype),
             "ln2": rmsnorm_spec(cfg.d_model, dtype),
             "ffn": ffn}
 
 
 def ffn_apply(p, cfg: ModelConfig, bd: BlockDef, h, plans=None):
-    """The block's FFN on ``h [B, S, d]``: the GLU MLP, or the
-    mixture-of-experts FFN over the B·S tokens of this call (its capacity
-    depends on them, so each path passes the reference's token set)."""
+    """The block's FFN on ``h [B, S, d]``: the GLU MLP (``dense0`` too),
+    or the mixture-of-experts FFN over the B·S tokens of this call (its
+    capacity depends on them, so each path passes the reference's token
+    set)."""
     if bd.ffn == "moe":
         return moe_apply(p, cfg, h, plans)
     return mlp_apply(p, h, plans)
@@ -67,8 +83,13 @@ def group_spec(cfg: ModelConfig, group: Group, dtype) -> list:
 def block_cache_shape(cfg: ModelConfig, bd: BlockDef, B: int, T: int,
                       dtype) -> dict:
     """(shape, dtype) of each cache leaf of one block in a dense cache of
-    ``B`` rows and ``T`` positions: a windowed block keeps a ring of
-    min(window, T) positions."""
+    ``B`` rows and ``T`` positions: k/v [B, T, KV, hd], a windowed block
+    a ring of min(window, T) positions; MLA the latent ckv [B, T,
+    kv_lora] and krope [B, T, rope_hd]."""
+    if bd.mixer == "mla":
+        m = cfg.mla
+        return {"ckv": ((B, T, m.kv_lora), dtype),
+                "krope": ((B, T, m.rope_head_dim), dtype)}
     W = min(bd.window, T) if bd.window else T
     shape = (B, W, cfg.num_kv_heads, cfg.head_dim)
     return {"k": (shape, dtype), "v": (shape, dtype)}
@@ -77,43 +98,52 @@ def block_cache_shape(cfg: ModelConfig, bd: BlockDef, B: int, T: int,
 def block_cache_kinds(bd: BlockDef) -> dict[str, str]:
     """Paging kind of each cache leaf of one block (DESIGN.md §7):
     'paged' — token-indexed, block-pageable and prefix-shareable (full
-    attention); 'ring' — a window ring, block-pageable through the low
-    entries of the slot's table but never prefix-shared (its contents are
-    overwritten in place).  The reference's 'slot' kind comes with the
-    SSM and cross-attention families."""
+    attention, MLA's latent leaves); 'ring' — a window ring,
+    block-pageable through the low entries of the slot's table but never
+    prefix-shared (its contents are overwritten in place).  The
+    reference's 'slot' kind comes with the SSM and cross-attention
+    families."""
     kind = "ring" if bd.window else "paged"
-    return {"k": kind, "v": kind}
+    return {name: kind for name in bd.cache_names}
 
 
 def block_paged_cache_shape(cfg: ModelConfig, bd: BlockDef, num_blocks: int,
                             block: int, dtype) -> dict:
     """(shape, dtype) of each cache leaf of one block in the paged pool:
-    'paged' and 'ring' leaves are arenas [num_blocks + 1, block, KV, hd]
-    (the + 1 is the write sentinel)."""
-    shape = (num_blocks + 1, block, cfg.num_kv_heads, cfg.head_dim)
-    return {name: (shape, dtype) for name in block_cache_kinds(bd)}
+    'paged' and 'ring' leaves are arenas [num_blocks + 1, block, ...] (the
+    + 1 is the write sentinel) of one position's entry, [KV, hd] or MLA's
+    [kv_lora] and [rope_hd]."""
+    dense = block_cache_shape(cfg, bd, 1, 1, dtype)
+    return {name: ((num_blocks + 1, block) + shape[2:], dt)
+            for name, (shape, dt) in dense.items()}
 
 
 def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
               want_cache: bool, T_cache: int = 0, plans=None, out=None,
               true_len=None):
     """Full-sequence block (prefill).  Returns (x, cache or None); the
-    cache is written into ``out`` (``{"k", "v"}`` of ``block_cache_shape``)
-    when it is given.  Full attention keeps k/v zero-padded from S to
-    ``T_cache`` positions (rows past ``true_len`` are a bucket's padding,
-    beyond the cache position, masked by every later step).  A windowed
-    block keeps a ring of W = min(window, T_cache) positions built at
-    ``true_len`` (0-d int on the device, the prompt's true length): one
+    cache is written into ``out`` (``block_cache_shape``'s leaves) when it
+    is given.  Full attention keeps k/v (MLA: the latent ckv/krope of the
+    expanded-form prefill) zero-padded from S to ``T_cache`` positions
+    (rows past ``true_len`` are a bucket's padding, beyond the cache
+    position, masked by every later step).  A windowed block keeps a
+    ring of W = min(window, T_cache) positions built at ``true_len`` (0-d
+    int on the device, the prompt's true length): one
     path for every prompt, where the reference rolls or pads an
     exact-length prompt and takes this path for a bucketed one; at the
     true length they agree value for value, and no padding row reaches
     the ring."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    y, (k, v) = gqa_self_attn(p["attn"], cfg, h, positions, window=bd.window,
-                              theta=bd.theta, backend=plans)
+    if bd.mixer == "mla":
+        y, (k, v) = mla_self_attn(p["attn"], cfg, h, positions,
+                                  backend=plans)
+    else:
+        y, (k, v) = gqa_self_attn(p["attn"], cfg, h, positions,
+                                  window=bd.window, theta=bd.theta,
+                                  backend=plans)
     cache = None
     if want_cache:
-        B, S, KV, hd = k.shape
+        B, S = k.shape[:2]
         if S > T_cache:
             raise ValueError(f"prompt of {S} tokens exceeds the cache of "
                              f"{T_cache}")
@@ -123,7 +153,7 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
                                                            T_cache))
             take = held.clamp(min=0)
         cache = {}
-        for name, t in (("k", k), ("v", v)):
+        for name, t in zip(bd.cache_names, (k, v)):
             shape, _ = block_cache_shape(cfg, bd, B, T_cache, t.dtype)[name]
             if out is None:
                 buf = torch.empty(shape, dtype=t.dtype, device=t.device)
@@ -154,9 +184,19 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
     place.  ``paged``: None for the dense layout, else the step's
     ``attention.PagedIndex`` of the block tables per window (0: full
     attention), and k/v are block arenas
-    (``attention.gqa_decode_attn_paged``)."""
+    (``attention.gqa_decode_attn_paged``).  An MLA block runs the absorbed
+    form over its latent ckv/krope the same way
+    (``attention.mla_decode_attn[_paged]``)."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    if paged is not None:
+    a, b = bd.cache_names
+    if bd.mixer == "mla" and paged is not None:
+        y, nk, nv = mla_decode_attn_paged(p["attn"], cfg, h, cache[a],
+                                          cache[b], pos, paged[bd.window],
+                                          backend=plans)
+    elif bd.mixer == "mla":
+        y, nk, nv = mla_decode_attn(p["attn"], cfg, h, cache[a], cache[b],
+                                    pos, backend=plans, active=active)
+    elif paged is not None:
         y, nk, nv = gqa_decode_attn_paged(p["attn"], cfg, h, cache["k"],
                                           cache["v"], pos, paged[bd.window],
                                           theta=bd.theta, backend=plans)
@@ -167,7 +207,7 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
                                     active=active)
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), {"k": nk, "v": nv}
+    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), {a: nk, b: nv}
 
 
 def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
@@ -211,17 +251,23 @@ def block_resume(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, src_b,
     prefix gathered through ``src_b`` and scatters the updated logical
     cache back through ``dst_b`` (COW where the tables differ), in place.
     Only prefix-shareable mixers get here (``Model.supports_prefix_reuse``:
-    full-attention GQA, not a window ring)."""
+    full-attention GQA or MLA, not a window ring).  The MoE runs on the
+    suffix's tokens, the reference's token set."""
     if bd.window:
         raise ValueError(f"mixer {bd.mixer!r} (window={bd.window}) does not "
                          f"support prefix-resume prefill")
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    y, nk, nv = gqa_resume_attn(p["attn"], cfg, h, cache["k"], cache["v"],
-                                src_b, dst_b, start, theta=bd.theta,
-                                backend=plans)
+    a, b = bd.cache_names
+    if bd.mixer == "mla":
+        y, nk, nv = mla_resume_attn(p["attn"], cfg, h, cache[a], cache[b],
+                                    src_b, dst_b, start, backend=plans)
+    else:
+        y, nk, nv = gqa_resume_attn(p["attn"], cfg, h, cache[a], cache[b],
+                                    src_b, dst_b, start, theta=bd.theta,
+                                    backend=plans)
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), {"k": nk, "v": nv}
+    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), {a: nk, b: nv}
 
 
 def group_resume(params: list, group: Group, cfg: ModelConfig, x,
@@ -265,9 +311,9 @@ def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
     ``where(active, new, old)``; paged, the table's low ceil(W / block)
     blocks gathered, the ring (their first W rows) rebuilt and the blocks
     scattered back.  An inactive lane writes back the bits it read (dense)
-    or only the sentinel block (paged)."""
-    if bd.mixer != "gqa":
-        raise ValueError(f"mixer {bd.mixer!r} has no chunked prefill")
+    or only the sentinel block (paged).  MLA takes the full-attention
+    paths over its latent leaves, in the absorbed form
+    (``attention.mla_chunk_attn``)."""
     C = x.shape[1]
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     idx = slot.reshape(1).long()
@@ -297,13 +343,18 @@ def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
         return block_resume(p, cfg, bd, x, cache, table, table, start,
                             plans=plans)
     else:
-        old = {n: cache[n].index_select(0, idx) for n in ("k", "v")}
-        T = old["k"].shape[1]
+        names = bd.cache_names
+        old = {n: cache[n].index_select(0, idx) for n in names}
+        T = old[names[0]].shape[1]
         dk, dv = (torch.cat([r, r.new_zeros((1, C, *r.shape[2:]))], 1)
-                  for r in (old["k"], old["v"]))
-        y, dk, dv = gqa_chunk_attn(p["attn"], cfg, h, dk, dv, start,
-                                   theta=bd.theta, backend=plans)
-        for name, new in (("k", dk), ("v", dv)):
+                  for r in old.values())
+        if bd.mixer == "mla":
+            y, dk, dv = mla_chunk_attn(p["attn"], cfg, h, dk, dv, start,
+                                       backend=plans)
+        else:
+            y, dk, dv = gqa_chunk_attn(p["attn"], cfg, h, dk, dv, start,
+                                       theta=bd.theta, backend=plans)
+        for name, new in zip(names, (dk, dv)):
             cache[name].index_copy_(0, idx, torch.where(active, new[:, :T],
                                                         old[name]))
     x = x + y

@@ -746,3 +746,151 @@ def test_expert_geometry_fills_the_last_wave_with_rows(name, C, w_bytes):
     waves = -(-8 * -(-C // 16) // 132)
     assert -(-geo.grid[0] // 132) == waves
     assert 8 * -(-C // (geo.bb - 1)) > waves * 132
+
+
+# deepseek-v2-lite-16b's projections at rank 16, length 2 (``plan_for``):
+# q 2048→3072, o 2048→2048, the shared experts' gate/up 2048→2816 and down
+# 2816→2048, the dense first layer's gate/up 2048→10944 and down
+# 10944→2048 (m1 and n2 of 1,368: no multiple of 16), and the 64 experts'
+# gate/up 2048→1408 and down 1408→2048
+DSV2 = {"q": (8, 256, 384, 8, 16), "o": (8, 256, 256, 8, 16),
+        "shared_gate_up": (8, 256, 352, 8, 16),
+        "shared_down": (8, 352, 256, 8, 16),
+        "dense0_gate_up": (8, 256, 1368, 8, 16),
+        "dense0_down": (8, 1368, 256, 8, 16),
+        "experts_gate_up": (8, 256, 176, 8, 16),
+        "experts_down": (8, 176, 256, 8, 16)}
+# qwen3-32b's: q 5120→8192, k/v 5120→1024, o 8192→5120, gate/up
+# 5120→25600, down 25600→5120
+QWEN3 = {"q": (8, 640, 1024, 8, 16), "kv": (8, 640, 128, 8, 16),
+         "o": (8, 1024, 640, 8, 16), "gate_up": (8, 640, 3200, 8, 16),
+         "down": (8, 3200, 640, 8, 16)}
+PLAIN_DSV2 = [k for k in DSV2 if not k.startswith("experts")]
+
+
+@pytest.mark.parametrize("B,shapes,name,want", [
+    # decode: one row tile × 8 i2 groups, m1 cut into 11–16 slices; the
+    # dense0 gate/up's 1,368 columns in 15 slices of 96 (the last 24 wide)
+    (4, DSV2, "q", (4, 1, 32, 96, 32, (1, 8, 12))),
+    (4, DSV2, "o", (4, 1, 16, 96, 16, (1, 8, 16))),
+    (4, DSV2, "shared_gate_up", (4, 1, 32, 96, 32, (1, 8, 11))),
+    (4, DSV2, "shared_down", (4, 1, 16, 128, 16, (1, 8, 16))),
+    (4, DSV2, "dense0_gate_up", (4, 1, 96, 96, 96, (1, 8, 15))),
+    (4, DSV2, "dense0_down", (4, 1, 16, 208, 16, (1, 8, 16))),
+    # prefill (4 × 64) and the 4 × 512 fixed batch: whole-m2 blocks of 2
+    # rows, no slices; dense0's 1,368 columns in one slice of 1,376
+    (256, DSV2, "q", (2, 8, 384, 64, 256, (128, 1, 1))),
+    (256, DSV2, "dense0_gate_up", (2, 8, 1376, 64, 256, (128, 1, 1))),
+    (2048, DSV2, "dense0_gate_up", (2, 8, 1376, 64, 256, (1024, 1, 1))),
+    (2048, DSV2, "dense0_down", (2, 8, 256, 64, 256, (1024, 1, 1))),
+    (2048, DSV2, "shared_down", (2, 8, 256, 64, 256, (1024, 1, 1))),
+    (4, QWEN3, "q", (4, 1, 64, 208, 64, (1, 8, 16))),
+    (4, QWEN3, "kv", (4, 1, 16, 208, 16, (1, 8, 8))),
+    (4, QWEN3, "o", (4, 1, 48, 208, 48, (1, 8, 14))),
+    (4, QWEN3, "gate_up", (4, 1, 208, 208, 208, (1, 8, 16))),
+    (4, QWEN3, "down", (4, 1, 48, 208, 48, (1, 8, 14))),
+    (256, QWEN3, "q", (2, 8, 1024, 64, 256, (128, 1, 1))),
+    (256, QWEN3, "kv", (2, 8, 128, 64, 128, (128, 1, 1))),
+    (256, QWEN3, "o", (2, 8, 640, 64, 256, (128, 1, 1))),
+    (256, QWEN3, "gate_up", (2, 8, 3200, 64, 256, (128, 1, 1))),
+    (1024, QWEN3, "down", (2, 8, 640, 64, 256, (512, 1, 1))),
+], ids=lambda v: v if isinstance(v, (str, int)) else None)
+def test_launch_geometry_at_deepseek_v2_and_qwen3_shapes(B, shapes, name,
+                                                         want):
+    """The plain entry's tiles at the new shapes, unchanged rules: decode
+    fills 96–128 SMs, prefill takes whole-m2 blocks of 2 rows."""
+    dims = shapes[name]
+    geo = tt_contract.fused2_geometry(B, dims, 2, 2, 132, 232_448)
+    assert (geo.bb, geo.g, geo.nc, geo.kc, geo.nct, geo.grid) == want
+    assert geo.smem == tt_contract.fused2_smem_bytes(
+        dims[0], dims[4], geo.bb, geo.g, geo.kc, geo.nct, 2, 2) <= 232_448
+
+
+@pytest.mark.parametrize("act_bytes,w_bytes", [(2, 2), (2, 1), (4, 4),
+                                               (4, 1)],
+                         ids=["bf16", "bf16-int8", "fp32", "fp32-int8"])
+@pytest.mark.parametrize("B", [4, 256])
+@pytest.mark.parametrize("name", [f"dsv2-{k}" for k in PLAIN_DSV2] +
+                         [f"qwen3-{k}" for k in QWEN3])
+def test_fused2_launch_covers_deepseek_v2_and_qwen3_shapes(
+        fake_launch, name, B, act_bytes, w_bytes):
+    """Every activation and core dtype through the plain entry: the
+    arguments are the geometry, the grid covers every row and column (the
+    ragged 1,368 included) without recomputing stage 1 across i2, the
+    block fits shared memory."""
+    model, key = name.split("-", 1)
+    n1, n2, m1, m2, r1 = dims = (DSV2 if model == "dsv2" else QWEN3)[key]
+    act = torch.bfloat16 if act_bytes == 2 else torch.float32
+    int8 = w_bytes == 1
+    wd = torch.int8 if int8 else act
+    x = torch.zeros(B, n1 * n2, dtype=act)
+    p2 = torch.zeros(n2, m2 * r1, dtype=wd)
+    p1 = torch.zeros(n1 * r1, m1, dtype=wd)
+    kernel = "tt_fused2_int8" if int8 else "tt_fused2"
+    y = tt_contract._launch_fused2(kernel, x, p2, p1,
+                                   torch.ones(2) if int8 else None, dims)
+    assert y.shape == (B, m1 * m2) and y.dtype == act
+    (fn, args), = fake_launch.calls
+    geo = tt_contract.fused2_geometry(B, dims, act_bytes, w_bytes, 132,
+                                      232_448)
+    k = 5 if int8 else 4
+    assert args[k:k + 6] == (B, n1, n2, m1, m2, r1)
+    assert args[k + 6:] == (geo.bb, geo.g, geo.nc, geo.kc, geo.nct,
+                            geo.smem, 7)
+    assert geo.g * geo.grid[1] >= m2 and geo.bb * geo.grid[0] >= B
+    assert geo.nc * geo.grid[2] >= m1 > geo.nc * (geo.grid[2] - 1)
+    assert geo.smem <= 232_448
+    assert tt_contract.launch_counts() == {kernel: 1}
+
+
+@pytest.mark.parametrize("C,name,want", [
+    # one row and decode (4 tokens × 6 of 64 experts: C = 8): 128 blocks,
+    # gate/up 4 i2 a block and its 176 columns whole, down every i2 and
+    # m1 in 2 slices
+    (1, "experts_gate_up", (1, 4, 176, 96, 32, (64, 2, 1))),
+    (1, "experts_down", (1, 8, 128, 64, 32, (64, 1, 2))),
+    (8, "experts_gate_up", (8, 4, 176, 96, 32, (64, 2, 1))),
+    (8, "experts_down", (8, 8, 128, 64, 32, (64, 1, 2))),
+    # a 64-token chunk (C = 8 too) and 20 rows: 2 tiles of 10 rows
+    (20, "experts_gate_up", (10, 8, 176, 80, 32, (128, 1, 1))),
+    (20, "experts_down", (10, 8, 256, 64, 32, (128, 1, 1))),
+    # an admission at the 256 bucket (C = 128) and the 4 × 512 prefill
+    # (C = 256): 16-row tiles, every i2, 4 and 8 waves of 128 blocks
+    (128, "experts_gate_up", (16, 8, 176, 64, 32, (512, 1, 1))),
+    (128, "experts_down", (16, 8, 256, 64, 32, (512, 1, 1))),
+    (256, "experts_gate_up", (16, 8, 176, 64, 32, (1024, 1, 1))),
+    (256, "experts_down", (16, 8, 256, 64, 32, (1024, 1, 1))),
+])
+def test_expert_geometry_at_64_experts(C, name, want):
+    """``fused2_expert_geometry`` in bf16 (the tall body) across 64
+    experts: the experts fold into the first grid axis and every capacity
+    gives 90% of the 132 SMs a block."""
+    dims = DSV2[name]
+    for w_bytes in (2, 1):
+        geo = tt_contract.fused2_expert_geometry(C, dims, 2, w_bytes, 132,
+                                                 232_448, 64)
+        assert (geo.bb, geo.g, geo.nc, geo.kc, geo.nct, geo.grid) == want
+        assert geo.smem == tt_contract.fused2_tall_smem_bytes(
+            dims[0], dims[4], geo.bb, geo.g, geo.kc, geo.nct,
+            w_bytes) <= 232_448
+        assert geo.grid[0] * geo.grid[1] * geo.grid[2] >= 118
+        tiles = geo.grid[0] // 64
+        assert geo.grid[0] == 64 * tiles and geo.bb * tiles >= C
+
+
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("name", ["experts_gate_up", "experts_down"])
+def test_tall_blocks_cover_64_experts(name, C):
+    """At deepseek-v2's expert shapes and the decode capacities the tall
+    blocks write every output of the 64 experts once and agree with the
+    plain version."""
+    from repro_torch.kernels.ref import tt_fused2_experts_ref
+    dims = DSV2[name]
+    x, p2, p1, _, _, _ = _expert_inputs(64, C, dims, False, seed=5)
+    geo = tt_contract.fused2_expert_geometry(C, dims, 2, 2, 132, 232_448,
+                                             64)
+    got, writes = _tall_mirror(x, p2, p1, None, dims, geo)
+    assert bool((writes == 1).all())
+    want = tt_fused2_experts_ref(x, p2, p1, dims).float()
+    err = float((got.float() - want).abs().max())
+    assert err <= 1e-2 * float(want.abs().max())

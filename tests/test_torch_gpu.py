@@ -37,6 +37,11 @@ CASES = [
 FULL_WIDTH = [(8, 512, 512, 8, 16, B) for B in (4, 256)] + [
     (8, 512, 1376, 8, 16, B) for B in (4, 256)] + [
     (8, 1376, 512, 8, 16, B) for B in (4, 256)]
+# deepseek-v2-lite's dense first layer: m1 and n2 of 1,368, no multiple of
+# 16 (ragged m1 slices, a stage-1 depth that is no multiple of mma's k16,
+# int8 P1 rows of 1,368 bytes that take the scalar staging loop)
+DSV2_DENSE0 = [(8, 256, 1368, 8, 16, B) for B in (4, 256)] + [
+    (8, 1368, 256, 8, 16, B) for B in (4, 256)]
 # max |kernel − plain| / max |plain|: fp32 differs only in summation order;
 # a bf16 output is rounded to 8 significant bits on both sides
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -66,7 +71,8 @@ def _inputs(dims, B, act, int8, device, seed=0):
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("n1,n2,m1,m2,r1,B", CASES + FULL_WIDTH)
+@pytest.mark.parametrize("n1,n2,m1,m2,r1,B", CASES + FULL_WIDTH +
+                         DSV2_DENSE0)
 def test_fused2_kernel_matches_plain(cuda, n1, n2, m1, m2, r1, B, act,
                                      int8):
     dims = (n1, n2, m1, m2, r1)
@@ -1198,6 +1204,10 @@ MIXTRAL_EXPERTS = ((8, 512, 1792, 8, 16), (8, 1792, 512, 8, 16))
 EXPERT_CASES = [(3, 5, 2, 8, 4, 2, 3), (4, 13, 2, 86, 43, 2, 4),
                 (4, 37, 2, 86, 43, 2, 3)] + [
     (8, C, *dims) for C in (1, 8, 20, 128, 640) for dims in MIXTRAL_EXPERTS]
+# deepseek-v2-lite's 64 experts (gate/up 2048→1408, down 1408→2048)
+DSV2_EXPERTS = ((8, 256, 176, 8, 16), (8, 176, 256, 8, 16))
+EXPERT_CASES += [(64, C, *dims) for C in (1, 8, 20, 128, 256)
+                 for dims in DSV2_EXPERTS]
 
 
 def _expert_inputs(E, C, dims, act, int8, device, seed=0):
@@ -1357,3 +1367,101 @@ def test_mixtral_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
         for uid in got:
             assert np.array_equal(got[uid].tokens, want[uid].tokens), uid
             assert np.array_equal(got[uid].logprobs, want[uid].logprobs), uid
+
+
+def _deepseek_v2(device, weights="fp32"):
+    """deepseek-v2-lite SMOKE (MLA, a dense first layer, 4 experts top-2
+    with a shared one, dropless), TT on ffn+attn at rank 4, ``auto``."""
+    cfg = get_config("deepseek-v2-lite-16b", "smoke", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+        backend="auto", weights=weights))
+    model = build(cfg, device=device)
+    params = model.init(0)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params
+
+
+@pytest.mark.parametrize("weights", ["fp32", "int8"])
+def test_deepseek_v2_prefill_and_decode_replays_are_eager(cuda, weights):
+    """The captured prefill (a prompt of 20 in the 32 bucket) and 16
+    absorbed-form decode replays against the eager prefill and steps, bit
+    for bit, with both TT kernels inside the graphs."""
+    model, params = _deepseek_v2(cuda, weights)
+    batch = _prompt(model, 5, B=2, S=20, T=48)
+    tokens = torch.nn.functional.pad(batch["tokens"], (0, 12))
+    graph = model.graphed_prefill(2, 32, 48)
+    graph(params, tokens, 20)                       # the capture
+    g_logits, g_cache = graph(params, tokens, 20)
+    e_logits, e_cache = model.prefill(params, {
+        "tokens": tokens, "cache_len": 48, "prompt_len": 20})
+    assert torch.equal(g_logits, e_logits)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_cache),
+                                                 tree_leaves(e_cache)))
+    step = model.graphed_decode_step(2, 48)
+    step.load(params, g_cache, 20)
+    tok = e_logits[:, -1].argmax(-1, keepdim=True)
+    for t in range(16):
+        want, e_cache = model.decode_step(params, e_cache, tok)
+        got = step(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    sfx = "_int8" if weights == "int8" else ""
+    # q, o and the dense MLP's 3 in layer 0; q, o, the shared MLP's 3 and
+    # the experts' 3 in each of the 2 MoE layers
+    assert step.captured.get("tt_fused2" + sfx) == 5 + 2 * 5
+    assert step.captured.get("tt_fused2_experts" + sfx) == 2 * 3
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(chunk_prefill=True, chunk_size=8, prefill_budget=16)],
+    ids=["monolithic", "chunk8x2"])
+def test_deepseek_v2_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
+    """Prompts of 20, 24 (sharing the first 16 tokens) and the first again
+    through 2 slots over 48 positions: the dense pool through the graphs
+    against eager, and the paged pool (blocks of 4, prefix reuse on: the
+    resume and its copy on write) through the graphs and eagerly, the
+    tokens identical and the logprobs bit for bit where the two runs take
+    the same form (dense against paged prefix hits: the absorbed resume
+    against the expanded prefill, within 1e-4)."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _deepseek_v2(cuda)
+    first = _prompt(model, 90, B=1, S=20)["tokens"]
+    second = torch.cat([first[:, :16],
+                        _prompt(model, 91, B=1, S=8)["tokens"]], 1)
+    prompts = [first, second, first]
+
+    def run(**extra):
+        sched = Scheduler(model, params, num_slots=2, cache_len=48, **kw,
+                          **extra)
+        for uid, tokens in enumerate(prompts):
+            sched.submit(Request(uid=uid, inputs={"tokens": tokens},
+                                 max_new_tokens=5))
+            sched.step()
+            if uid == 1:
+                sched.run()
+        sched.run()
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+        return {f.uid: f for f in sched.finished}, sched.stats()
+
+    dense, _ = run()
+    runs = {k: run(**extra) for k, extra in (
+        ("dense eager", dict(graph=False)),
+        ("paged", dict(paged=True, block_size=4)),
+        ("paged eager", dict(paged=True, block_size=4, graph=False)))}
+    assert runs["paged"][1]["prefix_hit_tokens"] > 0
+    for k, (got, _) in runs.items():
+        assert sorted(got) == sorted(dense) == [0, 1, 2]
+        for uid in got:
+            assert np.array_equal(got[uid].tokens, dense[uid].tokens), k
+            if k == "dense eager":
+                assert np.array_equal(got[uid].logprobs,
+                                      dense[uid].logprobs), k
+            else:
+                np.testing.assert_allclose(got[uid].logprobs,
+                                           dense[uid].logprobs, atol=1e-4)
+    paged, eager = runs["paged"][0], runs["paged eager"][0]
+    for uid in paged:
+        assert np.array_equal(paged[uid].logprobs, eager[uid].logprobs)
