@@ -23,8 +23,10 @@ Phases, each fatal on failure:
      (``dsv2_kernels``): fused2 at its six plain shapes (q, o, the shared
      experts, the dense first layer's ragged 1,368 modes) at 256 and 4
      rows, and the expert kernel across 64 experts at C = 256, 128 and 8,
-     untimed at 1 and 20; and fused2 at qwen3-32b's five shapes at 256 and
-     4 rows (``qwen3_kernels``);
+     untimed at 1 and 20; fused2 at qwen3-32b's five shapes at 256 and
+     4 rows (``qwen3_kernels``); and fused2 at mamba2-2.7b's in_proj (m1
+     = 1,322: P1 rows 16-byte aligned in no dtype) and out_proj at 4, 256
+     and 4,096 rows (``mamba2_kernels``);
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
      take; fused2, the fused chain and the length-2 steps also with L2
@@ -59,7 +61,10 @@ Phases, each fatal on failure:
      first layer, 4 experts top-2 with a shared one), with its paged
      shared-prefix pair and full cover (resumes, a copy on write) card
      against CPU, prefix counters and drops (0) included
-     (``small_prefix_check``);
+     (``small_prefix_check``); and mamba2 SMOKE (2 SSD blocks) through
+     ``small_ring_check`` with ``SSM_MODES``: the fixed batch, and the
+     dense, paged (no arena) and chunked schedulers at chunks of 1, 5 and
+     40, both pools;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -121,9 +126,21 @@ Phases, each fatal on failure:
      smoke on the paged pool (hits, skipped prefill tokens, drops); then
      full-width qwen3-32b (``qwen3_path``: 448 ``tt_fused2`` a pass), 4 ×
      (256 + 32) through ``launch.serve.fixed``, fp and int8 cores, beside
-     an eager warm run (bit for bit).  deepseek-7b's length-3 and
-     ``cuda_step`` fixed-batch paths and its continuous-batching paths run
-     at ``CUT_LAYERS`` of its 30 layers.
+     an eager warm run (bit for bit); then full-width mamba2-2.7b
+     (``mamba2_path``: TT on ffn, 128 ``tt_fused2`` a pass), 4 × (1,024 +
+     64) through ``launch.serve.fixed`` with fp and int8 cores beside an
+     eager warm run (bit for bit, the fp32 state included), the decode
+     replay, the prefill replay and one SSD mixer (plain and masked)
+     traced alone, and a staggered run of 6 requests (prompts of
+     256–1,024), dense, paged and chunked at 64: graph ≡ eager ≡ paged bit
+     for bit, each chunked request against ``generate_fixed`` measured;
+     then the dense and chunked runs again with the weights in fp32 and
+     the scan in fp64, each request held against ``generate_fixed``
+     within 1e-4.
+     deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
+     continuous-batching paths run at ``CUT_LAYERS`` of its 30 layers;
+     mixtral-8x7b's and deepseek-v2-lite-16b's continuous-batching paths
+     at ``MOE_CUT_LAYERS``, gemma3-4b's at ``GEMMA3_CUT_LAYERS``.
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
@@ -131,8 +148,8 @@ the eager back-to-back time of each kernel is recorded beside them.  Every
 record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
 the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
-together, gemma3-4b's, mixtral-8x7b's, deepseek-v2-lite-16b's and
-qwen3-32b's included (``tt_fused2_int8``: their int8 fixed batches too;
+together, gemma3-4b's, mixtral-8x7b's, deepseek-v2-lite-16b's,
+qwen3-32b's and mamba2-2.7b's included (``tt_fused2_int8``: their int8 fixed batches too;
 the expert kernels: mixtral's and deepseek-v2's); its times are
 deepseek-7b's layer, and for the expert-batched kernels mixtral-8x7b's (3
 expert projections, 8 experts × 8 rows).
@@ -143,6 +160,7 @@ limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -369,12 +387,43 @@ QWEN3_LAYERS = 64
 QWEN3_ARGS = ["--arch", "qwen3-32b", "--variant", "full", "--tt",
               "ffn,attn", "--tt-rank", "16", "--seed", "0", "--tt-backend",
               "auto", "--batch", "4", "--prompt-len", "256", "--steps", "32"]
+# mamba2-2.7b (64 attention-free layers, each a Mamba-2 SSD mixer with no
+# FFN; d_inner 5,120, 80 heads of 64, d_state 128, chunk 256): its two TT
+# projections at rank 16, length 2, one launch each a layer (128 a pass);
+# in_proj's m1 of 1,322 gives P1 rows 16-byte aligned in no dtype.  Timed
+# at decode (4 rows), an admission (256) and the 4 × 1,024 prefill (4,096)
+MAMBA2_SHAPES = {
+    "mamba2 in_proj 2560->10576": (((8, 320), (1322, 8), (1, 16, 1)), 64),
+    "mamba2 out_proj 5120->2560": (((8, 640), (320, 8), (1, 16, 1)), 64),
+}
+MAMBA2_ROWS, MAMBA2_LAYERS = (4, 256, 4096), 64
+# phase 5 at full width: the fixed batch of 4 prompts of 1,024 tokens (4
+# chunks of 256: the inter-chunk scan runs) and 64 new ones; the staggered
+# run of 6 requests, prompts of 256–1,024 tokens, budgets of 8–16, on 4 ×
+# 1,040, dense, paged (blocks of 16, no arena) and chunked at 64 (of 8
+# requests the phase took 176.3 s); the dense and chunked runs again with
+# the weights in fp32 and the scan in fp64
+MAMBA2_ARGS = ["--arch", "mamba2-2.7b", "--variant", "full", "--tt", "ffn",
+               "--tt-rank", "16", "--seed", "0", "--tt-backend", "auto"]
+MAMBA2_FIXED = ["--batch", "4", "--prompt-len", "1024", "--steps", "64"]
+MAMBA2_STAGGER, MAMBA2_T, MAMBA2_N = ((256, 1024), (8, 16)), 1040, 6
+MAMBA2_BLOCK, MAMBA2_CHUNK = 16, dict(chunk_prefill=True, chunk_size=64)
 # deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
 # continuous-batching paths (dense, paged, chunked) run at this depth (of
 # 30), to keep the script within its time on a slower host with the two
 # families above (806.7 s on one host, 1,055.0 on another, before the
 # continuous-batching paths were cut)
 CUT_LAYERS = 10
+# mixtral-8x7b's and deepseek-v2-lite-16b's continuous-batching paths
+# (arrivals, prefix smoke, staggered runs) run at this depth (of 32 and
+# 27), to keep the script within its time with mamba2-2.7b's phases (the
+# whole script took 860.1 s before they joined; the two families' phase 5
+# 175.4 and 175.8 s, most of it in their eager staggered runs)
+MOE_CUT_LAYERS = 8
+# gemma3-4b's continuous-batching paths (arrivals, staggered runs) run at
+# this depth (of 34): one period of five local layers and a global one
+# (the script took 980.0 s on a slow host before, gemma3's phase 5 147.4 s)
+GEMMA3_CUT_LAYERS = 6
 
 
 def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
@@ -1258,19 +1307,19 @@ def cli_model(argv):
     return (*serve.setup(args), args)
 
 
-def cut_model(argv, length: int = 2):
-    """(model, params, serve flags) of deepseek-7b at full width and
-    ``CUT_LAYERS`` layers, at TT ``length``, built as ``launch.serve.setup``
-    builds it from the serve flags ``argv`` (backend, weights), through
+def cut_model(argv, length: int = 2, layers: int = CUT_LAYERS):
+    """(model, params, serve flags) of the serve flags' architecture
+    (deepseek-7b by default) at full width and ``layers`` layers, at TT
+    ``length``, built as ``launch.serve.setup`` builds it from the serve
+    flags ``argv`` (families, backend, weights), through
     ``get_config``/``build``/``init`` (the CLI has no length or depth
     flag)."""
-    import dataclasses
     args = serve.parse_args(argv)
-    cfg = get_config("deepseek-7b", "full", tt=TTConfig(
-        enabled=True, families=("ffn", "attn"), rank=args.tt_rank,
-        length=length, min_factor=8, backend=args.tt_backend,
-        weights=args.tt_weights))
-    cfg = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+    cfg = get_config(args.arch, "full", tt=TTConfig(
+        enabled=True, families=tuple(args.tt.split(",")),
+        rank=args.tt_rank, length=length, min_factor=8,
+        backend=args.tt_backend, weights=args.tt_weights))
+    cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build(cfg, param_dtype=torch.bfloat16)
     params = model.init(args.seed)
     if args.tt_weights == "int8":
@@ -1319,23 +1368,23 @@ def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
     return launches, recs
 
 
-def stagger_requests(vocab: int, lens=STAGGER_LENS, budgets=STAGGER_BUDGETS
-                     ) -> tuple[list, np.ndarray]:
-    """The staggered run's ``STAGGER_N`` prompts [1, S] and budgets, their
+def stagger_requests(vocab: int, lens=STAGGER_LENS, budgets=STAGGER_BUDGETS,
+                     count: int = STAGGER_N) -> tuple[list, np.ndarray]:
+    """The staggered run's ``count`` prompts [1, S] and budgets, their
     lengths and budgets uniform within ``lens`` and ``budgets``, drawn by
     numpy from seed 0."""
     rng = np.random.default_rng(0)
-    n = rng.integers(lens[0], lens[1] + 1, STAGGER_N)
-    b = rng.integers(budgets[0], budgets[1] + 1, STAGGER_N)
+    n = rng.integers(lens[0], lens[1] + 1, count)
+    b = rng.integers(budgets[0], budgets[1] + 1, count)
     return [torch.from_numpy(rng.integers(0, vocab, (1, k), dtype=np.int64))
             for k in n], b
 
 
 def staggered_full(model, params, graph: bool, check=None,
                    stagger=(STAGGER_LENS, STAGGER_BUDGETS),
-                   cache_len: int = 64 + PASSES, **paged
-                   ) -> tuple[dict, dict]:
-    """The step-indexed staggered run at full width: ``STAGGER_N`` requests
+                   cache_len: int = 64 + PASSES, count: int = STAGGER_N,
+                   **paged) -> tuple[dict, dict]:
+    """The step-indexed staggered run at full width: ``count`` requests
     (``stagger_requests`` of the (lengths, budgets) ``stagger``) through a
     4-slot pool over ``cache_len`` positions (``paged``: the paged pool's
     and chunked prefill's ``Scheduler`` arguments); four are submitted
@@ -1343,7 +1392,8 @@ def staggered_full(model, params, graph: bool, check=None,
     ``check(sched)`` after every step.  A paged pool must leak no block.
     ({uid: finished}, the scheduler's stats with the wall seconds and the
     MoE assignments dropped in the run)."""
-    prompts, budgets = stagger_requests(model.cfg.vocab_size, *stagger)
+    prompts, budgets = stagger_requests(model.cfg.vocab_size, *stagger,
+                                        count)
     sched = Scheduler(model, params, num_slots=4, cache_len=cache_len,
                       graph=graph, **paged)
 
@@ -1356,8 +1406,8 @@ def staggered_full(model, params, graph: bool, check=None,
     for i in range(4):
         submit(i)
     nxt, k = 4, 0
-    while nxt < STAGGER_N or not sched.idle:
-        if nxt < STAGGER_N and k and k % 3 == 0:
+    while nxt < count or not sched.idle:
+        if nxt < count and k and k % 3 == 0:
             submit(nxt)
             nxt += 1
         sched.step()
@@ -2149,10 +2199,32 @@ def smoke_schedule(model, params, prompts, **kw) -> dict:
                       if k not in ("admit_s", "kv_pool_bytes")}}
 
 
-def small_ring_check(arch: str = "gemma3-4b") -> None:
-    """Phase 4, SMOKE of a ring-cache or MoE model (gemma3: window 16;
+# phase 4's scheduler modes: the pools and chunkings ``small_ring_check``
+# runs by default, and mamba2's (chunks of 1, 5 and the whole longest
+# prompt, both pools)
+RING_MODES = {"dense": {}, "paged": dict(paged=True, block_size=4),
+              "chunk8 dense": dict(chunk_prefill=True, chunk_size=8,
+                                   prefill_budget=16),
+              "chunk8 paged": dict(chunk_prefill=True, chunk_size=8,
+                                   prefill_budget=16, paged=True,
+                                   block_size=4),
+              "chunk24 dense": dict(chunk_prefill=True, chunk_size=24),
+              "chunk24 paged": dict(chunk_prefill=True, chunk_size=24,
+                                    paged=True, block_size=8)}
+SSM_MODES = {"dense": {}, "paged": dict(paged=True, block_size=4)}
+for _c in (1, 5, 40):
+    SSM_MODES[f"chunk{_c} dense"] = dict(chunk_prefill=True, chunk_size=_c,
+                                         prefill_budget=2 * _c)
+    SSM_MODES[f"chunk{_c} paged"] = dict(SSM_MODES[f"chunk{_c} dense"],
+                                         paged=True, block_size=4)
+
+
+def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
+                     ) -> None:
+    """Phase 4, SMOKE of a ring-cache, MoE or SSM model (gemma3: window 16;
     mixtral: window 32 and 4 experts top-2, dropless; deepseek-v2-lite:
-    MLA over latent caches, 4 experts top-2 and a shared one, dropless; the
+    MLA over latent caches, 4 experts top-2 and a shared one, dropless;
+    mamba2: 2 SSD blocks, d_state 16, with ``SSM_MODES``; the
     staggered prompts share no prefix) on the card against the CPU,
     same weights, fp32 and int8 cores: the fixed batch (prompts of 24 and
     40 into caches of 48 and 64; gemma3's rings wrap): the prefill and 16
@@ -2160,19 +2232,12 @@ def small_ring_check(arch: str = "gemma3-4b") -> None:
     captured prefill and decode, logits within 1e-4, and
     ``generate_fixed``'s greedy tokens identical; then the schedulers of
     ``smoke_schedule``, dense, paged (block 4) and chunked (chunks of 8
-    over 2 lanes and of 24, both pools), through the graphs: tokens
-    identical, logprobs within 1e-4, slots, counters and drop counts
-    equal.  Only the path's fused2 kernels run (the experts through
-    ``tt_fused2_experts``), none of the prefix cache's hits."""
-    modes = {"dense": {}, "paged": dict(paged=True, block_size=4),
-             "chunk8 dense": dict(chunk_prefill=True, chunk_size=8,
-                                  prefill_budget=16),
-             "chunk8 paged": dict(chunk_prefill=True, chunk_size=8,
-                                  prefill_budget=16, paged=True,
-                                  block_size=4),
-             "chunk24 dense": dict(chunk_prefill=True, chunk_size=24),
-             "chunk24 paged": dict(chunk_prefill=True, chunk_size=24,
-                                   paged=True, block_size=8)}
+    over 2 lanes and of 24, both pools; ``modes``), through the graphs:
+    tokens identical, logprobs within 1e-4, slots (block ids included),
+    counters and drop counts equal, the prefix counters 0 (the paged pools
+    ask for the prefix cache).  Only the path's fused2 kernels run (the
+    experts through ``tt_fused2_experts``), none of the prefix cache's
+    hits."""
     for weights in ("fp32", "int8"):
         gpu, p_gpu, cpu, p_cpu = smoke_models(weights, arch)
         sfx = "_int8" if weights == "int8" else ""
@@ -2207,7 +2272,7 @@ def small_ring_check(arch: str = "gemma3-4b") -> None:
                                               16).tokens.cpu(),
                                generate_fixed(cpu, p_cpu, batch, 16).tokens)
             print(f"small input, {arch} fixed batch ({weights} cores, prompt "
-                  f"{S}, cache {T}, window {gpu.windows[-1]}): logits card "
+                  f"{S}, cache {T}, windows {gpu.windows}): logits card "
                   f"vs cpu max abs diff {worst:.3e} through the captured "
                   f"prefill and decode, {worst_eager:.3e} eager (tol 1e-4); "
                   f"greedy tokens {'=' if same else '!='} cpu", flush=True)
@@ -2312,9 +2377,10 @@ def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
     just after; every projection replayed through its kernel, 0 captures
     and 0 plan resolutions warm), beside one eager warm run
     (``graph_against_eager``: prefill and first-step logits bit for bit,
-    tok/s, step ms, peak memory).  Then on one fp model: Poisson arrivals
+    tok/s, step ms, peak memory).  Then on one fp model at
+    ``GEMMA3_CUT_LAYERS`` layers (``cut_model``): Poisson arrivals
     (``GEMMA3_ARRIVAL`` through ``launch.serve.simulate``: 0 captures of
-    either kind and 0 plan resolutions steady, 238 ``tt_fused2`` per
+    either kind and 0 plan resolutions steady, 7 ``tt_fused2`` a layer per
     admission and per step, all replayed), and the staggered run
     (``GEMMA3_STAGGER``): dense graph ≡ dense eager ≡ paged (blocks of
     64) bit for bit, chunked (chunks of 256 over 2 lanes) graph ≡ eager
@@ -2362,15 +2428,17 @@ def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
         gc.collect()
         torch.cuda.empty_cache()
 
-    args = serve.parse_args(GEMMA3_ARGS + GEMMA3_ARRIVAL)
-    model, params = serve.setup(args)
+    model, params, args = cut_model(GEMMA3_ARGS + GEMMA3_ARRIVAL,
+                                    layers=GEMMA3_CUT_LAYERS)
+    per_pass = PROJ * GEMMA3_CUT_LAYERS
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
     out = serve.simulate(model, params, args)
     out.pop("sched")
     fin = out["finished"]
     T = 960 + 128
-    print(f"main path (gemma3-4b arrival mode, 4 slots x {T}; {smi}): "
+    print(f"main path (gemma3-4b at {GEMMA3_CUT_LAYERS} layers, arrival "
+          f"mode, 4 slots x {T}; {smi}): "
           f"{len(fin)} requests, {out['tokens_out']} tokens in "
           f"{out['wall_s']:.3f} s = {out['tok_per_s']:.1f} tok/s; ttft "
           f"p50/p95 {out['ttft_p50_s'] * 1e3:.1f}/"
@@ -2425,7 +2493,8 @@ def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
                                     prompts[u].to(model.device), f, GEMMA3_T)
               for u, f in done["dense graph"].items()}
     st = {k: v[1] for k, v in runs.items()}
-    print(f"gemma3-4b staggered run ({STAGGER_N} requests, prompts "
+    print(f"gemma3-4b staggered run at {GEMMA3_CUT_LAYERS} layers "
+          f"({STAGGER_N} requests, prompts "
           f"{GEMMA3_STAGGER[0]}, budgets {GEMMA3_STAGGER[1]}, 4 x "
           f"{GEMMA3_T}; {smi}): " + ", ".join(
               f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps)"
@@ -2597,14 +2666,19 @@ MOE_PATHS = {
         stagger=MIXTRAL_STAGGER, T=MIXTRAL_T, block=MIXTRAL_BLOCK,
         chunk=MIXTRAL_CHUNK, layers=MIXTRAL_LAYERS,
         moe_layers=MIXTRAL_LAYERS, prefix=None,
-        per_pass=(4 * MIXTRAL_LAYERS, 3 * MIXTRAL_LAYERS)),
+        per_pass=(4 * MIXTRAL_LAYERS, 3 * MIXTRAL_LAYERS),
+        cut_per_pass=(4 * MOE_CUT_LAYERS, 3 * MOE_CUT_LAYERS)),
     "deepseek-v2-lite-16b": dict(
         args=DSV2_ARGS, fixed=MIXTRAL_FIXED, arrival=MIXTRAL_ARRIVAL,
         stagger=MIXTRAL_STAGGER, T=MIXTRAL_T, block=MIXTRAL_BLOCK,
         chunk=MIXTRAL_CHUNK, layers=DSV2_LAYERS, moe_layers=DSV2_MOE_LAYERS,
         prefix=DSV2_PREFIX,
         per_pass=(sum(n for _, n in DSV2_SHAPES.values()),
-                  sum(n for _, n in DSV2_EXPERT_SHAPES.values()))),
+                  sum(n for _, n in DSV2_EXPERT_SHAPES.values())),
+        # q, o and the dense MLP in layer 0; q, o and the shared experts'
+        # 3 in each MoE layer; the experts' 3 in each MoE layer
+        cut_per_pass=(5 + 5 * (MOE_CUT_LAYERS - 1),
+                      3 * (MOE_CUT_LAYERS - 1))),
 }
 
 
@@ -2650,7 +2724,8 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     the decode replay traced alone, the prefill replay traced alone (its
     busy ms and the expert kernel's share), one MoE layer traced alone
     (the MoE's share of a replay) and, with MLA, one layer's decode
-    attention alone (its share).  Then on one fp model the arrivals over
+    attention alone (its share).  Then on one fp model at
+    ``MOE_CUT_LAYERS`` layers (``cut_model``) the arrivals over
     the dense pool, the paged one and chunked at 64 (0 captures and plan
     resolutions steady, every TT launch per admission, per decode step and
     per pass of a mixed step replayed), serve's prefix smoke where the
@@ -2754,8 +2829,9 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
         gc.collect()
         torch.cuda.empty_cache()
 
-    args = serve.parse_args(cfg["args"] + cfg["arrival"])
-    model, params = serve.setup(args)
+    model, params, args = cut_model(cfg["args"] + cfg["arrival"],
+                                    layers=MOE_CUT_LAYERS)
+    attn, experts = cfg["cut_per_pass"]
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
     T = args.prompt_len + args.steps
@@ -2773,8 +2849,9 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
         passes = out["admissions"] + (
             2 * out["mixed_steps"] + out["plain_steps"] if pool == "chunked"
             else out["steps_run"])
-        print(f"main path ({arch} arrival mode, {pool} pool, 4 slots x "
-              f"{T}; {smi}): {len(fin)} requests, {out['tokens_out']} tokens "
+        print(f"main path ({arch} at {MOE_CUT_LAYERS} layers, arrival mode, "
+              f"{pool} pool, 4 slots x {T}; {smi}): {len(fin)} requests, "
+              f"{out['tokens_out']} tokens "
               f"in {out['wall_s']:.3f} s = {out['tok_per_s']:.1f} tok/s; ttft "
               f"p50/p95 {out['ttft_p50_s'] * 1e3:.1f}/"
               f"{out['ttft_p95_s'] * 1e3:.1f} ms; inter-token p50/p95 "
@@ -2853,9 +2930,9 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
         g["drops"] = moe.read_drops()
         greedy[u] = g
     held = [g for g in greedy.values() if g["drops"] == 0]
-    print(f"{arch} staggered run ({STAGGER_N} requests, prompts "
-          f"{cfg['stagger'][0]}, budgets {cfg['stagger'][1]}, 4 x "
-          f"{cfg['T']}; {smi}): " + ", ".join(
+    print(f"{arch} staggered run at {MOE_CUT_LAYERS} layers ({STAGGER_N} "
+          f"requests, prompts {cfg['stagger'][0]}, budgets "
+          f"{cfg['stagger'][1]}, 4 x {cfg['T']}; {smi}): " + ", ".join(
               f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps, "
               f"{v['drops']} drops)" for k, v in st.items()) + "; " +
           ", ".join(f"{k} {'bit-identical' if v else 'DIFFER'}"
@@ -2935,6 +3012,248 @@ def qwen3_path(smi: str) -> tuple[dict[str, int], dict]:
         torch.cuda.empty_cache()
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"qwen3-32b phase 5: {rec['wall_s']:.1f} s", flush=True)
+    return launches, rec
+
+
+def mamba2_kernels(gen) -> list[dict]:
+    """``fused2_kernels`` at mamba2-2.7b's two shapes, at ``MAMBA2_ROWS``,
+    every one timed (the records' ``per_layer`` is launches a pass)."""
+    return fused2_kernels(gen, MAMBA2_SHAPES, "mamba2-2.7b", MAMBA2_ROWS)
+
+
+def ssm_alone(model, params, args, masked: bool = False) -> dict:
+    """The first layer's SSD mixer decode (``ssm.ssm_decode``: the in/out
+    projections' ``tt_fused2``, the conv, the recurrent update of the
+    [B, 80, 128, 64] fp32 state) at the decode's batch from a random state
+    and conv history, eager, traced alone (``replays_alone``); ``masked``
+    gates the state and conv writes by an ``active`` mask (the slot pool's
+    step; the rows alternate), whose ``torch.where`` kernels are counted
+    in ``where`` / ``where_ms``."""
+    from repro_torch.models.ssm import ssm_decode
+    p = params["g0"][0]["b0"]["ssm"]
+    shapes = model.cache_shapes(args.batch, 1)["g0"][0]["b0"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    h = torch.randn((args.batch, 1, model.cfg.d_model), generator=gen,
+                    device="cuda").to(model.param_dtype)
+    st, cv = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+              for shape, dt in (shapes["state"], shapes["conv"]))
+    active = (torch.arange(args.batch, device="cuda") % 2 == 0) if masked \
+        else None
+
+    def call():
+        return ssm_decode(p, model.cfg, h, st, cv, model.plan_book,
+                          active=active)
+    out = replays_alone(call, "tt_fused2_kernel", top=8)
+    if masked:
+        w = replays_alone(call, "where_kernel")
+        out.update(where=w["tt"], where_ms=w["tt_ms"])
+    return out
+
+
+def mamba2_path(smi: str) -> tuple[dict[str, int], dict]:
+    """Phase 5, full-width mamba2-2.7b (bf16 params from seed 0, nothing
+    cut, TT on ffn at rank 16, ``auto``: ``tt_fused2`` on each SSD block's
+    in/out projections, 128 a pass).
+
+    The fixed batch (``MAMBA2_FIXED``: 4 prompts of 1,024 tokens, 4 chunks
+    of 256 each) through ``launch.serve.fixed``, fp then int8 cores
+    (``drive``: every projection replayed through its kernel, 0 captures
+    and 0 plan resolutions warm), beside one eager warm run
+    (``graph_against_eager``: prefill and first-step logits and the cache,
+    fp32 state included, bit for bit; tok/s, decode step ms, peak memory);
+    the decode replay, the prefill replay and one SSD mixer's decode
+    (``ssm_alone``, plain and masked) traced alone: the TT kernel's share
+    and the SSM's plain ops' share of a replay.  Then on one fp model the
+    staggered run (``MAMBA2_STAGGER``, ``MAMBA2_N`` requests): dense graph
+    ≡ eager ≡ paged (blocks of 16; the pool holds no arena) and chunked
+    (64) graph ≡ eager ≡ paged, bit for bit, the prefix counters 0 though
+    the paged pools ask for the prefix cache.  Each request of the chunked
+    run (other chunk lengths: the sums run in another order) is measured
+    against ``generate_fixed`` of its prompt alone (the exact prefill) by
+    ``serve.greedy_against_fixed`` and printed: with random bf16 weights
+    at full width the rounding of one grouping against another is carried
+    through 64 layers past the bf16 tolerance (``launch.groupings``,
+    ``PERF.md`` §7).  Then the same weights cast to fp32 with the SSD scan
+    accumulated in fp64 (``SSMConfig.scan_dtype``): the staggered dense
+    (bucketed prefill) and chunked runs through the graphs, every request
+    held against ``generate_fixed`` within 1e-4 by ``serve.check_greedy``.
+    Returns ``tt_fused2``'s and ``tt_fused2_int8``'s launches over the
+    fixed-batch calls and the bf16 staggered runs, and the record."""
+    per_pass = 2 * MAMBA2_LAYERS
+    launches, rec = {}, {"card": smi, "fixed": []}
+    t_phase = time.perf_counter()
+    for weights in ("fp32", "int8"):
+        kernel = "tt_fused2" + ("_int8" if weights == "int8" else "")
+        model, params, args = cli_model(MAMBA2_ARGS + MAMBA2_FIXED + [
+            "--tt-weights", weights])
+        label = (f"mamba2-2.7b, {args.batch} x {args.prompt_len} + "
+                 f"{args.steps}, {weights}")
+        eager = eager_runs(model, params, args)
+        out, launches[kernel] = drive(label, kernel, per_pass, model, params,
+                                      args)
+        r = dict(path=label, launches=out["path_launches"],
+                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
+                 peak_bytes=out["peak_bytes"],
+                 peak_reserved_bytes=out["peak_reserved_bytes"])
+        r.update(graph_against_eager(label, model, params, args, out, eager,
+                                     smi))
+        batch = serve.prompt_batch(model, args)
+        logits, cache = model.prefill(params, batch)
+        step = model.graphed_decode_step(args.batch, batch["cache_len"])
+        step.load(params, cache, args.prompt_len)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
+                                    top=8)
+        tokens = batch["tokens"]
+        pre = model.graphed_prefill(*tokens.shape, batch["cache_len"])
+        pre(params, tokens, args.prompt_len)     # captured in the cold run
+        torch.cuda.synchronize()
+        r["prefill_replay"] = replays_alone(
+            lambda: pre(params, tokens, args.prompt_len), "tt_fused2_kernel",
+            top=8)
+        r["ssm_layer"] = ssm_alone(model, params, args)
+        r["ssm_layer_masked"] = ssm_alone(model, params, args, masked=True)
+        rp, lay = r["replay"], r["ssm_layer"]
+        r["tt_share"] = rp["tt_ms"] / rp["busy_ms"]
+        r["ssm_plain_share"] = (lay["busy_ms"] - lay["tt_ms"]) * \
+            MAMBA2_LAYERS / rp["busy_ms"]
+        r["prefill_tt_share"] = (r["prefill_replay"]["tt_ms"] /
+                                 r["prefill_replay"]["busy_ms"])
+        m = r["ssm_layer_masked"]
+        print(f"profile ({label}; {smi}): {REPLAYS} decode replays alone: "
+              f"{rp['kernels']:g} device kernels, {rp['tt']:g} "
+              f"tt_fused2_kernel ({rp['tt_ms']:.3f} ms, "
+              f"{r['tt_share']:.1%}), {rp['busy_ms']:.3f} ms busy, "
+              f"{rp['wall_ms']:.3f} ms wall per replay; top: " +
+              "; ".join(f"{k} {ms:.3f} ms x{n:g}" for k, ms, n in rp["top"])
+              + f"; prefill replay of {args.batch} x {args.prompt_len} "
+              f"alone: {r['prefill_replay']['kernels']:g} device kernels, "
+              f"{r['prefill_replay']['busy_ms']:.3f} ms busy, "
+              f"{r['prefill_replay']['tt']:g} tt_fused2_kernel "
+              f"{r['prefill_replay']['tt_ms']:.3f} ms "
+              f"({r['prefill_tt_share']:.1%}), "
+              f"{r['prefill_replay']['wall_ms']:.3f} ms wall; top: " +
+              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
+                        for k, ms, n in r["prefill_replay"]["top"]) +
+              f"; one SSD mixer's decode alone (eager, {args.batch} rows): "
+              f"{lay['kernels']:g} kernels, {lay['busy_ms']:.4f} ms busy, of "
+              f"which tt_fused2 {lay['tt_ms']:.4f}; its plain ops x "
+              f"{MAMBA2_LAYERS} layers = {r['ssm_plain_share']:.1%} of the "
+              f"replay; top: " + "; ".join(
+                  f"{k} {ms:.4f} ms x{n:g}" for k, ms, n in lay["top"]) +
+              f"; masked by active: {m['kernels']:g} kernels, "
+              f"{m['busy_ms']:.4f} ms busy, torch.where {m['where']:g} "
+              f"kernels {m['where_ms']:.4f} ms", flush=True)
+        if (rp["tt"], r["prefill_replay"]["tt"], lay["tt"]) != (
+                per_pass, per_pass, 2):
+            raise AssertionError(f"{label}: {rp['tt']} and "
+                                 f"{r['prefill_replay']['tt']} TT kernels per "
+                                 f"decode and prefill replay, {lay['tt']} per "
+                                 f"SSD mixer, expected {per_pass} and 2")
+        rec["fixed"].append(r)
+        del model, params, out, step, cache, pre
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    model, params = serve.setup(serve.parse_args(MAMBA2_ARGS))
+    tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
+    paged = dict(paged=True, block_size=MAMBA2_BLOCK)
+    runs = {}
+    for label, graph, kw in (
+            ("dense graph", True, {}), ("dense eager", False, {}),
+            ("paged graph", True, paged),
+            ("chunked graph", True, MAMBA2_CHUNK),
+            ("chunked eager", False, MAMBA2_CHUNK),
+            ("chunked paged graph", True, dict(MAMBA2_CHUNK, **paged))):
+        runs[label] = staggered_full(model, params, graph, None,
+                                     MAMBA2_STAGGER, MAMBA2_T, MAMBA2_N,
+                                     **kw)
+    done = {k: v[0] for k, v in runs.items()}
+    st = {k: v[1] for k, v in runs.items()}
+    checks = {"dense graph = eager": same_runs(done["dense graph"],
+                                               done["dense eager"]),
+              "paged = dense": same_runs(done["paged graph"],
+                                         done["dense graph"]),
+              "chunked graph = eager": same_runs(done["chunked graph"],
+                                                 done["chunked eager"]),
+              "chunked paged = dense": same_runs(
+                  done["chunked paged graph"], done["chunked graph"]),
+              "no prefix hit": all(v.get("prefix_hit_tokens", 0) == 0
+                                   for v in st.values())}
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    launches["tt_fused2"] += counted.get("tt_fused2", 0) + replayed.get(
+        "tt_fused2", 0)
+    prompts, _ = stagger_requests(model.cfg.vocab_size, *MAMBA2_STAGGER,
+                                  MAMBA2_N)
+    prompts = [t.to(model.device) for t in prompts]
+    t0 = time.perf_counter()
+    greedy = {u: serve.greedy_against_fixed(model, params, prompts[u], f,
+                                            MAMBA2_T)
+              for u, f in done["chunked graph"].items()}
+    t_greedy = time.perf_counter() - t0
+    as_mono = same_runs(done["chunked graph"], done["dense graph"])
+    print(f"mamba2-2.7b staggered run ({MAMBA2_N} requests, prompts "
+          f"{MAMBA2_STAGGER[0]}, budgets {MAMBA2_STAGGER[1]}, 4 x "
+          f"{MAMBA2_T}; {smi}): " + ", ".join(
+              f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps)"
+              for k, v in st.items()) + "; " +
+          ", ".join(f"{k} {'holds' if v else 'FAILS'}"
+                    for k, v in checks.items()) +
+          f"; paged pool {st['paged graph']['kv_pool_bytes'] / 2**20:.1f} "
+          f"MiB, block high-water {st['paged graph']['block_high_water']}; "
+          f"chunked: {st['chunked graph']['prefill_chunks']} chunks, "
+          f"{'=' if as_mono else '!='} monolithic bit for bit; against "
+          f"generate_fixed (bf16, measured in {t_greedy:.1f} s): "
+          f"{sum(g['identical'] for g in greedy.values())} of "
+          f"{len(greedy)} identical, "
+          f"{sum(g['within'] for g in greedy.values())} within the "
+          f"tolerance, picks within "
+          f"{max(g['slack'] for g in greedy.values()):.3g} of the top logit, "
+          f"logprobs within "
+          f"{max(g['logprob_diff'] for g in greedy.values()):.3g} (tol "
+          f"{max(g['tol'] for g in greedy.values()):.3g})", flush=True)
+    if not all(checks.values()) or any(
+            len(f.tokens) == 0 for f in done["dense graph"].values()):
+        raise AssertionError(f"mamba2 staggered run: {checks}")
+    rec["staggered"] = dict(st, checks=checks, greedy=greedy,
+                            chunked_as_monolithic=as_mono)
+
+    # the same weights in fp32, the scan in fp64 (with the reference's fp32
+    # scan, whose decays are differences of cumulative log-decays, the
+    # groupings' logprobs end up to 5.2e-4 apart at 64 layers; with the
+    # scan in fp64, 0 and 8.2e-5: PERF.md §7): the dense and chunked runs
+    # held against generate_fixed within check_greedy's 1e-4
+    t0 = time.perf_counter()
+    m32 = build(dataclasses.replace(model.cfg, ssm=dataclasses.replace(
+        model.cfg.ssm, scan_dtype="float64")), param_dtype=torch.float32)
+    p32 = map_tree(lambda t: t.float(), params)
+    del model, params
+    rec["fp32"] = {}
+    for label, kw in (("dense graph", {}), ("chunked graph", MAMBA2_CHUNK)):
+        fin, stats = staggered_full(m32, p32, True, None, MAMBA2_STAGGER,
+                                    MAMBA2_T, MAMBA2_N, **kw)
+        g = {u: serve.check_greedy(m32, p32, prompts[u], f, MAMBA2_T)
+             for u, f in fin.items()}
+        rec["fp32"][label] = dict(greedy=g, wall_s=stats["wall_s"])
+    print(f"mamba2-2.7b staggered run in fp32, the scan in fp64 (the same "
+          f"weights; {smi}): " +
+          "; ".join(
+              f"{run}: {sum(g['identical'] for g in r['greedy'].values())} "
+              f"of {len(r['greedy'])} identical to generate_fixed, picks "
+              f"within {max(g['slack'] for g in r['greedy'].values()):.3g} "
+              f"of the top logit, logprobs within "
+              f"{max(g['logprob_diff'] for g in r['greedy'].values()):.3g} "
+              f"(tol 1e-4), run {r['wall_s']:.3f} s"
+              for run, r in rec["fp32"].items()) +
+          f"; {time.perf_counter() - t0:.1f} s with the checks", flush=True)
+    del m32, p32
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"mamba2-2.7b phase 5: {rec['wall_s']:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, rec
 
 
@@ -3034,6 +3353,10 @@ def main() -> int:
     layers += layer_summary(q_recs, ("tt_fused2", "tt_fused2_int8"),
                             "qwen3-32b")
     recs += q_recs
+    s_recs = timed("kernels mamba2", mamba2_kernels, gen)
+    layers += layer_summary(s_recs, ("tt_fused2", "tt_fused2_int8"),
+                            "mamba2-2.7b", MAMBA2_ROWS, per="pass")
+    recs += s_recs
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3048,6 +3371,7 @@ def main() -> int:
     timed("smoke deepseek-v2", small_ring_check, "deepseek-v2-lite-16b")
     timed("smoke deepseek-v2 prefix", small_prefix_check,
           "deepseek-v2-lite-16b")
+    timed("smoke mamba2", small_ring_check, "mamba2-2.7b", SSM_MODES)
     launches, graph_recs = timed("deepseek fixed batch", main_paths, smi)
     fused2, sched_rec = timed("deepseek scheduler", scheduler_path, smi)
     launches["tt_fused2"] += fused2
@@ -3062,11 +3386,15 @@ def main() -> int:
     q_launches, qwen3_rec = timed("qwen3-32b", qwen3_path, smi)
     for k, v in q_launches.items():
         launches[k] += v
+    s_launches, mamba2_rec = timed("mamba2-2.7b", mamba2_path, smi)
+    for k, v in s_launches.items():
+        launches[k] += v
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps, "graph": graph_recs,
                    "scheduler": sched_rec, "gemma3": gemma3_rec,
-                   **moe_recs, "qwen3-32b": qwen3_rec, "walls": walls}, f,
+                   **moe_recs, "qwen3-32b": qwen3_rec,
+                   "mamba2-2.7b": mamba2_rec, "walls": walls}, f,
                   indent=1, default=str)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s; by "
           f"phase: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()),

@@ -1,11 +1,12 @@
 """Configuration dataclasses: model architecture and TT compression.
 
-The attention subset of ``repro.configs.base``: GQA with its variants
+The subset of ``repro.configs.base`` the port runs: GQA with its variants
 (qk-norm, sliding windows, gemma3's local/global period, tied
-embeddings) and multi-head latent attention (``MLAConfig``), and both
-FFNs, the GLU MLP and the mixture of experts (``MoEConfig``); fields of
-the families the port does not run yet (SSM, cross-attention, frontends)
-are left out until they are ported.
+embeddings), multi-head latent attention (``MLAConfig``), the Mamba-2 SSD
+mixer (``SSMConfig``), and both FFNs, the GLU MLP and the mixture of
+experts (``MoEConfig``); fields of the families the port does not run yet
+(cross-attention, frontends, the attention/SSM hybrid's period) are left
+out until they are ported.
 """
 from __future__ import annotations
 
@@ -66,6 +67,21 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """The reference's fields, and ``scan_dtype`` (the port's): the dtype
+    the prefill's chunked scan accumulates in, ``float32`` as the
+    reference's; ``float64`` parts the scan's own rounding from the rest
+    of a model's (``launch.groupings``)."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256
+    scan_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: Family
@@ -86,6 +102,8 @@ class ModelConfig:
     moe: MoEConfig | None = None
     # multi-head latent attention (deepseek-v2)
     mla: MLAConfig | None = None
+    # state space (mamba2)
+    ssm: SSMConfig | None = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     tt: TTConfig = TTConfig()

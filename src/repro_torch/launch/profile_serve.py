@@ -17,7 +17,9 @@ block-table copies: the k/v scatter into each layer's arenas and the
 gathers of each row's logical cache through its table.  On a card the
 prefills and the decode steps are replays of captured CUDA graphs.  On a
 card only device kernels are traced; on the CPU only host operators are
-recorded and the device lines read "not measured".
+recorded and the device lines read "not measured".  The TT launches
+expected follow the model: mamba2-2.7b's are its SSD in/out projections, 2
+a layer, 128 a pass (``--arch mamba2-2.7b --tt ffn``).
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ TT_KERNELS = {"tt_fused2_kernel": ("tt_fused2", "tt_fused2_int8"),
                                            "tt_fused2_experts_int8"),
               "tt_chain_kernel": ("tt_fused_chain", "tt_fused_chain_int8"),
               "tt_step_kernel": ("tt_step", "tt_step_int8")}
-# the device kernel of ``torch.where``: in serving, only the per-row KV
-# writes of the slot pool's decode step (two per layer and step)
+# the device kernel of ``torch.where``: in serving, only the per-row
+# writes of the slot pool's decode step (two per layer and step: k and v,
+# or an SSM block's masked state and conv history, ``ssm.ssm_decode``)
 WHERE_KERNEL = "where_kernel"
 # the device kernels of the paged pool's block-table copies: ``index_put_``
 # (the step's k/v scatter into the arenas, two per layer and step, and a
@@ -177,7 +180,7 @@ def profile_arrivals(model, params, args, top: int = 12) -> dict:
         return dict(run, busy_s=None, kernels={})
     out = _report(kernels, wall, run["launches"], top)
     for name, kernel, what in (
-            ("where", WHERE_KERNEL, "per-row KV writes"),
+            ("where", WHERE_KERNEL, "per-row cache writes"),
             ("scatter", SCATTER_KERNEL, "block-table scatters"),
             ("gather", GATHER_KERNEL,
              "block-table gathers and embedding lookups")):

@@ -3,7 +3,7 @@ the continuous-batching scheduler.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-7b|gemma3-4b|granite-8b|qwen3-32b|mixtral-8x7b|\\
-               deepseek-v2-lite-16b \\
+               deepseek-v2-lite-16b|mamba2-2.7b \\
         --variant full --batch 4 \\
         --prompt-len 64 --steps 32 --tt ffn,attn --tt-rank 16 \\
         --tt-backend auto [--tt-weights int8] [--device cpu] \\
@@ -27,6 +27,8 @@ recorded, times its replays); on a card a warm run's are all replayed.  A
 mixture-of-experts model (mixtral-8x7b, deepseek-v2-lite-16b) also
 reports the assignments its MoE layers dropped past their capacity
 (``models.moe.read_drops``: counted on the device, read once per run).
+mamba2-2.7b has TT only on ``ffn`` (its SSD in/out projections, 2 launches
+a layer); ``--tt ffn,attn`` covers the same, it has no attention.
 
 With ``--arrival-rate`` it runs ``simulate`` instead, the reference's
 arrival mode: a ``Scheduler`` of ``--slots`` slots over ``--prompt-len`` +
@@ -399,19 +401,20 @@ def forced_logits(model, params, tokens: torch.Tensor,
     return torch.stack(out)
 
 
-def check_greedy(model, params, prompt: torch.Tensor, got, T: int) -> dict:
-    """Hold a served request's greedy tokens and logprobs (``got``, a
-    ``FinishedRequest``) against ``generate_fixed`` of its prompt alone.
-    The tokens must be ``generate_fixed``'s whenever its top-1/top-2 logit
-    gap exceeds the tolerance at every step; along the served tokens (fed
-    to ``generate_fixed``'s arithmetic, ``forced_logits``) every pick must
-    be within the tolerance of that step's top logit and every logprob
-    within it of that step's.  The tolerance is the repo's: 1e-4 with fp32
-    parameters, 2e-2 × the largest |logit| with bf16 ones (whose logits
-    are bf16 values and tie exactly, so another batch shape may pick the
-    other of two tied tokens).  Returns the tokens' identity, the smallest
-    gap, the largest slack of a pick and logprob difference, and the
-    tolerance."""
+def greedy_against_fixed(model, params, prompt: torch.Tensor, got,
+                         T: int) -> dict:
+    """A served request's greedy tokens and logprobs (``got``, a
+    ``FinishedRequest``) against ``generate_fixed`` of its prompt alone:
+    the tokens' identity, the smallest top-1/top-2 logit gap, along the
+    served tokens (fed to ``generate_fixed``'s arithmetic,
+    ``forced_logits``) the largest slack of a pick below that step's top
+    logit and the largest logprob difference, ``check_greedy``'s
+    tolerance, and whether the request holds to it (``within``): the
+    tokens are ``generate_fixed``'s wherever its gap exceeds the
+    tolerance, every pick and every logprob within it.  The tolerance is
+    the repo's: 1e-4 with fp32 parameters, 2e-2 × the largest |logit| with
+    bf16 ones (whose logits are bf16 values and tie exactly, so another
+    batch shape may pick the other of two tied tokens)."""
     toks = np.asarray(got.tokens)
     ref = generate_fixed(model, params, {"tokens": prompt, "cache_len": T},
                          len(toks)).tokens.cpu().numpy()[0]
@@ -424,11 +427,21 @@ def check_greedy(model, params, prompt: torch.Tensor, got, T: int) -> dict:
     lp = torch.log_softmax(lg, -1).gather(-1, pick)[:, 0].cpu().numpy()
     out = dict(identical=bool(np.array_equal(toks, ref)),
                gap=float((top2[:, 0] - top2[:, 1]).min()), slack=slack,
-               logprob_diff=float(np.abs(lp - got.logprobs).max()), tol=tol)
-    if slack > tol or out["logprob_diff"] > tol or (
-            out["gap"] > tol and not out["identical"]):
-        raise AssertionError(f"request {got.uid}: tokens {toks.tolist()} "
-                             f"against generate_fixed's {ref.tolist()}: {out}")
+               logprob_diff=float(np.abs(lp - got.logprobs).max()), tol=tol,
+               tokens=toks.tolist(), fixed_tokens=ref.tolist())
+    out["within"] = not (slack > tol or out["logprob_diff"] > tol or (
+        out["gap"] > tol and not out["identical"]))
+    return out
+
+
+def check_greedy(model, params, prompt: torch.Tensor, got, T: int) -> dict:
+    """``greedy_against_fixed``, raising unless the request holds to the
+    tolerance; returns its record."""
+    out = greedy_against_fixed(model, params, prompt, got, T)
+    if not out["within"]:
+        raise AssertionError(f"request {got.uid}: tokens {out['tokens']} "
+                             f"against generate_fixed's "
+                             f"{out['fixed_tokens']}: {out}")
     return out
 
 

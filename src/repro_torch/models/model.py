@@ -4,7 +4,8 @@ a prompt-length bucket, or captured: ``padded_prefill``,
 ``splice_cache``, ``graphed_decode_step``, ``init_cache`` and
 ``quantize_params`` for the decoders (gemma3's sliding-window
 ring caches and tied, scaled embeddings, mixtral's mixture-of-experts
-FFN, and deepseek-v2's latent-cache MLA, included); and for the
+FFN, deepseek-v2's latent-cache MLA, and mamba2's SSD mixer over a
+per-slot recurrent state, included); and for the
 block-paged pool (DESIGN.md §7), ``init_cache(..., paged=True)``,
 ``splice_cache_paged`` and the prefix-reuse admission ``prefill_resume``
 (``resume_prefill`` buckets it and, on a card, replays it captured); and
@@ -55,9 +56,18 @@ def bucket_length(S: int, limit: int, floor: int = 16) -> int:
 
 
 class Model:
-    """One decoder (GQA full-attention, windowed or local/global, or MLA;
-    a GLU MLP or a mixture-of-experts FFN in each block).  ``device=None``
-    means the GPU; pass ``device="cpu"`` for the plain path."""
+    """One decoder (GQA full-attention, windowed or local/global, or MLA,
+    with a GLU MLP or a mixture-of-experts FFN in each block; or Mamba-2
+    SSD blocks).  ``device=None`` means the GPU; pass ``device="cpu"`` for
+    the plain path.
+
+    Each cache leaf has a kind (``transformer.block_cache_kinds``), and
+    each kind its own rule in a paged pool: 'paged' and 'ring' leaves are
+    block arenas, scattered through a slot's table and copied by
+    ``copy_blocks``; 'slot' leaves (an SSM's state and conv history) keep
+    one row per slot, spliced into it and never touched by a block copy.
+    A pool with no arena (mamba2) still keeps its tables: the scheduler's
+    block accounting runs as the reference's does."""
 
     def __init__(self, cfg: ModelConfig, groups: list[Group],
                  param_dtype: torch.dtype = torch.float32,
@@ -269,7 +279,9 @@ class Model:
         (``init_cache(..., paged=True)``): k/v are arenas addressed through
         each row's table, and an inactive row writes to the sentinel block,
         so a retired slot's stale table never touches storage a later
-        request reuses."""
+        request reuses.  One ``attention.PagedIndex`` is built per window
+        of the attention blocks (none for a pool with no arena); 'slot'
+        leaves are row-indexed in both layouts."""
         pos = cache["pos"]
         bt = cache.get("block_tables")
         x = self._embed(params, token)
@@ -278,11 +290,10 @@ class Model:
         paged = None
         if bt is not None:
             new_cache["block_tables"] = bt
-            arena = _kv_leaves(cache)[0]
             act = (torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
                    if active is None else active)
-            paged = {w: paged_index(bt, pos, act, arena.shape[1],
-                                    arena.shape[0] - 1, w)
+            geo = self.arena_geometry(cache) if self.windows else None
+            paged = {w: paged_index(bt, pos, act, geo[1], geo[0], w)
                      for w in self.windows}
         for gi, g in enumerate(self.groups):
             x, new_cache[f"g{gi}"] = group_decode(
@@ -297,8 +308,8 @@ class Model:
         and set ``cache["pos"][slot]`` to the prompt length the prefill
         left in ``row_cache["pos"]``: the scheduler's admission, the
         reference's ``splice_cache`` (which returns an updated copy).  The
-        batch axis is axis 0 of every KV leaf."""
-        pool, rows = _kv_leaves(cache), _kv_leaves(row_cache)
+        batch axis is axis 0 of every leaf, of each kind."""
+        pool, rows = _cache_leaves(cache), _cache_leaves(row_cache)
         if cache["pos"].dim() != 1 or [(t.shape[1:], t.dtype)
                                        for t in pool] != [
                 (t.shape[1:], t.dtype) for t in rows] or any(
@@ -318,13 +329,18 @@ class Model:
         named by ``blocks`` [max_blocks] int32 (the slot's full table row,
         sentinel-padded past its allocation: the rows scattered there
         collapse onto the scratch block), and set row ``slot``'s table and
-        position, IN PLACE (the reference returns an updated copy)."""
+        position, IN PLACE (the reference returns an updated copy).  A
+        'slot' leaf is copied into row ``slot``, as the dense splice does."""
         bt = cache["block_tables"]
         if cache["pos"].dim() != 1 or tuple(blocks.shape) != bt.shape[1:]:
             raise ValueError(f"splice_cache_paged takes a table row of "
                              f"{bt.shape[1]} blocks into a paged pool")
         idx = blocks.to(device=bt.device, dtype=torch.long)
-        for arena, row in zip(_kv_leaves(cache), _kv_leaves(row_cache)):
+        for dst, src in zip(self.slot_leaves(cache),
+                            self.slot_leaves(row_cache)):
+            dst[slot].copy_(src[0])
+        for arena, row in zip(self.arena_leaves(cache),
+                              self.arena_leaves(row_cache)):
             blk = arena.shape[1]
             r = row[0]                          # [T_row, KV, hd] or [T_row, L]
             nblk = -(-r.shape[0] // blk)
@@ -388,7 +404,7 @@ class Model:
         ``prefill_builds`` when it is new to the LRU of eager keys.
         Returns the logits [1,1,V]; on a replay, the graph's static ones."""
         S = int(tokens.shape[1])
-        T = cache["block_tables"].shape[1] * _kv_leaves(cache)[0].shape[1]
+        T = cache["block_tables"].shape[1] * self.arena_geometry(cache)[1]
         S_pad = bucket_length(S, T)
         tokens = tokens.to(self.device)
         if S_pad != S:
@@ -473,36 +489,70 @@ class Model:
 
     @torch.no_grad()
     def copy_blocks(self, cache: dict, src: int, dst: int) -> None:
-        """Copy arena block ``src`` into block ``dst`` in every layer's k
-        and v (rings too, as the reference copies them), IN PLACE: the
+        """Copy arena block ``src`` into block ``dst`` in every layer's
+        arenas (rings too, as the reference copies them), IN PLACE: the
         eager copy-on-write of a chunked admission
         whose prefix covers the whole prompt (its last block is about to be
         partly rewritten through the slot's own table); the reference's
-        ``copy_blocks``, which returns an updated copy."""
-        for arena in _kv_leaves(cache):
+        ``copy_blocks``, which returns an updated copy.  'slot' leaves are
+        left alone: their index is a slot, not a block."""
+        for arena in self.arena_leaves(cache):
             arena[dst].copy_(arena[src])
+
+    def _kind_leaves(self, cache: dict, slot: bool) -> list[torch.Tensor]:
+        """The cache's leaves of kind 'slot' (``slot``) or of the pageable
+        kinds, in a fixed order, by ``transformer.block_cache_kinds``."""
+        out = []
+        for gi, (period, _) in enumerate(self.groups):
+            kinds = [block_cache_kinds(bd) for bd in period]
+            for layer in cache[f"g{gi}"]:
+                for i, ks in enumerate(kinds):
+                    out += [layer[f"b{i}"][n] for n, kind in ks.items()
+                            if (kind == "slot") == slot]
+        return out
+
+    def arena_leaves(self, cache: dict) -> list[torch.Tensor]:
+        """The 'paged' and 'ring' leaves of ``cache``: block arenas in a
+        paged pool, [B, T, ...] tensors in a dense one."""
+        return self._kind_leaves(cache, slot=False)
+
+    def slot_leaves(self, cache: dict) -> list[torch.Tensor]:
+        """The 'slot' leaves of ``cache``: [B or num_slots, ...] in either
+        layout."""
+        return self._kind_leaves(cache, slot=True)
+
+    def arena_geometry(self, cache: dict) -> tuple[int, int]:
+        """(num_blocks, block) of a paged pool, from its arenas (the write
+        sentinel is their last block).  A pool with no arena has none: its
+        device side never addresses a block."""
+        arenas = self.arena_leaves(cache)
+        if not arenas:
+            raise ValueError("the paged pool holds no arena")
+        return arenas[0].shape[0] - 1, arenas[0].shape[1]
 
     @property
     def windows(self) -> list[int]:
-        """The distinct attention windows of the blocks (0: full attention),
-        each with its own ``PagedIndex`` per paged decode step."""
+        """The distinct windows of the attention blocks (0: full attention),
+        each with its own ``PagedIndex`` per paged decode step; none for an
+        attention-free model."""
         return sorted({bd.window for period, _ in self.groups
-                       for bd in period})
+                       for bd in period if bd.mixer != "ssm"})
 
     @property
     def supports_chunked_prefill(self) -> bool:
         """Chunked prefill covers the ported mixers, GQA with full attention
-        or a window ring, and MLA (``transformer.block_chunk``)."""
-        return all(bd.mixer in ("gqa", "mla") for period, _ in self.groups
-                   for bd in period)
+        or a window ring, MLA and the SSM (``transformer.block_chunk``)."""
+        return all(bd.mixer in ("gqa", "mla", "ssm")
+                   for period, _ in self.groups for bd in period)
 
     @property
     def supports_prefix_reuse(self) -> bool:
         """Prefix blocks are shareable when every cache leaf is a pure
         function of the token prefix and never overwritten in place: true
         of full attention and of MLA's latent leaves, not of a window ring,
-        whose contents cycle (the reference also says no for SSM state and
-        frontends, not ported)."""
+        whose contents cycle, nor of an SSM's 'slot' state, a summary of
+        the whole history (the reference also says no for frontends, not
+        ported)."""
         return all(kind == "paged" for period, _ in self.groups
                    for bd in period for kind in block_cache_kinds(bd).values())
 
@@ -513,18 +563,19 @@ class Model:
         layer's k and v are arenas [num_blocks + 1, block, KV, hd] (MLA's
         ckv and krope [num_blocks + 1, block, kv_lora | rope_hd]) shared by
         all slots through per-slot block tables (a window ring through the
-        low entries of its slot's table); ``pos`` is [num_slots] and
-        ``block_tables`` [num_slots, ceil(cache_len / block)], both int32.
-        One arena per layer, in the per-layer list (the reference stacks
-        them [layers, ...])."""
+        low entries of its slot's table); an SSM layer's state (fp32
+        whatever ``dtype`` is) and conv history stay [num_slots, ...];
+        ``pos`` is [num_slots] and ``block_tables`` [num_slots,
+        ceil(cache_len / block)], both int32.  One arena per layer, in the
+        per-layer list (the reference stacks them [layers, ...])."""
         dtype = self.param_dtype if dtype is None else dtype
         max_blocks = -(-cache_len // block)
         out: dict = {"pos": ((num_slots,), torch.int32),
                      "block_tables": ((num_slots, max_blocks), torch.int32)}
         for gi, (period, count) in enumerate(self.groups):
             out[f"g{gi}"] = [
-                {f"b{i}": block_paged_cache_shape(self.cfg, bd, num_blocks,
-                                                  block, dtype)
+                {f"b{i}": block_paged_cache_shape(self.cfg, bd, num_slots,
+                                                  num_blocks, block, dtype)
                  for i, bd in enumerate(period)} for _ in range(count)]
         return out
 
@@ -533,7 +584,7 @@ class Model:
                    num_blocks: int | None = None, block: int = 64) -> dict:
         """Zeroed decode cache for ``B`` rows and ``T`` positions, k/v in
         ``dtype`` (default: the parameters', which is what ``prefill``
-        writes).  ``per_row`` gives the scheduler's slot pool a position
+        writes; an SSM state is fp32 whatever ``dtype`` is).  ``per_row`` gives the scheduler's slot pool a position
         per row ([B] int32); otherwise the position is 0-d.  ``paged=True``
         builds the block-paged pool of ``B`` slots instead
         (``paged_cache_shapes``; ``num_blocks`` defaults to B ·
@@ -558,10 +609,11 @@ class Model:
 
     def cache_shapes(self, B: int, T: int,
                      dtype: torch.dtype | None = None) -> dict:
-        """(shape, dtype) tree of the k/v leaves of a dense cache of ``B``
-        rows and ``T`` positions (no ``pos``): full attention [B, T, KV,
-        hd], a window ring [B, min(window, T), KV, hd], MLA [B, T, kv_lora]
-        and [B, T, rope_hd] (``transformer.block_cache_shape``)."""
+        """(shape, dtype) tree of the leaves of a dense cache of ``B`` rows
+        and ``T`` positions (no ``pos``): full attention [B, T, KV, hd], a
+        window ring [B, min(window, T), KV, hd], MLA [B, T, kv_lora] and
+        [B, T, rope_hd], an SSM state [B, H, N, P] fp32 and conv history
+        [B, K-1, conv_dim] (``transformer.block_cache_shape``)."""
         dtype = self.param_dtype if dtype is None else dtype
         return {f"g{gi}": [{f"b{i}": block_cache_shape(self.cfg, bd, B, T,
                                                        dtype)
@@ -603,8 +655,8 @@ def _lru_put(lru: collections.OrderedDict, key, value) -> list:
     return evicted
 
 
-def _kv_leaves(cache: dict) -> list[torch.Tensor]:
-    """A cache's k/v tensors (or arenas) in a fixed order (every leaf but
+def _cache_leaves(cache: dict) -> list[torch.Tensor]:
+    """A cache's leaves of every kind in a fixed order (every leaf but
     ``pos`` and ``block_tables``)."""
     return tree_leaves({k: v for k, v in cache.items()
                         if k not in ("pos", "block_tables")})

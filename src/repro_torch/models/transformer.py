@@ -1,7 +1,9 @@
 """Block assembly for the decoders: full-attention and sliding-window
 (ring-cache) GQA blocks, and MLA blocks over a latent cache, with a GLU
 MLP (deepseek-v2's wider first-layer ``dense0`` included) or a
-mixture-of-experts FFN (``ffn_apply``).
+mixture-of-experts FFN (``ffn_apply``); and Mamba-2 SSD blocks (mamba2),
+a mixer with no FFN, whose cache is a per-slot recurrent state and conv
+history (``models.ssm``).
 
 A model is a list of groups ``(period, count)``: ``period`` is a tuple of
 BlockDefs run in order and repeated ``count`` times.  Parameters of a group
@@ -23,35 +25,48 @@ from .attention import (gqa_chunk_attn, gqa_chunk_attn_ring,
                         mla_self_attn, mla_spec, ring_positions)
 from .layers import mlp_apply, mlp_spec, rmsnorm_apply, rmsnorm_spec
 from .moe import moe_apply, moe_spec
+from .ssm import ssm_decode, ssm_dims, ssm_forward, ssm_spec
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
-    mixer: str = "gqa"        # gqa | mla
+    mixer: str = "gqa"        # gqa | mla | ssm
     window: int = 0           # >0 → sliding-window attention (ring cache)
     ffn: str = "mlp"          # mlp | moe | dense0 (the first_dense_ff MLP)
+                              # | none (ssm)
     theta: float | None = None  # RoPE theta; None: the config's
 
     def __post_init__(self):
-        if self.mixer not in ("gqa", "mla") or self.ffn not in (
-                "mlp", "moe", "dense0") or (self.mixer == "mla" and
-                                            self.window):
+        attn = self.mixer in ("gqa", "mla") and self.ffn in (
+            "mlp", "moe", "dense0") and not (self.mixer == "mla" and
+                                             self.window)
+        ssm = self.mixer == "ssm" and self.ffn == "none" and not self.window
+        if not (attn or ssm):
             raise NotImplementedError(
                 f"block {self.mixer}+{self.ffn} (window {self.window}) is "
                 f"not ported yet (ROADMAP.md Queue 1, \"Remaining "
                 f"families\"); gqa and full-attention mla with mlp, moe "
-                f"or dense0 are")
+                f"or dense0, and ssm with no FFN, are")
 
     @property
-    def cache_names(self) -> tuple[str, str]:
-        """The block's two cache leaves: k/v, or MLA's latent ckv/krope."""
-        return ("ckv", "krope") if self.mixer == "mla" else ("k", "v")
+    def cache_names(self) -> tuple[str, ...]:
+        """The block's cache leaves, in ``block_cache_shape``'s order:
+        attention's k/v (MLA's latent ckv/krope), whose kind is 'paged' or
+        'ring', or the SSM's 'slot' leaves, its recurrent state and conv
+        history (``block_cache_kinds``)."""
+        return {"mla": ("ckv", "krope"), "ssm": ("state", "conv")}.get(
+            self.mixer, ("k", "v"))
 
 
 Group = tuple[tuple[BlockDef, ...], int]
 
 
 def block_spec(cfg: ModelConfig, bd: BlockDef, dtype) -> dict:
+    """An attention block's ``ln1``, ``attn``, ``ln2`` and ``ffn``; an SSM
+    block's ``ln1`` and ``ssm`` only, as the reference's."""
+    if bd.mixer == "ssm":
+        return {"ln1": rmsnorm_spec(cfg.d_model, dtype),
+                "ssm": ssm_spec(cfg, dtype)}
     if bd.ffn == "moe":
         ffn = moe_spec(cfg, dtype)
     else:
@@ -85,7 +100,14 @@ def block_cache_shape(cfg: ModelConfig, bd: BlockDef, B: int, T: int,
     """(shape, dtype) of each cache leaf of one block in a dense cache of
     ``B`` rows and ``T`` positions: k/v [B, T, KV, hd], a windowed block
     a ring of min(window, T) positions; MLA the latent ckv [B, T,
-    kv_lora] and krope [B, T, rope_hd]."""
+    kv_lora] and krope [B, T, rope_hd]; an SSM block its recurrent state
+    [B, H, N, P], fp32 whatever ``dtype`` is, and its conv history [B,
+    K-1, conv_dim] (no position axis)."""
+    if bd.mixer == "ssm":
+        s = cfg.ssm
+        _, heads, conv_dim = ssm_dims(cfg)
+        return {"state": ((B, heads, s.d_state, s.head_dim), torch.float32),
+                "conv": ((B, s.d_conv - 1, conv_dim), dtype)}
     if bd.mixer == "mla":
         m = cfg.mla
         return {"ckv": ((B, T, m.kv_lora), dtype),
@@ -100,21 +122,28 @@ def block_cache_kinds(bd: BlockDef) -> dict[str, str]:
     'paged' — token-indexed, block-pageable and prefix-shareable (full
     attention, MLA's latent leaves); 'ring' — a window ring,
     block-pageable through the low entries of the slot's table but never
-    prefix-shared (its contents are overwritten in place).  The
-    reference's 'slot' kind comes with the SSM and cross-attention
-    families."""
-    kind = "ring" if bd.window else "paged"
+    prefix-shared (its contents are overwritten in place); 'slot' — a
+    fixed-size state per slot (the SSM's recurrent state and conv
+    history), never paged: [num_slots, ...] in both pool layouts, spliced
+    into its slot's row and left alone by a block copy."""
+    if bd.mixer == "ssm":
+        kind = "slot"
+    else:
+        kind = "ring" if bd.window else "paged"
     return {name: kind for name in bd.cache_names}
 
 
-def block_paged_cache_shape(cfg: ModelConfig, bd: BlockDef, num_blocks: int,
-                            block: int, dtype) -> dict:
+def block_paged_cache_shape(cfg: ModelConfig, bd: BlockDef, num_slots: int,
+                            num_blocks: int, block: int, dtype) -> dict:
     """(shape, dtype) of each cache leaf of one block in the paged pool:
     'paged' and 'ring' leaves are arenas [num_blocks + 1, block, ...] (the
     + 1 is the write sentinel) of one position's entry, [KV, hd] or MLA's
-    [kv_lora] and [rope_hd]."""
-    dense = block_cache_shape(cfg, bd, 1, 1, dtype)
-    return {name: ((num_blocks + 1, block) + shape[2:], dt)
+    [kv_lora] and [rope_hd]; a 'slot' leaf keeps its dense shape
+    [num_slots, ...]."""
+    kinds = block_cache_kinds(bd)
+    dense = block_cache_shape(cfg, bd, num_slots, 1, dtype)
+    return {name: (shape, dt) if kinds[name] == "slot" else
+            ((num_blocks + 1, block) + shape[2:], dt)
             for name, (shape, dt) in dense.items()}
 
 
@@ -132,8 +161,21 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
     path for every prompt, where the reference rolls or pads an
     exact-length prompt and takes this path for a bucketed one; at the
     true length they agree value for value, and no padding row reaches
-    the ring."""
+    the ring.  An SSM block (no FFN) keeps its final recurrent state (fp32)
+    and the conv tail at ``true_len`` (``ssm.ssm_forward``: the padding's
+    steps leave the state as it was)."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if bd.mixer == "ssm":
+        y, state, tail = ssm_forward(p["ssm"], cfg, h, plans,
+                                     true_len=true_len)
+        cache = None
+        if want_cache:
+            shapes = block_cache_shape(cfg, bd, x.shape[0], T_cache,
+                                       x.dtype)
+            cache = {name: t if out is None else
+                     _out_buf(out, name, *shapes[name]).copy_(t)
+                     for name, t in (("state", state), ("conv", tail))}
+        return x + y, cache
     if bd.mixer == "mla":
         y, (k, v) = mla_self_attn(p["attn"], cfg, h, positions,
                                   backend=plans)
@@ -158,11 +200,7 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
             if out is None:
                 buf = torch.empty(shape, dtype=t.dtype, device=t.device)
             else:
-                buf = out[name]
-                if tuple(buf.shape) != shape or buf.dtype != t.dtype:
-                    raise ValueError(
-                        f"the output cache's {name} is {tuple(buf.shape)} "
-                        f"{buf.dtype}, the prefill writes {shape} {t.dtype}")
+                buf = _out_buf(out, name, shape, t.dtype)
             if bd.window:
                 torch.where(held[None, :, None, None] >= 0,
                             t.index_select(1, take), t.new_zeros(()),
@@ -176,6 +214,17 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
     return x + ffn_apply(p["ffn"], cfg, bd, h, plans), cache
 
 
+def _out_buf(out: dict, name: str, shape: tuple, dtype: torch.dtype
+             ) -> torch.Tensor:
+    """Leaf ``name`` of the output cache ``out``, which must have the
+    prefill's shape and dtype."""
+    buf = out[name]
+    if tuple(buf.shape) != shape or buf.dtype != dtype:
+        raise ValueError(f"the output cache's {name} is {tuple(buf.shape)} "
+                         f"{buf.dtype}, the prefill writes {shape} {dtype}")
+    return buf
+
+
 def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
                  pos: torch.Tensor, plans=None, paged=None, active=None):
     """Single-token block at the device position ``pos`` (0-d or [B],
@@ -186,8 +235,15 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
     attention), and k/v are block arenas
     (``attention.gqa_decode_attn_paged``).  An MLA block runs the absorbed
     form over its latent ckv/krope the same way
-    (``attention.mla_decode_attn[_paged]``)."""
+    (``attention.mla_decode_attn[_paged]``).  An SSM block updates its
+    recurrent state and conv history in place, the same 'slot' leaves in
+    both layouts, and a row ``active`` leaves out keeps both bit for bit
+    (``ssm.ssm_decode``)."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if bd.mixer == "ssm":
+        y, st, cv = ssm_decode(p["ssm"], cfg, h, cache["state"],
+                               cache["conv"], plans, active=active)
+        return x + y, {"state": st, "conv": cv}
     a, b = bd.cache_names
     if bd.mixer == "mla" and paged is not None:
         y, nk, nv = mla_decode_attn_paged(p["attn"], cfg, h, cache[a],
@@ -251,9 +307,9 @@ def block_resume(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, src_b,
     prefix gathered through ``src_b`` and scatters the updated logical
     cache back through ``dst_b`` (COW where the tables differ), in place.
     Only prefix-shareable mixers get here (``Model.supports_prefix_reuse``:
-    full-attention GQA or MLA, not a window ring).  The MoE runs on the
-    suffix's tokens, the reference's token set."""
-    if bd.window:
+    full-attention GQA or MLA, not a window ring nor an SSM state).  The
+    MoE runs on the suffix's tokens, the reference's token set."""
+    if bd.window or bd.mixer == "ssm":
         raise ValueError(f"mixer {bd.mixer!r} (window={bd.window}) does not "
                          f"support prefix-resume prefill")
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
@@ -313,10 +369,23 @@ def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
     scattered back.  An inactive lane writes back the bits it read (dense)
     or only the sentinel block (paged).  MLA takes the full-attention
     paths over its latent leaves, in the absorbed form
-    (``attention.mla_chunk_attn``)."""
+    (``attention.mla_chunk_attn``).  An SSM block reads row ``slot`` of
+    its state and conv history (zeros when ``start`` is 0: a fresh
+    prompt), runs the chunk from them (``ssm.ssm_forward``) and writes
+    the row back as ``where(active, new, old)``, in either layout."""
     C = x.shape[1]
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     idx = slot.reshape(1).long()
+    if bd.mixer == "ssm":
+        old = {n: cache[n].index_select(0, idx) for n in ("state", "conv")}
+        st, cv = (torch.where(start == 0, t.new_zeros(()), t)
+                  for t in old.values())
+        y, st, tail = ssm_forward(p["ssm"], cfg, h, plans,
+                                  true_len=true_len, s0=st, conv_hist=cv)
+        for name, new in (("state", st), ("conv", tail)):
+            cache[name].index_copy_(0, idx, torch.where(
+                active, new.to(old[name].dtype), old[name]))
+        return x + y, cache
     if bd.window and table is not None:
         blk = cache["k"].shape[1]
         W = min(bd.window, table.shape[0] * blk)

@@ -61,16 +61,17 @@ device (``Request.key``, or one seeded from the scheduler's ``seed`` and
 the request's uid, the counterpart of ``fold_in(base_key, uid)``); greedy
 requests draw nothing.
 
-A model with window rings (gemma3's local layers) serves through every
-pool and admission kind; its prefix blocks are never shared
-(``Model.supports_prefix_reuse`` is false, so ``prefix_cache`` is off in a
-paged pool), as in the reference.
+A model with window rings (gemma3's local layers) or an SSM state
+(mamba2) serves through every pool and admission kind; its prefix blocks
+are never shared (``Model.supports_prefix_reuse`` is false, so
+``prefix_cache`` is off in a paged pool), as in the reference.  mamba2's
+paged pool holds no arena at all, only 'slot' leaves: its block accounting
+(reservation, admission by memory, tables, high-water) runs all the same,
+so its slots and block ids are the reference's.
 
 Not ported (ROADMAP.md Queue 1): preemption (mid-prefill included),
 deadlines, resize, snapshots (mid-prefill included), the mesh and
-``drop``; chunked prefill covers GQA, full and windowed (the MLA and SSM
-chunk branches come with their families).  The constructor refuses the
-arguments.  With equal priorities the reference
+``drop``.  The constructor refuses the arguments.  With equal priorities the reference
 never preempts, so the two agree at their defaults.
 """
 from __future__ import annotations
@@ -334,6 +335,8 @@ class Scheduler:
         return out
 
     def kv_pool_bytes(self) -> int:
+        """Bytes of the pool: every leaf, arenas and 'slot' leaves (an SSM
+        state and conv history) alike, with positions and tables."""
         return sum(t.nbytes for t in tree_leaves(self.cache))
 
     def reset_stats(self) -> None:

@@ -894,3 +894,85 @@ def test_tall_blocks_cover_64_experts(name, C):
     want = tt_fused2_experts_ref(x, p2, p1, dims).float()
     err = float((got.float() - want).abs().max())
     assert err <= 1e-2 * float(want.abs().max())
+
+
+# mamba2-2.7b's SSD projections at rank 16, length 2 (``plan_for``): in_proj
+# 2560→10576 and out_proj 5120→2560.  in_proj's m1 of 1,322 = 2·661 is no
+# multiple of 8: its P1 rows (2,644 bytes in bf16, 5,288 in fp32, 1,322 in
+# int8) are 16-byte aligned in no dtype, so every block stages P1 through
+# the scalar loop, and every slice width leaves a ragged last slice
+MAMBA2 = {"in_proj": (8, 320, 1322, 8, 16), "out_proj": (8, 640, 320, 8, 16)}
+
+
+@pytest.mark.parametrize("B,name,want", [
+    # decode: one row tile × 8 i2 groups; in_proj's 1,322 columns in 14
+    # slices of 96 (the last 74 wide), out_proj's 320 in 10 of 32
+    (4, "in_proj", (4, 1, 96, 112, 96, (1, 8, 14))),
+    (4, "out_proj", (4, 1, 32, 208, 32, (1, 8, 10))),
+    # an admission at the 256 bucket and the 4 × 1,024 prefill: whole-m2
+    # blocks of 2 rows, m1 in one slice (1,328 for 1,322)
+    (256, "in_proj", (2, 8, 1328, 64, 256, (128, 1, 1))),
+    (256, "out_proj", (2, 8, 320, 64, 256, (128, 1, 1))),
+    (4096, "in_proj", (2, 8, 1328, 64, 256, (2048, 1, 1))),
+    (4096, "out_proj", (2, 8, 320, 64, 256, (2048, 1, 1))),
+])
+def test_launch_geometry_at_mamba2_shapes(B, name, want):
+    """The plain entry's tiles at mamba2's shapes in bf16, unchanged
+    rules; the block fits shared memory."""
+    dims = MAMBA2[name]
+    geo = tt_contract.fused2_geometry(B, dims, 2, 2, 132, 232_448)
+    assert (geo.bb, geo.g, geo.nc, geo.kc, geo.nct, geo.grid) == want
+    assert geo.smem == tt_contract.fused2_smem_bytes(
+        dims[0], dims[4], geo.bb, geo.g, geo.kc, geo.nct, 2, 2) <= 232_448
+
+
+def test_mamba2_in_proj_p1_rows_are_unaligned_in_every_dtype():
+    """The kernel stages P1 with 16-byte copies only when a row of m1
+    elements is a whole number of 16-byte words (``vec_p1`` in
+    ``csrc/tt_fused2.cu``): never at in_proj's m1, always at out_proj's;
+    and 1,322 leaves a ragged last m1 slice at every row count."""
+    m1_in, m1_out = MAMBA2["in_proj"][2], MAMBA2["out_proj"][2]
+    for w_bytes in (4, 2, 1):
+        assert (m1_in * w_bytes) % 16 != 0
+        assert (m1_out * w_bytes) % 16 == 0
+    for B in (4, 256, 4096):
+        for act_bytes, w_bytes in ((2, 2), (2, 1), (4, 4), (4, 1)):
+            geo = tt_contract.fused2_geometry(B, MAMBA2["in_proj"],
+                                              act_bytes, w_bytes, 132,
+                                              232_448)
+            assert m1_in % geo.nc != 0
+
+
+@pytest.mark.parametrize("act_bytes,w_bytes", [(2, 2), (2, 1), (4, 4),
+                                               (4, 1)],
+                         ids=["bf16", "bf16-int8", "fp32", "fp32-int8"])
+@pytest.mark.parametrize("B", [4, 256, 4096])
+@pytest.mark.parametrize("name", list(MAMBA2))
+def test_fused2_launch_covers_mamba2_shapes(fake_launch, name, B, act_bytes,
+                                            w_bytes):
+    """Every activation and core dtype through the plain entry at mamba2's
+    shapes: the arguments are the geometry, the grid covers every row and
+    column (in_proj's ragged 1,322 included), the block fits shared
+    memory."""
+    n1, n2, m1, m2, r1 = dims = MAMBA2[name]
+    act = torch.bfloat16 if act_bytes == 2 else torch.float32
+    int8 = w_bytes == 1
+    wd = torch.int8 if int8 else act
+    x = torch.zeros(B, n1 * n2, dtype=act)
+    p2 = torch.zeros(n2, m2 * r1, dtype=wd)
+    p1 = torch.zeros(n1 * r1, m1, dtype=wd)
+    kernel = "tt_fused2_int8" if int8 else "tt_fused2"
+    y = tt_contract._launch_fused2(kernel, x, p2, p1,
+                                   torch.ones(2) if int8 else None, dims)
+    assert y.shape == (B, m1 * m2) and y.dtype == act
+    (fn, args), = fake_launch.calls
+    geo = tt_contract.fused2_geometry(B, dims, act_bytes, w_bytes, 132,
+                                      232_448)
+    k = 5 if int8 else 4
+    assert args[k:k + 6] == (B, n1, n2, m1, m2, r1)
+    assert args[k + 6:] == (geo.bb, geo.g, geo.nc, geo.kc, geo.nct,
+                            geo.smem, 7)
+    assert geo.g * geo.grid[1] >= m2 and geo.bb * geo.grid[0] >= B
+    assert geo.nc * geo.grid[2] >= m1 > geo.nc * (geo.grid[2] - 1)
+    assert geo.smem <= 232_448
+    assert tt_contract.launch_counts() == {kernel: 1}

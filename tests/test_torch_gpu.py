@@ -1465,3 +1465,111 @@ def test_deepseek_v2_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
     paged, eager = runs["paged"][0], runs["paged eager"][0]
     for uid in paged:
         assert np.array_equal(paged[uid].logprobs, eager[uid].logprobs)
+
+
+# mamba2-2.7b's SSD projections at rank 16: in_proj (m1 = 1,322, whose P1
+# rows are 16-byte aligned in no dtype: the scalar staging loop, ragged m1
+# slices) and out_proj, at decode, admission and the 4 × 1,024 prefill
+MAMBA2_SHAPES = ((8, 320, 1322, 8, 16), (8, 640, 320, 8, 16))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [4, 256, 4096])
+@pytest.mark.parametrize("dims", MAMBA2_SHAPES, ids=["in_proj", "out_proj"])
+def test_fused2_kernel_at_mamba2_shapes(cuda, dims, B, act, int8):
+    x, p2, p1, scales = _inputs(dims, B, act, int8, cuda, seed=B)
+    if int8:
+        y = tt_contract.tt_fused2_int8(x, p2, p1, scales, dims)
+    else:
+        y = tt_contract.tt_fused2(x, p2, p1, dims)
+    want = ref.tt_fused2_ref(x, p2, p1, dims, scales)
+    assert y.shape == want.shape and bool(torch.isfinite(y).all())
+    err = float((y.float() - want.float()).abs().max())
+    assert err <= TOL[act] * float(want.float().abs().max())
+
+
+def _mamba2(device, variant="smoke", weights="fp32"):
+    """mamba2 SMOKE (TT on ffn at rank 4) or FULL (bf16, rank 16), ``auto``
+    backend: the in/out projections through ``tt_fused2``."""
+    smoke = variant == "smoke"
+    cfg = get_config("mamba2-2.7b", variant, tt=TTConfig(
+        enabled=True, families=("ffn",), rank=4 if smoke else 16,
+        min_factor=2 if smoke else 8, backend="auto", weights=weights))
+    model = build(cfg, param_dtype=torch.float32 if smoke
+                  else torch.bfloat16, device=device)
+    params = model.init(0)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params
+
+
+@pytest.mark.parametrize("variant,weights", [("smoke", "fp32"),
+                                             ("smoke", "int8"),
+                                             ("full", "fp32")])
+def test_mamba2_prefill_and_decode_replays_are_eager(cuda, variant, weights):
+    """The captured prefill (a prompt of 20 in the 32 bucket: padded steps
+    leave the state alone) and 8 decode replays against the eager prefill
+    and steps, bit for bit: the state (fp32) and conv history updated in
+    place inside the graph; FULL at full width, 64 layers."""
+    model, params = _mamba2(cuda, variant, weights)
+    batch = _prompt(model, 5, B=2, S=20, T=48)
+    tokens = torch.nn.functional.pad(batch["tokens"], (0, 12))
+    graph = model.graphed_prefill(2, 32, 48)
+    graph(params, tokens, 20)                       # the capture
+    g_logits, g_cache = graph(params, tokens, 20)
+    e_logits, e_cache = model.prefill(params, {
+        "tokens": tokens, "cache_len": 48, "prompt_len": 20})
+    assert torch.equal(g_logits, e_logits)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_cache),
+                                                 tree_leaves(e_cache)))
+    assert g_cache["g0"][0]["b0"]["state"].dtype == torch.float32
+    step = model.graphed_decode_step(2, 48)
+    step.load(params, g_cache, 20)
+    tok = e_logits[:, -1].argmax(-1, keepdim=True)
+    for t in range(8):
+        want, e_cache = model.decode_step(params, e_cache, tok)
+        got = step(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    sfx = "_int8" if weights == "int8" else ""
+    assert step.captured.get("tt_fused2" + sfx) == \
+        2 * model.cfg.num_layers
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(chunk_prefill=True, chunk_size=5, prefill_budget=10)],
+    ids=["monolithic", "chunk5x2"])
+def test_mamba2_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
+    """Prompts of 20, 13 and 24 through 2 slots over 48 positions: the
+    dense pool through the graphs against eager, and the paged pool (no
+    arena; blocks of 4 accounted) through the graphs and eagerly, tokens
+    and logprobs bit for bit; the prefix cache stays off."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _mamba2(cuda)
+    prompts = [_prompt(model, 90 + i, B=1, S=n)["tokens"]
+               for i, n in enumerate((20, 13, 24))]
+
+    def run(**extra):
+        sched = Scheduler(model, params, num_slots=2, cache_len=48, **kw,
+                          **extra)
+        for uid, tokens in enumerate(prompts):
+            sched.submit(Request(uid=uid, inputs={"tokens": tokens},
+                                 max_new_tokens=5))
+            sched.step()
+        sched.run()
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+            assert not sched.prefix_cache
+        return {f.uid: f for f in sched.finished}
+
+    dense = run()
+    for extra in (dict(graph=False), dict(paged=True, block_size=4),
+                  dict(paged=True, block_size=4, graph=False)):
+        got = run(**extra)
+        assert sorted(got) == sorted(dense) == [0, 1, 2]
+        for uid in got:
+            assert np.array_equal(got[uid].tokens, dense[uid].tokens)
+            assert np.array_equal(got[uid].logprobs, dense[uid].logprobs)
