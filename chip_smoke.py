@@ -26,7 +26,10 @@ Phases, each fatal on failure:
      untimed at 1 and 20; fused2 at qwen3-32b's five shapes at 256 and
      4 rows (``qwen3_kernels``); and fused2 at mamba2-2.7b's in_proj (m1
      = 1,322: P1 rows 16-byte aligned in no dtype) and out_proj at 4, 256
-     and 4,096 rows (``mamba2_kernels``);
+     and 4,096 rows (``mamba2_kernels``); and at jamba-v0.1-52b's, bf16
+     activations only (``jamba_kernels``): fused2 at its SSD in_proj (m1
+     = 2,068) and out_proj at 4, 256 and 4,096 rows, and the expert kernel
+     across 16 experts at C = 640, 128 and 8;
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
      take; fused2, the fused chain and the length-2 steps also with L2
@@ -64,7 +67,9 @@ Phases, each fatal on failure:
      (``small_prefix_check``); and mamba2 SMOKE (2 SSD blocks) through
      ``small_ring_check`` with ``SSM_MODES``: the fixed batch, and the
      dense, paged (no arena) and chunked schedulers at chunks of 1, 5 and
-     40, both pools;
+     40, both pools; and jamba SMOKE (3 SSD blocks and a GQA block, MLPs
+     and 4 experts top-2) the same way, its paged pool mixing the GQA
+     block's arenas with the SSD blocks' slot state;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -136,11 +141,17 @@ Phases, each fatal on failure:
      for bit, each chunked request against ``generate_fixed`` measured;
      then the dense and chunked runs again with the weights in fp32 and
      the scan in fp64, each request held against ``generate_fixed``
-     within 1e-4.
+     within 1e-4; and, between deepseek-v2-lite-16b and qwen3-32b,
+     full-width jamba-v0.1-52b (``moe_path``: per pass 120 ``tt_fused2``
+     and 48 ``tt_fused2_experts`` across 16 experts), 4 × (1,024 + 64)
+     with fp and int8 cores as mixtral, one SSD mixer traced alone beside
+     the MoE layer, no arrival run, and the staggered run with the prefix
+     counters 0 and each request against ``generate_fixed`` measured.
      deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
      continuous-batching paths run at ``CUT_LAYERS`` of its 30 layers;
-     mixtral-8x7b's and deepseek-v2-lite-16b's continuous-batching paths
-     at ``MOE_CUT_LAYERS``, gemma3-4b's at ``GEMMA3_CUT_LAYERS``.
+     mixtral-8x7b's, deepseek-v2-lite-16b's and jamba-v0.1-52b's
+     continuous-batching paths at ``MOE_CUT_LAYERS``, gemma3-4b's at
+     ``GEMMA3_CUT_LAYERS``.
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
@@ -149,8 +160,9 @@ record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
 the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
 together, gemma3-4b's, mixtral-8x7b's, deepseek-v2-lite-16b's,
-qwen3-32b's and mamba2-2.7b's included (``tt_fused2_int8``: their int8 fixed batches too;
-the expert kernels: mixtral's and deepseek-v2's); its times are
+jamba-v0.1-52b's, qwen3-32b's and mamba2-2.7b's included
+(``tt_fused2_int8``: their int8 fixed batches too; the expert kernels:
+mixtral's, deepseek-v2's and jamba's); its times are
 deepseek-7b's layer, and for the expert-batched kernels mixtral-8x7b's (3
 expert projections, 8 experts × 8 rows).
 The last three lines are ``{"kernels": [...]}``, the card's name and power
@@ -408,6 +420,40 @@ MAMBA2_ARGS = ["--arch", "mamba2-2.7b", "--variant", "full", "--tt", "ffn",
 MAMBA2_FIXED = ["--batch", "4", "--prompt-len", "1024", "--steps", "64"]
 MAMBA2_STAGGER, MAMBA2_T, MAMBA2_N = ((256, 1024), (8, 16)), 1040, 6
 MAMBA2_BLOCK, MAMBA2_CHUNK = 16, dict(chunk_prefill=True, chunk_size=64)
+# jamba-v0.1-52b (32 layers in 4 periods of 8: Mamba-2 SSD blocks at 0–3
+# and 5–7, d_inner 8,192, 128 heads of 64, d_state 16; GQA with 8 KV heads
+# at 4; a mixture of 16 experts, top-2, expert_ff 14,336, at 1, 3, 5 and 7,
+# a GLU MLP of 14,336 elsewhere): its two new TT shapes at rank 16, length
+# 2, and its 16-expert stacks at mixtral's expert shapes, with how many of
+# each one pass runs (120 ``tt_fused2`` = 28 SSD blocks × 2 + 4 GQA blocks
+# × 4 + 16 MLPs × 3; 48 ``tt_fused2_experts`` = 16 MoE layers × 3).
+# in_proj's m1 of 2,068 gives P1 rows 16-byte aligned in fp32 only.  Timed
+# with bf16 activations, fp and int8 cores: in/out proj at decode (4 rows),
+# an admission (256) and the 4 × 1,024 prefill (4,096); the experts at C =
+# 640 (that prefill: ceil(2 · 4,096 / 16 · 1.25)), 128 (an admission at
+# the 256 bucket) and 8 (decode)
+JAMBA_SHAPES = {
+    "jamba in_proj 4096->16544": (((8, 512), (2068, 8), (1, 16, 1)), 28),
+    "jamba out_proj 8192->4096": (((8, 1024), (512, 8), (1, 16, 1)), 28),
+}
+JAMBA_EXPERT_SHAPES = {
+    "jamba experts gate/up 4096->14336": (((8, 512), (1792, 8), (1, 16, 1)),
+                                          32),
+    "jamba experts down 14336->4096": (((8, 1792), (512, 8), (1, 16, 1)),
+                                       16),
+}
+JAMBA_E, JAMBA_LAYERS, JAMBA_MOE_LAYERS, JAMBA_SSM_LAYERS = 16, 32, 16, 28
+JAMBA_ROWS, JAMBA_C = (4, 256, 4096), (640, 128, 8)
+BF16_CASES = ((False, torch.bfloat16), (True, torch.bfloat16))
+# phase 5 at full width: the fixed batch of 4 prompts of 1,024 tokens (4
+# SSD chunks of 256 a prompt: the inter-chunk scan runs; C = 640) and 64
+# new ones; at one period the staggered run of mixtral's traffic, dense,
+# paged (blocks of 16: the GQA layer's arenas beside the SSD layers' slot
+# state) and chunked at 64.  No arrival run: the staggered run drives the
+# mixed pool
+JAMBA_ARGS = ["--arch", "jamba-v0.1-52b", "--variant", "full", "--tt",
+              "ffn,attn", "--tt-rank", "16", "--seed", "0", "--tt-backend",
+              "auto"]
 # deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
 # continuous-batching paths (dense, paged, chunked) run at this depth (of
 # 30), to keep the script within its time on a slower host with the two
@@ -1233,13 +1279,14 @@ def traced(label: str, kernel: str, per_pass: int, model, params,
     return rec
 
 
-def replays_alone(replay, source: str, top: int = 0) -> dict:
+def replays_alone(replay, source: str, top: int = 0, also=()) -> dict:
     """``REPLAYS`` calls of ``replay`` traced alone (device kernels only,
     the trace opened by the pre-roll): per call, the device kernels, those
     of ``source``, the device busy ms and the host-clock wall ms (the
     profiler's host cost included), and the device ms of ``source``'s
     kernels; with ``top``, the ``top`` kernels by device time, each (name,
-    ms, launches) per call."""
+    ms, launches) per call; ``also``: other kernel names, each (launches,
+    device ms) per call."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profile_serve.preroll()
@@ -1257,6 +1304,11 @@ def replays_alone(replay, source: str, top: int = 0) -> dict:
                tt_ms=sum(e.self_device_time_total for e in ks
                          if source in e.key) / 1e3 / REPLAYS,
                wall_ms=wall * 1e3 / REPLAYS)
+    if also:
+        out["also"] = {name: (
+            sum(e.count for e in ks if name in e.key) / REPLAYS,
+            sum(e.self_device_time_total for e in ks if name in e.key)
+            / 1e3 / REPLAYS) for name in also}
     if top:
         ks = sorted(ks, key=lambda e: -e.self_device_time_total)[:top]
         out["top"] = [(e.key[:80], e.self_device_time_total / 1e3 / REPLAYS,
@@ -2103,12 +2155,12 @@ def chunked_path(smi: str, model, params, dense: dict, paged: dict,
 
 
 def fused2_kernels(gen, shapes: dict, model: str, rows_of=ROWS,
-                   checked=()) -> list[dict]:
+                   checked=(), cases=CASES) -> list[dict]:
     """Phases 2 and 3 at one model's fused2 shapes (``shapes``: label →
     (dims, launches per layer or pass)): ``tt_fused2`` and
     ``tt_fused2_int8`` against their plain versions and timed beside them,
     ``torch.matmul`` of the dense layer and the bound, at ``rows_of``
-    (cold-L2 too), every case of ``CASES``; then checked untimed at
+    (cold-L2 too), every case of ``cases``; then checked untimed at
     ``checked`` rows.  One record per (kernel, shape, rows, case), marked
     ``model``."""
     spec = hw.device_spec(torch.device("cuda"))
@@ -2116,7 +2168,7 @@ def fused2_kernels(gen, shapes: dict, model: str, rows_of=ROWS,
     recs = []
     for label, (dims, per_layer) in shapes.items():
         for rows in tuple(rows_of) + tuple(checked):
-            for int8, act in CASES:
+            for int8, act in cases:
                 kernel, run, plain, library, moved, flops, *_ = \
                     layer_cases(dims, rows, int8, act, gen)
                 if rows in rows_of:
@@ -2224,8 +2276,11 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
     """Phase 4, SMOKE of a ring-cache, MoE or SSM model (gemma3: window 16;
     mixtral: window 32 and 4 experts top-2, dropless; deepseek-v2-lite:
     MLA over latent caches, 4 experts top-2 and a shared one, dropless;
-    mamba2: 2 SSD blocks, d_state 16, with ``SSM_MODES``; the
-    staggered prompts share no prefix) on the card against the CPU,
+    mamba2: 2 SSD blocks, d_state 16, with ``SSM_MODES``; jamba: one
+    period of 3 SSD blocks and a GQA block, MLPs and 4 experts top-2,
+    dropless, with ``SSM_MODES``: its paged pool mixes the GQA block's
+    arenas with the SSD blocks' slot state; the staggered prompts share
+    no prefix) on the card against the CPU,
     same weights, fp32 and int8 cores: the fixed batch (prompts of 24 and
     40 into caches of 48 and 64; gemma3's rings wrap): the prefill and 16
     decode steps fed the CPU's greedy tokens, eagerly and through the
@@ -2551,20 +2606,20 @@ def expert_cases(dims, C, int8, act, gen, E):
             library, moved, 2 * E * C * chain_macs(dims))
 
 
-def expert_kernels(gen, shapes: dict, E: int, timed, checked, model: str
-                   ) -> list[dict]:
+def expert_kernels(gen, shapes: dict, E: int, timed, checked, model: str,
+                   cases=CASES) -> list[dict]:
     """Phases 2 and 3 at one model's expert shapes: ``tt_fused2_experts
     [_int8]`` (one launch across ``E`` experts) against its plain version
     and timed beside it (cold-L2 too), with ``torch.bmm`` over the dense
     expert stacks and the bound, at ``timed`` rows an expert, every case
-    of ``CASES``, and checked untimed at ``checked``.  One record per
+    of ``cases``, and checked untimed at ``checked``.  One record per
     (kernel, shape, rows, case), marked ``model`` and ``experts``."""
     spec = hw.device_spec(torch.device("cuda"))
     buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     recs = []
     for label, (dims, per_layer) in shapes.items():
         for C in tuple(timed) + tuple(checked):
-            for int8, act in CASES:
+            for int8, act in cases:
                 kernel, run, plain, library, moved, flops = expert_cases(
                     dims, C, int8, act, gen, E)
                 if C in timed:
@@ -2618,9 +2673,9 @@ def moe_layer_alone(model, params, args) -> dict:
     1] rows of the model's width), eager, traced alone
     (``replays_alone``): its device kernels, the expert kernel's launches
     and the busy ms per call."""
-    gi = next(i for i, (period, _) in enumerate(model.groups)
-              if period[0].ffn == "moe")
-    p = params[f"g{gi}"][0]["b0"]["ffn"]
+    gi, bi = next((gi, bi) for gi, (period, _) in enumerate(model.groups)
+                  for bi, bd in enumerate(period) if bd.ffn == "moe")
+    p = params[f"g{gi}"][0][f"b{bi}"]["ffn"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     h = torch.randn((args.batch, 1, model.cfg.d_model), generator=gen,
@@ -2656,10 +2711,12 @@ def mla_alone(model, params, args) -> dict:
 
 
 # phase 5 of each mixture-of-experts family: its serve flags, the fixed
-# batch, the arrival mode, the staggered run (prompt lengths, budgets;
-# cache), the paged block and the chunking, its decoder layers and MoE
-# layers, and its ``tt_fused2`` and ``tt_fused2_experts`` launches a pass;
-# deepseek-v2 adds the MLA trace and serve's prefix smoke
+# batch, the arrival mode (None: no arrival run), the staggered run
+# (prompt lengths, budgets; cache), the paged block and the chunking, its
+# decoder layers, MoE layers and SSD layers, and its ``tt_fused2`` and
+# ``tt_fused2_experts`` launches a pass, at full depth and at
+# ``MOE_CUT_LAYERS``; deepseek-v2 adds the MLA trace and serve's prefix
+# smoke, jamba the SSD mixer's trace
 MOE_PATHS = {
     "mixtral-8x7b": dict(
         args=MIXTRAL_ARGS, fixed=MIXTRAL_FIXED, arrival=MIXTRAL_ARRIVAL,
@@ -2679,6 +2736,16 @@ MOE_PATHS = {
         # 3 in each MoE layer; the experts' 3 in each MoE layer
         cut_per_pass=(5 + 5 * (MOE_CUT_LAYERS - 1),
                       3 * (MOE_CUT_LAYERS - 1))),
+    "jamba-v0.1-52b": dict(
+        args=JAMBA_ARGS, fixed=MAMBA2_FIXED, arrival=None,
+        stagger=MIXTRAL_STAGGER, T=MIXTRAL_T, block=MIXTRAL_BLOCK,
+        chunk=MIXTRAL_CHUNK, layers=JAMBA_LAYERS,
+        moe_layers=JAMBA_MOE_LAYERS, ssm_layers=JAMBA_SSM_LAYERS,
+        prefix=None,
+        # SSD blocks × 2, GQA blocks × 4, MLPs × 3; MoE layers × 3: 28, 4,
+        # 16 and 16 of them, one period 7, 1, 4 and 4
+        per_pass=(2 * 28 + 4 * 4 + 3 * 16, 3 * 16),
+        cut_per_pass=(2 * 7 + 4 + 3 * 4, 3 * 4)),
 }
 
 
@@ -2713,9 +2780,11 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     seed 0, nothing cut, TT on ffn+attn at rank 16, ``auto``): mixtral-8x7b
     (per pass 128 ``tt_fused2`` for the attention and 96
     ``tt_fused2_experts``, one launch across the 8 experts for each expert
-    projection) or deepseek-v2-lite-16b (135 ``tt_fused2``: q/o, the dense
+    projection), deepseek-v2-lite-16b (135 ``tt_fused2``: q/o, the dense
     first layer and the shared experts; 78 ``tt_fused2_experts`` across
-    64 experts), with the flags of ``MOE_PATHS[arch]``.
+    64 experts) or jamba-v0.1-52b (120 ``tt_fused2``: the SSD in/out
+    projections, the GQA layers' and the MLPs'; 48 ``tt_fused2_experts``
+    across 16 experts), with the flags of ``MOE_PATHS[arch]``.
 
     The fixed batch through ``launch.serve.fixed``, fp then int8 cores
     (``drive``: every projection replayed through its kernel, 0 captures
@@ -2723,17 +2792,21 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     (``graph_against_eager``: prefill and first-step logits bit for bit),
     the decode replay traced alone, the prefill replay traced alone (its
     busy ms and the expert kernel's share), one MoE layer traced alone
-    (the MoE's share of a replay) and, with MLA, one layer's decode
-    attention alone (its share).  Then on one fp model at
-    ``MOE_CUT_LAYERS`` layers (``cut_model``) the arrivals over
-    the dense pool, the paged one and chunked at 64 (0 captures and plan
-    resolutions steady, every TT launch per admission, per decode step and
-    per pass of a mixed step replayed), serve's prefix smoke where the
-    cache is shareable (hits and skipped prefill tokens, drops printed),
-    and the staggered run: dense graph ≡ eager ≡ paged and chunked graph
-    ≡ eager ≡ paged, bit for bit; chunked ≡ monolithic and scheduler ≡
-    ``generate_fixed`` (other token groupings: another capacity) asserted
-    where both sides dropped nothing, the drops printed either way.
+    (the MoE's share of a replay), with MLA one layer's decode attention
+    alone (its share), and with SSD blocks one SSD mixer's decode alone
+    (its share) and the TT kernels' share of both replays.  Then on one
+    fp model at ``MOE_CUT_LAYERS`` layers (``cut_model``) the arrivals
+    over the dense pool, the paged one and chunked at 64 (0 captures and
+    plan resolutions steady, every TT launch per admission, per decode
+    step and per pass of a mixed step replayed; not for jamba), serve's
+    prefix smoke where the cache is shareable (hits and skipped prefill
+    tokens, drops printed), and the staggered run: dense graph ≡ eager ≡
+    paged and chunked graph ≡ eager ≡ paged, bit for bit, the prefix
+    counters 0 where the cache is not shareable; chunked ≡ monolithic and
+    scheduler ≡ ``generate_fixed`` (other token groupings: another
+    capacity) asserted where both sides dropped nothing (with SSD blocks
+    measured only: the state carries a grouping's bf16 rounding), the
+    drops printed either way.
     Returns each kernel's launches over the fixed-batch calls and the
     arrival and staggered runs, and the record."""
     cfg = MOE_PATHS[arch]
@@ -2773,23 +2846,43 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
         torch.cuda.synchronize()
         r["prefill_replay"] = replays_alone(
             lambda: pre(params, tokens, args.prompt_len),
-            "tt_fused2_experts_kernel", top=6)
+            "tt_fused2_experts_kernel", top=6, also=("tt_fused2_kernel",))
         r["moe_layer"] = moe_layer_alone(model, params, args)
         share = r["moe_layer"]["busy_ms"] * cfg["moe_layers"] / \
             r["replay"]["busy_ms"]
         r["moe_share"] = share
-        mla = ""
+        probes = ""
+        if model.cfg.ssm is not None:
+            rp, pp = r["replay"], r["prefill_replay"]
+            lay = r["ssm_layer"] = ssm_alone(model, params, args)
+            r["ssm_share"] = lay["busy_ms"] * cfg["ssm_layers"] / \
+                rp["busy_ms"]
+            r["tt_share"] = (rp["tt_ms"] + r["replay_experts_ms"]) / \
+                rp["busy_ms"]
+            r["prefill_tt_share"] = (pp["tt_ms"] + pp["also"][
+                "tt_fused2_kernel"][1]) / pp["busy_ms"]
+            probes = (
+                f"; TT kernels {r['tt_share']:.1%} of the decode replay, "
+                f"{r['prefill_tt_share']:.1%} of the prefill replay "
+                f"(tt_fused2_kernel {pp['also']['tt_fused2_kernel'][0]:g} "
+                f"a replay, {pp['also']['tt_fused2_kernel'][1]:.3f} ms); "
+                f"one SSD mixer's decode alone (eager, {args.batch} rows): "
+                f"{lay['kernels']:g} kernels, {lay['busy_ms']:.4f} ms busy, "
+                f"of which tt_fused2 {lay['tt_ms']:.4f}, x "
+                f"{cfg['ssm_layers']} = {r['ssm_share']:.1%} of the replay; "
+                f"top: " + "; ".join(f"{k} {ms:.4f} ms x{n:g}"
+                                     for k, ms, n in lay["top"]))
         if model.cfg.mla is not None:
             r["mla_layer"] = mla_alone(model, params, args)
             r["mla_share"] = r["mla_layer"]["busy_ms"] * cfg["layers"] / \
                 r["replay"]["busy_ms"]
-            mla = (f"; one layer's MLA decode attention alone: "
-                   f"{r['mla_layer']['kernels']:g} kernels, "
-                   f"{r['mla_layer']['busy_ms']:.4f} ms busy, x "
-                   f"{cfg['layers']} = {r['mla_share']:.1%} of the replay; "
-                   f"top: " + "; ".join(
-                       f"{k} {ms:.4f} ms x{n:g}"
-                       for k, ms, n in r["mla_layer"]["top"]))
+            probes += (
+                f"; one layer's MLA decode attention alone: "
+                f"{r['mla_layer']['kernels']:g} kernels, "
+                f"{r['mla_layer']['busy_ms']:.4f} ms busy, x "
+                f"{cfg['layers']} = {r['mla_share']:.1%} of the replay; "
+                f"top: " + "; ".join(f"{k} {ms:.4f} ms x{n:g}"
+                                     for k, ms, n in r["mla_layer"]["top"]))
         pre_share = (r["prefill_replay"]["tt_ms"] /
                      r["prefill_replay"]["busy_ms"])
         print(f"profile ({label}): {REPLAYS} decode replays alone: "
@@ -2815,7 +2908,7 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
               f"{cfg['moe_layers']} layers = {share:.1%} of the replay; "
               f"top: " + "; ".join(f"{k} {ms:.4f} ms x{n:g}"
                                    for k, ms, n in r["moe_layer"]["top"]) +
-              mla + f"; MoE drops warm {out['drops']}, cold "
+              probes + f"; MoE drops warm {out['drops']}, cold "
               f"{out['cold_drops']}", flush=True)
         if (r["replay"]["tt"], r["replay_experts"],
                 r["prefill_replay"]["tt"]) != (attn, experts, experts):
@@ -2829,7 +2922,7 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
         gc.collect()
         torch.cuda.empty_cache()
 
-    model, params, args = cut_model(cfg["args"] + cfg["arrival"],
+    model, params, args = cut_model(cfg["args"] + (cfg["arrival"] or []),
                                     layers=MOE_CUT_LAYERS)
     attn, experts = cfg["cut_per_pass"]
     tt_contract.reset_launch_counts()
@@ -2838,7 +2931,7 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     rec["arrival"] = {}
     for pool, extra in (("dense", []), ("paged", PAGED_ARGS),
                         ("chunked", ["--chunk-prefill", "--chunk-size",
-                                     "64"])):
+                                     "64"])) if cfg["arrival"] else ():
         aargs = serve.parse_args(cfg["args"] + cfg["arrival"] + extra)
         out = serve.simulate(model, params, aargs)
         sched = out.pop("sched")
@@ -2906,6 +2999,10 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
                                                  done["chunked eager"]),
               "chunked paged = dense": same_runs(
                   done["chunked paged graph"], done["chunked graph"])}
+    if not model.supports_prefix_reuse:
+        checks["no prefix hit"] = all(
+            v.get("prefix_hit_tokens", 0) == v.get(
+                "prefill_tokens_skipped", 0) == 0 for v in st.values())
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
     for k in ("tt_fused2", "tt_fused2_experts"):
@@ -2916,26 +3013,33 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     if drops["chunked graph"] == drops["dense graph"] == 0:
         checks["chunked = monolithic (no drops)"] = as_mono
     # scheduler ≡ generate_fixed, where the scheduler's run dropped nothing
-    # (with drops there it asserts nothing, and is not run)
+    # (with drops there it asserts nothing, and is not run); with SSD
+    # blocks measured only (``serve.greedy_against_fixed``): the state
+    # carries a grouping's bf16 rounding to every later token, as mamba2's
+    # does (PERF.md §7), and SMOKE carries the identities
+    hold = model.cfg.ssm is None
     prompts, _ = stagger_requests(model.cfg.vocab_size, *cfg["stagger"])
     greedy = {}
     for u, f in done["dense graph"].items() if drops["dense graph"] == 0 \
             else ():
         moe.reset_drops()
         try:
-            g = serve.check_greedy(model, params, prompts[u].to(model.device),
-                                   f, cfg["T"])
+            g = (serve.check_greedy if hold else serve.greedy_against_fixed)(
+                model, params, prompts[u].to(model.device), f, cfg["T"])
         except AssertionError as err:
             g = dict(failed=str(err)[:200])
         g["drops"] = moe.read_drops()
         greedy[u] = g
+
+    def outside(g):
+        return "failed" in g or not g.get("within", True)
     held = [g for g in greedy.values() if g["drops"] == 0]
     print(f"{arch} staggered run at {MOE_CUT_LAYERS} layers ({STAGGER_N} "
           f"requests, prompts {cfg['stagger'][0]}, budgets "
           f"{cfg['stagger'][1]}, 4 x {cfg['T']}; {smi}): " + ", ".join(
               f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps, "
               f"{v['drops']} drops)" for k, v in st.items()) + "; " +
-          ", ".join(f"{k} {'bit-identical' if v else 'DIFFER'}"
+          ", ".join(f"{k} {'holds' if v else 'FAILS'}"
                     for k, v in checks.items()) +
           f"; chunked {'=' if as_mono else '!='} monolithic (drops "
           f"{drops['chunked graph']} / {drops['dense graph']}); against "
@@ -2943,12 +3047,12 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
           f"drop on either side, "
           f"{sum(g.get('identical', False) for g in held)} of "
           f"them identical, "
-          f"{sum('failed' in g for g in held)} outside the bf16 tolerance; "
-          f"{sum('failed' in g for g in greedy.values())} outside it over "
-          f"all", flush=True)
+          f"{sum(map(outside, held))} outside the bf16 tolerance; "
+          f"{sum(map(outside, greedy.values()))} outside it over all"
+          f"{'' if hold else ' (measured, not asserted)'}", flush=True)
     if not all(checks.values()) or any(
             len(f.tokens) == 0 for f in done["dense graph"].values()) or \
-            any("failed" in g for g in held):
+            (hold and any(map(outside, held))):
         raise AssertionError(f"{arch} staggered run: {checks}, drops "
                              f"{drops}, greedy {greedy}")
     rec["staggered"] = dict(st, checks=checks, greedy=greedy,
@@ -3015,6 +3119,19 @@ def qwen3_path(smi: str) -> tuple[dict[str, int], dict]:
     return launches, rec
 
 
+def jamba_kernels(gen) -> list[dict]:
+    """Phases 2 and 3 at jamba-v0.1-52b's new shapes, bf16 activations, fp
+    and int8 cores: ``tt_fused2[_int8]`` at the SSD in/out projections at
+    ``JAMBA_ROWS`` and ``tt_fused2_experts[_int8]`` across 16 experts at
+    ``JAMBA_C``, each against its plain version and timed beside it
+    (cold-L2 too), with ``torch.matmul`` / ``torch.bmm`` and the bound.
+    The records' ``per_layer`` is launches a pass."""
+    return (fused2_kernels(gen, JAMBA_SHAPES, "jamba-v0.1-52b", JAMBA_ROWS,
+                           cases=BF16_CASES) +
+            expert_kernels(gen, JAMBA_EXPERT_SHAPES, JAMBA_E, JAMBA_C, (),
+                           "jamba-v0.1-52b", cases=BF16_CASES))
+
+
 def mamba2_kernels(gen) -> list[dict]:
     """``fused2_kernels`` at mamba2-2.7b's two shapes, at ``MAMBA2_ROWS``,
     every one timed (the records' ``per_layer`` is launches a pass)."""
@@ -3024,7 +3141,8 @@ def mamba2_kernels(gen) -> list[dict]:
 def ssm_alone(model, params, args, masked: bool = False) -> dict:
     """The first layer's SSD mixer decode (``ssm.ssm_decode``: the in/out
     projections' ``tt_fused2``, the conv, the recurrent update of the
-    [B, 80, 128, 64] fp32 state) at the decode's batch from a random state
+    [B, H, N, P] fp32 state: mamba2's [B, 80, 128, 64], jamba's [B, 128,
+    16, 64]) at the decode's batch from a random state
     and conv history, eager, traced alone (``replays_alone``); ``masked``
     gates the state and conv writes by an ``active`` mask (the slot pool's
     step; the rows alternate), whose ``torch.where`` kernels are counted
@@ -3357,6 +3475,13 @@ def main() -> int:
     layers += layer_summary(s_recs, ("tt_fused2", "tt_fused2_int8"),
                             "mamba2-2.7b", MAMBA2_ROWS, per="pass")
     recs += s_recs
+    j_recs = timed("kernels jamba", jamba_kernels, gen)
+    layers += layer_summary(j_recs, ("tt_fused2", "tt_fused2_int8"),
+                            "jamba-v0.1-52b", JAMBA_ROWS, per="pass")
+    layers += layer_summary(j_recs, ("tt_fused2_experts",
+                                     "tt_fused2_experts_int8"),
+                            "jamba-v0.1-52b", JAMBA_C, per="pass")
+    recs += j_recs
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3372,6 +3497,7 @@ def main() -> int:
     timed("smoke deepseek-v2 prefix", small_prefix_check,
           "deepseek-v2-lite-16b")
     timed("smoke mamba2", small_ring_check, "mamba2-2.7b", SSM_MODES)
+    timed("smoke jamba", small_ring_check, "jamba-v0.1-52b", SSM_MODES)
     launches, graph_recs = timed("deepseek fixed batch", main_paths, smi)
     fused2, sched_rec = timed("deepseek scheduler", scheduler_path, smi)
     launches["tt_fused2"] += fused2

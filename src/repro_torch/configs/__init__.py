@@ -5,8 +5,10 @@ qwen3-32b (qk-norm) and gemma3-4b (sliding-window local layers between
 global ones, qk-norm, tied and scaled embeddings); with a
 mixture-of-experts FFN, mixtral-8x7b (sliding-window attention, 8 experts
 top-2).  So is deepseek-v2-lite-16b: multi-head latent attention, a dense
-first layer, then 64 experts top-6 with shared experts; and mamba2-2.7b,
-attention-free, every layer a Mamba-2 SSD mixer.  Every other
+first layer, then 64 experts top-6 with shared experts; mamba2-2.7b,
+attention-free, every layer a Mamba-2 SSD mixer; and jamba-v0.1-52b, the
+attention/SSM hybrid: periods of seven SSD blocks and one GQA block, each
+with a GLU MLP or (every other layer) a 16-expert MoE FFN.  Every other
 architecture of the reference registry raises ``NotImplementedError``
 naming the ROADMAP item that brings it.
 """
@@ -24,12 +26,11 @@ if TYPE_CHECKING:                      # avoid configs ↔ models import cycle
     from repro_torch.models.model import Model
 
 PORTED = ("deepseek_7b", "gemma3_4b", "granite_8b", "mixtral_8x7b",
-          "qwen3_32b", "deepseek_v2_lite_16b", "mamba2_2p7b")
+          "qwen3_32b", "deepseek_v2_lite_16b", "mamba2_2p7b",
+          "jamba_v0_1_52b")
 
 # architectures of the reference registry that are not ported yet
-PENDING = (
-    "jamba_v0_1_52b", "internvl2_2b", "seamless_m4t_large_v2",
-)
+PENDING = ("internvl2_2b", "seamless_m4t_large_v2")
 
 _PENDING_MSG = ("architecture {!r} is not ported yet (ROADMAP.md Queue 1, "
                 "\"Remaining families\")")
@@ -56,23 +57,34 @@ def get_config(arch: str, variant: str = "full",
 
 def make_layer_plan(cfg: ModelConfig) -> list:
     """Groups ``[(period, count)]`` of the decoder stack (the SSM, the
-    gemma3 local/global, the MLA and the last branch of the reference's
-    ``make_layer_plan``): an SSM model (mamba2) is one Mamba-2 block per
-    layer with no FFN; a local block attends within ``local_window`` at
-    RoPE theta 10,000, the global one closes each period at
+    hybrid, the gemma3 local/global, the MLA and the last branch of the
+    reference's ``make_layer_plan``): an SSM model (mamba2) is one Mamba-2
+    block per layer with no FFN; the hybrid (jamba) is one group of
+    ``attn_every``-block periods, block ``attn_index`` GQA and the rest
+    Mamba-2, each with the mixture of experts where i % n == n - 1 (n =
+    ``moe.every_n_layers``) and the GLU MLP elsewhere; a local block
+    attends within ``local_window`` at RoPE theta 10,000, the global one
+    closes each period at
     ``rope_theta``, and the layers past the last whole period are local;
     with MLA (deepseek-v2) the first layer's FFN is the dense
     ``first_dense_ff`` MLP and every other layer's the mixture of experts
     (every layer the GLU MLP without ``first_dense_ff``); otherwise every
     layer is one GQA block (windowed when ``window`` is set) with a
-    mixture-of-experts FFN when the config has experts, else the GLU MLP.
-    The attention/SSM hybrid is not ported."""
+    mixture-of-experts FFN when the config has experts, else the GLU
+    MLP."""
     from repro_torch.models.transformer import BlockDef
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(_PENDING_MSG.format(cfg.name))
     L = cfg.num_layers
     if cfg.family == "ssm":
         return [((BlockDef("ssm", ffn="none"),), L)]
+    if cfg.attn_every:
+        n = cfg.moe.every_n_layers if cfg.moe else 0
+        period = tuple(
+            BlockDef("gqa" if i == cfg.attn_index else "ssm",
+                     ffn="moe" if n and i % n == n - 1 else "mlp")
+            for i in range(cfg.attn_every))
+        return [(period, L // cfg.attn_every)]
     if cfg.local_global_period:
         p = cfg.local_global_period
         local = BlockDef("gqa", window=cfg.local_window, theta=10_000.0)

@@ -3,10 +3,11 @@
 The subset of ``repro.configs.base`` the port runs: GQA with its variants
 (qk-norm, sliding windows, gemma3's local/global period, tied
 embeddings), multi-head latent attention (``MLAConfig``), the Mamba-2 SSD
-mixer (``SSMConfig``), and both FFNs, the GLU MLP and the mixture of
-experts (``MoEConfig``); fields of the families the port does not run yet
-(cross-attention, frontends, the attention/SSM hybrid's period) are left
-out until they are ported.
+mixer (``SSMConfig``), the attention/SSM hybrid's period (one attention
+layer every ``attn_every``, at ``attn_index``), and both FFNs, the GLU
+MLP and the mixture of experts (``MoEConfig``); fields of the families
+the port does not run yet (cross-attention, frontends) are left out until
+they are ported.
 """
 from __future__ import annotations
 
@@ -98,6 +99,8 @@ class ModelConfig:
     window: int = 0                          # >0 → sliding-window attention
     local_global_period: int = 0             # gemma3: every Nth layer global
     local_window: int = 1024
+    attn_every: int = 0                      # jamba: 1 attn layer per period
+    attn_index: int = 0                      #        at this index
     # mixture of experts
     moe: MoEConfig | None = None
     # multi-head latent attention (deepseek-v2)

@@ -3,7 +3,7 @@ the continuous-batching scheduler.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-7b|gemma3-4b|granite-8b|qwen3-32b|mixtral-8x7b|\\
-               deepseek-v2-lite-16b|mamba2-2.7b \\
+               deepseek-v2-lite-16b|mamba2-2.7b|jamba-v0.1-52b \\
         --variant full --batch 4 \\
         --prompt-len 64 --steps 32 --tt ffn,attn --tt-rank 16 \\
         --tt-backend auto [--tt-weights int8] [--device cpu] \\
@@ -24,11 +24,18 @@ and a warm run that is timed and must capture nothing, make no new prefill
 entry and resolve no TT plan.  TT launches are those the kernel wrappers
 counted plus those the graph replays made (the launches each capture
 recorded, times its replays); on a card a warm run's are all replayed.  A
-mixture-of-experts model (mixtral-8x7b, deepseek-v2-lite-16b) also
-reports the assignments its MoE layers dropped past their capacity
-(``models.moe.read_drops``: counted on the device, read once per run).
-mamba2-2.7b has TT only on ``ffn`` (its SSD in/out projections, 2 launches
-a layer); ``--tt ffn,attn`` covers the same, it has no attention.
+mixture-of-experts model (mixtral-8x7b, deepseek-v2-lite-16b,
+jamba-v0.1-52b) also reports the assignments its MoE layers dropped past
+their capacity (``models.moe.read_drops``: counted on the device, read
+once per run).  mamba2-2.7b has TT only on ``ffn`` (its SSD in/out
+projections, 2 launches a layer); ``--tt ffn,attn`` covers the same, it
+has no attention.  jamba-v0.1-52b (the attention/SSM hybrid) counts its
+SSD in/out projections as ``ffn`` too: with ``--tt ffn,attn`` a pass is
+120 ``tt_fused2`` (28 SSD blocks × 2, 4 GQA blocks × 4, 16 GLU MLPs × 3)
+and 48 ``tt_fused2_experts`` (16 MoE layers × 3).  Its paged pool mixes
+the GQA layers' block arenas with the SSD layers' per-slot state, so
+``--prefix-smoke`` refuses it, as it refuses mamba2-2.7b: no prefix is
+shared.
 
 With ``--arrival-rate`` it runs ``simulate`` instead, the reference's
 arrival mode: a ``Scheduler`` of ``--slots`` slots over ``--prompt-len`` +

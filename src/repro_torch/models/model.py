@@ -4,8 +4,9 @@ a prompt-length bucket, or captured: ``padded_prefill``,
 ``splice_cache``, ``graphed_decode_step``, ``init_cache`` and
 ``quantize_params`` for the decoders (gemma3's sliding-window
 ring caches and tied, scaled embeddings, mixtral's mixture-of-experts
-FFN, deepseek-v2's latent-cache MLA, and mamba2's SSD mixer over a
-per-slot recurrent state, included); and for the
+FFN, deepseek-v2's latent-cache MLA, mamba2's SSD mixer over a
+per-slot recurrent state, and jamba's hybrid of the two, included); and
+for the
 block-paged pool (DESIGN.md §7), ``init_cache(..., paged=True)``,
 ``splice_cache_paged`` and the prefix-reuse admission ``prefill_resume``
 (``resume_prefill`` buckets it and, on a card, replays it captured); and
@@ -57,8 +58,9 @@ def bucket_length(S: int, limit: int, floor: int = 16) -> int:
 
 class Model:
     """One decoder (GQA full-attention, windowed or local/global, or MLA,
-    with a GLU MLP or a mixture-of-experts FFN in each block; or Mamba-2
-    SSD blocks).  ``device=None`` means the GPU; pass ``device="cpu"`` for
+    with a GLU MLP or a mixture-of-experts FFN in each block; Mamba-2 SSD
+    blocks with no FFN; or the hybrid of SSD and GQA blocks, each with an
+    FFN).  ``device=None`` means the GPU; pass ``device="cpu"`` for
     the plain path.
 
     Each cache leaf has a kind (``transformer.block_cache_kinds``), and
@@ -67,7 +69,9 @@ class Model:
     ``copy_blocks``; 'slot' leaves (an SSM's state and conv history) keep
     one row per slot, spliced into it and never touched by a block copy.
     A pool with no arena (mamba2) still keeps its tables: the scheduler's
-    block accounting runs as the reference's does."""
+    block accounting runs as the reference's does.  A pool with both
+    (jamba: arenas for its GQA layers, 'slot' leaves for its SSD layers)
+    takes its geometry from the arenas and keeps each kind to its rule."""
 
     def __init__(self, cfg: ModelConfig, groups: list[Group],
                  param_dtype: torch.dtype = torch.float32,

@@ -1,9 +1,10 @@
 """Block assembly for the decoders: full-attention and sliding-window
 (ring-cache) GQA blocks, and MLA blocks over a latent cache, with a GLU
 MLP (deepseek-v2's wider first-layer ``dense0`` included) or a
-mixture-of-experts FFN (``ffn_apply``); and Mamba-2 SSD blocks (mamba2),
-a mixer with no FFN, whose cache is a per-slot recurrent state and conv
-history (``models.ssm``).
+mixture-of-experts FFN (``ffn_apply``); and Mamba-2 SSD blocks, whose
+cache is a per-slot recurrent state and conv history (``models.ssm``),
+with no FFN (mamba2) or with the GLU MLP or the mixture of experts after
+the mixer (jamba's hybrid).
 
 A model is a list of groups ``(period, count)``: ``period`` is a tuple of
 BlockDefs run in order and repeated ``count`` times.  Parameters of a group
@@ -33,20 +34,21 @@ class BlockDef:
     mixer: str = "gqa"        # gqa | mla | ssm
     window: int = 0           # >0 → sliding-window attention (ring cache)
     ffn: str = "mlp"          # mlp | moe | dense0 (the first_dense_ff MLP)
-                              # | none (ssm)
+                              # | none (ssm only)
     theta: float | None = None  # RoPE theta; None: the config's
 
     def __post_init__(self):
         attn = self.mixer in ("gqa", "mla") and self.ffn in (
             "mlp", "moe", "dense0") and not (self.mixer == "mla" and
                                              self.window)
-        ssm = self.mixer == "ssm" and self.ffn == "none" and not self.window
+        ssm = self.mixer == "ssm" and self.ffn in ("none", "mlp", "moe") \
+            and not self.window
         if not (attn or ssm):
             raise NotImplementedError(
                 f"block {self.mixer}+{self.ffn} (window {self.window}) is "
                 f"not ported yet (ROADMAP.md Queue 1, \"Remaining "
                 f"families\"); gqa and full-attention mla with mlp, moe "
-                f"or dense0, and ssm with no FFN, are")
+                f"or dense0, and ssm with no FFN, mlp or moe, are")
 
     @property
     def cache_names(self) -> tuple[str, ...]:
@@ -62,21 +64,24 @@ Group = tuple[tuple[BlockDef, ...], int]
 
 
 def block_spec(cfg: ModelConfig, bd: BlockDef, dtype) -> dict:
-    """An attention block's ``ln1``, ``attn``, ``ln2`` and ``ffn``; an SSM
-    block's ``ln1`` and ``ssm`` only, as the reference's."""
+    """A block's ``ln1`` and mixer (``attn``, or an SSM block's ``ssm``),
+    then ``ln2`` and ``ffn`` unless the FFN is ``none``, as the
+    reference's."""
+    out = {"ln1": rmsnorm_spec(cfg.d_model, dtype)}
     if bd.mixer == "ssm":
-        return {"ln1": rmsnorm_spec(cfg.d_model, dtype),
-                "ssm": ssm_spec(cfg, dtype)}
+        out["ssm"] = ssm_spec(cfg, dtype)
+    else:
+        out["attn"] = (mla_spec if bd.mixer == "mla" else gqa_spec)(cfg,
+                                                                    dtype)
+    if bd.ffn == "none":
+        return out
     if bd.ffn == "moe":
         ffn = moe_spec(cfg, dtype)
     else:
         ff = cfg.moe.first_dense_ff if (bd.ffn == "dense0" and cfg.moe) \
             else cfg.d_ff
         ffn = mlp_spec(cfg.d_model, ff, cfg.tt, dtype)
-    return {"ln1": rmsnorm_spec(cfg.d_model, dtype),
-            "attn": (mla_spec if bd.mixer == "mla" else gqa_spec)(cfg, dtype),
-            "ln2": rmsnorm_spec(cfg.d_model, dtype),
-            "ffn": ffn}
+    return {**out, "ln2": rmsnorm_spec(cfg.d_model, dtype), "ffn": ffn}
 
 
 def ffn_apply(p, cfg: ModelConfig, bd: BlockDef, h, plans=None):
@@ -87,6 +92,15 @@ def ffn_apply(p, cfg: ModelConfig, bd: BlockDef, h, plans=None):
     if bd.ffn == "moe":
         return moe_apply(p, cfg, h, plans)
     return mlp_apply(p, h, plans)
+
+
+def _ffn_residual(p, cfg: ModelConfig, bd: BlockDef, x, plans=None):
+    """``x`` plus the block's FFN of ``ln2(x)``; ``x`` itself when the
+    block has no FFN (mamba2's SSM blocks)."""
+    if bd.ffn == "none":
+        return x
+    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    return x + ffn_apply(p["ffn"], cfg, bd, h, plans)
 
 
 def group_spec(cfg: ModelConfig, group: Group, dtype) -> list:
@@ -161,9 +175,10 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
     path for every prompt, where the reference rolls or pads an
     exact-length prompt and takes this path for a bucketed one; at the
     true length they agree value for value, and no padding row reaches
-    the ring.  An SSM block (no FFN) keeps its final recurrent state (fp32)
-    and the conv tail at ``true_len`` (``ssm.ssm_forward``: the padding's
-    steps leave the state as it was)."""
+    the ring.  An SSM block keeps its final recurrent state (fp32) and the
+    conv tail at ``true_len`` (``ssm.ssm_forward``: the padding's steps
+    leave the state as it was).  The FFN, where the block has one, runs on
+    the B·S tokens."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if bd.mixer == "ssm":
         y, state, tail = ssm_forward(p["ssm"], cfg, h, plans,
@@ -175,7 +190,7 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
             cache = {name: t if out is None else
                      _out_buf(out, name, *shapes[name]).copy_(t)
                      for name, t in (("state", state), ("conv", tail))}
-        return x + y, cache
+        return _ffn_residual(p, cfg, bd, x + y, plans), cache
     if bd.mixer == "mla":
         y, (k, v) = mla_self_attn(p["attn"], cfg, h, positions,
                                   backend=plans)
@@ -209,9 +224,7 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
                 buf[:, :S] = t
                 buf[:, S:] = 0
             cache[name] = buf
-    x = x + y
-    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), cache
+    return _ffn_residual(p, cfg, bd, x + y, plans), cache
 
 
 def _out_buf(out: dict, name: str, shape: tuple, dtype: torch.dtype
@@ -238,12 +251,14 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
     (``attention.mla_decode_attn[_paged]``).  An SSM block updates its
     recurrent state and conv history in place, the same 'slot' leaves in
     both layouts, and a row ``active`` leaves out keeps both bit for bit
-    (``ssm.ssm_decode``)."""
+    (``ssm.ssm_decode``).  The FFN runs on the B rows, inactive ones
+    included, the reference's token set."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if bd.mixer == "ssm":
         y, st, cv = ssm_decode(p["ssm"], cfg, h, cache["state"],
                                cache["conv"], plans, active=active)
-        return x + y, {"state": st, "conv": cv}
+        return _ffn_residual(p, cfg, bd, x + y, plans), {"state": st,
+                                                         "conv": cv}
     a, b = bd.cache_names
     if bd.mixer == "mla" and paged is not None:
         y, nk, nv = mla_decode_attn_paged(p["attn"], cfg, h, cache[a],
@@ -261,9 +276,7 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
                                     cache["v"], pos, window=bd.window,
                                     theta=bd.theta, backend=plans,
                                     active=active)
-    x = x + y
-    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), {a: nk, b: nv}
+    return _ffn_residual(p, cfg, bd, x + y, plans), {a: nk, b: nv}
 
 
 def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
@@ -321,9 +334,7 @@ def block_resume(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, src_b,
         y, nk, nv = gqa_resume_attn(p["attn"], cfg, h, cache[a], cache[b],
                                     src_b, dst_b, start, theta=bd.theta,
                                     backend=plans)
-    x = x + y
-    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), {a: nk, b: nv}
+    return _ffn_residual(p, cfg, bd, x + y, plans), {a: nk, b: nv}
 
 
 def group_resume(params: list, group: Group, cfg: ModelConfig, x,
@@ -372,7 +383,8 @@ def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
     (``attention.mla_chunk_attn``).  An SSM block reads row ``slot`` of
     its state and conv history (zeros when ``start`` is 0: a fresh
     prompt), runs the chunk from them (``ssm.ssm_forward``) and writes
-    the row back as ``where(active, new, old)``, in either layout."""
+    the row back as ``where(active, new, old)``, in either layout.  The
+    FFN runs on the chunk's C tokens."""
     C = x.shape[1]
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     idx = slot.reshape(1).long()
@@ -385,7 +397,7 @@ def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
         for name, new in (("state", st), ("conv", tail)):
             cache[name].index_copy_(0, idx, torch.where(
                 active, new.to(old[name].dtype), old[name]))
-        return x + y, cache
+        return _ffn_residual(p, cfg, bd, x + y, plans), cache
     if bd.window and table is not None:
         blk = cache["k"].shape[1]
         W = min(bd.window, table.shape[0] * blk)
@@ -426,9 +438,7 @@ def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
         for name, new in zip(names, (dk, dv)):
             cache[name].index_copy_(0, idx, torch.where(active, new[:, :T],
                                                         old[name]))
-    x = x + y
-    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], cfg, bd, h, plans), cache
+    return _ffn_residual(p, cfg, bd, x + y, plans), cache
 
 
 def group_chunk(params: list, group: Group, cfg: ModelConfig, x,

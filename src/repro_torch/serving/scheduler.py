@@ -67,7 +67,11 @@ are never shared (``Model.supports_prefix_reuse`` is false, so
 ``prefix_cache`` is off in a paged pool), as in the reference.  mamba2's
 paged pool holds no arena at all, only 'slot' leaves: its block accounting
 (reservation, admission by memory, tables, high-water) runs all the same,
-so its slots and block ids are the reference's.
+so its slots and block ids are the reference's.  jamba's pool mixes both:
+its GQA layers' arenas are addressed through the tables, and the blocks a
+request reserves are those of its tokens, counted once for those layers;
+its SSD layers' state and conv history are one row per slot, outside the
+block count.
 
 Not ported (ROADMAP.md Queue 1): preemption (mid-prefill included),
 deadlines, resize, snapshots (mid-prefill included), the mesh and

@@ -954,7 +954,14 @@ def test_fused2_launch_covers_mamba2_shapes(fake_launch, name, B, act_bytes,
     shapes: the arguments are the geometry, the grid covers every row and
     column (in_proj's ragged 1,322 included), the block fits shared
     memory."""
-    n1, n2, m1, m2, r1 = dims = MAMBA2[name]
+    _plain_entry_covers(fake_launch, MAMBA2[name], B, act_bytes, w_bytes)
+
+
+def _plain_entry_covers(fake_launch, dims, B, act_bytes, w_bytes):
+    """One call of the plain entry at ``dims`` through the stand-in
+    library: its arguments are ``fused2_geometry``'s, its grid covers
+    every row and column, its block fits shared memory."""
+    n1, n2, m1, m2, r1 = dims
     act = torch.bfloat16 if act_bytes == 2 else torch.float32
     int8 = w_bytes == 1
     wd = torch.int8 if int8 else act
@@ -976,3 +983,74 @@ def test_fused2_launch_covers_mamba2_shapes(fake_launch, name, B, act_bytes,
     assert geo.nc * geo.grid[2] >= m1 > geo.nc * (geo.grid[2] - 1)
     assert geo.smem <= 232_448
     assert tt_contract.launch_counts() == {kernel: 1}
+
+
+# jamba-v0.1-52b's SSD projections at rank 16, length 2 (``plan_for``):
+# in_proj 4096→16544 (m1 = 2,068 = 4·11·47: P1 rows of 4,136 bytes in
+# bf16 and 2,068 in int8 take the scalar staging loop, 8,272 in fp32 are
+# aligned) and out_proj 8192→4096 (n2 = 1,024); its 16 experts at
+# mixtral's expert shapes
+JAMBA = {"in_proj": (8, 512, 2068, 8, 16), "out_proj": (8, 1024, 512, 8, 16)}
+
+
+def test_jamba_in_proj_p1_rows_are_aligned_in_fp32_only():
+    """``vec_p1`` holds for in_proj's m1 in fp32 cores only, and for
+    out_proj's in every dtype."""
+    m1_in, m1_out = JAMBA["in_proj"][2], JAMBA["out_proj"][2]
+    assert [(m1_in * w) % 16 == 0 for w in (4, 2, 1)] == [True, False, False]
+    assert all((m1_out * w) % 16 == 0 for w in (4, 2, 1))
+
+
+@pytest.mark.parametrize("act_bytes,w_bytes", [(2, 2), (2, 1), (4, 4),
+                                               (4, 1)],
+                         ids=["bf16", "bf16-int8", "fp32", "fp32-int8"])
+@pytest.mark.parametrize("B", [4, 256, 4096])
+@pytest.mark.parametrize("name", list(JAMBA))
+def test_fused2_launch_covers_jamba_shapes(fake_launch, name, B, act_bytes,
+                                           w_bytes):
+    """Every activation and core dtype through the plain entry at jamba's
+    SSD shapes, at decode, an admission and the 4 × 1,024 prefill."""
+    _plain_entry_covers(fake_launch, JAMBA[name], B, act_bytes, w_bytes)
+
+
+@pytest.mark.parametrize("w_bytes", [2, 1], ids=["bf16", "int8"])
+@pytest.mark.parametrize("C", [1, 8, 128, 640])
+@pytest.mark.parametrize("name", ["gate_up", "down"])
+def test_expert_geometry_at_16_experts(name, C, w_bytes):
+    """``fused2_expert_geometry`` in bf16 (the tall body) across jamba's 16
+    experts at every capacity its paths run (one row, decode, an admission
+    at the 256 bucket, the 4 × 1,024 prefill): the grid covers every
+    expert's rows, i2 values and m1 columns, the block fits shared memory,
+    each stage's tile is at most ``FUSED2_TALL_ROWS`` rows, and at least
+    90% of the SMs get a block where the rows allow."""
+    n1, n2, m1, m2, r1 = dims = MIXTRAL[name]
+    E = 16
+    geo = tt_contract.fused2_expert_geometry(C, dims, 2, w_bytes, 132,
+                                             232_448, E)
+    tiles = geo.grid[0] // E
+    assert geo.grid[0] == E * tiles and geo.bb * tiles >= C > \
+        geo.bb * (tiles - 1)
+    assert geo.g * geo.grid[1] >= m2 and m2 % geo.g == 0
+    assert geo.nc * geo.grid[2] >= m1 > geo.nc * (geo.grid[2] - 1)
+    assert geo.smem == tt_contract.fused2_tall_smem_bytes(
+        n1, r1, geo.bb, geo.g, geo.kc, geo.nct, w_bytes) <= 232_448
+    most = tt_contract.FUSED2_TALL_ROWS
+    assert -(-geo.bb * n1 // 16) * 16 <= most
+    assert -(-geo.g * geo.bb // 16) * 16 <= most
+    blocks = geo.grid[0] * geo.grid[1] * geo.grid[2]
+    assert blocks >= 118 or blocks == E * C * m2 * -(-m1 // 16)
+
+
+@pytest.mark.parametrize("name", ["gate_up", "down"])
+def test_tall_blocks_cover_16_experts(name):
+    """At jamba's decode capacity (C = 8) the tall blocks write every
+    output of the 16 experts once and agree with the plain version."""
+    from repro_torch.kernels.ref import tt_fused2_experts_ref
+    dims = MIXTRAL[name]
+    x, p2, p1, _, _, _ = _expert_inputs(16, 8, dims, False, seed=7)
+    geo = tt_contract.fused2_expert_geometry(8, dims, 2, 2, 132, 232_448, 16)
+    got, writes = _tall_mirror(x, p2, p1, None, dims, geo)
+    assert bool((writes == 1).all())
+    want = tt_fused2_experts_ref(x, p2, p1, dims).float()
+    err = float((got.float() - want).abs().max())
+    assert err <= 1e-2 * float(want.abs().max())

@@ -1547,8 +1547,15 @@ def test_mamba2_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
     dense pool through the graphs against eager, and the paged pool (no
     arena; blocks of 4 accounted) through the graphs and eagerly, tokens
     and logprobs bit for bit; the prefix cache stays off."""
+    _slot_state_pools_agree(*_mamba2(cuda), kw)
+
+
+def _slot_state_pools_agree(model, params, kw):
+    """Prompts of 20, 13 and 24 through 2 slots over 48 positions (``kw``:
+    the chunking): the dense pool through the graphs, eagerly, and the
+    paged pool (blocks of 4) through the graphs and eagerly, tokens and
+    logprobs bit for bit; no paged pool turns the prefix cache on."""
     from repro_torch.serving.scheduler import Request, Scheduler
-    model, params = _mamba2(cuda)
     prompts = [_prompt(model, 90 + i, B=1, S=n)["tokens"]
                for i, n in enumerate((20, 13, 24))]
 
@@ -1573,3 +1580,88 @@ def test_mamba2_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
         for uid in got:
             assert np.array_equal(got[uid].tokens, dense[uid].tokens)
             assert np.array_equal(got[uid].logprobs, dense[uid].logprobs)
+
+
+# jamba-v0.1-52b's SSD projections at rank 16: in_proj (m1 = 2,068, whose
+# P1 rows are 16-byte aligned in bf16 and int8 only through the scalar
+# staging loop) and out_proj (n2 = 1,024), at decode, admission and the
+# 4 × 1,024 prefill; its 16-expert stacks at mixtral's expert shapes
+JAMBA_SHAPES = ((8, 512, 2068, 8, 16), (8, 1024, 512, 8, 16))
+EXPERT_CASES_16 = [(16, C, *dims) for C in (8, 128, 640)
+                   for dims in MIXTRAL_EXPERTS]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [4, 256, 4096])
+@pytest.mark.parametrize("dims", JAMBA_SHAPES, ids=["in_proj", "out_proj"])
+def test_fused2_kernel_at_jamba_shapes(cuda, dims, B, act, int8):
+    test_fused2_kernel_at_mamba2_shapes(cuda, dims, B, act, int8)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("E,C,n1,n2,m1,m2,r1", EXPERT_CASES_16)
+def test_expert_fused2_kernel_over_16_experts(cuda, E, C, n1, n2, m1, m2,
+                                              r1, act, int8):
+    test_expert_fused2_kernel_matches_plain(cuda, E, C, n1, n2, m1, m2, r1,
+                                            act, int8)
+
+
+def _jamba(device, weights="fp32"):
+    """jamba SMOKE (one period: SSD+MLP, SSD+MoE, GQA+MLP, SSD+MoE; 4
+    experts top-2, dropless), TT on ffn+attn at rank 4, ``auto``."""
+    cfg = get_config("jamba-v0.1-52b", "smoke", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+        backend="auto", weights=weights))
+    model = build(cfg, device=device)
+    params = model.init(0)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params
+
+
+@pytest.mark.parametrize("weights", ["fp32", "int8"])
+def test_jamba_prefill_and_decode_replays_are_eager(cuda, weights):
+    """The captured prefill (a prompt of 20 in the 32 bucket) and 8 decode
+    replays against the eager prefill and steps, bit for bit: k/v, the
+    fp32 state and the conv history; each pass records 16 ``tt_fused2``
+    (3 SSD blocks × 2, the GQA block's 4, 2 MLPs × 3) and 6
+    ``tt_fused2_experts``."""
+    model, params = _jamba(cuda, weights)
+    batch = _prompt(model, 5, B=2, S=20, T=48)
+    tokens = torch.nn.functional.pad(batch["tokens"], (0, 12))
+    graph = model.graphed_prefill(2, 32, 48)
+    graph(params, tokens, 20)                       # the capture
+    g_logits, g_cache = graph(params, tokens, 20)
+    e_logits, e_cache = model.prefill(params, {
+        "tokens": tokens, "cache_len": 48, "prompt_len": 20})
+    assert torch.equal(g_logits, e_logits)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_cache),
+                                                 tree_leaves(e_cache)))
+    step = model.graphed_decode_step(2, 48)
+    step.load(params, g_cache, 20)
+    tok = e_logits[:, -1].argmax(-1, keepdim=True)
+    for t in range(8):
+        want, e_cache = model.decode_step(params, e_cache, tok)
+        got = step(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    sfx = "_int8" if weights == "int8" else ""
+    assert step.captured == {"tt_fused2" + sfx: 16,
+                             "tt_fused2_experts" + sfx: 6}
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(chunk_prefill=True, chunk_size=5, prefill_budget=10)],
+    ids=["monolithic", "chunk5x2"])
+def test_jamba_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
+    """Prompts of 20, 13 and 24 through 2 slots over 48 positions: the
+    dense pool through the graphs against eager, and the paged pool (the
+    GQA block's arenas, the SSD blocks' per-slot state) through the graphs
+    and eagerly, tokens and logprobs bit for bit; the prefix cache stays
+    off."""
+    _slot_state_pools_agree(*_jamba(cuda), kw)
