@@ -29,7 +29,10 @@ Phases, each fatal on failure:
      and 4,096 rows (``mamba2_kernels``); and at jamba-v0.1-52b's, bf16
      activations only (``jamba_kernels``): fused2 at its SSD in_proj (m1
      = 2,068) and out_proj at 4, 256 and 4,096 rows, and the expert kernel
-     across 16 experts at C = 640, 128 and 8;
+     across 16 experts at C = 640, 128 and 8; and at seamless-m4t-large-v2's
+     three shapes (q/k/v/o of self- and cross-attention 1,024 → 1,024,
+     gate/up, down), bf16 activations, at 4, 256 and 4,096 rows
+     (``seamless_kernels``);
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
      take; fused2, the fused chain and the length-2 steps also with L2
@@ -69,7 +72,10 @@ Phases, each fatal on failure:
      dense, paged (no arena) and chunked schedulers at chunks of 1, 5 and
      40, both pools; and jamba SMOKE (3 SSD blocks and a GQA block, MLPs
      and 4 experts top-2) the same way, its paged pool mixing the GQA
-     block's arenas with the SSD blocks' slot state;
+     block's arenas with the SSD blocks' slot state; and seamless SMOKE (2
+     non-causal encoder blocks, 2 cross-attending decoder blocks, 12
+     speech frames a prompt) the same way over the dense and paged pools,
+     chunked prefill refused;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -137,21 +143,41 @@ Phases, each fatal on failure:
      eager warm run (bit for bit, the fp32 state included), the decode
      replay, the prefill replay and one SSD mixer (plain and masked)
      traced alone, and a staggered run of 6 requests (prompts of
-     256–1,024), dense, paged and chunked at 64: graph ≡ eager ≡ paged bit
-     for bit, each chunked request against ``generate_fixed`` measured;
-     then the dense and chunked runs again with the weights in fp32 and
-     the scan in fp64, each request held against ``generate_fixed``
-     within 1e-4; and, between deepseek-v2-lite-16b and qwen3-32b,
+     256–1,024), dense, paged and chunked at 64: dense graph ≡ eager ≡
+     paged and chunked graph ≡ eager ≡ paged bit for bit, the chunked
+     run against ``generate_fixed`` measured; then the dense and chunked
+     runs again with the weights in fp32 and the scan in fp64, each
+     request held against ``generate_fixed`` within 1e-4; and, between
+     deepseek-v2-lite-16b and qwen3-32b,
      full-width jamba-v0.1-52b (``moe_path``: per pass 120 ``tt_fused2``
      and 48 ``tt_fused2_experts`` across 16 experts), 4 × (1,024 + 64)
      with fp and int8 cores as mixtral, one SSD mixer traced alone beside
      the MoE layer, no arrival run, and the staggered run with the prefix
-     counters 0 and each request against ``generate_fixed`` measured.
+     counters 0 and each request against ``generate_fixed`` measured, then
+     its dense and chunked runs again in fp32 with the scan in fp64 and
+     the experts dropless (``fp64_scan_witness``), every request held
+     against ``generate_fixed`` within 1e-4; and, last,
+     full-width seamless-m4t-large-v2 (``seamless_path``: 216
+     ``tt_fused2`` a decode pass, 432 a prefill pass), 4 × (1,024 + 64)
+     with 1,024 speech frames a row through ``fixed_family`` (as qwen3-32b
+     and mamba2-2.7b: fp and int8 cores, an eager warm run beside the fp
+     one, the decode and prefill replays traced alone) with the encoder
+     traced alone, and at ``SEAMLESS_CUT_LAYERS`` encoder and decoder
+     layers the staggered run of 12 requests (256
+     frames each), dense and paged, graph and eager (``staggered_block``):
+     bit for bit, the prefix counters 0, every request held against
+     ``generate_fixed`` (asserted).
      deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
      continuous-batching paths run at ``CUT_LAYERS`` of its 30 layers;
      mixtral-8x7b's, deepseek-v2-lite-16b's and jamba-v0.1-52b's
      continuous-batching paths at ``MOE_CUT_LAYERS``, gemma3-4b's at
      ``GEMMA3_CUT_LAYERS``.
+Every fixed batch compares the greedy picks of 16 decode steps, graph
+against eager (``graph_against_eager``); beside it an eager warm run
+(eager tok/s and peak memory, its tokens against the graph's warm run)
+is made on deepseek-7b's paths with fp and int8 cores and on the other
+families' with fp cores only: their int8 eager warm runs would add a
+minute of host-bound steps to the script's wall.
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
@@ -160,8 +186,8 @@ record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
 the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
 together, gemma3-4b's, mixtral-8x7b's, deepseek-v2-lite-16b's,
-jamba-v0.1-52b's, qwen3-32b's and mamba2-2.7b's included
-(``tt_fused2_int8``: their int8 fixed batches too; the expert kernels:
+jamba-v0.1-52b's, qwen3-32b's, mamba2-2.7b's and seamless-m4t-large-v2's
+included (``tt_fused2_int8``: their int8 fixed batches too; the expert kernels:
 mixtral's, deepseek-v2's and jamba's); its times are
 deepseek-7b's layer, and for the expert-batched kernels mixtral-8x7b's (3
 expert projections, 8 experts × 8 rows).
@@ -309,6 +335,16 @@ GEMMA3_ARRIVAL = ["--prompt-len", "960", "--steps", "128", "--slots", "4",
 GEMMA3_STAGGER, GEMMA3_T = ((600, 1000), (8, 32)), 1152
 GEMMA3_BLOCK, GEMMA3_CHUNK = 64, dict(chunk_prefill=True, chunk_size=256,
                                       prefill_budget=512)
+# phase 5's traffic that several families share, named by its shape: the
+# fixed batch of 4 prompts of 1,024 tokens and 64 new ones (mamba2-2.7b,
+# jamba-v0.1-52b, seamless-m4t-large-v2); the staggered run of 12
+# requests, prompts of 64–256 tokens, budgets of 16–32, on 4 × 320
+# (mixtral-8x7b, deepseek-v2-lite-16b, jamba-v0.1-52b,
+# seamless-m4t-large-v2); the paged pools' blocks of 16 and the chunking
+# at 64 of every full-width staggered run but gemma3-4b's
+FIXED_1024 = ["--batch", "4", "--prompt-len", "1024", "--steps", "64"]
+STAGGER_64_256, STAGGER_64_256_T = ((64, 256), (16, 32)), 320
+STAGGER_BLOCK, STAGGER_CHUNK = 16, dict(chunk_prefill=True, chunk_size=64)
 # mixtral-8x7b (32 layers of GQA with a window of 4,096, 8 KV heads; a
 # mixture of 8 experts, top-2, expert_ff 14,336, capacity factor 1.25):
 # its expert stacks' TT projections at rank 16, length 2 (one launch of
@@ -336,8 +372,7 @@ MIXTRAL_C, MIXTRAL_C_CHECKED, MIXTRAL_ROWS = (640, 128, 8), (20, 1), \
 # new ones (rings of 4,096 do not wrap here: gemma3's phase covers the
 # wrap); Poisson arrivals of 16 requests of 256 + 64 tokens at 50/s on 4
 # slots, over the dense pool, the paged one (blocks of 16) and chunked at
-# 64 (one lane); the staggered run of 12 requests, prompts of 64–256
-# tokens, budgets of 16–32, on 4 × 320
+# 64 (one lane); the staggered run ``STAGGER_64_256``
 MIXTRAL_ARGS = ["--arch", "mixtral-8x7b", "--variant", "full", "--tt",
                 "ffn,attn", "--tt-rank", "16", "--seed", "0",
                 "--tt-backend", "auto"]
@@ -345,8 +380,6 @@ MIXTRAL_FIXED = ["--batch", "4", "--prompt-len", "512", "--steps", "64"]
 MIXTRAL_ARRIVAL = ["--prompt-len", "256", "--steps", "64", "--slots", "4",
                    "--max-requests", "16", "--arrival-rate", "50",
                    "--assert-no-replan"]
-MIXTRAL_STAGGER, MIXTRAL_T = ((64, 256), (16, 32)), 320
-MIXTRAL_BLOCK, MIXTRAL_CHUNK = 16, dict(chunk_prefill=True, chunk_size=64)
 # deepseek-v2-lite-16b (27 layers of MLA: q/o through TT, kv_down/kv_up
 # dense; layer 0 a dense GLU MLP of 10,944, layers 1–26 a mixture of 64
 # experts, top-6, expert_ff 1,408, and 2 shared experts of 1,408): its TT
@@ -417,9 +450,7 @@ MAMBA2_ROWS, MAMBA2_LAYERS = (4, 256, 4096), 64
 # the weights in fp32 and the scan in fp64
 MAMBA2_ARGS = ["--arch", "mamba2-2.7b", "--variant", "full", "--tt", "ffn",
                "--tt-rank", "16", "--seed", "0", "--tt-backend", "auto"]
-MAMBA2_FIXED = ["--batch", "4", "--prompt-len", "1024", "--steps", "64"]
 MAMBA2_STAGGER, MAMBA2_T, MAMBA2_N = ((256, 1024), (8, 16)), 1040, 6
-MAMBA2_BLOCK, MAMBA2_CHUNK = 16, dict(chunk_prefill=True, chunk_size=64)
 # jamba-v0.1-52b (32 layers in 4 periods of 8: Mamba-2 SSD blocks at 0–3
 # and 5–7, d_inner 8,192, 128 heads of 64, d_state 16; GQA with 8 KV heads
 # at 4; a mixture of 16 experts, top-2, expert_ff 14,336, at 1, 3, 5 and 7,
@@ -454,6 +485,36 @@ BF16_CASES = ((False, torch.bfloat16), (True, torch.bfloat16))
 JAMBA_ARGS = ["--arch", "jamba-v0.1-52b", "--variant", "full", "--tt",
               "ffn,attn", "--tt-rank", "16", "--seed", "0", "--tt-backend",
               "auto"]
+# seamless-m4t-large-v2 (24 non-causal encoder layers over frames of width
+# 1,024, 24 decoder layers that cross-attend to them; d 1,024, 16 heads of
+# 64, d_ff 8,192, vocab 256,206): its three TT shapes at rank 16, length
+# 2 (self- and cross-attention q/k/v/o, gate/up, down), with how many of
+# each a decode pass runs (24 × 9 = 216 ``tt_fused2``: the cross keys and
+# values are the prefill's) and a prefill pass (the encoder's 24 × 7, the
+# decoder's 24 × 11: 432).  Timed with bf16 activations, fp and int8
+# cores, at decode (4 rows, a decode pass's launches) and at an admission
+# (256) and one encoder pass of 4 × 1,024 frames (4,096; a prefill
+# pass's)
+SEAMLESS_DIMS = {
+    "seamless attn q/k/v/o 1024->1024": (((8, 128), (128, 8), (1, 16, 1)),
+                                         (24 * 6, 24 * 4 + 24 * 8)),
+    "seamless ffn gate/up 1024->8192": (((8, 128), (1024, 8), (1, 16, 1)),
+                                        (2 * 24, 2 * 48)),
+    "seamless ffn down 8192->1024": (((8, 1024), (128, 8), (1, 16, 1)),
+                                     (24, 48)),
+}
+SEAMLESS_ROWS, SEAMLESS_LAYERS = ((4,), (256, 4096)), 24
+SEAMLESS_PER_PASS = {"tt_fused2": 9 * SEAMLESS_LAYERS}
+SEAMLESS_PREFILL_PER_PASS = {"tt_fused2": (7 + 11) * SEAMLESS_LAYERS}
+# phase 5 at full width: the fixed batch of 4 prompts of 1,024 tokens with
+# 1,024 frames each (F = the prompt length, as the reference CLI draws
+# them) and 64 new tokens; at ``SEAMLESS_CUT_LAYERS`` encoder and as
+# many decoder layers the staggered run ``STAGGER_64_256``, 256 frames a
+# request, dense and paged, graph and eager
+SEAMLESS_ARGS = ["--arch", "seamless-m4t-large-v2", "--variant", "full",
+                 "--tt", "ffn,attn", "--tt-rank", "16", "--seed", "0",
+                 "--tt-backend", "auto"]
+SEAMLESS_FRAMES, SEAMLESS_CUT_LAYERS = 256, 8
 # deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
 # continuous-batching paths (dense, paged, chunked) run at this depth (of
 # 30), to keep the script within its time on a slower host with the two
@@ -1080,25 +1141,31 @@ def small_paged_check() -> None:
 
 
 def drive(label: str, kernel: str, per_pass: int, model, params,
-          args, also: dict | None = None) -> tuple[dict, int]:
+          args, also: dict | None = None,
+          prefill_per: dict | None = None) -> tuple[dict, int]:
     """One main path: launch counts set to 0 just before
     ``launch.serve.fixed`` serves ``model`` (a cold run that captures the
     prefill and the decode step, and a warm run of replays) and read just
-    after.  Each capture must record ``per_pass`` launches of ``kernel``
-    (and ``also``'s launches per pass of its kernels) and nothing else;
-    the warm run must make ``--steps`` times that, all replayed (none
-    counted), capture nothing and resolve no plan.  Returns serve's result
-    (with every kernel's launches over the call in ``path_launches``) and
-    ``kernel``'s launches over the whole call, counted and replayed."""
+    after.  The decode step's capture must record ``per_pass`` launches of
+    ``kernel`` (and ``also``'s launches per pass of its kernels) and
+    nothing else, the prefill's the same or, where it runs other layers
+    (an encoder-decoder's encoder and cross keys), ``prefill_per``'s; the
+    warm run must make one prefill and ``--steps`` - 1 decode steps of
+    them, all replayed (none counted), capture nothing and resolve no
+    plan.  Returns serve's result (with every kernel's launches over the
+    call in ``path_launches``) and ``kernel``'s launches over the whole
+    call, counted and replayed."""
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
     per = {kernel: per_pass, **(also or {})}
+    pre = per if prefill_per is None else prefill_per
     out = serve.fixed(model, params, args)
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
     T = args.prompt_len + args.steps
-    graph = model.decode_graphs[(args.batch, T, False)]
-    prefill = model.prefill_graphs[(args.batch, args.prompt_len, T)]
+    enc = model.enc_key(args.prompt_len if model.cfg.enc_dec else 0)
+    graph = model.decode_graphs[(args.batch, T, False) + enc]
+    prefill = model.prefill_graphs[(args.batch, args.prompt_len, T) + enc]
     passes = args.steps
     print(f"main path ({label}): launches counted {counted}, by graph "
           f"replays {replayed} (one capture of the decode step: "
@@ -1107,17 +1174,19 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
           f"{out['peak_reserved_bytes'] / 2**30:.3f} GiB reserved; "
           f"{out['tok_per_s']:.1f} tok/s; warm run {out['warm_s']:.3f} s",
           flush=True)
-    def times(n: int) -> dict:
-        return {k: n * v for k, v in per.items()}
+    def times(prefills: int, steps: int) -> dict:
+        return {k: prefills * pre.get(k, 0) + steps * per.get(k, 0)
+                for k in set(per) | set(pre)}
 
     want = {
         "decode capture": (per, graph.captured),
-        "prefill capture": (per, prefill.captured),
-        "warm run": (times(passes), out["launches"]),
+        "prefill capture": (pre, prefill.captured),
+        "warm run": (times(1, passes - 1), out["launches"]),
         "warm run counted": ({}, out["counted"]),
-        "cold run": (times(passes + 2 * WARMUP_STEPS), out["cold_launches"]),
-        "counted": (times(2 * WARMUP_STEPS), counted),
-        "replayed": (times(2 * passes), replayed),
+        "cold run": (times(1 + WARMUP_STEPS, passes - 1 + WARMUP_STEPS),
+                     out["cold_launches"]),
+        "counted": (times(WARMUP_STEPS, WARMUP_STEPS), counted),
+        "replayed": (times(2, 2 * (passes - 1)), replayed),
         "decode captures cold, warm": ((1, 0), (out["cold_captures"],
                                                 out["captures"])),
         "prefill captures cold, warm": ((1, 0), (
@@ -1133,7 +1202,7 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
             not bool(torch.isfinite(out["logprobs"]).all()):
         raise AssertionError(f"bad generation: {tuple(toks.shape)}")
     out["path_launches"] = {k: counted.get(k, 0) + replayed.get(k, 0)
-                            for k in per}
+                            for k in set(per) | set(pre)}
     return out, counted[kernel] + replayed[kernel]
 
 
@@ -1142,13 +1211,15 @@ def decode_steps(model, params, batch, graph: bool, n: int = 16):
     then 1 + ``n`` greedy decode steps, replayed or eager: (the prefill's
     logits and cache, copied; the first step's logits; the mean host-clock
     ms of the ``n`` later steps, each with its greedy pick, to the device's
-    end)."""
+    end; the greedy picks [B, n])."""
     B, S = batch["tokens"].shape
+    frames = batch.get("speech_embeds")
     logits, cache = model.padded_prefill(params, batch["tokens"], S,
-                                         batch["cache_len"], graph)
+                                         batch["cache_len"], graph, frames)
     prefilled = (logits.clone(), map_tree(torch.clone, cache))
     if graph:
-        step = model.graphed_decode_step(B, batch["cache_len"])
+        step = model.graphed_decode_step(B, batch["cache_len"],
+                                         enc_T=frames_of(batch))
         step.load(params, cache, S)
     else:
         def step(tok):
@@ -1157,12 +1228,21 @@ def decode_steps(model, params, batch, graph: bool, n: int = 16):
             return out
     first = step(logits[:, -1].argmax(-1, keepdim=True)).clone()
     tok = first[:, -1].argmax(-1, keepdim=True)
+    picks = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         tok = step(tok)[:, -1].argmax(-1, keepdim=True)
+        picks.append(tok)
     torch.cuda.synchronize()
-    return prefilled, first, (time.perf_counter() - t0) * 1e3 / n
+    return (prefilled, first, (time.perf_counter() - t0) * 1e3 / n,
+            torch.cat(picks, 1))
+
+
+def frames_of(batch: dict) -> int:
+    """The speech frames' count of an encoder-decoder's batch, else 0."""
+    frames = batch.get("speech_embeds")
+    return 0 if frames is None else int(frames.shape[1])
 
 
 def eager_runs(model, params, args) -> dict:
@@ -1185,42 +1265,55 @@ def eager_runs(model, params, args) -> dict:
 
 
 def graph_against_eager(label: str, model, params, args, out: dict,
-                        eager: dict, smi: str) -> dict:
-    """Phase 5 beside each served path: the graph's warm run (``out``)
-    against the eager one (``eager``): tok/s, peak memory, greedy tokens
-    identical; then the captured prefill's logits and cache against the
-    eager prefill's and the first decode step's logits, graph against
-    eager, bit for bit, and each decode step's time."""
+                        eager: dict | None, smi: str) -> dict:
+    """Phase 5 beside each served path: the captured prefill's logits and
+    cache against the eager prefill's, the first decode step's logits and
+    the greedy picks of the 16 steps after it, graph against eager, bit for
+    bit, and each decode step's time; beside the graph's warm run
+    (``out``) the eager one (``eager``, None where none was made: its
+    numbers not measured): tok/s, peak memory, and its greedy tokens
+    against the graph's."""
     batch = serve.prompt_batch(model, args)
     captures = (model.graph_captures, model.prefill_builds)
-    g_pre, g_first, g_ms = decode_steps(model, params, batch, graph=True)
-    e_pre, e_first, e_ms = decode_steps(model, params, batch, graph=False)
+    g_pre, g_first, g_ms, g_picks = decode_steps(model, params, batch,
+                                                 graph=True)
+    # the graph side captures nothing; the eager side's prefill key counts
+    # in ``prefill_builds`` where no eager warm run met it first
+    now = (model.graph_captures, model.prefill_builds)
+    e_pre, e_first, e_ms, e_picks = decode_steps(model, params, batch,
+                                                 graph=False)
     diff = float((g_first - e_first).abs().max())
     prefill_same = torch.equal(g_pre[0], e_pre[0]) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(g_pre[1]),
                                           tree_leaves(e_pre[1])))
-    same_tokens = torch.equal(eager["tokens"], out["tokens"])
+    same_tokens = torch.equal(g_picks, e_picks) and (
+        eager is None or torch.equal(eager["tokens"], out["tokens"]))
+    ev = {k: None if eager is None else eager[k]
+          for k in ("tok_per_s", "peak_bytes", "peak_reserved_bytes")}
     rec = dict(graph_tok_per_s=out["tok_per_s"],
-               eager_tok_per_s=eager["tok_per_s"],
+               eager_tok_per_s=ev["tok_per_s"],
                graph_step_ms=g_ms, eager_step_ms=e_ms,
                graph_peak_bytes=out["peak_bytes"],
                graph_reserved_bytes=out["peak_reserved_bytes"],
-               eager_peak_bytes=eager["peak_bytes"],
-               eager_reserved_bytes=eager["peak_reserved_bytes"],
+               eager_peak_bytes=ev["peak_bytes"],
+               eager_reserved_bytes=ev["peak_reserved_bytes"],
                first_step_max_abs_diff=diff, tokens_identical=same_tokens,
                prefill_identical=prefill_same)
     gib = 2 ** 30
-    print(f"graph vs eager ({label}; {smi}): {rec['graph_tok_per_s']:.1f} "
-          f"vs {rec['eager_tok_per_s']:.1f} tok/s (warm run, prefill "
-          f"included); decode step {g_ms:.3f} vs {e_ms:.3f} ms; peak "
-          f"allocated {out['peak_bytes'] / gib:.3f} vs "
-          f"{eager['peak_bytes'] / gib:.3f} GiB (reserved "
+
+    def num(v, scale=1.0, fmt=".1f"):
+        return "not measured" if v is None else f"{v / scale:{fmt}}"
+    print(f"graph vs eager ({label}; {smi}): {out['tok_per_s']:.1f} vs "
+          f"{num(ev['tok_per_s'])} tok/s (warm run, prefill included); "
+          f"decode step {g_ms:.3f} vs {e_ms:.3f} ms; peak allocated "
+          f"{out['peak_bytes'] / gib:.3f} vs "
+          f"{num(ev['peak_bytes'], gib, '.3f')} GiB (reserved "
           f"{out['peak_reserved_bytes'] / gib:.3f} vs "
-          f"{eager['peak_reserved_bytes'] / gib:.3f}); prefill logits and "
-          f"cache {'bit-identical' if prefill_same else 'DIFFER'}; first "
-          f"decode step's logits max abs diff {diff:.3e}; greedy tokens "
-          f"{'identical' if same_tokens else 'DIFFER'}", flush=True)
-    now = (model.graph_captures, model.prefill_builds)
+          f"{num(ev['peak_reserved_bytes'], gib, '.3f')}); prefill logits "
+          f"and cache {'bit-identical' if prefill_same else 'DIFFER'}; "
+          f"first decode step's logits max abs diff {diff:.3e}; greedy "
+          f"tokens (16 steps{'' if eager is None else ' and the warm run'})"
+          f" {'identical' if same_tokens else 'DIFFER'}", flush=True)
     if diff != 0 or not same_tokens or not prefill_same or now != captures:
         raise AssertionError(f"{label}: graph and eager differ (prefill "
                              f"identical {prefill_same}, first step "
@@ -1371,7 +1464,8 @@ def cut_model(argv, length: int = 2, layers: int = CUT_LAYERS):
         enabled=True, families=tuple(args.tt.split(",")),
         rank=args.tt_rank, length=length, min_factor=8,
         backend=args.tt_backend, weights=args.tt_weights))
-    cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = dataclasses.replace(cfg, num_layers=layers, num_enc_layers=(
+        layers if cfg.enc_dec else 0))
     model = build(cfg, param_dtype=torch.bfloat16)
     params = model.init(args.seed)
     if args.tt_weights == "int8":
@@ -1432,25 +1526,39 @@ def stagger_requests(vocab: int, lens=STAGGER_LENS, budgets=STAGGER_BUDGETS,
             for k in n], b
 
 
+def stagger_frames(model, count: int, F: int) -> list:
+    """The staggered run's speech frames [1, F, frontend_dim] bf16, one per
+    request, drawn by numpy from seed 1 (``serve.speech_frames``); empty
+    for a model without the speech front end."""
+    rng = np.random.default_rng(1)
+    return [serve.speech_frames(model, rng, 1, F).get("speech_embeds")
+            for _ in range(count)] if model.cfg.enc_dec else []
+
+
 def staggered_full(model, params, graph: bool, check=None,
                    stagger=(STAGGER_LENS, STAGGER_BUDGETS),
                    cache_len: int = 64 + PASSES, count: int = STAGGER_N,
-                   **paged) -> tuple[dict, dict]:
+                   frames: int = 0, **paged) -> tuple[dict, dict]:
     """The step-indexed staggered run at full width: ``count`` requests
-    (``stagger_requests`` of the (lengths, budgets) ``stagger``) through a
-    4-slot pool over ``cache_len`` positions (``paged``: the paged pool's
-    and chunked prefill's ``Scheduler`` arguments); four are submitted
-    before the first ``step()``, then one before every third;
-    ``check(sched)`` after every step.  A paged pool must leak no block.
-    ({uid: finished}, the scheduler's stats with the wall seconds and the
-    MoE assignments dropped in the run)."""
+    (``stagger_requests`` of the (lengths, budgets) ``stagger``; an
+    encoder-decoder's with ``frames`` speech frames each,
+    ``stagger_frames``) through a 4-slot pool over ``cache_len`` positions
+    (``paged``: the paged pool's and chunked prefill's ``Scheduler``
+    arguments); four are submitted before the first ``step()``, then one
+    before every third; ``check(sched)`` after every step.  A paged pool
+    must leak no block.  ({uid: finished}, the scheduler's stats with the
+    wall seconds and the MoE assignments dropped in the run)."""
     prompts, budgets = stagger_requests(model.cfg.vocab_size, *stagger,
                                         count)
+    speech = stagger_frames(model, count, frames)
     sched = Scheduler(model, params, num_slots=4, cache_len=cache_len,
                       graph=graph, **paged)
 
     def submit(i):
-        sched.submit(Request(uid=i, inputs={"tokens": prompts[i]},
+        inputs = {"tokens": prompts[i]}
+        if speech:
+            inputs["speech_embeds"] = speech[i]
+        sched.submit(Request(uid=i, inputs=inputs,
                              max_new_tokens=int(budgets[i])))
 
     moe.reset_drops()
@@ -2230,8 +2338,9 @@ def smoke_schedule(model, params, prompts, **kw) -> dict:
             if sched.paged else None) for i, s in enumerate(sched.slots)])
 
     def submit(uid):
-        sched.submit(Request(uid=uid, inputs={"tokens": prompts[uid]},
-                             max_new_tokens=(5, 6, 4, 3)[uid]))
+        p = prompts[uid]
+        sched.submit(Request(uid=uid, inputs=p if isinstance(p, dict) else
+                             {"tokens": p}, max_new_tokens=(5, 6, 4, 3)[uid]))
 
     submit(0)
     step()
@@ -2264,6 +2373,8 @@ RING_MODES = {"dense": {}, "paged": dict(paged=True, block_size=4),
               "chunk24 paged": dict(chunk_prefill=True, chunk_size=24,
                                     paged=True, block_size=8)}
 SSM_MODES = {"dense": {}, "paged": dict(paged=True, block_size=4)}
+# seamless's: no chunked prefill (refused), so the two pools
+SEAMLESS_MODES = {"dense": {}, "paged": dict(paged=True, block_size=4)}
 for _c in (1, 5, 40):
     SSM_MODES[f"chunk{_c} dense"] = dict(chunk_prefill=True, chunk_size=_c,
                                          prefill_budget=2 * _c)
@@ -2279,8 +2390,10 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
     mamba2: 2 SSD blocks, d_state 16, with ``SSM_MODES``; jamba: one
     period of 3 SSD blocks and a GQA block, MLPs and 4 experts top-2,
     dropless, with ``SSM_MODES``: its paged pool mixes the GQA block's
-    arenas with the SSD blocks' slot state; the staggered prompts share
-    no prefix) on the card against the CPU,
+    arenas with the SSD blocks' slot state; seamless: 2 non-causal encoder
+    blocks and 2 cross-attending decoder blocks, every prompt with 12
+    speech frames, with ``SEAMLESS_MODES``, and chunked prefill refused;
+    the staggered prompts share no prefix) on the card against the CPU,
     same weights, fp32 and int8 cores: the fixed batch (prompts of 24 and
     40 into caches of 48 and 64; gemma3's rings wrap): the prefill and 16
     decode steps fed the CPU's greedy tokens, eagerly and through the
@@ -2300,22 +2413,39 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
             {"tt_fused2_experts" + sfx} if gpu.has_moe else set())
         tt_contract.reset_launch_counts()
         replayed0 = dict(gpu.replayed_launches)
+        F = 12 if gpu.cfg.enc_dec else 0
+        if F:
+            try:
+                Scheduler(gpu, p_gpu, num_slots=2, cache_len=48,
+                          chunk_prefill=True)
+            except ValueError as err:
+                print(f"small input, {arch}: chunked prefill refused "
+                      f"({err})", flush=True)
+            else:
+                raise AssertionError(f"{arch}: chunked prefill was not "
+                                     f"refused")
         for S, T in ((24, 48), (40, 64)):
-            tokens = torch.from_numpy(np.random.default_rng(S).integers(
-                0, 256, (2, S), dtype=np.int64))
-            lc, cc = cpu.prefill(p_cpu, {"tokens": tokens, "cache_len": T})
+            rng = np.random.default_rng(S)
+            tokens = torch.from_numpy(rng.integers(0, 256, (2, S),
+                                                   dtype=np.int64))
+            speech = serve.speech_frames(cpu, rng, 2, F)
+            frames = speech.get("speech_embeds")
+            lc, cc = cpu.prefill(p_cpu, {"tokens": tokens, "cache_len": T,
+                                         **speech})
             want, forced = [lc], []
             for _ in range(16):
                 forced.append(want[-1][:, -1].argmax(-1, keepdim=True))
                 lc, cc = cpu.decode_step(p_cpu, cc, forced[-1])
                 want.append(lc)
-            lg, cg = gpu.graphed_prefill(2, S, T)(p_gpu, tokens.cuda(), S)
-            step = gpu.graphed_decode_step(2, T)
+            lg, cg = gpu.graphed_prefill(2, S, T, F)(
+                p_gpu, tokens.cuda(), S,
+                None if frames is None else frames.cuda())
+            step = gpu.graphed_decode_step(2, T, enc_T=F)
             step.load(p_gpu, cg, S)
             got = [lg.clone()] + [step(t.cuda()).clone() for t in forced]
             worst = max(float((g.cpu() - w).abs().max())
                         for g, w in zip(got, want))
-            batch = {"tokens": tokens, "cache_len": T}
+            batch = {"tokens": tokens, "cache_len": T, **speech}
             lg, cg = gpu.prefill(p_gpu, batch)
             eager = [lg]
             for t in forced:
@@ -2340,6 +2470,9 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
         prompts = [torch.from_numpy(rng.integers(0, 256, (1, n),
                                                  dtype=np.int64))
                    for n in (40, 24, 8, 20)]
+        if F:
+            prompts = [{"tokens": p, **serve.speech_frames(cpu, rng, 1, F)}
+                       for p in prompts]
         for mode, kw in modes.items():
             want = smoke_schedule(cpu, p_cpu, prompts, **kw)
             got = smoke_schedule(gpu, p_gpu, prompts, **kw)
@@ -2427,12 +2560,10 @@ def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
     """Phase 5, full-width gemma3-4b (bf16 params from seed 0, TT on
     ffn+attn at rank 16, ``auto``: ``tt_fused2``, 238 a pass; lm_head tied).
 
-    The fixed batch (``GEMMA3_FIXED``) through ``launch.serve.fixed``, fp
-    then int8 cores (``drive``: launch counts set to 0 just before, read
-    just after; every projection replayed through its kernel, 0 captures
-    and 0 plan resolutions warm), beside one eager warm run
-    (``graph_against_eager``: prefill and first-step logits bit for bit,
-    tok/s, step ms, peak memory).  Then on one fp model at
+    The fixed batch (``GEMMA3_FIXED``) through ``fixed_family``, fp then
+    int8 cores (every projection replayed through its kernel, 0 captures
+    and 0 plan resolutions warm; graph ≡ eager bit for bit; the decode and
+    prefill replays traced alone).  Then on one fp model at
     ``GEMMA3_CUT_LAYERS`` layers (``cut_model``): Poisson arrivals
     (``GEMMA3_ARRIVAL`` through ``launch.serve.simulate``: 0 captures of
     either kind and 0 plan resolutions steady, 7 ``tt_fused2`` a layer per
@@ -2440,48 +2571,15 @@ def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
     (``GEMMA3_STAGGER``): dense graph ≡ dense eager ≡ paged (blocks of
     64) bit for bit, chunked (chunks of 256 over 2 lanes) graph ≡ eager
     and paged ≡ dense bit for bit, and every request of the dense run held
-    against ``generate_fixed`` by ``serve.check_greedy``.  Returns each
+    against ``generate_fixed`` (``staggered_block``).  Returns each
     kernel's launches over the fixed-batch calls and the arrival and
-    staggered runs (``check_greedy`` aside), and the record."""
-    per_pass = PROJ * GEMMA3_LAYERS
-    launches, rec = {}, {"card": smi, "fixed": []}
+    staggered runs (the checks against ``generate_fixed`` aside), and the
+    record."""
     t_phase = time.perf_counter()
-    for weights in ("fp32", "int8"):
-        kernel = "tt_fused2" + ("_int8" if weights == "int8" else "")
-        model, params, args = cli_model(GEMMA3_ARGS + GEMMA3_FIXED + [
-            "--tt-weights", weights])
-        label = f"gemma3-4b, 4 x 1152 + 64, {weights}"
-        eager = eager_runs(model, params, args)
-        out, launches[kernel] = drive(label, kernel, per_pass, model, params,
-                                      args)
-        r = dict(path=label, kernel=kernel, launches=launches[kernel],
-                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
-                 peak_bytes=out["peak_bytes"],
-                 peak_reserved_bytes=out["peak_reserved_bytes"])
-        r.update(graph_against_eager(label, model, params, args, out, eager,
-                                     smi))
-        # the decode replay traced alone, where its device time goes
-        batch = serve.prompt_batch(model, args)
-        logits, cache = model.prefill(params, batch)
-        step = model.graphed_decode_step(args.batch, batch["cache_len"])
-        step.load(params, cache, args.prompt_len)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
-                                    top=8)
-        print(f"profile ({label}): {REPLAYS} decode replays alone: "
-              f"{r['replay']['kernels']:g} device kernels, "
-              f"{r['replay']['tt']:g} tt_fused2_kernel, "
-              f"{r['replay']['busy_ms']:.3f} ms busy, "
-              f"{r['replay']['wall_ms']:.3f} ms wall per replay; top: " +
-              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
-                        for k, ms, n in r["replay"]["top"]), flush=True)
-        if r["replay"]["tt"] != per_pass:
-            raise AssertionError(f"{label}: {r['replay']['tt']} "
-                                 f"tt_fused2_kernel per decode replay")
-        rec["fixed"].append(r)
-        del model, params, out
-        gc.collect()
-        torch.cuda.empty_cache()
+    launches, fixed = fixed_family(smi, "gemma3-4b",
+                                   GEMMA3_ARGS + GEMMA3_FIXED,
+                                   {"tt_fused2": PROJ * GEMMA3_LAYERS})
+    rec = {"card": smi, "fixed": fixed}
 
     model, params, args = cut_model(GEMMA3_ARGS + GEMMA3_ARRIVAL,
                                     layers=GEMMA3_CUT_LAYERS)
@@ -2520,54 +2618,22 @@ def gemma3_path(smi: str) -> tuple[dict[str, int], dict]:
         raise AssertionError(f"gemma3 arrival mode: (expected, got) {bad}")
     rec["arrival"] = {k: v for k, v in out.items() if k != "finished"}
 
-    runs = {}
-    for label, graph, kw in (
-            ("dense graph", True, {}), ("dense eager", False, {}),
-            ("paged graph", True, dict(paged=True, block_size=GEMMA3_BLOCK)),
-            ("chunked graph", True, GEMMA3_CHUNK),
-            ("chunked eager", False, GEMMA3_CHUNK),
-            ("chunked paged graph", True, dict(
-                GEMMA3_CHUNK, paged=True, block_size=GEMMA3_BLOCK))):
-        runs[label] = staggered_full(model, params, graph, None,
-                                     GEMMA3_STAGGER, GEMMA3_T, **kw)
-    done = {k: v[0] for k, v in runs.items()}
-    checks = {"dense graph = eager": same_runs(done["dense graph"],
-                                               done["dense eager"]),
-              "paged = dense": same_runs(done["paged graph"],
-                                         done["dense graph"]),
-              "chunked graph = eager": same_runs(done["chunked graph"],
-                                                 done["chunked eager"]),
-              "chunked paged = dense": same_runs(
-                  done["chunked paged graph"], done["chunked graph"])}
+    paged = dict(paged=True, block_size=GEMMA3_BLOCK)
+    done, rec["staggered"] = staggered_block(
+        smi, f"gemma3-4b at {GEMMA3_CUT_LAYERS} layers", model, params,
+        GEMMA3_STAGGER, GEMMA3_T, STAGGER_N,
+        {"dense graph": (True, {}), "dense eager": (False, {}),
+         "paged graph": (True, paged),
+         "chunked graph": (True, GEMMA3_CHUNK),
+         "chunked eager": (False, GEMMA3_CHUNK),
+         "chunked paged graph": (True, dict(GEMMA3_CHUNK, **paged))},
+        [("dense graph", "dense eager"), ("paged graph", "dense graph"),
+         ("chunked graph", "chunked eager"),
+         ("chunked paged graph", "chunked graph")], ("dense graph",))
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
     launches["tt_fused2"] += counted.get("tt_fused2", 0) + replayed.get(
         "tt_fused2", 0)
-    prompts, _ = stagger_requests(model.cfg.vocab_size, *GEMMA3_STAGGER)
-    greedy = {u: serve.check_greedy(model, params,
-                                    prompts[u].to(model.device), f, GEMMA3_T)
-              for u, f in done["dense graph"].items()}
-    st = {k: v[1] for k, v in runs.items()}
-    print(f"gemma3-4b staggered run at {GEMMA3_CUT_LAYERS} layers "
-          f"({STAGGER_N} requests, prompts "
-          f"{GEMMA3_STAGGER[0]}, budgets {GEMMA3_STAGGER[1]}, 4 x "
-          f"{GEMMA3_T}; {smi}): " + ", ".join(
-              f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps)"
-              for k, v in st.items()) + "; " +
-          ", ".join(f"{k} {'bit-identical' if v else 'DIFFER'}"
-                    for k, v in checks.items()) +
-          f"; chunked: {st['chunked graph']['prefill_chunks']} chunks; "
-          f"against generate_fixed: "
-          f"{sum(g['identical'] for g in greedy.values())} of {len(greedy)} "
-          f"identical, picks within "
-          f"{max(g['slack'] for g in greedy.values()):.3g} of the top logit, "
-          f"logprobs within "
-          f"{max(g['logprob_diff'] for g in greedy.values()):.3g} (tol "
-          f"{max(g['tol'] for g in greedy.values()):.3g})", flush=True)
-    if not all(checks.values()) or any(
-            len(f.tokens) == 0 for f in done["dense graph"].values()):
-        raise AssertionError(f"gemma3 staggered run: {checks}")
-    rec["staggered"] = dict(st, checks=checks, greedy=greedy)
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"gemma3-4b phase 5: {rec['wall_s']:.1f} s", flush=True)
     del model, params
@@ -2720,15 +2786,15 @@ def mla_alone(model, params, args) -> dict:
 MOE_PATHS = {
     "mixtral-8x7b": dict(
         args=MIXTRAL_ARGS, fixed=MIXTRAL_FIXED, arrival=MIXTRAL_ARRIVAL,
-        stagger=MIXTRAL_STAGGER, T=MIXTRAL_T, block=MIXTRAL_BLOCK,
-        chunk=MIXTRAL_CHUNK, layers=MIXTRAL_LAYERS,
+        stagger=STAGGER_64_256, T=STAGGER_64_256_T, block=STAGGER_BLOCK,
+        chunk=STAGGER_CHUNK, layers=MIXTRAL_LAYERS,
         moe_layers=MIXTRAL_LAYERS, prefix=None,
         per_pass=(4 * MIXTRAL_LAYERS, 3 * MIXTRAL_LAYERS),
         cut_per_pass=(4 * MOE_CUT_LAYERS, 3 * MOE_CUT_LAYERS)),
     "deepseek-v2-lite-16b": dict(
         args=DSV2_ARGS, fixed=MIXTRAL_FIXED, arrival=MIXTRAL_ARRIVAL,
-        stagger=MIXTRAL_STAGGER, T=MIXTRAL_T, block=MIXTRAL_BLOCK,
-        chunk=MIXTRAL_CHUNK, layers=DSV2_LAYERS, moe_layers=DSV2_MOE_LAYERS,
+        stagger=STAGGER_64_256, T=STAGGER_64_256_T, block=STAGGER_BLOCK,
+        chunk=STAGGER_CHUNK, layers=DSV2_LAYERS, moe_layers=DSV2_MOE_LAYERS,
         prefix=DSV2_PREFIX,
         per_pass=(sum(n for _, n in DSV2_SHAPES.values()),
                   sum(n for _, n in DSV2_EXPERT_SHAPES.values())),
@@ -2737,9 +2803,9 @@ MOE_PATHS = {
         cut_per_pass=(5 + 5 * (MOE_CUT_LAYERS - 1),
                       3 * (MOE_CUT_LAYERS - 1))),
     "jamba-v0.1-52b": dict(
-        args=JAMBA_ARGS, fixed=MAMBA2_FIXED, arrival=None,
-        stagger=MIXTRAL_STAGGER, T=MIXTRAL_T, block=MIXTRAL_BLOCK,
-        chunk=MIXTRAL_CHUNK, layers=JAMBA_LAYERS,
+        args=JAMBA_ARGS, fixed=FIXED_1024, arrival=None,
+        stagger=STAGGER_64_256, T=STAGGER_64_256_T, block=STAGGER_BLOCK,
+        chunk=STAGGER_CHUNK, layers=JAMBA_LAYERS,
         moe_layers=JAMBA_MOE_LAYERS, ssm_layers=JAMBA_SSM_LAYERS,
         prefix=None,
         # SSD blocks × 2, GQA blocks × 4, MLPs × 3; MoE layers × 3: 28, 4,
@@ -2786,141 +2852,66 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     projections, the GQA layers' and the MLPs'; 48 ``tt_fused2_experts``
     across 16 experts), with the flags of ``MOE_PATHS[arch]``.
 
-    The fixed batch through ``launch.serve.fixed``, fp then int8 cores
-    (``drive``: every projection replayed through its kernel, 0 captures
-    and 0 plan resolutions warm), beside one eager warm run
-    (``graph_against_eager``: prefill and first-step logits bit for bit),
-    the decode replay traced alone, the prefill replay traced alone (its
-    busy ms and the expert kernel's share), one MoE layer traced alone
-    (the MoE's share of a replay), with MLA one layer's decode attention
-    alone (its share), and with SSD blocks one SSD mixer's decode alone
-    (its share) and the TT kernels' share of both replays.  Then on one
+    The fixed batch through ``fixed_family``, fp then int8 cores (every
+    projection replayed through its kernel, 0 captures and 0 plan
+    resolutions warm; graph ≡ eager bit for bit; the decode and prefill
+    replays traced alone, each TT kernel's share), one MoE layer traced
+    alone (the MoE's share of a replay), with MLA one layer's decode
+    attention alone (its share), and with SSD blocks one SSD mixer's
+    decode alone (its share).  Then on one
     fp model at ``MOE_CUT_LAYERS`` layers (``cut_model``) the arrivals
     over the dense pool, the paged one and chunked at 64 (0 captures and
     plan resolutions steady, every TT launch per admission, per decode
     step and per pass of a mixed step replayed; not for jamba), serve's
     prefix smoke where the cache is shareable (hits and skipped prefill
-    tokens, drops printed), and the staggered run: dense graph ≡ eager ≡
-    paged and chunked graph ≡ eager ≡ paged, bit for bit, the prefix
-    counters 0 where the cache is not shareable; chunked ≡ monolithic and
-    scheduler ≡ ``generate_fixed`` (other token groupings: another
-    capacity) asserted where both sides dropped nothing (with SSD blocks
-    measured only: the state carries a grouping's bf16 rounding), the
-    drops printed either way.
+    tokens, drops printed), and the staggered run (``staggered_block``):
+    dense graph ≡ eager ≡ paged and chunked graph ≡ eager ≡ paged, bit for
+    bit, the prefix counters 0 where the cache is not shareable; chunked ≡
+    monolithic and scheduler ≡ ``generate_fixed`` (other token groupings:
+    another capacity) asserted where both sides dropped nothing (with SSD
+    blocks measured only: the state carries a grouping's bf16 rounding),
+    the drops printed either way; with SSD blocks then
+    ``fp64_scan_witness``: the dense and chunked runs in fp32 with the
+    scan in fp64 and the experts dropless, every request asserted.
     Returns each kernel's launches over the fixed-batch calls and the
     arrival and staggered runs, and the record."""
     cfg = MOE_PATHS[arch]
-    launches, rec = {}, {"card": smi, "fixed": []}
     t_phase = time.perf_counter()
-    for weights in ("fp32", "int8"):
-        sfx = "_int8" if weights == "int8" else ""
-        kernel, ekernel = "tt_fused2" + sfx, "tt_fused2_experts" + sfx
-        model, params, args = cli_model(cfg["args"] + cfg["fixed"] + [
-            "--tt-weights", weights])
-        attn, experts = cfg["per_pass"]
-        label = (f"{arch}, {args.batch} x {args.prompt_len} + "
-                 f"{args.steps}, {weights}")
-        eager = eager_runs(model, params, args)
-        out, _ = drive(label, kernel, attn, model, params, args,
-                       also={ekernel: experts})
-        launches.update(out["path_launches"])
-        r = dict(path=label, launches=out["path_launches"],
-                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
-                 peak_bytes=out["peak_bytes"], drops=out["drops"],
-                 cold_drops=out["cold_drops"],
-                 peak_reserved_bytes=out["peak_reserved_bytes"])
-        r.update(graph_against_eager(label, model, params, args, out, eager,
-                                     smi))
-        batch = serve.prompt_batch(model, args)
-        logits, cache = model.prefill(params, batch)
-        step = model.graphed_decode_step(args.batch, batch["cache_len"])
-        step.load(params, cache, args.prompt_len)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
-                                    top=8)
-        ex = replays_alone(lambda: step(tok), "tt_fused2_experts_kernel")
-        r["replay_experts"], r["replay_experts_ms"] = ex["tt"], ex["tt_ms"]
-        tokens = batch["tokens"]
-        pre = model.graphed_prefill(*tokens.shape, batch["cache_len"])
-        pre(params, tokens, args.prompt_len)     # captured in the cold run
-        torch.cuda.synchronize()
-        r["prefill_replay"] = replays_alone(
-            lambda: pre(params, tokens, args.prompt_len),
-            "tt_fused2_experts_kernel", top=6, also=("tt_fused2_kernel",))
-        r["moe_layer"] = moe_layer_alone(model, params, args)
-        share = r["moe_layer"]["busy_ms"] * cfg["moe_layers"] / \
-            r["replay"]["busy_ms"]
-        r["moe_share"] = share
-        probes = ""
+
+    def probes(model, params, args, r):
+        rp = r["replay"]
+        lay = r["moe_layer"] = moe_layer_alone(model, params, args)
+        r["moe_share"] = lay["busy_ms"] * cfg["moe_layers"] / rp["busy_ms"]
+        line = (f"; one MoE layer alone (eager, {args.batch} tokens): "
+                f"{lay['kernels']:g} kernels, {lay['busy_ms']:.4f} ms busy, x "
+                f"{cfg['moe_layers']} layers = {r['moe_share']:.1%} of the "
+                f"replay; top: " + "; ".join(
+                    f"{k} {ms:.4f} ms x{n:g}" for k, ms, n in lay["top"]))
         if model.cfg.ssm is not None:
-            rp, pp = r["replay"], r["prefill_replay"]
             lay = r["ssm_layer"] = ssm_alone(model, params, args)
             r["ssm_share"] = lay["busy_ms"] * cfg["ssm_layers"] / \
                 rp["busy_ms"]
-            r["tt_share"] = (rp["tt_ms"] + r["replay_experts_ms"]) / \
-                rp["busy_ms"]
-            r["prefill_tt_share"] = (pp["tt_ms"] + pp["also"][
-                "tt_fused2_kernel"][1]) / pp["busy_ms"]
-            probes = (
-                f"; TT kernels {r['tt_share']:.1%} of the decode replay, "
-                f"{r['prefill_tt_share']:.1%} of the prefill replay "
-                f"(tt_fused2_kernel {pp['also']['tt_fused2_kernel'][0]:g} "
-                f"a replay, {pp['also']['tt_fused2_kernel'][1]:.3f} ms); "
-                f"one SSD mixer's decode alone (eager, {args.batch} rows): "
-                f"{lay['kernels']:g} kernels, {lay['busy_ms']:.4f} ms busy, "
-                f"of which tt_fused2 {lay['tt_ms']:.4f}, x "
-                f"{cfg['ssm_layers']} = {r['ssm_share']:.1%} of the replay; "
-                f"top: " + "; ".join(f"{k} {ms:.4f} ms x{n:g}"
-                                     for k, ms, n in lay["top"]))
+            line += (f"; one SSD mixer's decode alone (eager, {args.batch} "
+                     f"rows): {lay['kernels']:g} kernels, "
+                     f"{lay['busy_ms']:.4f} ms busy, of which tt_fused2 "
+                     f"{lay['tt_ms']:.4f}, x {cfg['ssm_layers']} = "
+                     f"{r['ssm_share']:.1%} of the replay; top: " +
+                     "; ".join(f"{k} {ms:.4f} ms x{n:g}"
+                               for k, ms, n in lay["top"]))
         if model.cfg.mla is not None:
-            r["mla_layer"] = mla_alone(model, params, args)
-            r["mla_share"] = r["mla_layer"]["busy_ms"] * cfg["layers"] / \
-                r["replay"]["busy_ms"]
-            probes += (
-                f"; one layer's MLA decode attention alone: "
-                f"{r['mla_layer']['kernels']:g} kernels, "
-                f"{r['mla_layer']['busy_ms']:.4f} ms busy, x "
-                f"{cfg['layers']} = {r['mla_share']:.1%} of the replay; "
-                f"top: " + "; ".join(f"{k} {ms:.4f} ms x{n:g}"
-                                     for k, ms, n in r["mla_layer"]["top"]))
-        pre_share = (r["prefill_replay"]["tt_ms"] /
-                     r["prefill_replay"]["busy_ms"])
-        print(f"profile ({label}): {REPLAYS} decode replays alone: "
-              f"{r['replay']['kernels']:g} device kernels, "
-              f"{r['replay']['tt']:g} tt_fused2_kernel and "
-              f"{r['replay_experts']:g} tt_fused2_experts_kernel "
-              f"({r['replay_experts_ms']:.3f} ms), "
-              f"{r['replay']['busy_ms']:.3f} ms busy, "
-              f"{r['replay']['wall_ms']:.3f} ms wall per replay; top: " +
-              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
-                        for k, ms, n in r["replay"]["top"]) +
-              f"; prefill replay of {args.batch} x {args.prompt_len} "
-              f"alone: {r['prefill_replay']['kernels']:g} device kernels, "
-              f"{r['prefill_replay']['busy_ms']:.3f} ms busy, "
-              f"{r['prefill_replay']['tt']:g} tt_fused2_experts_kernel "
-              f"{r['prefill_replay']['tt_ms']:.3f} ms ({pre_share:.1%}), "
-              f"{r['prefill_replay']['wall_ms']:.3f} ms wall; top: " +
-              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
-                        for k, ms, n in r["prefill_replay"]["top"]) +
-              f"; one MoE layer alone (eager, {args.batch} tokens): "
-              f"{r['moe_layer']['kernels']:g} kernels, "
-              f"{r['moe_layer']['busy_ms']:.4f} ms busy, x "
-              f"{cfg['moe_layers']} layers = {share:.1%} of the replay; "
-              f"top: " + "; ".join(f"{k} {ms:.4f} ms x{n:g}"
-                                   for k, ms, n in r["moe_layer"]["top"]) +
-              probes + f"; MoE drops warm {out['drops']}, cold "
-              f"{out['cold_drops']}", flush=True)
-        if (r["replay"]["tt"], r["replay_experts"],
-                r["prefill_replay"]["tt"]) != (attn, experts, experts):
-            raise AssertionError(f"{label}: {r['replay']['tt']} and "
-                                 f"{r['replay_experts']} TT kernels per "
-                                 f"decode replay, "
-                                 f"{r['prefill_replay']['tt']} experts' per "
-                                 f"prefill replay")
-        rec["fixed"].append(r)
-        del model, params, out, step, cache
-        gc.collect()
-        torch.cuda.empty_cache()
+            lay = r["mla_layer"] = mla_alone(model, params, args)
+            r["mla_share"] = lay["busy_ms"] * cfg["layers"] / rp["busy_ms"]
+            line += (f"; one layer's MLA decode attention alone: "
+                     f"{lay['kernels']:g} kernels, {lay['busy_ms']:.4f} ms "
+                     f"busy, x {cfg['layers']} = {r['mla_share']:.1%} of the "
+                     f"replay; top: " + "; ".join(
+                         f"{k} {ms:.4f} ms x{n:g}" for k, ms, n in lay["top"]))
+        return line
+    attn, experts = cfg["per_pass"]
+    launches, fixed = fixed_family(
+        smi, arch, cfg["args"] + cfg["fixed"],
+        {"tt_fused2": attn, "tt_fused2_experts": experts}, probes=probes)
+    rec = {"card": smi, "fixed": fixed}
 
     model, params, args = cut_model(cfg["args"] + (cfg["arrival"] or []),
                                     layers=MOE_CUT_LAYERS)
@@ -2978,85 +2969,43 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
         rec["prefix"] = moe_prefix_smoke(smi, arch, model, params,
                                          cfg["args"] + cfg["prefix"])
 
-    runs = {}
-    chunk = dict(cfg["chunk"])
-    for label, graph, kw in (
-            ("dense graph", True, {}), ("dense eager", False, {}),
-            ("paged graph", True, dict(paged=True, block_size=cfg["block"])),
-            ("chunked graph", True, chunk),
-            ("chunked eager", False, chunk),
-            ("chunked paged graph", True, dict(
-                chunk, paged=True, block_size=cfg["block"]))):
-        runs[label] = staggered_full(model, params, graph, None,
-                                     cfg["stagger"], cfg["T"], **kw)
-    done = {k: v[0] for k, v in runs.items()}
-    st = {k: v[1] for k, v in runs.items()}
-    checks = {"dense graph = eager": same_runs(done["dense graph"],
-                                               done["dense eager"]),
-              "paged = dense": same_runs(done["paged graph"],
-                                         done["dense graph"]),
-              "chunked graph = eager": same_runs(done["chunked graph"],
-                                                 done["chunked eager"]),
-              "chunked paged = dense": same_runs(
-                  done["chunked paged graph"], done["chunked graph"])}
-    if not model.supports_prefix_reuse:
-        checks["no prefix hit"] = all(
-            v.get("prefix_hit_tokens", 0) == v.get(
-                "prefill_tokens_skipped", 0) == 0 for v in st.values())
+    chunk, paged = dict(cfg["chunk"]), dict(paged=True,
+                                            block_size=cfg["block"])
+    # scheduler ≡ generate_fixed asserted where neither side dropped an
+    # assignment (other token groupings: another capacity); with SSD blocks
+    # measured only, the state carrying a grouping's bf16 rounding to every
+    # later token, and held by ``fp64_scan_witness`` below
+    done, rec["staggered"] = staggered_block(
+        smi, f"{arch} at {MOE_CUT_LAYERS} layers", model, params,
+        cfg["stagger"], cfg["T"], STAGGER_N,
+        {"dense graph": (True, {}), "dense eager": (False, {}),
+         "paged graph": (True, paged), "chunked graph": (True, chunk),
+         "chunked eager": (False, chunk),
+         "chunked paged graph": (True, dict(chunk, **paged))},
+        [("dense graph", "dense eager"), ("paged graph", "dense graph"),
+         ("chunked graph", "chunked eager"),
+         ("chunked paged graph", "chunked graph")], ("dense graph",),
+        hold=model.cfg.ssm is None)
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
     for k in ("tt_fused2", "tt_fused2_experts"):
         launches[k] += counted.get(k, 0) + replayed.get(k, 0)
-    # other token groupings: asserted only where neither side dropped
-    drops = {k: v["drops"] for k, v in st.items()}
-    as_mono = same_runs(done["chunked graph"], done["dense graph"])
-    if drops["chunked graph"] == drops["dense graph"] == 0:
-        checks["chunked = monolithic (no drops)"] = as_mono
-    # scheduler ≡ generate_fixed, where the scheduler's run dropped nothing
-    # (with drops there it asserts nothing, and is not run); with SSD
-    # blocks measured only (``serve.greedy_against_fixed``): the state
-    # carries a grouping's bf16 rounding to every later token, as mamba2's
-    # does (PERF.md §7), and SMOKE carries the identities
-    hold = model.cfg.ssm is None
-    prompts, _ = stagger_requests(model.cfg.vocab_size, *cfg["stagger"])
-    greedy = {}
-    for u, f in done["dense graph"].items() if drops["dense graph"] == 0 \
-            else ():
-        moe.reset_drops()
-        try:
-            g = (serve.check_greedy if hold else serve.greedy_against_fixed)(
-                model, params, prompts[u].to(model.device), f, cfg["T"])
-        except AssertionError as err:
-            g = dict(failed=str(err)[:200])
-        g["drops"] = moe.read_drops()
-        greedy[u] = g
-
-    def outside(g):
-        return "failed" in g or not g.get("within", True)
-    held = [g for g in greedy.values() if g["drops"] == 0]
-    print(f"{arch} staggered run at {MOE_CUT_LAYERS} layers ({STAGGER_N} "
-          f"requests, prompts {cfg['stagger'][0]}, budgets "
-          f"{cfg['stagger'][1]}, 4 x {cfg['T']}; {smi}): " + ", ".join(
-              f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps, "
-              f"{v['drops']} drops)" for k, v in st.items()) + "; " +
-          ", ".join(f"{k} {'holds' if v else 'FAILS'}"
-                    for k, v in checks.items()) +
-          f"; chunked {'=' if as_mono else '!='} monolithic (drops "
-          f"{drops['chunked graph']} / {drops['dense graph']}); against "
-          f"generate_fixed: {len(held)} of {STAGGER_N} requests without a "
-          f"drop on either side, "
-          f"{sum(g.get('identical', False) for g in held)} of "
-          f"them identical, "
-          f"{sum(map(outside, held))} outside the bf16 tolerance; "
-          f"{sum(map(outside, greedy.values()))} outside it over all"
-          f"{'' if hold else ' (measured, not asserted)'}", flush=True)
-    if not all(checks.values()) or any(
-            len(f.tokens) == 0 for f in done["dense graph"].values()) or \
-            (hold and any(map(outside, held))):
-        raise AssertionError(f"{arch} staggered run: {checks}, drops "
-                             f"{drops}, greedy {greedy}")
-    rec["staggered"] = dict(st, checks=checks, greedy=greedy,
-                            chunked_as_monolithic=as_mono)
+    # chunked ≡ monolithic (another grouping): asserted only where neither
+    # run dropped
+    drops = {k: rec["staggered"][k]["drops"]
+             for k in ("chunked graph", "dense graph")}
+    as_mono = rec["staggered"]["chunked_as_monolithic"] = same_runs(
+        done["chunked graph"], done["dense graph"])
+    print(f"{arch} staggered run: chunked {'=' if as_mono else '!='} "
+          f"monolithic (drops {drops['chunked graph']} / "
+          f"{drops['dense graph']})", flush=True)
+    if not any(drops.values()) and not as_mono:
+        raise AssertionError(f"{arch} staggered run: chunked != monolithic "
+                             f"without a drop")
+    if model.cfg.ssm is not None:
+        rec["fp32"] = fp64_scan_witness(
+            smi, f"{arch} at {MOE_CUT_LAYERS} layers", model, params,
+            cfg["stagger"], cfg["T"], STAGGER_N, cfg["chunk"])
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"{arch} phase 5: {rec['wall_s']:.1f} s", flush=True)
     del model, params
@@ -3065,56 +3014,59 @@ def moe_path(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     return launches, rec
 
 
+def fp64_scan_witness(smi: str, name: str, model, params, stagger, T: int,
+                      count: int, chunk: dict) -> dict:
+    """The scheduler ≡ ``generate_fixed`` witness of a model with SSD
+    blocks: its weights cast to fp32 with the SSD scan accumulated in fp64
+    (``SSMConfig.scan_dtype``; with bf16 weights, or the reference's fp32
+    scan, whose decays are differences of cumulative log-decays, the
+    groupings' logprobs end up apart: ``launch.groupings``, PERF.md §7)
+    and a mixture of experts made dropless (capacity factor E / top-k:
+    every expert takes every token of a call, so no grouping drops an
+    assignment), the staggered run dense (bucketed prefill) and chunked at
+    ``chunk`` through the graphs (``staggered_block``), every request of
+    both held against ``generate_fixed`` within 1e-4 by
+    ``serve.check_greedy``'s rule, asserted, and no assignment dropped on
+    either side."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model.cfg, ssm=dataclasses.replace(
+        model.cfg.ssm, scan_dtype="float64"))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    m32 = build(cfg, param_dtype=torch.float32)
+    p32 = map_tree(lambda t: t.float(), params)
+    runs = ("dense graph", "chunked graph")
+    _, rec = staggered_block(
+        smi, f"{name} in fp32, the scan in fp64"
+        f"{', dropless' if cfg.moe else ''} (the same weights)", m32, p32,
+        stagger, T, count,
+        {"dense graph": (True, {}), "chunked graph": (True, chunk)}, [],
+        runs)
+    held = {r: sum(not g["drops"] for g in rec["greedy"][r].values())
+            for r in runs}
+    if any(rec[r]["drops"] for r in runs) or any(
+            n != count for n in held.values()):
+        raise AssertionError(f"{name} witness: drops "
+                             f"{ {r: rec[r]['drops'] for r in runs} }, "
+                             f"requests held {held} of {count}")
+    rec["wall_s"] = time.perf_counter() - t0
+    del m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def qwen3_path(smi: str) -> tuple[dict[str, int], dict]:
     """Phase 5, full-width qwen3-32b (bf16 params from seed 0, nothing cut,
     TT on ffn+attn at rank 16, ``auto``: 448 ``tt_fused2`` a pass): 4 ×
-    (256 + 32) through ``launch.serve.fixed``, fp then int8 cores
-    (``drive``: every projection replayed through its kernel, 0 captures
-    and 0 plan resolutions warm) beside one eager warm run
-    (``graph_against_eager``: bit for bit), and the decode replay traced
-    alone.  Returns the launches over the fixed-batch calls and the
-    record."""
-    per_pass = PROJ * QWEN3_LAYERS
-    launches, rec = {}, {"card": smi, "fixed": []}
+    (256 + 32) through ``fixed_family``, fp then int8 cores.  Returns the
+    launches over the fixed-batch calls and the record."""
     t_phase = time.perf_counter()
-    for weights in ("fp32", "int8"):
-        kernel = "tt_fused2" + ("_int8" if weights == "int8" else "")
-        model, params, args = cli_model(QWEN3_ARGS + ["--tt-weights",
-                                                      weights])
-        label = (f"qwen3-32b, {args.batch} x {args.prompt_len} + "
-                 f"{args.steps}, {weights}")
-        eager = eager_runs(model, params, args)
-        out, launches[kernel] = drive(label, kernel, per_pass, model, params,
-                                      args)
-        r = dict(path=label, launches=out["path_launches"],
-                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
-                 peak_bytes=out["peak_bytes"],
-                 peak_reserved_bytes=out["peak_reserved_bytes"])
-        r.update(graph_against_eager(label, model, params, args, out, eager,
-                                     smi))
-        batch = serve.prompt_batch(model, args)
-        logits, cache = model.prefill(params, batch)
-        step = model.graphed_decode_step(args.batch, batch["cache_len"])
-        step.load(params, cache, args.prompt_len)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
-                                    top=6)
-        print(f"profile ({label}): {REPLAYS} decode replays alone: "
-              f"{r['replay']['kernels']:g} device kernels, "
-              f"{r['replay']['tt']:g} tt_fused2_kernel "
-              f"({r['replay']['tt_ms']:.3f} ms), "
-              f"{r['replay']['busy_ms']:.3f} ms busy, "
-              f"{r['replay']['wall_ms']:.3f} ms wall per replay; top: " +
-              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
-                        for k, ms, n in r["replay"]["top"]), flush=True)
-        if r["replay"]["tt"] != per_pass:
-            raise AssertionError(f"{label}: {r['replay']['tt']} TT kernels "
-                                 f"per decode replay, expected {per_pass}")
-        rec["fixed"].append(r)
-        del model, params, out, step, cache
-        gc.collect()
-        torch.cuda.empty_cache()
-    rec["wall_s"] = time.perf_counter() - t_phase
+    launches, fixed = fixed_family(smi, "qwen3-32b", QWEN3_ARGS,
+                                   {"tt_fused2": PROJ * QWEN3_LAYERS})
+    rec = {"card": smi, "fixed": fixed,
+           "wall_s": time.perf_counter() - t_phase}
     print(f"qwen3-32b phase 5: {rec['wall_s']:.1f} s", flush=True)
     return launches, rec
 
@@ -3130,6 +3082,18 @@ def jamba_kernels(gen) -> list[dict]:
                            cases=BF16_CASES) +
             expert_kernels(gen, JAMBA_EXPERT_SHAPES, JAMBA_E, JAMBA_C, (),
                            "jamba-v0.1-52b", cases=BF16_CASES))
+
+
+def seamless_kernels(gen) -> list[dict]:
+    """``fused2_kernels`` at seamless-m4t-large-v2's three shapes, bf16
+    activations, every one timed: at the decode's 4 rows (the records'
+    ``per_layer`` is launches a decode pass) and at 256 and 4,096 (a
+    prefill pass's)."""
+    return [r for i, rows in enumerate(SEAMLESS_ROWS)
+            for r in fused2_kernels(
+                gen, {k: (dims, n[i]) for k, (dims, n) in
+                      SEAMLESS_DIMS.items()}, "seamless-m4t-large-v2", rows,
+                cases=BF16_CASES)]
 
 
 def mamba2_kernels(gen) -> list[dict]:
@@ -3174,202 +3138,334 @@ def mamba2_path(smi: str) -> tuple[dict[str, int], dict]:
     cut, TT on ffn at rank 16, ``auto``: ``tt_fused2`` on each SSD block's
     in/out projections, 128 a pass).
 
-    The fixed batch (``MAMBA2_FIXED``: 4 prompts of 1,024 tokens, 4 chunks
-    of 256 each) through ``launch.serve.fixed``, fp then int8 cores
-    (``drive``: every projection replayed through its kernel, 0 captures
-    and 0 plan resolutions warm), beside one eager warm run
-    (``graph_against_eager``: prefill and first-step logits and the cache,
-    fp32 state included, bit for bit; tok/s, decode step ms, peak memory);
-    the decode replay, the prefill replay and one SSD mixer's decode
-    (``ssm_alone``, plain and masked) traced alone: the TT kernel's share
-    and the SSM's plain ops' share of a replay.  Then on one fp model the
-    staggered run (``MAMBA2_STAGGER``, ``MAMBA2_N`` requests): dense graph
-    ≡ eager ≡ paged (blocks of 16; the pool holds no arena) and chunked
-    (64) graph ≡ eager ≡ paged, bit for bit, the prefix counters 0 though
-    the paged pools ask for the prefix cache.  Each request of the chunked
-    run (other chunk lengths: the sums run in another order) is measured
-    against ``generate_fixed`` of its prompt alone (the exact prefill) by
-    ``serve.greedy_against_fixed`` and printed: with random bf16 weights
-    at full width the rounding of one grouping against another is carried
-    through 64 layers past the bf16 tolerance (``launch.groupings``,
-    ``PERF.md`` §7).  Then the same weights cast to fp32 with the SSD scan
-    accumulated in fp64 (``SSMConfig.scan_dtype``): the staggered dense
-    (bucketed prefill) and chunked runs through the graphs, every request
-    held against ``generate_fixed`` within 1e-4 by ``serve.check_greedy``.
+    The fixed batch (``FIXED_1024``: 4 prompts of 1,024 tokens, 4 chunks
+    of 256 each) through ``fixed_family``, fp then int8 cores (every
+    projection replayed through its kernel, 0 captures and 0 plan
+    resolutions warm; graph ≡ eager, the fp32 state included, bit for
+    bit; the decode and prefill replays traced alone), and one SSD mixer's
+    decode (``ssm_alone``, plain and masked) traced alone: the SSM's plain
+    ops' share of a replay.  Then on one fp model the staggered run
+    (``MAMBA2_STAGGER``, ``MAMBA2_N`` requests): dense graph ≡ eager ≡
+    paged (blocks of 16; the pool holds no arena) and chunked (64) graph ≡
+    eager ≡ paged, bit for bit, the prefix counters 0 though the paged
+    pools ask for the prefix cache, and the chunked run's requests against
+    ``generate_fixed`` measured (bf16: the random weights' rounding is
+    carried through 64 layers past the bf16 tolerance,
+    ``launch.groupings``, ``PERF.md`` §7).  Then ``fp64_scan_witness``:
+    the same weights cast to fp32 with the SSD scan accumulated in fp64,
+    the staggered dense (bucketed prefill) and chunked runs through the
+    graphs, every request held against ``generate_fixed`` within 1e-4.
     Returns ``tt_fused2``'s and ``tt_fused2_int8``'s launches over the
     fixed-batch calls and the bf16 staggered runs, and the record."""
-    per_pass = 2 * MAMBA2_LAYERS
-    launches, rec = {}, {"card": smi, "fixed": []}
     t_phase = time.perf_counter()
-    for weights in ("fp32", "int8"):
-        kernel = "tt_fused2" + ("_int8" if weights == "int8" else "")
-        model, params, args = cli_model(MAMBA2_ARGS + MAMBA2_FIXED + [
-            "--tt-weights", weights])
-        label = (f"mamba2-2.7b, {args.batch} x {args.prompt_len} + "
-                 f"{args.steps}, {weights}")
-        eager = eager_runs(model, params, args)
-        out, launches[kernel] = drive(label, kernel, per_pass, model, params,
-                                      args)
-        r = dict(path=label, launches=out["path_launches"],
-                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
-                 peak_bytes=out["peak_bytes"],
-                 peak_reserved_bytes=out["peak_reserved_bytes"])
-        r.update(graph_against_eager(label, model, params, args, out, eager,
-                                     smi))
-        batch = serve.prompt_batch(model, args)
-        logits, cache = model.prefill(params, batch)
-        step = model.graphed_decode_step(args.batch, batch["cache_len"])
-        step.load(params, cache, args.prompt_len)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        r["replay"] = replays_alone(lambda: step(tok), "tt_fused2_kernel",
-                                    top=8)
-        tokens = batch["tokens"]
-        pre = model.graphed_prefill(*tokens.shape, batch["cache_len"])
-        pre(params, tokens, args.prompt_len)     # captured in the cold run
-        torch.cuda.synchronize()
-        r["prefill_replay"] = replays_alone(
-            lambda: pre(params, tokens, args.prompt_len), "tt_fused2_kernel",
-            top=8)
-        r["ssm_layer"] = ssm_alone(model, params, args)
-        r["ssm_layer_masked"] = ssm_alone(model, params, args, masked=True)
-        rp, lay = r["replay"], r["ssm_layer"]
-        r["tt_share"] = rp["tt_ms"] / rp["busy_ms"]
+
+    def probes(model, params, args, r):
+        lay = r["ssm_layer"] = ssm_alone(model, params, args)
+        m = r["ssm_layer_masked"] = ssm_alone(model, params, args,
+                                              masked=True)
         r["ssm_plain_share"] = (lay["busy_ms"] - lay["tt_ms"]) * \
-            MAMBA2_LAYERS / rp["busy_ms"]
-        r["prefill_tt_share"] = (r["prefill_replay"]["tt_ms"] /
-                                 r["prefill_replay"]["busy_ms"])
-        m = r["ssm_layer_masked"]
-        print(f"profile ({label}; {smi}): {REPLAYS} decode replays alone: "
-              f"{rp['kernels']:g} device kernels, {rp['tt']:g} "
-              f"tt_fused2_kernel ({rp['tt_ms']:.3f} ms, "
-              f"{r['tt_share']:.1%}), {rp['busy_ms']:.3f} ms busy, "
-              f"{rp['wall_ms']:.3f} ms wall per replay; top: " +
-              "; ".join(f"{k} {ms:.3f} ms x{n:g}" for k, ms, n in rp["top"])
-              + f"; prefill replay of {args.batch} x {args.prompt_len} "
-              f"alone: {r['prefill_replay']['kernels']:g} device kernels, "
-              f"{r['prefill_replay']['busy_ms']:.3f} ms busy, "
-              f"{r['prefill_replay']['tt']:g} tt_fused2_kernel "
-              f"{r['prefill_replay']['tt_ms']:.3f} ms "
-              f"({r['prefill_tt_share']:.1%}), "
-              f"{r['prefill_replay']['wall_ms']:.3f} ms wall; top: " +
-              "; ".join(f"{k} {ms:.3f} ms x{n:g}"
-                        for k, ms, n in r["prefill_replay"]["top"]) +
-              f"; one SSD mixer's decode alone (eager, {args.batch} rows): "
-              f"{lay['kernels']:g} kernels, {lay['busy_ms']:.4f} ms busy, of "
-              f"which tt_fused2 {lay['tt_ms']:.4f}; its plain ops x "
-              f"{MAMBA2_LAYERS} layers = {r['ssm_plain_share']:.1%} of the "
-              f"replay; top: " + "; ".join(
-                  f"{k} {ms:.4f} ms x{n:g}" for k, ms, n in lay["top"]) +
-              f"; masked by active: {m['kernels']:g} kernels, "
-              f"{m['busy_ms']:.4f} ms busy, torch.where {m['where']:g} "
-              f"kernels {m['where_ms']:.4f} ms", flush=True)
-        if (rp["tt"], r["prefill_replay"]["tt"], lay["tt"]) != (
-                per_pass, per_pass, 2):
-            raise AssertionError(f"{label}: {rp['tt']} and "
-                                 f"{r['prefill_replay']['tt']} TT kernels per "
-                                 f"decode and prefill replay, {lay['tt']} per "
-                                 f"SSD mixer, expected {per_pass} and 2")
-        rec["fixed"].append(r)
-        del model, params, out, step, cache, pre
-        gc.collect()
-        torch.cuda.empty_cache()
+            MAMBA2_LAYERS / r["replay"]["busy_ms"]
+        if lay["tt"] != 2:
+            raise AssertionError(f"{lay['tt']} tt_fused2_kernel per SSD "
+                                 f"mixer, expected 2")
+        return (f"; one SSD mixer's decode alone (eager, {args.batch} "
+                f"rows): {lay['kernels']:g} kernels, {lay['busy_ms']:.4f} ms"
+                f" busy, of which tt_fused2 {lay['tt_ms']:.4f}; its plain "
+                f"ops x {MAMBA2_LAYERS} layers = {r['ssm_plain_share']:.1%} "
+                f"of the replay; top: " + "; ".join(
+                    f"{k} {ms:.4f} ms x{n:g}" for k, ms, n in lay["top"]) +
+                f"; masked by active: {m['kernels']:g} kernels, "
+                f"{m['busy_ms']:.4f} ms busy, torch.where {m['where']:g} "
+                f"kernels {m['where_ms']:.4f} ms")
+    launches, fixed = fixed_family(smi, "mamba2-2.7b",
+                                   MAMBA2_ARGS + FIXED_1024,
+                                   {"tt_fused2": 2 * MAMBA2_LAYERS},
+                                   probes=probes)
+    rec = {"card": smi, "fixed": fixed}
 
     model, params = serve.setup(serve.parse_args(MAMBA2_ARGS))
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
-    paged = dict(paged=True, block_size=MAMBA2_BLOCK)
-    runs = {}
-    for label, graph, kw in (
-            ("dense graph", True, {}), ("dense eager", False, {}),
-            ("paged graph", True, paged),
-            ("chunked graph", True, MAMBA2_CHUNK),
-            ("chunked eager", False, MAMBA2_CHUNK),
-            ("chunked paged graph", True, dict(MAMBA2_CHUNK, **paged))):
-        runs[label] = staggered_full(model, params, graph, None,
-                                     MAMBA2_STAGGER, MAMBA2_T, MAMBA2_N,
-                                     **kw)
-    done = {k: v[0] for k, v in runs.items()}
-    st = {k: v[1] for k, v in runs.items()}
-    checks = {"dense graph = eager": same_runs(done["dense graph"],
-                                               done["dense eager"]),
-              "paged = dense": same_runs(done["paged graph"],
-                                         done["dense graph"]),
-              "chunked graph = eager": same_runs(done["chunked graph"],
-                                                 done["chunked eager"]),
-              "chunked paged = dense": same_runs(
-                  done["chunked paged graph"], done["chunked graph"]),
-              "no prefix hit": all(v.get("prefix_hit_tokens", 0) == 0
-                                   for v in st.values())}
+    paged = dict(paged=True, block_size=STAGGER_BLOCK)
+    done, rec["staggered"] = staggered_block(
+        smi, "mamba2-2.7b", model, params, MAMBA2_STAGGER, MAMBA2_T,
+        MAMBA2_N,
+        {"dense graph": (True, {}), "dense eager": (False, {}),
+         "paged graph": (True, paged),
+         "chunked graph": (True, STAGGER_CHUNK),
+         "chunked eager": (False, STAGGER_CHUNK),
+         "chunked paged graph": (True, dict(STAGGER_CHUNK, **paged))},
+        [("dense graph", "dense eager"), ("paged graph", "dense graph"),
+         ("chunked graph", "chunked eager"),
+         ("chunked paged graph", "chunked graph")], ("chunked graph",),
+        hold=False)
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
     launches["tt_fused2"] += counted.get("tt_fused2", 0) + replayed.get(
         "tt_fused2", 0)
-    prompts, _ = stagger_requests(model.cfg.vocab_size, *MAMBA2_STAGGER,
-                                  MAMBA2_N)
-    prompts = [t.to(model.device) for t in prompts]
-    t0 = time.perf_counter()
-    greedy = {u: serve.greedy_against_fixed(model, params, prompts[u], f,
-                                            MAMBA2_T)
-              for u, f in done["chunked graph"].items()}
-    t_greedy = time.perf_counter() - t0
-    as_mono = same_runs(done["chunked graph"], done["dense graph"])
-    print(f"mamba2-2.7b staggered run ({MAMBA2_N} requests, prompts "
-          f"{MAMBA2_STAGGER[0]}, budgets {MAMBA2_STAGGER[1]}, 4 x "
-          f"{MAMBA2_T}; {smi}): " + ", ".join(
-              f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps)"
-              for k, v in st.items()) + "; " +
-          ", ".join(f"{k} {'holds' if v else 'FAILS'}"
-                    for k, v in checks.items()) +
-          f"; paged pool {st['paged graph']['kv_pool_bytes'] / 2**20:.1f} "
-          f"MiB, block high-water {st['paged graph']['block_high_water']}; "
-          f"chunked: {st['chunked graph']['prefill_chunks']} chunks, "
-          f"{'=' if as_mono else '!='} monolithic bit for bit; against "
-          f"generate_fixed (bf16, measured in {t_greedy:.1f} s): "
-          f"{sum(g['identical'] for g in greedy.values())} of "
-          f"{len(greedy)} identical, "
-          f"{sum(g['within'] for g in greedy.values())} within the "
-          f"tolerance, picks within "
-          f"{max(g['slack'] for g in greedy.values()):.3g} of the top logit, "
-          f"logprobs within "
-          f"{max(g['logprob_diff'] for g in greedy.values()):.3g} (tol "
-          f"{max(g['tol'] for g in greedy.values()):.3g})", flush=True)
-    if not all(checks.values()) or any(
-            len(f.tokens) == 0 for f in done["dense graph"].values()):
-        raise AssertionError(f"mamba2 staggered run: {checks}")
-    rec["staggered"] = dict(st, checks=checks, greedy=greedy,
-                            chunked_as_monolithic=as_mono)
+    st = rec["staggered"]
+    as_mono = rec["staggered"]["chunked_as_monolithic"] = same_runs(
+        done["chunked graph"], done["dense graph"])
+    print(f"mamba2-2.7b staggered run: paged pool "
+          f"{st['paged graph']['kv_pool_bytes'] / 2**20:.1f} MiB, block "
+          f"high-water {st['paged graph']['block_high_water']}; chunked: "
+          f"{st['chunked graph']['prefill_chunks']} chunks, "
+          f"{'=' if as_mono else '!='} monolithic bit for bit", flush=True)
 
     # the same weights in fp32, the scan in fp64 (with the reference's fp32
-    # scan, whose decays are differences of cumulative log-decays, the
-    # groupings' logprobs end up to 5.2e-4 apart at 64 layers; with the
-    # scan in fp64, 0 and 8.2e-5: PERF.md §7): the dense and chunked runs
-    # held against generate_fixed within check_greedy's 1e-4
-    t0 = time.perf_counter()
-    m32 = build(dataclasses.replace(model.cfg, ssm=dataclasses.replace(
-        model.cfg.ssm, scan_dtype="float64")), param_dtype=torch.float32)
-    p32 = map_tree(lambda t: t.float(), params)
+    # scan the groupings' logprobs end up to 5.2e-4 apart at 64 layers;
+    # with the scan in fp64, 0 and 8.2e-5: PERF.md §7)
+    rec["fp32"] = fp64_scan_witness(smi, "mamba2-2.7b", model, params,
+                                    MAMBA2_STAGGER, MAMBA2_T, MAMBA2_N,
+                                    STAGGER_CHUNK)
     del model, params
-    rec["fp32"] = {}
-    for label, kw in (("dense graph", {}), ("chunked graph", MAMBA2_CHUNK)):
-        fin, stats = staggered_full(m32, p32, True, None, MAMBA2_STAGGER,
-                                    MAMBA2_T, MAMBA2_N, **kw)
-        g = {u: serve.check_greedy(m32, p32, prompts[u], f, MAMBA2_T)
-             for u, f in fin.items()}
-        rec["fp32"][label] = dict(greedy=g, wall_s=stats["wall_s"])
-    print(f"mamba2-2.7b staggered run in fp32, the scan in fp64 (the same "
-          f"weights; {smi}): " +
-          "; ".join(
-              f"{run}: {sum(g['identical'] for g in r['greedy'].values())} "
-              f"of {len(r['greedy'])} identical to generate_fixed, picks "
-              f"within {max(g['slack'] for g in r['greedy'].values()):.3g} "
-              f"of the top logit, logprobs within "
-              f"{max(g['logprob_diff'] for g in r['greedy'].values()):.3g} "
-              f"(tol 1e-4), run {r['wall_s']:.3f} s"
-              for run, r in rec["fp32"].items()) +
-          f"; {time.perf_counter() - t0:.1f} s with the checks", flush=True)
-    del m32, p32
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"mamba2-2.7b phase 5: {rec['wall_s']:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def fixed_family(smi: str, name: str, argv: list, per: dict,
+                 prefill_per: dict | None = None, probes=None
+                 ) -> tuple[dict[str, int], list[dict]]:
+    """Phase 5's fixed batch of one full-width family, served from the
+    serve flags ``argv`` with fp then int8 cores: ``launch.serve.fixed``
+    through ``drive`` (``per``: kernel → its launches a decode pass,
+    ``prefill_per`` a prefill pass's where they differ; every one replayed
+    through its kernel, 0 captures and 0 plan resolutions warm), beside
+    one eager warm run with fp cores (``graph_against_eager``: the
+    prefill's logits and cache and the first step's logits bit for bit;
+    tok/s, decode step ms, peak memory); then the decode replay and the
+    prefill replay traced
+    alone (busy ms, each TT kernel's launches and ms, their share, the top
+    kernels; each TT kernel's launches must be the pass's); then
+    ``probes(model, params, args, rec)``, the family's own layers traced
+    alone, which adds its numbers to ``rec`` and returns a line to print.
+    Returns each kernel's launches over the calls and the records."""
+    launches, recs = {}, []
+    for weights in ("fp32", "int8"):
+        sfx = "_int8" if weights == "int8" else ""
+        model, params, args = cli_model(argv + ["--tt-weights", weights])
+        label = (f"{name}, {args.batch} x {args.prompt_len} + "
+                 f"{args.steps}, {weights}")
+        dec = {k + sfx: v for k, v in per.items()}
+        pre = dec if prefill_per is None else {
+            k + sfx: v for k, v in prefill_per.items()}
+        kernel = next(iter(dec))
+        # the eager warm run with fp cores only: int8's would add a minute
+        # of host-bound steps over the families to the script's wall
+        eager = eager_runs(model, params, args) if not sfx else None
+        out, _ = drive(label, kernel, dec[kernel], model, params, args,
+                       also={k: v for k, v in dec.items() if k != kernel},
+                       prefill_per=pre)
+        for k, v in out["path_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        r = dict(path=label, launches=out["path_launches"],
+                 tok_per_s=out["tok_per_s"], warm_s=out["warm_s"],
+                 peak_bytes=out["peak_bytes"], drops=out["drops"],
+                 cold_drops=out["cold_drops"],
+                 peak_reserved_bytes=out["peak_reserved_bytes"])
+        r.update(graph_against_eager(label, model, params, args, out, eager,
+                                     smi))
+        # each TT kernel of the pass by its device name; tt_fused2's leads
+        names = {k: k.removesuffix("_int8") + "_kernel"
+                 for k in set(dec) | set(pre)}
+        also = sorted(set(names.values()) - {"tt_fused2_kernel"})
+        batch = serve.prompt_batch(model, args)
+        frames, F = batch.get("speech_embeds"), frames_of(batch)
+        T, tokens = batch["cache_len"], batch["tokens"]
+        logits, cache = model.prefill(params, batch)
+        step = model.graphed_decode_step(args.batch, T, enc_T=F)
+        step.load(params, cache, args.prompt_len)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        rp = r["replay"] = replays_alone(lambda: step(tok),
+                                         "tt_fused2_kernel", top=8,
+                                         also=also)
+        pre_graph = model.graphed_prefill(*tokens.shape, T, F)
+        pre_graph(params, tokens, args.prompt_len, frames)  # cold run's
+        torch.cuda.synchronize()
+        pp = r["prefill_replay"] = replays_alone(
+            lambda: pre_graph(params, tokens, args.prompt_len, frames),
+            "tt_fused2_kernel", top=8, also=also)
+
+        def tt(rep):
+            """(launches, ms) of each TT kernel in a replay traced alone."""
+            return {n: (rep["tt"], rep["tt_ms"]) if n == "tt_fused2_kernel"
+                    else rep["also"][n] for n in set(names.values())}
+        r["replay_tt"], r["prefill_tt"] = tt(rp), tt(pp)
+        r["tt_share"] = sum(ms for _, ms in r["replay_tt"].values()) / \
+            rp["busy_ms"]
+        r["prefill_tt_share"] = sum(
+            ms for _, ms in r["prefill_tt"].values()) / pp["busy_ms"]
+        extra = probes(model, params, args, r) if probes else ""
+        def tt_line(counts):
+            return ", ".join(f"{n:g} {k} {ms:.3f} ms"
+                             for k, (n, ms) in sorted(counts.items()))
+        print(f"profile ({label}; {smi}): {REPLAYS} decode replays alone: "
+              f"{rp['kernels']:g} device kernels, {tt_line(r['replay_tt'])}"
+              f" (TT {r['tt_share']:.1%}), {rp['busy_ms']:.3f} ms busy, "
+              f"{rp['wall_ms']:.3f} ms wall per replay; top: " +
+              "; ".join(f"{k} {ms:.3f} ms x{n:g}" for k, ms, n in rp["top"])
+              + f"; prefill replay of {args.batch} x {args.prompt_len} "
+              f"alone: {pp['kernels']:g} device kernels, "
+              f"{pp['busy_ms']:.3f} ms busy, {tt_line(r['prefill_tt'])} (TT "
+              f"{r['prefill_tt_share']:.1%}), {pp['wall_ms']:.3f} ms wall; "
+              f"top: " + "; ".join(
+                  f"{k} {ms:.3f} ms x{n:g}" for k, ms, n in pp["top"]) +
+              extra + (f"; MoE drops warm {out['drops']}, cold "
+                       f"{out['cold_drops']}" if model.has_moe else ""),
+              flush=True)
+        want = tuple({names[k]: v for k, v in d.items()} for d in (dec, pre))
+        got = tuple({k: n for k, (n, _) in counts.items() if n}
+                    for counts in (r["replay_tt"], r["prefill_tt"]))
+        if got != want:
+            raise AssertionError(f"{label}: TT kernels per decode and "
+                                 f"prefill replay {got}, expected {want}")
+        recs.append(r)
+        del model, params, out, step, cache, pre_graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, recs
+
+
+def staggered_block(smi: str, name: str, model, params, stagger, T: int,
+                    count: int, modes: dict, same: list, greedy_runs=(),
+                    hold: bool = True, frames: int = 0
+                    ) -> tuple[dict, dict]:
+    """Phase 5's staggered run of one family: each of ``modes`` (label →
+    (graph, the pool's and chunking's ``Scheduler`` arguments)) through
+    ``staggered_full`` over ``count`` requests of ``stagger`` on 4 × ``T``
+    (an encoder-decoder's with ``frames`` frames each); the runs of each
+    pair of ``same`` bit for bit, and the prefix counters 0 where the
+    cache is not shareable.  Each request of each of ``greedy_runs``
+    (none if the run dropped an MoE assignment) is held against
+    ``generate_fixed``
+    of its prompt alone (``serve.greedy_against_fixed``), asserted with
+    ``hold`` where ``generate_fixed`` dropped none either, measured
+    otherwise.  Returns ({label: {uid: finished}}, the record)."""
+    runs = {label: staggered_full(model, params, graph, None, stagger, T,
+                                  count, frames=frames, **kw)
+            for label, (graph, kw) in modes.items()}
+    done = {k: v[0] for k, v in runs.items()}
+    st = {k: v[1] for k, v in runs.items()}
+    checks = {f"{a} = {b}": same_runs(done[a], done[b]) for a, b in same}
+    if not model.supports_prefix_reuse:
+        checks["no prefix hit"] = all(
+            v.get("prefix_hit_tokens", 0) == v.get(
+                "prefill_tokens_skipped", 0) == 0 for v in st.values())
+    prompts, _ = stagger_requests(model.cfg.vocab_size, *stagger, count)
+    speech = stagger_frames(model, count, frames)
+    greedy, t0 = {}, time.perf_counter()
+    for run in greedy_runs:
+        greedy[run] = {}
+        for u, f in done[run].items() if not st[run]["drops"] else ():
+            moe.reset_drops()
+            g = serve.greedy_against_fixed(
+                model, params, prompts[u].to(model.device), f, T,
+                speech[u] if speech else None)
+            greedy[run][u] = dict(g, drops=moe.read_drops())
+    t_greedy = time.perf_counter() - t0
+
+    def held(g):
+        return not g["drops"]
+
+    def worst(gs, key):
+        return max((g[key] for g in gs.values()), default=0.0)
+    summary = "; ".join(
+        f"{run} against generate_fixed: {sum(map(held, gs.values()))} of "
+        f"{count} requests without a drop on either side, "
+        f"{sum(g['identical'] for g in gs.values() if held(g))} of them "
+        f"identical, {sum(not g['within'] for g in gs.values() if held(g))}"
+        f" outside the tolerance (tol {worst(gs, 'tol'):.3g}), picks within "
+        f"{worst(gs, 'slack'):.3g} of the top logit, logprobs within "
+        f"{worst(gs, 'logprob_diff'):.3g} over the {len(gs)} measured"
+        for run, gs in greedy.items())
+    print(f"{name} staggered run ({count} requests, prompts {stagger[0]}, "
+          f"budgets {stagger[1]}, 4 x {T}"
+          f"{f', {frames} frames each' if frames else ''}; {smi}): " +
+          ", ".join(f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps, "
+                    f"{v['drops']} drops)" for k, v in st.items()) + "; " +
+          ", ".join(f"{k} {'holds' if v else 'FAILS'}"
+                    for k, v in checks.items()) +
+          (f"; {summary} ({'asserted' if hold else 'measured'}, "
+           f"{t_greedy:.1f} s)" if greedy else ""), flush=True)
+    if not all(checks.values()) or any(
+            len(f.tokens) == 0 for d in done.values() for f in d.values()) \
+            or (hold and any(not g["within"] for gs in greedy.values()
+                             for g in gs.values() if held(g))):
+        raise AssertionError(f"{name} staggered run: {checks}, drops "
+                             f"{ {k: v['drops'] for k, v in st.items()} }, "
+                             f"greedy {greedy}")
+    return done, dict(st, checks=checks, greedy=greedy)
+
+
+def encoder_alone(model, params, args) -> dict:
+    """The encoder of the fixed batch's frames (``Model._encode``: the
+    dense frontend projection, the non-causal layers, ``enc_norm``),
+    eager, traced alone (``replays_alone``): its kernels, busy ms and
+    ``tt_fused2``'s."""
+    frames = serve.prompt_batch(model, args)["speech_embeds"]
+    with torch.no_grad():
+        return replays_alone(lambda: model._encode(params, frames),
+                             "tt_fused2_kernel", top=6)
+
+
+def seamless_path(smi: str) -> tuple[dict[str, int], dict]:
+    """Phase 5, full-width seamless-m4t-large-v2 (bf16 params from seed 0,
+    nothing cut, TT on ffn+attn at rank 16, ``auto``: ``tt_fused2``, 216 a
+    decode pass and 432 a prefill pass).
+
+    The fixed batch (``FIXED_1024``: 4 prompts of 1,024 tokens, each with
+    1,024 speech frames) through ``fixed_family``, fp then int8 cores, the
+    encoder traced alone (``encoder_alone``: its share of the prefill
+    replay).  Then at 8 encoder and 8 decoder layers (``cut_model``) the
+    staggered run (``STAGGER_64_256``, 256 frames a request) dense and
+    paged (blocks of 16; the cross keys and values 'slot' leaves), graph
+    and eager (``staggered_block``): dense graph ≡ eager ≡ paged bit for
+    bit, prefix counters 0, and every request held against
+    ``generate_fixed`` by ``serve.check_greedy``'s rule, asserted (no MoE,
+    no SSD state).  Returns ``tt_fused2``'s and ``tt_fused2_int8``'s
+    launches over the fixed-batch calls and the staggered runs, and the
+    record."""
+    t_phase = time.perf_counter()
+
+    def probes(model, params, args, r):
+        enc = r["encoder"] = encoder_alone(model, params, args)
+        r["encoder_share"] = enc["busy_ms"] / r["prefill_replay"]["busy_ms"]
+        if enc["tt"] != 7 * SEAMLESS_LAYERS:
+            raise AssertionError(f"{enc['tt']} tt_fused2_kernel in the "
+                                 f"encoder, expected {7 * SEAMLESS_LAYERS}")
+        return (f"; the encoder alone (eager): {enc['kernels']:g} kernels, "
+                f"{enc['busy_ms']:.3f} ms busy ({r['encoder_share']:.1%} of "
+                f"the prefill replay), tt_fused2 {enc['tt_ms']:.3f} ms; top: "
+                + "; ".join(f"{k} {ms:.3f} ms x{n:g}"
+                            for k, ms, n in enc["top"]))
+    launches, fixed = fixed_family(
+        smi, "seamless-m4t-large-v2", SEAMLESS_ARGS + FIXED_1024,
+        SEAMLESS_PER_PASS, SEAMLESS_PREFILL_PER_PASS, probes)
+    rec = {"card": smi, "fixed": fixed}
+    model, params, args = cut_model(SEAMLESS_ARGS, layers=SEAMLESS_CUT_LAYERS)
+    tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
+    paged = dict(paged=True, block_size=STAGGER_BLOCK)
+    _, rec["staggered"] = staggered_block(
+        smi, f"seamless-m4t-large-v2 at {SEAMLESS_CUT_LAYERS} + "
+        f"{SEAMLESS_CUT_LAYERS} "
+        f"layers", model, params, STAGGER_64_256, STAGGER_64_256_T, STAGGER_N,
+        {"dense graph": (True, {}), "dense eager": (False, {}),
+         "paged graph": (True, paged), "paged eager": (False, paged)},
+        [("dense graph", "dense eager"), ("paged graph", "dense graph"),
+         ("paged eager", "paged graph")], ("dense graph",),
+        frames=SEAMLESS_FRAMES)
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    launches["tt_fused2"] += counted.get("tt_fused2", 0) + replayed.get(
+        "tt_fused2", 0)
+    del model, params
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"seamless-m4t-large-v2 phase 5: {rec['wall_s']:.1f} s",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rec
@@ -3482,6 +3578,11 @@ def main() -> int:
                                      "tt_fused2_experts_int8"),
                             "jamba-v0.1-52b", JAMBA_C, per="pass")
     recs += j_recs
+    e_recs = timed("kernels seamless", seamless_kernels, gen)
+    layers += layer_summary(e_recs, ("tt_fused2", "tt_fused2_int8"),
+                            "seamless-m4t-large-v2", (4, 256, 4096),
+                            per="pass")
+    recs += e_recs
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3498,6 +3599,8 @@ def main() -> int:
           "deepseek-v2-lite-16b")
     timed("smoke mamba2", small_ring_check, "mamba2-2.7b", SSM_MODES)
     timed("smoke jamba", small_ring_check, "jamba-v0.1-52b", SSM_MODES)
+    timed("smoke seamless", small_ring_check, "seamless-m4t-large-v2",
+          SEAMLESS_MODES)
     launches, graph_recs = timed("deepseek fixed batch", main_paths, smi)
     fused2, sched_rec = timed("deepseek scheduler", scheduler_path, smi)
     launches["tt_fused2"] += fused2
@@ -3515,12 +3618,17 @@ def main() -> int:
     s_launches, mamba2_rec = timed("mamba2-2.7b", mamba2_path, smi)
     for k, v in s_launches.items():
         launches[k] += v
+    e_launches, seamless_rec = timed("seamless-m4t-large-v2", seamless_path,
+                                     smi)
+    for k, v in e_launches.items():
+        launches[k] += v
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps, "graph": graph_recs,
                    "scheduler": sched_rec, "gemma3": gemma3_rec,
                    **moe_recs, "qwen3-32b": qwen3_rec,
-                   "mamba2-2.7b": mamba2_rec, "walls": walls}, f,
+                   "mamba2-2.7b": mamba2_rec,
+                   "seamless-m4t-large-v2": seamless_rec, "walls": walls}, f,
                   indent=1, default=str)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s; by "
           f"phase: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()),

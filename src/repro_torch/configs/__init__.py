@@ -8,9 +8,12 @@ top-2).  So is deepseek-v2-lite-16b: multi-head latent attention, a dense
 first layer, then 64 experts top-6 with shared experts; mamba2-2.7b,
 attention-free, every layer a Mamba-2 SSD mixer; and jamba-v0.1-52b, the
 attention/SSM hybrid: periods of seven SSD blocks and one GQA block, each
-with a GLU MLP or (every other layer) a 16-expert MoE FFN.  Every other
-architecture of the reference registry raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+with a GLU MLP or (every other layer) a 16-expert MoE FFN; and
+seamless-m4t-large-v2, the encoder-decoder: a non-causal GQA encoder over
+speech-frame embeddings and a GQA decoder whose every layer cross-attends
+to the encoder's output.  Every other architecture of the reference
+registry raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -27,10 +30,10 @@ if TYPE_CHECKING:                      # avoid configs ↔ models import cycle
 
 PORTED = ("deepseek_7b", "gemma3_4b", "granite_8b", "mixtral_8x7b",
           "qwen3_32b", "deepseek_v2_lite_16b", "mamba2_2p7b",
-          "jamba_v0_1_52b")
+          "jamba_v0_1_52b", "seamless_m4t_large_v2")
 
 # architectures of the reference registry that are not ported yet
-PENDING = ("internvl2_2b", "seamless_m4t_large_v2")
+PENDING = ("internvl2_2b",)
 
 _PENDING_MSG = ("architecture {!r} is not ported yet (ROADMAP.md Queue 1, "
                 "\"Remaining families\")")
@@ -71,13 +74,18 @@ def make_layer_plan(cfg: ModelConfig) -> list:
     (every layer the GLU MLP without ``first_dense_ff``); otherwise every
     layer is one GQA block (windowed when ``window`` is set) with a
     mixture-of-experts FFN when the config has experts, else the GLU
-    MLP."""
+    MLP.  The decoder of an encoder-decoder (seamless) is one GQA block per
+    layer that cross-attends to the encoder's output
+    (``make_enc_layer_plan`` gives the encoder)."""
     from repro_torch.models.transformer import BlockDef
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") and not \
+            cfg.enc_dec:
         raise NotImplementedError(_PENDING_MSG.format(cfg.name))
     L = cfg.num_layers
     if cfg.family == "ssm":
         return [((BlockDef("ssm", ffn="none"),), L)]
+    if cfg.enc_dec:
+        return [((BlockDef("gqa", cross=True),), L)]
     if cfg.attn_every:
         n = cfg.moe.every_n_layers if cfg.moe else 0
         period = tuple(
@@ -102,8 +110,20 @@ def make_layer_plan(cfg: ModelConfig) -> list:
     return [((BlockDef("gqa", window=cfg.window, ffn=ffn),), L)]
 
 
+def make_enc_layer_plan(cfg: ModelConfig) -> list | None:
+    """Groups of the encoder stack, the second half of the reference's
+    ``make_layer_plan`` (whose enc-dec branch returns ``(dec, enc)``):
+    ``num_enc_layers`` non-causal GQA blocks with the GLU MLP for an
+    encoder-decoder, None for every other model."""
+    from repro_torch.models.transformer import BlockDef
+    if not cfg.enc_dec:
+        return None
+    return [((BlockDef("gqa", causal=False),), cfg.num_enc_layers)]
+
+
 def build(cfg: ModelConfig, param_dtype=torch.float32,
           device: str | torch.device | None = None) -> "Model":
     """The model for ``cfg``; ``device=None`` means the GPU."""
     from repro_torch.models.model import Model
-    return Model(cfg, make_layer_plan(cfg), param_dtype, device)
+    return Model(cfg, make_layer_plan(cfg), param_dtype, device,
+                 enc_groups=make_enc_layer_plan(cfg))

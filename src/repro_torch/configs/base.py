@@ -5,9 +5,12 @@ The subset of ``repro.configs.base`` the port runs: GQA with its variants
 embeddings), multi-head latent attention (``MLAConfig``), the Mamba-2 SSD
 mixer (``SSMConfig``), the attention/SSM hybrid's period (one attention
 layer every ``attn_every``, at ``attn_index``), and both FFNs, the GLU
-MLP and the mixture of experts (``MoEConfig``); fields of the families
-the port does not run yet (cross-attention, frontends) are left out until
-they are ported.
+MLP and the mixture of experts (``MoEConfig``), and the encoder-decoder
+(``enc_dec``: ``num_enc_layers`` non-causal encoder layers over frame
+embeddings of width ``frontend_dim`` from the ``speech`` front end, whose
+output every decoder layer cross-attends to); ``frontend_tokens``, a
+field of the vision front end the port does not run yet, is left out
+until it is ported.
 """
 from __future__ import annotations
 
@@ -107,6 +110,12 @@ class ModelConfig:
     mla: MLAConfig | None = None
     # state space (mamba2)
     ssm: SSMConfig | None = None
+    # encoder-decoder (seamless)
+    enc_dec: bool = False
+    num_enc_layers: int = 0
+    # the front end's stub: precomputed embeddings of width frontend_dim
+    frontend: str | None = None              # 'speech'
+    frontend_dim: int = 0
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     tt: TTConfig = TTConfig()

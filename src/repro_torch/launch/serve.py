@@ -3,7 +3,8 @@ the continuous-batching scheduler.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-7b|gemma3-4b|granite-8b|qwen3-32b|mixtral-8x7b|\\
-               deepseek-v2-lite-16b|mamba2-2.7b|jamba-v0.1-52b \\
+               deepseek-v2-lite-16b|mamba2-2.7b|jamba-v0.1-52b|\\
+               seamless-m4t-large-v2 \\
         --variant full --batch 4 \\
         --prompt-len 64 --steps 32 --tt ffn,attn --tt-rank 16 \\
         --tt-backend auto [--tt-weights int8] [--device cpu] \\
@@ -35,7 +36,14 @@ SSD in/out projections as ``ffn`` too: with ``--tt ffn,attn`` a pass is
 and 48 ``tt_fused2_experts`` (16 MoE layers × 3).  Its paged pool mixes
 the GQA layers' block arenas with the SSD layers' per-slot state, so
 ``--prefix-smoke`` refuses it, as it refuses mamba2-2.7b: no prefix is
-shared.
+shared.  seamless-m4t-large-v2 (the encoder-decoder) prefills each
+prompt with speech frames of ``--prompt-len`` frames (the reference CLI's
+F), drawn as bf16 by the prompts' numpy generator: with ``--tt
+ffn,attn`` a pass is 24 encoder layers × 7 ``tt_fused2`` and 24 decoder
+layers × 11 (self- and cross-attention, MLP) at a prefill, and 24 × 9 at
+a decode step (the cross keys and values are the prefill's); its
+scheduler builds its pool at the first admission and serves one frame
+count, and refuses ``--chunk-prefill`` and ``--prefix-smoke``.
 
 With ``--arrival-rate`` it runs ``simulate`` instead, the reference's
 arrival mode: a ``Scheduler`` of ``--slots`` slots over ``--prompt-len`` +
@@ -94,13 +102,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def speech_frames(model, rng: np.random.Generator, B: int, F: int
+                  ) -> dict:
+    """``{"speech_embeds": [B, F, frontend_dim] bf16}`` (standard normal,
+    drawn by ``rng``) for a model with the speech front end, else ``{}``:
+    the reference CLI's frames, F of them for a prompt of F tokens."""
+    if model.cfg.frontend != "speech":
+        return {}
+    frames = rng.standard_normal((B, F, model.cfg.frontend_dim),
+                                 dtype=np.float32)
+    return {"speech_embeds": torch.from_numpy(frames).to(
+        device=model.device, dtype=torch.bfloat16)}
+
+
 def prompt_batch(model, args) -> dict:
     """``--batch`` prompts of ``--prompt-len`` tokens drawn by a numpy
-    generator seeded with ``--seed``, and the cache length they need."""
+    generator seeded with ``--seed`` (an encoder-decoder's speech frames
+    after them, ``speech_frames``), and the cache length they need."""
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, model.cfg.vocab_size,
                           (args.batch, args.prompt_len), dtype=np.int64)
     return {"tokens": torch.from_numpy(tokens).to(model.device),
+            **speech_frames(model, rng, args.batch, args.prompt_len),
             "cache_len": args.prompt_len + args.steps}
 
 
@@ -217,10 +240,14 @@ def _percentile(xs: list[float], q: float) -> float:
 
 def arrival_request(model, args, uid: int, seed: int) -> Request:
     """One request of the arrival mode: ``--prompt-len`` tokens drawn by a
-    numpy generator seeded with ``seed``, ``--steps`` new tokens."""
-    tokens = np.random.default_rng(seed).integers(
-        0, model.cfg.vocab_size, (1, args.prompt_len), dtype=np.int64)
-    return Request(uid=uid, inputs={"tokens": torch.from_numpy(tokens)},
+    numpy generator seeded with ``seed`` (an encoder-decoder's speech
+    frames after them), ``--steps`` new tokens."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, model.cfg.vocab_size, (1, args.prompt_len),
+                          dtype=np.int64)
+    inputs = {"tokens": torch.from_numpy(tokens),
+              **speech_frames(model, rng, 1, args.prompt_len)}
+    return Request(uid=uid, inputs=inputs,
                    max_new_tokens=args.steps, temperature=args.temperature,
                    top_k=args.top_k)
 
@@ -384,19 +411,22 @@ PREFIX_TAIL = 16
 
 
 def forced_logits(model, params, tokens: torch.Tensor,
-                  forced: np.ndarray, T: int) -> torch.Tensor:
+                  forced: np.ndarray, T: int,
+                  frames: torch.Tensor | None = None) -> torch.Tensor:
     """``generate_fixed``'s logits [n, V] (fp32) for the one prompt ``tokens
-    [1, S]`` over a cache of ``T``, fed the ``n`` tokens ``forced`` (picked
-    by another path) in place of its own greedy picks: the prefill's, then
+    [1, S]`` (an encoder-decoder's over ``frames [1, F, frontend_dim]``)
+    over a cache of ``T``, fed the ``n`` tokens ``forced`` (picked by
+    another path) in place of its own greedy picks: the prefill's, then
     each decode step's, through the same entries (the prefill at the
     prompt's length and, on a card, the fixed-batch decode graph of one
     row)."""
     S = int(tokens.shape[1])
-    logits, cache = model.padded_prefill(params, tokens, S, T)
+    logits, cache = model.padded_prefill(params, tokens, S, T, True, frames)
     out = [logits[0, -1].clone()]
     step = None
     if model.device.type == "cuda":
-        step = model.graphed_decode_step(1, T)
+        step = model.graphed_decode_step(
+            1, T, enc_T=0 if frames is None else int(frames.shape[1]))
         step.load(params, cache, S)
     for tok in forced[:-1]:
         tok = torch.tensor([[int(tok)]], device=model.device)
@@ -409,9 +439,10 @@ def forced_logits(model, params, tokens: torch.Tensor,
 
 
 def greedy_against_fixed(model, params, prompt: torch.Tensor, got,
-                         T: int) -> dict:
+                         T: int, frames: torch.Tensor | None = None) -> dict:
     """A served request's greedy tokens and logprobs (``got``, a
-    ``FinishedRequest``) against ``generate_fixed`` of its prompt alone:
+    ``FinishedRequest``) against ``generate_fixed`` of its prompt alone
+    (an encoder-decoder's over its speech ``frames``):
     the tokens' identity, the smallest top-1/top-2 logit gap, along the
     served tokens (fed to ``generate_fixed``'s arithmetic,
     ``forced_logits``) the largest slack of a pick below that step's top
@@ -423,9 +454,12 @@ def greedy_against_fixed(model, params, prompt: torch.Tensor, got,
     bf16 ones (whose logits are bf16 values and tie exactly, so another
     batch shape may pick the other of two tied tokens)."""
     toks = np.asarray(got.tokens)
-    ref = generate_fixed(model, params, {"tokens": prompt, "cache_len": T},
+    batch = {"tokens": prompt, "cache_len": T}
+    if frames is not None:
+        batch["speech_embeds"] = frames
+    ref = generate_fixed(model, params, batch,
                          len(toks)).tokens.cpu().numpy()[0]
-    lg = forced_logits(model, params, prompt, toks, T).float()
+    lg = forced_logits(model, params, prompt, toks, T, frames).float()
     tol = (1e-4 if model.param_dtype == torch.float32
            else 2e-2 * float(lg.abs().max()))
     pick = torch.from_numpy(toks).to(lg.device)[:, None]
@@ -441,10 +475,11 @@ def greedy_against_fixed(model, params, prompt: torch.Tensor, got,
     return out
 
 
-def check_greedy(model, params, prompt: torch.Tensor, got, T: int) -> dict:
+def check_greedy(model, params, prompt: torch.Tensor, got, T: int,
+                 frames: torch.Tensor | None = None) -> dict:
     """``greedy_against_fixed``, raising unless the request holds to the
     tolerance; returns its record."""
-    out = greedy_against_fixed(model, params, prompt, got, T)
+    out = greedy_against_fixed(model, params, prompt, got, T, frames)
     if not out["within"]:
         raise AssertionError(f"request {got.uid}: tokens {out['tokens']} "
                              f"against generate_fixed's "

@@ -1,5 +1,7 @@
-"""Grouped-query attention (qk-norm and sliding windows included) and
-multi-head latent attention (MLA, deepseek-v2), in plain torch.
+"""Grouped-query attention (qk-norm, sliding windows and the non-causal
+encoder included), the decoder's cross-attention over an encoder's
+output (no RoPE, every frame attended), and multi-head latent attention
+(MLA, deepseek-v2), in plain torch.
 
 Every projection routes through ``linear_spec``/``linear_apply``, so the TT
 technique applies to q/k/v/o ("attn" family).  MLA's ``kv_down`` and
@@ -73,31 +75,68 @@ def ring_positions(last: torch.Tensor, W: int) -> torch.Tensor:
 
 
 def _gqa_scores_ctx(q, k, v, mask, scale):
-    """q [B,S,H,hd], k/v [B,T,KV,hd], mask broadcastable to [B,KV,G,S,T];
-    fp32 scores and softmax, context cast back to q's dtype."""
+    """q [B,S,H,hd], k/v [B,T,KV,hd], mask broadcastable to [B,KV,G,S,T]
+    (None: every key, the reference's all-ones mask); fp32 scores and
+    softmax, context cast back to q's dtype."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
-    scores = scores.masked_fill(~mask, NEG_INF)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return ctx.reshape(B, S, H * hd).to(q.dtype)
 
 
 def gqa_self_attn(p, cfg: ModelConfig, x, positions, *, window: int = 0,
-                  theta: float | None = None, backend="einsum"):
-    """Causal full-sequence self-attention (prefill), within the last
-    ``window`` positions when it is > 0.  Returns (y [B,S,d], (k, v)) with
-    k/v [B,S,KV,hd] for the cache."""
+                  theta: float | None = None, backend="einsum",
+                  causal: bool = True):
+    """Full-sequence self-attention (prefill), causal, within the last
+    ``window`` positions when it is > 0; with ``causal=False`` every
+    position attends to every other (an encoder's).  Returns (y [B,S,d],
+    (k, v)) with k/v [B,S,KV,hd] for the cache."""
     q, k, v = _qkv(p, cfg, x, positions, theta, backend)
-    i, j = positions[:, :, None], positions[:, None, :]
-    mask = j <= i                                             # [B,S,T]
-    if window:
-        mask = mask & (j > i - window)
-    ctx = _gqa_scores_ctx(q, k, v, mask[:, None, None],
-                          1.0 / np.sqrt(cfg.head_dim))
+    mask = None
+    if causal:
+        i, j = positions[:, :, None], positions[:, None, :]
+        mask = j <= i                                         # [B,S,T]
+        if window:
+            mask = mask & (j > i - window)
+        mask = mask[:, None, None]
+    ctx = _gqa_scores_ctx(q, k, v, mask, 1.0 / np.sqrt(cfg.head_dim))
     return linear_apply(p["o"], ctx, backend), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the decoder of an encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_spec(cfg: ModelConfig, dtype=torch.float32) -> dict:
+    """q/k/v/o of the decoder's cross-attention, GQA's spec (TT "attn")."""
+    return gqa_spec(cfg, dtype)
+
+
+def cross_kv(p, cfg: ModelConfig, enc_out, backend="einsum"):
+    """The encoder output ``enc_out [B,F,d]`` projected to the keys and
+    values every decoder step attends to, k/v [B,F,KV,hd], with no RoPE."""
+    B, F, _ = enc_out.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    k = linear_apply(p["k"], enc_out, backend).reshape(B, F, KV, hd)
+    v = linear_apply(p["v"], enc_out, backend).reshape(B, F, KV, hd)
+    return k, v
+
+
+def cross_attn(p, cfg: ModelConfig, x, enc_k, enc_v, backend="einsum"):
+    """x [B,S,d] attends to the encoder keys and values ``enc_k``/``enc_v``
+    [B,F,KV,hd] (``cross_kv``), every frame to every query: q with no
+    RoPE, fp32 scores and softmax.  Returns y [B,S,d]."""
+    B, S, _ = x.shape
+    q = linear_apply(p["q"], x, backend).reshape(B, S, cfg.num_heads,
+                                                 cfg.head_dim)
+    ctx = _gqa_scores_ctx(q, enc_k, enc_v, None,
+                          1.0 / np.sqrt(cfg.head_dim))
+    return linear_apply(p["o"], ctx, backend)
 
 
 def gqa_decode_attn(p, cfg: ModelConfig, x, cache_k, cache_v,

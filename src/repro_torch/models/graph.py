@@ -22,12 +22,18 @@ graph, dense or paged, keeps one :class:`MixedGraph` per (lanes, chunk):
 the chunked-prefill step (``Model.mixed_step``) captured on its pool, the
 analogue of the reference's ``jitted_mixed_step(K, C)``.
 
+An encoder-decoder's graphs also belong to one frame count F: a decode
+graph's static cache holds the encoder's keys and values xk/xv [B, F, KV,
+hd] of every decoder layer, which its replays read and never write.
+
 A :class:`PrefillGraph` belongs to one model and one (batch, padded
-prompt length, cache length).  Its static buffers are the tokens [B,S],
-the true prompt length (0-d int32), the logits [B,1,V] and an output cache
-that all prefill graphs of the model with the same (batch, cache length)
-share; its temporaries live in one memory pool shared by every prefill
-graph of the model (no output lives there, and one replays at a time).
+prompt length, cache length[, frame count]).  Its static buffers are the
+tokens [B,S], the true prompt length (0-d int32), an encoder-decoder's
+speech frames [B, F, frontend_dim] (in the parameters' dtype, as the
+eager prefill casts them), the logits [B,1,V] and an output cache that
+all prefill graphs of the model with the same (batch, cache length[,
+frame count]) share; its temporaries live in one memory pool shared by
+every prefill graph of the model (no output lives there, and one replays at a time).
 
 Capture happens at a graph's first use (a decode graph's first ``load``
 or ``bind``, a prefill, resume or mixed graph's first call), and again when
@@ -133,7 +139,7 @@ class DecodeGraph:
     """
 
     def __init__(self, model: "Model", B: int, T: int, masked: bool = False,
-                 paged: tuple[int, int] | None = None):
+                 paged: tuple[int, int] | None = None, enc_T: int = 0):
         if model.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA model, not "
                              f"{model.device}: decode eagerly on the CPU")
@@ -141,7 +147,7 @@ class DecodeGraph:
             raise ValueError(f"a paged pool is a slot pool over whole blocks "
                              f"(masked, T={T}, block={paged[1]})")
         self.model, self.B, self.T, self.masked = model, B, T, masked
-        self.paged = paged
+        self.paged, self.enc_T = paged, enc_T
         # the captured resume prefills of a paged pool, by suffix bucket,
         # and the captured mixed steps, by (lanes, chunk)
         self.resumes: dict[int, ResumeGraph] = {}
@@ -199,7 +205,7 @@ class DecodeGraph:
                              "shared by the batch")
         src = tree_leaves(cache)
         layout = [sd[0] for sd in tree_leaves(
-            self.model.cache_shapes(self.B, self.T))]
+            self.model.cache_shapes(self.B, self.T, enc_T=self.enc_T))]
         if [tuple(t.shape) for t in src if t.dim()] != layout or (
                 self.cache is not None and
                 [(t.shape, t.dtype) for t in tree_leaves(self.cache)] !=
@@ -227,12 +233,13 @@ class DecodeGraph:
                 f"is held by a scheduler with {held.num_active} active rows")
         if self.graph is None or params is not self.params:
             if self.paged is None:
-                pool = self.model.init_cache(self.B, self.T, per_row=True)
+                pool = self.model.init_cache(self.B, self.T, per_row=True,
+                                             enc_T=self.enc_T)
             else:
                 num_blocks, block = self.paged
                 pool = self.model.init_cache(self.B, self.T, paged=True,
                                              num_blocks=num_blocks,
-                                             block=block)
+                                             block=block, enc_T=self.enc_T)
             self._capture(params, pool)
             self.pos[:] = 0
         self.owner = weakref.ref(owner)
@@ -322,20 +329,24 @@ class DecodeGraph:
 
 class PrefillGraph:
     """``Model.prefill`` of ``B`` prompts right-padded to ``S`` tokens
-    into a cache of ``T`` positions, captured once and replayed for every
-    prompt length up to ``S`` (``Model.graphed_prefill``).
+    into a cache of ``T`` positions (an encoder-decoder's over ``enc_T``
+    speech frames), captured once and replayed for every prompt length up
+    to ``S`` (``Model.graphed_prefill``).
 
-    ``graph(params, tokens, prompt_len)`` copies ``tokens [B,S]`` and the
-    true length into the static buffers (capturing first when there is no
-    graph for ``params`` yet) and replays: it returns the static logits
+    ``graph(params, tokens, prompt_len, frames)`` copies ``tokens [B,S]``,
+    the true length and an encoder-decoder's ``frames [B, enc_T,
+    frontend_dim]`` into the static buffers (capturing first when there is
+    no graph for ``params`` yet) and replays: it returns the static logits
     [B,1,V] of position prompt_len - 1 and the static output cache at
-    ``pos`` = prompt_len, which the caller copies out (a splice into the
-    slot pool, ``DecodeGraph.load``) before the next replay of a prefill
-    graph of the same (B, T).  The capture touches nothing but the graph's
-    own buffers, so it may run while a slot pool holds live rows.
+    ``pos`` = prompt_len (xk/xv included), which the caller copies out (a
+    splice into the slot pool, ``DecodeGraph.load``) before the next
+    replay of a prefill graph of the same (B, T[, enc_T]).  The capture
+    touches nothing but the graph's own buffers, so it may run while a
+    slot pool holds live rows.
     """
 
-    def __init__(self, model: "Model", B: int, S: int, T: int):
+    def __init__(self, model: "Model", B: int, S: int, T: int,
+                 enc_T: int = 0):
         if model.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA model, not "
                              f"{model.device}: prefill eagerly on the CPU")
@@ -349,19 +360,27 @@ class PrefillGraph:
         self.params = None
         self.tokens = torch.zeros((B, S), dtype=torch.int64, device=dev)
         self.prompt_len = torch.full((), S, dtype=torch.int32, device=dev)
+        self.enc_T = enc_T
+        self.frames = (torch.zeros((B, enc_T, model.cfg.frontend_dim),
+                                   dtype=model.param_dtype, device=dev)
+                       if enc_T else None)
         self.logits = torch.empty((B, 1, model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
-        # made by the first prefill graph of (B, T), outside any capture
-        if (B, T) not in model.prefill_caches:
-            model.prefill_caches[(B, T)] = model.init_cache(B, T)
-        self.cache = model.prefill_caches[(B, T)]
+        # made by the first prefill graph of (B, T[, enc_T]), outside any
+        # capture
+        key = (B, T) + model.enc_key(enc_T)
+        if key not in model.prefill_caches:
+            model.prefill_caches[key] = model.init_cache(B, T, enc_T=enc_T)
+        self.cache = model.prefill_caches[key]
         # TT launches one replay makes, by kernel name
         self.captured: dict[str, int] = {}
 
     def _prefill(self) -> None:
-        logits, _ = self.model.prefill(
-            self.params, {"tokens": self.tokens, "cache_len": self.T,
-                          "prompt_len": self.prompt_len}, out=self.cache)
+        batch = {"tokens": self.tokens, "cache_len": self.T,
+                 "prompt_len": self.prompt_len}
+        if self.frames is not None:
+            batch["speech_embeds"] = self.frames
+        logits, _ = self.model.prefill(self.params, batch, out=self.cache)
         self.logits.copy_(logits)
 
     def _capture(self, params) -> None:
@@ -377,9 +396,11 @@ class PrefillGraph:
             raise
         model.prefill_builds += 1
 
-    def __call__(self, params, tokens: torch.Tensor, prompt_len: int
+    def __call__(self, params, tokens: torch.Tensor, prompt_len: int,
+                 frames: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, dict]:
-        """Prefill ``tokens [B,S]``, right-padded past ``prompt_len``;
+        """Prefill ``tokens [B,S]``, right-padded past ``prompt_len`` (an
+        encoder-decoder's over ``frames [B, enc_T, frontend_dim]``);
         returns the static (logits [B,1,V], cache)."""
         if tuple(tokens.shape) != (self.B, self.S):
             raise ValueError(f"tokens {tuple(tokens.shape)} for the prefill "
@@ -387,6 +408,13 @@ class PrefillGraph:
         if not 0 < prompt_len <= self.S:
             raise ValueError(f"prompt_len {prompt_len} outside a prompt of "
                              f"{self.S}")
+        want = None if self.frames is None else tuple(self.frames.shape)
+        got = None if frames is None else tuple(frames.shape)
+        if got != want:
+            raise ValueError(f"frames {got} for the prefill graph of "
+                             f"frames {want}")
+        if frames is not None:
+            self.frames.copy_(frames)
         self.tokens.copy_(tokens)
         self.prompt_len.fill_(prompt_len)
         if self.graph is None or params is not self.params:

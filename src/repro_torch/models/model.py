@@ -5,7 +5,10 @@ a prompt-length bucket, or captured: ``padded_prefill``,
 ``quantize_params`` for the decoders (gemma3's sliding-window
 ring caches and tied, scaled embeddings, mixtral's mixture-of-experts
 FFN, deepseek-v2's latent-cache MLA, mamba2's SSD mixer over a
-per-slot recurrent state, and jamba's hybrid of the two, included); and
+per-slot recurrent state, and jamba's hybrid of the two, included) and
+for seamless's encoder-decoder (``_encode`` over the speech frames the
+prefill takes as ``batch["speech_embeds"]``, the decoder cross-attending
+to the encoder's keys and values, kept per row in the cache); and
 for the
 block-paged pool (DESIGN.md §7), ``init_cache(..., paged=True)``,
 ``splice_cache_paged`` and the prefix-reuse admission ``prefill_resume``
@@ -17,8 +20,10 @@ for chunked prefill (DESIGN.md §15), over either pool, ``chunk_step``,
 Parameters are a dict tree of tensors: ``embed``, ``final_norm``,
 ``lm_head`` (none with tied embeddings: the logits are ``x @ embed.T``)
 and one list per layer group ``g{gi}`` holding a dict ``{"b0": ..., "b1":
-...}`` of block params per layer.  ``convert.from_jax_params`` builds
-this tree from the reference's stacked one.
+...}`` of block params per layer; an encoder-decoder also ``enc_norm``,
+one list per encoder group ``enc_g{gi}`` and the dense ``frontend_proj``
+[frontend_dim, d_model] of the speech frames.
+``convert.from_jax_params`` builds this tree from the reference's stacked one.
 """
 from __future__ import annotations
 
@@ -71,13 +76,21 @@ class Model:
     A pool with no arena (mamba2) still keeps its tables: the scheduler's
     block accounting runs as the reference's does.  A pool with both
     (jamba: arenas for its GQA layers, 'slot' leaves for its SSD layers)
-    takes its geometry from the arenas and keeps each kind to its rule."""
+    takes its geometry from the arenas and keeps each kind to its rule.
+
+    An encoder-decoder (``enc_groups``, seamless) keeps its decoder's
+    cross-attention keys and values xk/xv [B, F, KV, hd] as 'slot' leaves:
+    every cache, pool and graph of it is sized by a frame count F
+    (``enc_T``), which the keys of its captured graphs and prefill caches
+    carry as their last element (``enc_key``)."""
 
     def __init__(self, cfg: ModelConfig, groups: list[Group],
                  param_dtype: torch.dtype = torch.float32,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 enc_groups: list[Group] | None = None):
         self.cfg = cfg
         self.groups = groups
+        self.enc_groups = enc_groups
         self.param_dtype = param_dtype
         self.device = resolve_device(device)
         # full fp32 matmuls on the card: TF32 would change the numbers the
@@ -85,7 +98,8 @@ class Model:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self._plan_book: PlanBook | None = None
-        # captured decode steps per (batch, cache length, masked), least
+        # captured decode steps per (batch, cache length, masked[, paged],
+        # [frames]), least
         # recently used first; the captures made and the TT launches the
         # replays (of decode steps and prefills) made, by kernel name (no
         # wrapper runs on a replay)
@@ -93,11 +107,11 @@ class Model:
             collections.OrderedDict()
         self.graph_captures = 0
         self.replayed_launches: collections.Counter = collections.Counter()
-        # captured prefills per (batch, padded length, cache length), least
-        # recently used first; their output caches per (batch, cache
-        # length), shared by that pair's buckets; the memory pool of their
-        # temporaries, shared by all of them; the eager prefills' keys, in
-        # an LRU of their own; and the reference's ``prefill_builds``: new
+        # captured prefills per (batch, padded length, cache length,
+        # [frames]), least recently used first; their output caches per
+        # (batch, cache length, [frames]), shared by those buckets; the
+        # memory pool of their temporaries, shared by all of them; the
+        # eager prefills' keys, in an LRU of their own; and the reference's ``prefill_builds``: new
         # prefill entries, a capture or an eager key seen first
         self.prefill_graphs: collections.OrderedDict = \
             collections.OrderedDict()
@@ -137,6 +151,14 @@ class Model:
                                            cfg.tt, "lm_head", dt)
         for gi, g in enumerate(self.groups):
             specs[f"g{gi}"] = group_spec(cfg, g, dt)
+        if self.enc_groups is not None:
+            specs["enc_norm"] = rmsnorm_spec(cfg.d_model, dt)
+            for gi, g in enumerate(self.enc_groups):
+                specs[f"enc_g{gi}"] = group_spec(cfg, g, dt)
+        if cfg.frontend == "speech":
+            specs["frontend_proj"] = linear_spec(cfg.frontend_dim,
+                                                 cfg.d_model, None,
+                                                 "frontend", dt)
         return specs
 
     def init(self, seed: int = 0) -> dict:
@@ -159,6 +181,32 @@ class Model:
         cfg = self.cfg
         return embed_apply(params["embed"], tokens.to(self.device),
                            cfg.d_model, scale=cfg.tie_embeddings)
+
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over the speech frames ``frames [B, F,
+        frontend_dim]``: the dense ``frontend_proj``, positions 0..F-1
+        through the non-causal encoder groups, ``enc_norm``.  The frames
+        take the parameters' dtype first, as jnp promotes bf16 frames
+        under fp32 parameters (exactly) and keeps them under bf16 ones."""
+        w = params["frontend_proj"]["w"]
+        x = linear_apply(params["frontend_proj"],
+                         frames.to(device=self.device, dtype=w.dtype))
+        B, F, _ = x.shape
+        positions = torch.arange(F, device=self.device).expand(B, F)
+        for gi, g in enumerate(self.enc_groups):
+            x, _ = group_fwd(params[f"enc_g{gi}"], g, self.cfg, x, positions,
+                             want_cache=False, plans=self.plan_book)
+        return rmsnorm_apply(params["enc_norm"], x, self.cfg.norm_eps)
+
+    def enc_key(self, enc_T: int) -> tuple:
+        """The frame count's part of a cache's, a pool's or a graph's key:
+        ``(enc_T,)`` for an encoder-decoder, which needs one > 0, and ``()``
+        for every other model, which takes none."""
+        if self.cfg.enc_dec != (enc_T > 0):
+            raise ValueError(
+                f"{self.cfg.name}: frame count {enc_T}; an encoder-decoder's "
+                f"caches need the frames' count, no other model's take one")
+        return (enc_T,) if enc_T else ()
 
     def _logits(self, params, x) -> torch.Tensor:
         x = rmsnorm_apply(params["final_norm"], x, self.cfg.norm_eps)
@@ -183,11 +231,24 @@ class Model:
         prefill reads nothing on the host and can be captured
         (``graphed_prefill``).
 
-        ``out`` (a cache of ``init_cache(B, cache_len)``'s layout) receives
-        the result in place: its full-attention k/v rows 0..S-1 are the
-        prompt's, the rows past S are zeroed, each window ring holds the
-        last positions of the true prompt (``transformer.block_fwd``), and
-        its ``pos`` is set, bit for bit what a fresh cache would hold."""
+        An encoder-decoder first encodes ``batch["speech_embeds"] [B, F,
+        frontend_dim]`` (``_encode``, at its own F whatever the tokens'
+        padding); its cache keeps the encoder's keys and values of every
+        decoder layer, xk/xv [B, F, KV, hd].
+
+        ``out`` (a cache of ``init_cache(B, cache_len, enc_T=F)``'s layout)
+        receives the result in place: its full-attention k/v rows 0..S-1
+        are the prompt's, the rows past S are zeroed, each window ring
+        holds the last positions of the true prompt
+        (``transformer.block_fwd``), xk/xv are the frames', and its ``pos``
+        is set, bit for bit what a fresh cache would hold."""
+        enc_out = None
+        if self.cfg.enc_dec:
+            if "speech_embeds" not in batch:
+                raise ValueError(f"{self.cfg.name} prefills speech frames: "
+                                 f"batch['speech_embeds'] [B, F, "
+                                 f"{self.cfg.frontend_dim}]")
+            enc_out = self._encode(params, batch["speech_embeds"])
         x = self._embed(params, batch["tokens"])
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
@@ -206,31 +267,38 @@ class Model:
             x, cache[f"g{gi}"] = group_fwd(
                 params[f"g{gi}"], g, self.cfg, x, positions, want_cache=True,
                 T_cache=T, plans=self.plan_book,
-                out=None if out is None else out[f"g{gi}"], true_len=pos)
+                out=None if out is None else out[f"g{gi}"], true_len=pos,
+                enc_out=enc_out)
         last = x.index_select(1, (pos - 1).reshape(1))
         return self._logits(params, last), cache
 
     @torch.no_grad()
     def padded_prefill(self, params, tokens: torch.Tensor, prompt_len: int,
-                       T: int, graph: bool = True
+                       T: int, graph: bool = True,
+                       frames: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, dict]:
         """The prefill of ``tokens [B,S]`` (right-padded past
         ``prompt_len``) into a cache of ``T`` positions, one entry per
-        (B, S, T), the reference's ``jitted_prefill``.  On a CUDA model
-        with ``graph``, a replay of ``graphed_prefill(B, S, T)``: the
-        logits and the cache it returns are the graph's static buffers,
-        which the next replay of that graph (logits) or of any prefill
-        graph of the same (B, T) (cache) overwrites.  Otherwise the eager
-        prefill, whose key counts in ``prefill_builds`` when it is new to
-        the LRU of eager keys."""
-        key = (*tokens.shape, T)
+        (B, S, T), and an encoder-decoder's per frame count F of its speech
+        ``frames [B, F, frontend_dim]``: the reference's
+        ``jitted_prefill``.  On a CUDA model with ``graph``, a replay of
+        ``graphed_prefill(B, S, T, F)``: the logits and the cache it
+        returns are the graph's static buffers, which the next replay of
+        that graph (logits) or of any prefill graph of the same (B, T, F)
+        (cache) overwrites.  Otherwise the eager prefill, whose key counts
+        in ``prefill_builds`` when it is new to the LRU of eager keys."""
+        enc_T = 0 if frames is None else int(frames.shape[1])
+        key = (*tokens.shape, T) + self.enc_key(enc_T)
         if graph and self.device.type == "cuda":
-            return self.graphed_prefill(*key)(params, tokens, prompt_len)
+            return self.graphed_prefill(*key)(params, tokens, prompt_len,
+                                              frames)
         if key not in self.eager_prefills:
             self.prefill_builds += 1
         _lru_put(self.eager_prefills, key, None)
-        return self.prefill(params, {"tokens": tokens, "cache_len": T,
-                                     "prompt_len": prompt_len})
+        batch = {"tokens": tokens, "cache_len": T, "prompt_len": prompt_len}
+        if frames is not None:
+            batch["speech_embeds"] = frames
+        return self.prefill(params, batch)
 
     def bucketed_prefill(self, T: int, graph: bool = True):
         """Host wrapper around ``padded_prefill`` with prompt-length
@@ -238,29 +306,35 @@ class Model:
         ``call(params, batch)`` right-pads ``batch["tokens"] [B,S]`` with
         0 to ``bucket_length(S, T)`` and passes the true length S, so
         varied-length traffic makes O(log T) prefill entries instead of
-        one per prompt length."""
+        one per prompt length.  An encoder-decoder's speech frames
+        (``batch["speech_embeds"]``) are not padded: the encoder runs at
+        their own count."""
         def call(params, batch: dict) -> tuple[torch.Tensor, dict]:
             tokens = batch["tokens"]
             S = int(tokens.shape[1])
             S_pad = bucket_length(S, T)
             if S_pad != S:
                 tokens = F.pad(tokens, (0, S_pad - S))
-            return self.padded_prefill(params, tokens, S, T, graph)
+            return self.padded_prefill(params, tokens, S, T, graph,
+                                       batch.get("speech_embeds"))
         return call
 
-    def graphed_prefill(self, B: int, S: int, T: int) -> PrefillGraph:
+    def graphed_prefill(self, B: int, S: int, T: int, enc_T: int = 0
+                        ) -> PrefillGraph:
         """The prefill of ``B`` prompts padded to ``S`` tokens into a cache
-        of ``T`` positions as a CUDA graph (``models.graph.PrefillGraph``),
-        captured at its first call and kept for the ``GRAPH_CACHE_SIZE``
-        keys used last.  Every prefill graph of one (B, T) writes the same
-        output cache (``prefill_caches``), dropped with the last of them."""
-        key = (B, S, T)
+        of ``T`` positions (an encoder-decoder's with ``enc_T`` frames) as
+        a CUDA graph (``models.graph.PrefillGraph``), captured at its first
+        call and kept for the ``GRAPH_CACHE_SIZE`` keys used last.  Every
+        prefill graph of one (B, T[, enc_T]) writes the same output cache
+        (``prefill_caches``), dropped with the last of them."""
+        key = (B, S, T) + self.enc_key(enc_T)
         graph = self.prefill_graphs.get(key)
         if graph is None:
-            graph = PrefillGraph(self, B, S, T)
-        for b, _, t in _lru_put(self.prefill_graphs, key, graph):
-            if not any(k[::2] == (b, t) for k in self.prefill_graphs):
-                del self.prefill_caches[(b, t)]
+            graph = PrefillGraph(self, B, S, T, enc_T)
+        for b, _, *t in _lru_put(self.prefill_graphs, key, graph):
+            if not any((k[0], *k[2:]) == (b, *t)
+                       for k in self.prefill_graphs):
+                del self.prefill_caches[(b, *t)]
         return graph
 
     @torch.no_grad()
@@ -545,9 +619,12 @@ class Model:
     @property
     def supports_chunked_prefill(self) -> bool:
         """Chunked prefill covers the ported mixers, GQA with full attention
-        or a window ring, MLA and the SSM (``transformer.block_chunk``)."""
-        return all(bd.mixer in ("gqa", "mla", "ssm")
-                   for period, _ in self.groups for bd in period)
+        or a window ring, MLA and the SSM (``transformer.block_chunk``),
+        but not an encoder-decoder's cross-attention, whose admission stays
+        monolithic, as the reference's."""
+        return not self.cfg.enc_dec and all(
+            bd.mixer in ("gqa", "mla", "ssm")
+            for period, _ in self.groups for bd in period)
 
     @property
     def supports_prefix_reuse(self) -> bool:
@@ -555,37 +632,44 @@ class Model:
         function of the token prefix and never overwritten in place: true
         of full attention and of MLA's latent leaves, not of a window ring,
         whose contents cycle, nor of an SSM's 'slot' state, a summary of
-        the whole history (the reference also says no for frontends, not
-        ported)."""
-        return all(kind == "paged" for period, _ in self.groups
-                   for bd in period for kind in block_cache_kinds(bd).values())
+        the whole history, nor of an encoder-decoder, whose cache also
+        depends on the frames (the reference says no for every front
+        end)."""
+        return self.cfg.frontend is None and all(
+            kind == "paged" for period, _ in self.groups for bd in period
+            for kind in block_cache_kinds(bd).values())
 
     def paged_cache_shapes(self, num_slots: int, num_blocks: int,
                            block: int, cache_len: int,
-                           dtype: torch.dtype | None = None) -> dict:
+                           dtype: torch.dtype | None = None,
+                           enc_T: int = 0) -> dict:
         """(shape, dtype) tree of a block-paged pool (DESIGN.md §7): every
         layer's k and v are arenas [num_blocks + 1, block, KV, hd] (MLA's
         ckv and krope [num_blocks + 1, block, kv_lora | rope_hd]) shared by
         all slots through per-slot block tables (a window ring through the
         low entries of its slot's table); an SSM layer's state (fp32
-        whatever ``dtype`` is) and conv history stay [num_slots, ...];
+        whatever ``dtype`` is) and conv history stay [num_slots, ...], as
+        do a cross-attending layer's xk/xv [num_slots, enc_T, KV, hd];
         ``pos`` is [num_slots] and ``block_tables`` [num_slots,
         ceil(cache_len / block)], both int32.  One arena per layer, in the
         per-layer list (the reference stacks them [layers, ...])."""
         dtype = self.param_dtype if dtype is None else dtype
+        self.enc_key(enc_T)
         max_blocks = -(-cache_len // block)
         out: dict = {"pos": ((num_slots,), torch.int32),
                      "block_tables": ((num_slots, max_blocks), torch.int32)}
         for gi, (period, count) in enumerate(self.groups):
             out[f"g{gi}"] = [
                 {f"b{i}": block_paged_cache_shape(self.cfg, bd, num_slots,
-                                                  num_blocks, block, dtype)
+                                                  num_blocks, block, dtype,
+                                                  enc_T)
                  for i, bd in enumerate(period)} for _ in range(count)]
         return out
 
     def init_cache(self, B: int, T: int, dtype: torch.dtype | None = None,
                    per_row: bool = False, *, paged: bool = False,
-                   num_blocks: int | None = None, block: int = 64) -> dict:
+                   num_blocks: int | None = None, block: int = 64,
+                   enc_T: int = 0) -> dict:
         """Zeroed decode cache for ``B`` rows and ``T`` positions, k/v in
         ``dtype`` (default: the parameters', which is what ``prefill``
         writes; an SSM state is fp32 whatever ``dtype`` is).  ``per_row`` gives the scheduler's slot pool a position
@@ -593,12 +677,14 @@ class Model:
         builds the block-paged pool of ``B`` slots instead
         (``paged_cache_shapes``; ``num_blocks`` defaults to B ·
         ceil(T / block)), its block tables filled with the sentinel id
-        ``num_blocks``."""
+        ``num_blocks``.  An encoder-decoder's cache holds ``enc_T`` frames'
+        keys and values (xk/xv) per row."""
         dtype = self.param_dtype if dtype is None else dtype
         if paged:
             if num_blocks is None:
                 num_blocks = B * -(-T // block)
-            shapes = self.paged_cache_shapes(B, num_blocks, block, T, dtype)
+            shapes = self.paged_cache_shapes(B, num_blocks, block, T, dtype,
+                                             enc_T)
             cache = map_tree(lambda sd: torch.zeros(
                 sd[0], dtype=sd[1], device=self.device), shapes)
             cache["block_tables"].fill_(num_blocks)
@@ -608,26 +694,29 @@ class Model:
                                           device=self.device)}
         cache.update(map_tree(lambda sd: torch.zeros(
             sd[0], dtype=sd[1], device=self.device),
-            self.cache_shapes(B, T, dtype)))
+            self.cache_shapes(B, T, dtype, enc_T)))
         return cache
 
     def cache_shapes(self, B: int, T: int,
-                     dtype: torch.dtype | None = None) -> dict:
+                     dtype: torch.dtype | None = None,
+                     enc_T: int = 0) -> dict:
         """(shape, dtype) tree of the leaves of a dense cache of ``B`` rows
         and ``T`` positions (no ``pos``): full attention [B, T, KV, hd], a
         window ring [B, min(window, T), KV, hd], MLA [B, T, kv_lora] and
         [B, T, rope_hd], an SSM state [B, H, N, P] fp32 and conv history
-        [B, K-1, conv_dim] (``transformer.block_cache_shape``)."""
+        [B, K-1, conv_dim], a cross-attending layer's xk/xv [B, enc_T, KV,
+        hd] (``transformer.block_cache_shape``)."""
         dtype = self.param_dtype if dtype is None else dtype
+        self.enc_key(enc_T)
         return {f"g{gi}": [{f"b{i}": block_cache_shape(self.cfg, bd, B, T,
-                                                       dtype)
+                                                       dtype, enc_T)
                             for i, bd in enumerate(period)}
                            for _ in range(count)]
                 for gi, (period, count) in enumerate(self.groups)}
 
     def graphed_decode_step(self, B: int, T: int, masked: bool = False,
-                            paged: tuple[int, int] | None = None
-                            ) -> DecodeGraph:
+                            paged: tuple[int, int] | None = None,
+                            enc_T: int = 0) -> DecodeGraph:
         """The decode step of a ``B``-row batch over a cache of ``T``
         positions as a CUDA graph (``models.graph.DecodeGraph``), made once
         per model and shape and kept for the ``GRAPH_CACHE_SIZE`` shapes
@@ -636,14 +725,16 @@ class Model:
         flag per row), captured when a scheduler first binds it; otherwise
         the fixed-batch step, captured at its first ``load``.  ``paged`` =
         (num_blocks, block) makes the slot pool block-paged
-        (``init_cache(..., paged=True)``; masked only).  No two of these
-        share an entry."""
+        (``init_cache(..., paged=True)``; masked only).  An
+        encoder-decoder's step attends to ``enc_T`` frames, the last
+        element of its key.  No two of these share an entry."""
         if paged is not None and not masked:
             raise ValueError("a paged pool is the scheduler's: masked only")
         key = (B, T, masked) if paged is None else (B, T, masked, paged)
+        key += self.enc_key(enc_T)
         graph = self.decode_graphs.get(key)
         if graph is None:
-            graph = DecodeGraph(self, B, T, masked, paged)
+            graph = DecodeGraph(self, B, T, masked, paged, enc_T)
         _lru_put(self.decode_graphs, key, graph)
         return graph
 

@@ -4,7 +4,12 @@ MLP (deepseek-v2's wider first-layer ``dense0`` included) or a
 mixture-of-experts FFN (``ffn_apply``); and Mamba-2 SSD blocks, whose
 cache is a per-slot recurrent state and conv history (``models.ssm``),
 with no FFN (mamba2) or with the GLU MLP or the mixture of experts after
-the mixer (jamba's hybrid).
+the mixer (jamba's hybrid); and an encoder-decoder's blocks: the encoder's
+non-causal GQA blocks (``causal=False``, no cache) and the decoder's GQA
+blocks that cross-attend to the encoder's output after their
+self-attention (``cross=True``), whose projected keys and values ``xk``/
+``xv`` [B, F, KV, hd] are 'slot' cache leaves, written by the prefill and
+read by every decode step.
 
 A model is a list of groups ``(period, count)``: ``period`` is a tuple of
 BlockDefs run in order and repeated ``count`` times.  Parameters of a group
@@ -18,7 +23,8 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .attention import (gqa_chunk_attn, gqa_chunk_attn_ring,
+from .attention import (cross_attn, cross_attn_spec, cross_kv,
+                        gqa_chunk_attn, gqa_chunk_attn_ring,
                         gqa_decode_attn, gqa_decode_attn_paged,
                         gqa_resume_attn, gqa_self_attn, gqa_spec,
                         mla_chunk_attn, mla_decode_attn,
@@ -36,6 +42,8 @@ class BlockDef:
     ffn: str = "mlp"          # mlp | moe | dense0 (the first_dense_ff MLP)
                               # | none (ssm only)
     theta: float | None = None  # RoPE theta; None: the config's
+    cross: bool = False       # cross-attention (an enc-dec's decoder)
+    causal: bool = True       # False: an encoder's self-attention
 
     def __post_init__(self):
         attn = self.mixer in ("gqa", "mla") and self.ffn in (
@@ -43,12 +51,17 @@ class BlockDef:
                                              self.window)
         ssm = self.mixer == "ssm" and self.ffn in ("none", "mlp", "moe") \
             and not self.window
-        if not (attn or ssm):
+        plain = self.causal and not self.cross
+        enc_dec = self.mixer == "gqa" and self.ffn == "mlp" and not \
+            self.window and not (self.cross and not self.causal)
+        if not ((attn or ssm) and plain or enc_dec):
             raise NotImplementedError(
-                f"block {self.mixer}+{self.ffn} (window {self.window}) is "
-                f"not ported yet (ROADMAP.md Queue 1, \"Remaining "
-                f"families\"); gqa and full-attention mla with mlp, moe "
-                f"or dense0, and ssm with no FFN, mlp or moe, are")
+                f"block {self.mixer}+{self.ffn} (window {self.window}, "
+                f"cross {self.cross}, causal {self.causal}) is not ported "
+                f"yet (ROADMAP.md Queue 1, \"Remaining families\"); gqa "
+                f"and full-attention mla with mlp, moe or dense0, ssm with "
+                f"no FFN, mlp or moe, and full-attention gqa with mlp, "
+                f"non-causal or cross-attending, are")
 
     @property
     def cache_names(self) -> tuple[str, ...]:
@@ -59,20 +72,30 @@ class BlockDef:
         return {"mla": ("ckv", "krope"), "ssm": ("state", "conv")}.get(
             self.mixer, ("k", "v"))
 
+    @property
+    def leaf_names(self) -> tuple[str, ...]:
+        """Every cache leaf of the block: ``cache_names``, then a
+        cross-attending block's encoder keys and values ``xk``/``xv``
+        (kind 'slot')."""
+        return self.cache_names + (("xk", "xv") if self.cross else ())
+
 
 Group = tuple[tuple[BlockDef, ...], int]
 
 
 def block_spec(cfg: ModelConfig, bd: BlockDef, dtype) -> dict:
     """A block's ``ln1`` and mixer (``attn``, or an SSM block's ``ssm``),
-    then ``ln2`` and ``ffn`` unless the FFN is ``none``, as the
-    reference's."""
+    a cross-attending block's ``ln_x`` and ``xattn``, then ``ln2`` and
+    ``ffn`` unless the FFN is ``none``, as the reference's."""
     out = {"ln1": rmsnorm_spec(cfg.d_model, dtype)}
     if bd.mixer == "ssm":
         out["ssm"] = ssm_spec(cfg, dtype)
     else:
         out["attn"] = (mla_spec if bd.mixer == "mla" else gqa_spec)(cfg,
                                                                     dtype)
+    if bd.cross:
+        out["ln_x"] = rmsnorm_spec(cfg.d_model, dtype)
+        out["xattn"] = cross_attn_spec(cfg, dtype)
     if bd.ffn == "none":
         return out
     if bd.ffn == "moe":
@@ -110,13 +133,14 @@ def group_spec(cfg: ModelConfig, group: Group, dtype) -> list:
 
 
 def block_cache_shape(cfg: ModelConfig, bd: BlockDef, B: int, T: int,
-                      dtype) -> dict:
+                      dtype, enc_T: int = 0) -> dict:
     """(shape, dtype) of each cache leaf of one block in a dense cache of
     ``B`` rows and ``T`` positions: k/v [B, T, KV, hd], a windowed block
     a ring of min(window, T) positions; MLA the latent ckv [B, T,
     kv_lora] and krope [B, T, rope_hd]; an SSM block its recurrent state
     [B, H, N, P], fp32 whatever ``dtype`` is, and its conv history [B,
-    K-1, conv_dim] (no position axis)."""
+    K-1, conv_dim] (no position axis); a cross-attending block also the
+    encoder's keys and values xk/xv [B, enc_T, KV, hd]."""
     if bd.mixer == "ssm":
         s = cfg.ssm
         _, heads, conv_dim = ssm_dims(cfg)
@@ -128,7 +152,11 @@ def block_cache_shape(cfg: ModelConfig, bd: BlockDef, B: int, T: int,
                 "krope": ((B, T, m.rope_head_dim), dtype)}
     W = min(bd.window, T) if bd.window else T
     shape = (B, W, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": (shape, dtype), "v": (shape, dtype)}
+    out = {"k": (shape, dtype), "v": (shape, dtype)}
+    if bd.cross:
+        xshape = (B, enc_T, cfg.num_kv_heads, cfg.head_dim)
+        out.update(xk=(xshape, dtype), xv=(xshape, dtype))
+    return out
 
 
 def block_cache_kinds(bd: BlockDef) -> dict[str, str]:
@@ -138,24 +166,27 @@ def block_cache_kinds(bd: BlockDef) -> dict[str, str]:
     block-pageable through the low entries of the slot's table but never
     prefix-shared (its contents are overwritten in place); 'slot' — a
     fixed-size state per slot (the SSM's recurrent state and conv
-    history), never paged: [num_slots, ...] in both pool layouts, spliced
-    into its slot's row and left alone by a block copy."""
+    history, a cross-attending block's encoder keys and values), never
+    paged: [num_slots, ...] in both pool layouts, spliced into its slot's
+    row and left alone by a block copy."""
     if bd.mixer == "ssm":
         kind = "slot"
     else:
         kind = "ring" if bd.window else "paged"
-    return {name: kind for name in bd.cache_names}
+    return {name: kind if name in bd.cache_names else "slot"
+            for name in bd.leaf_names}
 
 
 def block_paged_cache_shape(cfg: ModelConfig, bd: BlockDef, num_slots: int,
-                            num_blocks: int, block: int, dtype) -> dict:
+                            num_blocks: int, block: int, dtype,
+                            enc_T: int = 0) -> dict:
     """(shape, dtype) of each cache leaf of one block in the paged pool:
     'paged' and 'ring' leaves are arenas [num_blocks + 1, block, ...] (the
     + 1 is the write sentinel) of one position's entry, [KV, hd] or MLA's
     [kv_lora] and [rope_hd]; a 'slot' leaf keeps its dense shape
-    [num_slots, ...]."""
+    [num_slots, ...] (xk/xv [num_slots, enc_T, KV, hd])."""
     kinds = block_cache_kinds(bd)
-    dense = block_cache_shape(cfg, bd, num_slots, 1, dtype)
+    dense = block_cache_shape(cfg, bd, num_slots, 1, dtype, enc_T)
     return {name: (shape, dt) if kinds[name] == "slot" else
             ((num_blocks + 1, block) + shape[2:], dt)
             for name, (shape, dt) in dense.items()}
@@ -163,7 +194,7 @@ def block_paged_cache_shape(cfg: ModelConfig, bd: BlockDef, num_slots: int,
 
 def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
               want_cache: bool, T_cache: int = 0, plans=None, out=None,
-              true_len=None):
+              true_len=None, enc_out=None):
     """Full-sequence block (prefill).  Returns (x, cache or None); the
     cache is written into ``out`` (``block_cache_shape``'s leaves) when it
     is given.  Full attention keeps k/v (MLA: the latent ckv/krope of the
@@ -177,8 +208,11 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
     true length they agree value for value, and no padding row reaches
     the ring.  An SSM block keeps its final recurrent state (fp32) and the
     conv tail at ``true_len`` (``ssm.ssm_forward``: the padding's steps
-    leave the state as it was).  The FFN, where the block has one, runs on
-    the B·S tokens."""
+    leave the state as it was).  A non-causal block (an encoder's) attends
+    to every position.  A cross-attending block then adds ``ln_x`` and the
+    cross-attention to the encoder output ``enc_out [B, F, d]``, whose
+    projected keys and values it keeps as xk/xv [B, F, KV, hd].  The FFN,
+    where the block has one, runs on the B·S tokens."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if bd.mixer == "ssm":
         y, state, tail = ssm_forward(p["ssm"], cfg, h, plans,
@@ -197,7 +231,7 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
     else:
         y, (k, v) = gqa_self_attn(p["attn"], cfg, h, positions,
                                   window=bd.window, theta=bd.theta,
-                                  backend=plans)
+                                  backend=plans, causal=bd.causal)
     cache = None
     if want_cache:
         B, S = k.shape[:2]
@@ -224,7 +258,22 @@ def block_fwd(p, cfg: ModelConfig, bd: BlockDef, x, positions, *,
                 buf[:, :S] = t
                 buf[:, S:] = 0
             cache[name] = buf
-    return _ffn_residual(p, cfg, bd, x + y, plans), cache
+    x = x + y
+    if bd.cross:
+        xk, xv = cross_kv(p["xattn"], cfg, enc_out, plans)
+        if want_cache:
+            for name, t in (("xk", xk), ("xv", xv)):
+                cache[name] = t if out is None else _out_buf(
+                    out, name, tuple(t.shape), t.dtype).copy_(t)
+        x = _cross_residual(p, cfg, x, xk, xv, plans)
+    return _ffn_residual(p, cfg, bd, x, plans), cache
+
+
+def _cross_residual(p, cfg: ModelConfig, x, xk, xv, plans=None):
+    """``x`` plus the cross-attention of ``ln_x(x)`` to the encoder's keys
+    and values ``xk``/``xv``."""
+    h = rmsnorm_apply(p["ln_x"], x, cfg.norm_eps)
+    return x + cross_attn(p["xattn"], cfg, h, xk, xv, plans)
 
 
 def _out_buf(out: dict, name: str, shape: tuple, dtype: torch.dtype
@@ -251,8 +300,9 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
     (``attention.mla_decode_attn[_paged]``).  An SSM block updates its
     recurrent state and conv history in place, the same 'slot' leaves in
     both layouts, and a row ``active`` leaves out keeps both bit for bit
-    (``ssm.ssm_decode``).  The FFN runs on the B rows, inactive ones
-    included, the reference's token set."""
+    (``ssm.ssm_decode``).  A cross-attending block then attends to its
+    cache's xk/xv, which no step writes.  The FFN runs on the B rows,
+    inactive ones included, the reference's token set."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if bd.mixer == "ssm":
         y, st, cv = ssm_decode(p["ssm"], cfg, h, cache["state"],
@@ -276,15 +326,21 @@ def block_decode(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict,
                                     cache["v"], pos, window=bd.window,
                                     theta=bd.theta, backend=plans,
                                     active=active)
-    return _ffn_residual(p, cfg, bd, x + y, plans), {a: nk, b: nv}
+    new = {a: nk, b: nv}
+    x = x + y
+    if bd.cross:
+        new.update(xk=cache["xk"], xv=cache["xv"])
+        x = _cross_residual(p, cfg, x, cache["xk"], cache["xv"], plans)
+    return _ffn_residual(p, cfg, bd, x, plans), new
 
 
 def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
               *, want_cache: bool, T_cache: int = 0, plans=None, out=None,
-              true_len=None):
+              true_len=None, enc_out=None):
     """Run a group's repetitions in order.  Returns (x, per-layer caches),
     written into ``out`` (a cache group's per-layer list) when it is
-    given; rings are built at ``true_len`` (``block_fwd``)."""
+    given; rings are built at ``true_len``, cross-attention reads
+    ``enc_out`` (``block_fwd``)."""
     period, _ = group
     caches = []
     for li, layer in enumerate(params):
@@ -294,7 +350,7 @@ def group_fwd(params: list, group: Group, cfg: ModelConfig, x, positions,
                 layer[f"b{i}"], cfg, bd, x, positions,
                 want_cache=want_cache, T_cache=T_cache, plans=plans,
                 out=None if out is None else out[li][f"b{i}"],
-                true_len=true_len)
+                true_len=true_len, enc_out=enc_out)
         caches.append(c)
     return x, (caches if want_cache else None)
 
@@ -320,8 +376,12 @@ def block_resume(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, src_b,
     prefix gathered through ``src_b`` and scatters the updated logical
     cache back through ``dst_b`` (COW where the tables differ), in place.
     Only prefix-shareable mixers get here (``Model.supports_prefix_reuse``:
-    full-attention GQA or MLA, not a window ring nor an SSM state).  The
-    MoE runs on the suffix's tokens, the reference's token set."""
+    full-attention GQA or MLA, not a window ring nor an SSM state, nor a
+    cross-attending block).  The MoE runs on the suffix's tokens, the
+    reference's token set."""
+    if bd.cross:
+        raise ValueError("prefix-resume prefill does not support "
+                         "cross-attention")
     if bd.window or bd.mixer == "ssm":
         raise ValueError(f"mixer {bd.mixer!r} (window={bd.window}) does not "
                          f"support prefix-resume prefill")
@@ -384,7 +444,10 @@ def block_chunk(p, cfg: ModelConfig, bd: BlockDef, x, cache: dict, slot,
     its state and conv history (zeros when ``start`` is 0: a fresh
     prompt), runs the chunk from them (``ssm.ssm_forward``) and writes
     the row back as ``where(active, new, old)``, in either layout.  The
-    FFN runs on the chunk's C tokens."""
+    FFN runs on the chunk's C tokens.  A cross-attending block raises, as
+    the reference's does."""
+    if bd.cross:
+        raise ValueError("chunked prefill does not support cross-attention")
     C = x.shape[1]
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     idx = slot.reshape(1).long()

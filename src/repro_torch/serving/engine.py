@@ -27,8 +27,10 @@ def generate(model: Model, params, batch: dict, steps: int,
              num_blocks: int | None = None,
              prefix_cache: bool = True) -> GenerateResult:
     """Decode ``steps`` tokens for every row of ``batch["tokens"] [B,S]``
-    through the scheduler (``B`` slots; the first token comes from each
-    row's prefill logits), as the reference's ``engine.generate``.  There
+    (an encoder-decoder's over ``batch["speech_embeds"]``, split by row as
+    the tokens are) through the scheduler (``B`` slots; the first token
+    comes from each row's prefill logits), as the reference's
+    ``engine.generate``.  There
     is no EOS, so the result is rectangular; a ragged one raises.
     ``batch["cache_len"]`` defaults to S + ``steps``.  ``temperature`` and
     ``top_k`` become every row's sampling parameters; with ``generator``
@@ -68,8 +70,10 @@ def generate_fixed(model: Model, params, batch: dict, steps: int,
                    temperature: float = 0.0,
                    generator: torch.Generator | None = None,
                    graph: bool = True) -> GenerateResult:
-    """Prefill ``batch["tokens"] [B,S]`` and decode ``steps`` tokens per
-    row (the first comes from the prefill logits).  ``temperature == 0``
+    """Prefill ``batch["tokens"] [B,S]`` (an encoder-decoder's over
+    ``batch["speech_embeds"] [B, F, frontend_dim]``) and decode ``steps``
+    tokens per row (the first comes from the prefill logits).
+    ``temperature == 0``
     is greedy and uses no randomness; otherwise tokens are drawn from
     ``generator``, which must live on the model's device.
 
@@ -95,9 +99,12 @@ def generate_fixed(model: Model, params, batch: dict, steps: int,
                          f"decode up to position {S + steps - 2}, outside "
                          f"the cache of {T}")
     model.plan_book          # resolve all TT plans before the serving loop
-    logits, cache = model.padded_prefill(params, batch["tokens"], S, T, graph)
+    frames = batch.get("speech_embeds")
+    logits, cache = model.padded_prefill(params, batch["tokens"], S, T, graph,
+                                         frames)
     if graph and model.device.type == "cuda":
-        step = model.graphed_decode_step(B, T)
+        step = model.graphed_decode_step(
+            B, T, enc_T=0 if frames is None else int(frames.shape[1]))
         step.load(params, cache, S)
         cache = None                 # the graph decodes from its own copy
     else:

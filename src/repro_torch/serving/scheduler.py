@@ -73,6 +73,18 @@ request reserves are those of its tokens, counted once for those layers;
 its SSD layers' state and conv history are one row per slot, outside the
 block count.
 
+An encoder-decoder (seamless) takes each request's speech frames
+(``inputs["speech_embeds"] [1, F, frontend_dim]``) into its admission
+prefill, and its pool, dense or paged, keeps every slot's encoder keys and
+values (xk/xv [num_slots, F, KV, hd], 'slot' leaves): the pool and, on a
+card, the slot-pool graph are built at the first admission from that
+request's F, as the reference builds its pool from the first prefill
+(``_ensure_pool``).  One pool serves one F: a request of another F is
+refused with a ``ValueError`` at ``submit`` once the pool exists, else at
+its admission (the reference fails inside its splice).  Chunked prefill
+and prefix reuse are off for it (``Model.supports_chunked_prefill``,
+``supports_prefix_reuse``), as in the reference.
+
 Not ported (ROADMAP.md Queue 1): preemption (mid-prefill included),
 deadlines, resize, snapshots (mid-prefill included), the mesh and
 ``drop``.  The constructor refuses the arguments.  With equal priorities the reference
@@ -101,7 +113,8 @@ NOT_PORTED = {"preempt": 6, "clock": 6, "mesh": 10}
 
 @dataclasses.dataclass
 class Request:
-    """One generation request.  ``inputs`` holds ``tokens [1, S]``.
+    """One generation request.  ``inputs`` holds ``tokens [1, S]`` (and an
+    encoder-decoder's ``speech_embeds [1, F, frontend_dim]``).
     ``temperature`` 0 is greedy (draws nothing), ``top_k`` 0 disables the
     top-k filter; ``key`` is the request's own sampling stream, a
     ``torch.Generator`` on the model's device.  ``priority`` orders
@@ -238,19 +251,50 @@ class Scheduler:
         self.plain_steps = 0              # steps through the decode step
         # on a card, the slot-pool decode step; its static cache is the pool
         self.graph: DecodeGraph | None = None
-        geometry = (self.num_blocks, self.block) if paged else None
-        if graph and model.device.type == "cuda":
+        self.cache: dict | None = None
+        # the frame count of an encoder-decoder's pool, built at the first
+        # admission (None until then); 0 for every other model
+        self.enc_T: int | None = None
+        if not model.cfg.enc_dec:
+            self._build_pool(0)
+
+    def _build_pool(self, enc_T: int) -> None:
+        """The pool (its xk/xv over ``enc_T`` frames) and, on a card unless
+        ``graph=False``, the slot-pool decode graph it is the static cache
+        of, bound to this scheduler."""
+        model, B = self.model, self.num_slots
+        geometry = (self.num_blocks, self.block) if self.paged else None
+        if self.graphed and model.device.type == "cuda":
             self.graph = model.graphed_decode_step(
-                num_slots, self.cache_len, masked=True, paged=geometry)
-            self.graph.bind(self, params)
+                B, self.cache_len, masked=True, paged=geometry, enc_T=enc_T)
+            self.graph.bind(self, self.params)
             self.cache = self.graph.cache
-        elif paged:
-            self.cache = model.init_cache(num_slots, self.cache_len,
-                                          paged=True,
+        elif self.paged:
+            self.cache = model.init_cache(B, self.cache_len, paged=True,
                                           num_blocks=self.num_blocks,
-                                          block=self.block)
+                                          block=self.block, enc_T=enc_T)
         else:
-            self.cache = model.init_cache(num_slots, cache_len, per_row=True)
+            self.cache = model.init_cache(B, self.cache_len, per_row=True,
+                                          enc_T=enc_T)
+        self.enc_T = enc_T
+
+    def _frames_of(self, req: Request) -> int:
+        """The frame count of ``req``'s speech frames: 0 for a model that
+        takes none, and for an encoder-decoder the pool's once it exists
+        (another count raises ValueError)."""
+        if not self.model.cfg.enc_dec:
+            return 0
+        frames = req.inputs.get("speech_embeds")
+        if frames is None:
+            raise ValueError(f"request uid={req.uid}: {self.model.cfg.name} "
+                             f"serves speech frames, inputs['speech_embeds']"
+                             f" [1, F, {self.model.cfg.frontend_dim}]")
+        F = int(frames.shape[1])
+        if self.enc_T is not None and F != self.enc_T:
+            raise ValueError(f"request uid={req.uid}: {F} frames, the pool "
+                             f"serves {self.enc_T}: one pool, one frame "
+                             f"count")
+        return F
 
     # ------------------------------------------------------------- interface
     def submit(self, req: Request, submit_time: float | None = None) -> None:
@@ -259,6 +303,7 @@ class Scheduler:
         their blocks must fit the pool even when every other request has
         retired."""
         S = int(req.inputs["tokens"].shape[1])
+        self._frames_of(req)
         if req.max_new_tokens < 0:
             raise ValueError("max_new_tokens must be >= 0")
         if S + req.max_new_tokens > self.cache_len:
@@ -340,7 +385,10 @@ class Scheduler:
 
     def kv_pool_bytes(self) -> int:
         """Bytes of the pool: every leaf, arenas and 'slot' leaves (an SSM
-        state and conv history) alike, with positions and tables."""
+        state and conv history, xk/xv) alike, with positions and tables; 0
+        before an encoder-decoder's first admission built it."""
+        if self.cache is None:
+            return 0
         return sum(t.nbytes for t in tree_leaves(self.cache))
 
     def reset_stats(self) -> None:
@@ -427,8 +475,12 @@ class Scheduler:
                    done: list[FinishedRequest]) -> bool:
         """Admit ``q`` into ``slot_idx``.  Returns False when the paged
         pool cannot reserve its blocks yet (it stays queued; retirements
-        will free blocks)."""
+        will free blocks).  An encoder-decoder's first admission builds the
+        pool from its frame count; a request of another count raises."""
         req = q.req
+        F = self._frames_of(req)
+        if self.enc_T is None:
+            self._build_pool(F)
         if req.max_new_tokens == 0:       # nothing to generate: no prefill
             done.append(FinishedRequest(
                 uid=req.uid, tokens=np.zeros((0,), np.int64),
@@ -444,10 +496,12 @@ class Scheduler:
         return True
 
     def _admit_inputs(self, q: _Queued) -> dict:
-        """The prefill's inputs: the prompt on the model's device, into a
-        cache of the pool's length."""
-        return {"tokens": q.req.inputs["tokens"].to(self.model.device),
-                "cache_len": self.cache_len}
+        """The prefill's inputs: the prompt (and an encoder-decoder's speech
+        frames) on the model's device, into a cache of the pool's
+        length."""
+        dev, inputs = self.model.device, q.req.inputs
+        return {**{k: inputs[k].to(dev) for k in ("tokens", "speech_embeds")
+                   if k in inputs}, "cache_len": self.cache_len}
 
     def _row_prefill(self, inputs: dict) -> tuple[torch.Tensor, dict]:
         """The prompt alone, right-padded to its bucket or at its own
@@ -461,7 +515,8 @@ class Scheduler:
         tokens = inputs["tokens"]
         return self.model.padded_prefill(self.params, tokens,
                                          int(tokens.shape[1]),
-                                         self.cache_len, self.graphed)
+                                         self.cache_len, self.graphed,
+                                         inputs.get("speech_embeds"))
 
     def _req_key(self, req: Request) -> torch.Generator | None:
         if req.temperature <= 0.0:
@@ -814,19 +869,22 @@ def make_requests(batch: dict, max_new_tokens: int,
                   generator: torch.Generator | None = None,
                   temperature: float = 0.0, top_k: int = 0) -> list[Request]:
     """Split a batch (``engine.generate``'s contract) into one Request per
-    row; the row index becomes the uid.  With ``generator``, each row
-    samples from a generator of its own on the same device, seeded by a
-    draw from ``generator`` (the counterpart of ``fold_in(key, row)``)."""
-    tokens = batch["tokens"]
+    row, every input array of it (the tokens, an encoder-decoder's speech
+    frames) by row; the row index becomes the uid.  With ``generator``,
+    each row samples from a generator of its own on the same device,
+    seeded by a draw from ``generator`` (the counterpart of ``fold_in(key,
+    row)``)."""
+    arrays = {k: v for k, v in batch.items() if k != "cache_len"}
     out = []
-    for b in range(tokens.shape[0]):
+    for b in range(arrays["tokens"].shape[0]):
         key = None
         if generator is not None:
             key = torch.Generator(device=generator.device)
             key.manual_seed(int(torch.randint(
                 0, 2 ** 62, (), generator=generator,
                 device=generator.device)))
-        out.append(Request(uid=b, inputs={"tokens": tokens[b:b + 1]},
+        out.append(Request(uid=b, inputs={k: v[b:b + 1]
+                                          for k, v in arrays.items()},
                            max_new_tokens=max_new_tokens, key=key,
                            temperature=temperature, top_k=top_k))
     return out

@@ -1665,3 +1665,117 @@ def test_jamba_scheduler_graph_is_eager_and_paged_is_dense(cuda, kw):
     and eagerly, tokens and logprobs bit for bit; the prefix cache stays
     off."""
     _slot_state_pools_agree(*_jamba(cuda), kw)
+
+
+# seamless-m4t-large-v2's three fused2 shapes at rank 16 (self- and
+# cross-attention q/k/v/o, gate/up, down), at decode, admission and one
+# encoder pass of 4 × 1,024 frames
+SEAMLESS_SHAPES = ((8, 128, 128, 8, 16), (8, 128, 1024, 8, 16),
+                   (8, 1024, 128, 8, 16))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [4, 256, 4096])
+@pytest.mark.parametrize("dims", SEAMLESS_SHAPES,
+                         ids=["attn", "gate_up", "down"])
+def test_fused2_kernel_at_seamless_shapes(cuda, dims, B, act, int8):
+    test_fused2_kernel_at_mamba2_shapes(cuda, dims, B, act, int8)
+
+
+def _seamless(device, weights="fp32"):
+    """seamless SMOKE (2 non-causal encoder blocks, 2 cross-attending
+    decoder blocks, frames of width 32), TT on ffn+attn at rank 4,
+    ``auto``."""
+    cfg = get_config("seamless-m4t-large-v2", "smoke", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+        backend="auto", weights=weights))
+    model = build(cfg, device=device)
+    params = model.init(0)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params
+
+
+def _speech(model, seed, B, F):
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    return torch.randn((B, F, model.cfg.frontend_dim), generator=gen).to(
+        device=model.device, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("weights", ["fp32", "int8"])
+def test_seamless_prefill_and_decode_replays_are_eager(cuda, weights):
+    """The captured prefill (a prompt of 20 in the 32 bucket, 12 frames)
+    and 8 decode replays against the eager prefill and steps, bit for
+    bit: k/v and the cross-attention's xk/xv; the prefill records 14 + 22
+    ``tt_fused2`` (the encoder's 2 × 7, the decoder's 2 × 11), each decode
+    step 18 (2 × 9)."""
+    model, params = _seamless(cuda, weights)
+    batch = _prompt(model, 5, B=2, S=20, T=48)
+    frames = _speech(model, 6, 2, 12)
+    tokens = torch.nn.functional.pad(batch["tokens"], (0, 12))
+    graph = model.graphed_prefill(2, 32, 48, 12)
+    graph(params, tokens, 20, frames)                  # the capture
+    g_logits, g_cache = graph(params, tokens, 20, frames)
+    e_logits, e_cache = model.prefill(params, {
+        "tokens": tokens, "cache_len": 48, "prompt_len": 20,
+        "speech_embeds": frames})
+    assert torch.equal(g_logits, e_logits)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_cache),
+                                                 tree_leaves(e_cache)))
+    step = model.graphed_decode_step(2, 48, enc_T=12)
+    step.load(params, g_cache, 20)
+    tok = e_logits[:, -1].argmax(-1, keepdim=True)
+    for t in range(8):
+        want, e_cache = model.decode_step(params, e_cache, tok)
+        got = step(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    sfx = "_int8" if weights == "int8" else ""
+    assert graph.captured == {"tt_fused2" + sfx: 36}
+    assert step.captured == {"tt_fused2" + sfx: 18}
+    assert (2, 32, 48, 12) in model.prefill_graphs
+    assert (2, 48, False, 12) in model.decode_graphs
+
+
+def test_seamless_scheduler_graph_is_eager_and_paged_is_dense(cuda):
+    """Prompts of 20, 13 and 24 with 12 frames each through 2 slots over 48
+    positions: the dense pool through the graphs (built at the first
+    admission) against eager, and the paged pool through the graphs and
+    eagerly, tokens and logprobs bit for bit; another frame count is
+    refused at ``submit``."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _seamless(cuda)
+    prompts = [(_prompt(model, 90 + i, B=1, S=n)["tokens"],
+                _speech(model, 90 + i, 1, 12))
+               for i, n in enumerate((20, 13, 24))]
+
+    def run(**extra):
+        sched = Scheduler(model, params, num_slots=2, cache_len=48, **extra)
+        for uid, (tokens, frames) in enumerate(prompts):
+            sched.submit(Request(uid=uid, inputs={
+                "tokens": tokens, "speech_embeds": frames},
+                max_new_tokens=5))
+            sched.step()
+        with pytest.raises(ValueError, match="one frame count"):
+            sched.submit(Request(uid=9, inputs={
+                "tokens": prompts[0][0],
+                "speech_embeds": _speech(model, 1, 1, 7)},
+                max_new_tokens=5))
+        sched.run()
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+            assert not sched.prefix_cache
+        return {f.uid: f for f in sched.finished}
+
+    dense = run()
+    for extra in (dict(graph=False), dict(paged=True, block_size=4),
+                  dict(paged=True, block_size=4, graph=False)):
+        got = run(**extra)
+        assert sorted(got) == sorted(dense) == [0, 1, 2]
+        for uid in got:
+            assert np.array_equal(got[uid].tokens, dense[uid].tokens)
+            assert np.array_equal(got[uid].logprobs, dense[uid].logprobs)
