@@ -32,7 +32,9 @@ Phases, each fatal on failure:
      across 16 experts at C = 640, 128 and 8; and at seamless-m4t-large-v2's
      three shapes (q/k/v/o of self- and cross-attention 1,024 → 1,024,
      gate/up, down), bf16 activations, at 4, 256 and 4,096 rows
-     (``seamless_kernels``);
+     (``seamless_kernels``); and at internvl2-2b's four shapes (q/o, k/v,
+     gate/up, down), bf16 activations, at 4, 256 and 8,192 rows
+     (``internvl2_kernels``);
   3. time each kernel beside its plain version, one PyTorch call computing
      the same function (``library_ms``) and the least time the card could
      take; fused2, the fused chain and the length-2 steps also with L2
@@ -75,7 +77,9 @@ Phases, each fatal on failure:
      block's arenas with the SSD blocks' slot state; and seamless SMOKE (2
      non-causal encoder blocks, 2 cross-attending decoder blocks, 12
      speech frames a prompt) the same way over the dense and paged pools,
-     chunked prefill refused;
+     chunked prefill refused; and internvl2 SMOKE (2 GQA blocks, image
+     embeddings of width 32 projected and prepended to every prompt, 3 to
+     16 rows) the same way, chunked prefill refused;
   5. the main paths: full-width deepseek-7b (bf16, TT on ffn+attn at rank
      16) serves 4 rows × 32 tokens through ``launch.serve.fixed``, with
      fp and then int8 cores, at length 2 with backend auto (fused2, built
@@ -142,8 +146,9 @@ Phases, each fatal on failure:
      64) through ``launch.serve.fixed`` with fp and int8 cores beside an
      eager warm run (bit for bit, the fp32 state included), the decode
      replay, the prefill replay and one SSD mixer (plain and masked)
-     traced alone, and a staggered run of 6 requests (prompts of
-     256–1,024), dense, paged and chunked at 64: dense graph ≡ eager ≡
+     traced alone, and at ``MAMBA2_CUT_LAYERS`` layers a staggered run of
+     6 requests (prompts of 256–1,024), dense, paged and chunked at 64:
+     dense graph ≡ eager ≡
      paged and chunked graph ≡ eager ≡ paged bit for bit, the chunked
      run against ``generate_fixed`` measured; then the dense and chunked
      runs again with the weights in fp32 and the scan in fp64, each
@@ -156,7 +161,7 @@ Phases, each fatal on failure:
      counters 0 and each request against ``generate_fixed`` measured, then
      its dense and chunked runs again in fp32 with the scan in fp64 and
      the experts dropless (``fp64_scan_witness``), every request held
-     against ``generate_fixed`` within 1e-4; and, last,
+     against ``generate_fixed`` within 1e-4; and
      full-width seamless-m4t-large-v2 (``seamless_path``: 216
      ``tt_fused2`` a decode pass, 432 a prefill pass), 4 × (1,024 + 64)
      with 1,024 speech frames a row through ``fixed_family`` (as qwen3-32b
@@ -166,7 +171,15 @@ Phases, each fatal on failure:
      layers the staggered run of 12 requests (256
      frames each), dense and paged, graph and eager (``staggered_block``):
      bit for bit, the prefix counters 0, every request held against
-     ``generate_fixed`` (asserted).
+     ``generate_fixed`` (asserted); and, last, full-width internvl2-2b
+     (``internvl2_path``: 168 ``tt_fused2`` a decode and a prefill pass),
+     4 × (1,024 image embeddings + 1,024 tokens + 64) through
+     ``fixed_family`` with the image prefix's share of the prefill replay
+     (``image_prefix``: the projector alone, and a prefill of one image
+     row and 2,047 tokens), and at ``INTERNVL2_CUT_LAYERS`` layers the
+     staggered run with 64 and 128 image rows by turns, dense and paged,
+     graph and eager: bit for bit, the prefix counters 0, every request
+     held against ``generate_fixed`` (asserted).
      deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
      continuous-batching paths run at ``CUT_LAYERS`` of its 30 layers;
      mixtral-8x7b's, deepseek-v2-lite-16b's and jamba-v0.1-52b's
@@ -186,8 +199,8 @@ record of phases 2, 3 and 5 is also written to ``build/chip_smoke.json``;
 the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
 together, gemma3-4b's, mixtral-8x7b's, deepseek-v2-lite-16b's,
-jamba-v0.1-52b's, qwen3-32b's, mamba2-2.7b's and seamless-m4t-large-v2's
-included (``tt_fused2_int8``: their int8 fixed batches too; the expert kernels:
+jamba-v0.1-52b's, qwen3-32b's, mamba2-2.7b's, seamless-m4t-large-v2's
+and internvl2-2b's included (``tt_fused2_int8``: their int8 fixed batches too; the expert kernels:
 mixtral's, deepseek-v2's and jamba's); its times are
 deepseek-7b's layer, and for the expert-batched kernels mixtral-8x7b's (3
 expert projections, 8 experts × 8 rows).
@@ -249,6 +262,10 @@ ROWS = (256, 4)          # prefill (batch 4 × prompt 64) and decode (batch 4)
 BUCKET_ROWS = (16, 32, 64)
 LAYERS, PASSES = 30, 32  # full depth; 1 prefill + 31 decode forward passes
 REPLAYS = 8              # decode steps traced alone
+# a family's prefill replays traced alone: each is 100–500 ms of device
+# time, so two give its mean, and a trace's host cost grows with its
+# kernels (eight took ~5 s of the script's wall each)
+PREFILL_REPLAYS = 2
 # decode steps of the cold eager run before each path's warm one (of
 # ``--steps`` until mixtral-8x7b's phases joined the script)
 COLD_STEPS = 4
@@ -515,6 +532,33 @@ SEAMLESS_ARGS = ["--arch", "seamless-m4t-large-v2", "--variant", "full",
                  "--tt", "ffn,attn", "--tt-rank", "16", "--seed", "0",
                  "--tt-backend", "auto"]
 SEAMLESS_FRAMES, SEAMLESS_CUT_LAYERS = 256, 8
+# internvl2-2b (24 layers of GQA with 8 KV heads, d 2,048, d_ff 8,192,
+# vocab 92,553; the dense projector of image embeddings of width 1,024,
+# prepended to the prompt): its four TT shapes at rank 16, length 2, with
+# how many of each a pass runs (7 a layer, 168 a pass, decode and prefill
+# alike: the image rows are plain rows of the decoder).  Timed with bf16
+# activations, fp and int8 cores, at decode (4 rows), an admission (256)
+# and the prefill of 4 × 2,048 rows (8,192)
+INTERNVL2_SHAPES = {
+    "internvl2 attn q/o 2048->2048": (((8, 256), (256, 8), (1, 16, 1)), 48),
+    "internvl2 attn k/v 2048->1024": (((8, 256), (128, 8), (1, 16, 1)), 48),
+    "internvl2 ffn gate/up 2048->8192": (((8, 256), (1024, 8), (1, 16, 1)),
+                                         48),
+    "internvl2 ffn down 8192->2048": (((8, 1024), (256, 8), (1, 16, 1)),
+                                      24),
+}
+INTERNVL2_ROWS, INTERNVL2_LAYERS = (4, 256, 8192), 24
+# phase 5 at full width: the fixed batch of 4 prompts of 2,048 rows, 1,024
+# image embeddings and 1,024 tokens each (the reference CLI's split), and
+# 64 new tokens; at ``INTERNVL2_CUT_LAYERS`` layers the staggered run
+# ``STAGGER_64_256`` with 64 and 128 image rows by turns (the captured
+# prefills' key carries the count), on 4 × 416 (128 + 256 + 32), dense and
+# paged, graph and eager
+INTERNVL2_ARGS = ["--arch", "internvl2-2b", "--variant", "full", "--tt",
+                  "ffn,attn", "--tt-rank", "16", "--seed", "0",
+                  "--tt-backend", "auto"]
+INTERNVL2_FIXED = ["--batch", "4", "--prompt-len", "2048", "--steps", "64"]
+INTERNVL2_IMAGES, INTERNVL2_T, INTERNVL2_CUT_LAYERS = (64, 128), 416, 8
 # deepseek-7b's length-3 and ``cuda_step`` fixed-batch paths and its
 # continuous-batching paths (dense, paged, chunked) run at this depth (of
 # 30), to keep the script within its time on a slower host with the two
@@ -531,6 +575,11 @@ MOE_CUT_LAYERS = 8
 # this depth (of 34): one period of five local layers and a global one
 # (the script took 980.0 s on a slow host before, gemma3's phase 5 147.4 s)
 GEMMA3_CUT_LAYERS = 6
+# mamba2-2.7b's staggered runs (bf16: dense, paged, chunked; the fp32
+# witness) run at this depth (of 64; its fixed batch at full depth), to
+# keep the script within its time with internvl2-2b's phases (the whole
+# script took 886.3 s before they joined, mamba2's phase 5 130.9 s of it)
+MAMBA2_CUT_LAYERS = 16
 
 
 def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
@@ -1165,7 +1214,7 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
     T = args.prompt_len + args.steps
     enc = model.enc_key(args.prompt_len if model.cfg.enc_dec else 0)
     graph = model.decode_graphs[(args.batch, T, False) + enc]
-    prefill = model.prefill_graphs[(args.batch, args.prompt_len, T) + enc]
+    prefill = model.prefill_graphs[prefill_key(model, args)]
     passes = args.steps
     print(f"main path ({label}): launches counted {counted}, by graph "
           f"replays {replayed} (one capture of the decode step: "
@@ -1206,6 +1255,17 @@ def drive(label: str, kernel: str, per_pass: int, model, params,
     return out, counted[kernel] + replayed[kernel]
 
 
+def prefill_key(model, args) -> tuple:
+    """The key of the captured prefill of the serve flags' fixed batch
+    (``serve.prompt_batch``): (batch, tokens, cache length) and the front
+    end's rows, an encoder-decoder's frames (as many as the tokens) or a
+    vision-language model's images (``serve.image_split``)."""
+    img = serve.image_split(model, args.prompt_len)
+    n = img or (args.prompt_len if model.cfg.enc_dec else 0)
+    return (args.batch, args.prompt_len - img,
+            args.prompt_len + args.steps) + model.embeds_key(n)
+
+
 def decode_steps(model, params, batch, graph: bool, n: int = 16):
     """Prefill ``batch`` (a replay of its captured prefill, or eagerly),
     then 1 + ``n`` greedy decode steps, replayed or eager: (the prefill's
@@ -1213,9 +1273,10 @@ def decode_steps(model, params, batch, graph: bool, n: int = 16):
     ms of the ``n`` later steps, each with its greedy pick, to the device's
     end; the greedy picks [B, n])."""
     B, S = batch["tokens"].shape
-    frames = batch.get("speech_embeds")
+    S += model.image_rows(batch)
     logits, cache = model.padded_prefill(params, batch["tokens"], S,
-                                         batch["cache_len"], graph, frames)
+                                         batch["cache_len"], graph,
+                                         model.front_embeds(batch))
     prefilled = (logits.clone(), map_tree(torch.clone, cache))
     if graph:
         step = model.graphed_decode_step(B, batch["cache_len"],
@@ -1372,8 +1433,9 @@ def traced(label: str, kernel: str, per_pass: int, model, params,
     return rec
 
 
-def replays_alone(replay, source: str, top: int = 0, also=()) -> dict:
-    """``REPLAYS`` calls of ``replay`` traced alone (device kernels only,
+def replays_alone(replay, source: str, top: int = 0, also=(),
+                  n: int = REPLAYS) -> dict:
+    """``n`` calls of ``replay`` traced alone (device kernels only,
     the trace opened by the pre-roll): per call, the device kernels, those
     of ``source``, the device busy ms and the host-clock wall ms (the
     profiler's host cost included), and the device ms of ``source``'s
@@ -1384,28 +1446,27 @@ def replays_alone(replay, source: str, top: int = 0, also=()) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profile_serve.preroll()
         t0 = time.perf_counter()
-        for _ in range(REPLAYS):
+        for _ in range(n):
             replay()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(profile_serve.RECORDS_S)
     ks = profile_serve.device_kernels(prof)
-    out = dict(kernels=sum(e.count for e in ks) / REPLAYS,
-               tt=sum(e.count for e in ks if source in e.key) / REPLAYS,
-               busy_ms=sum(e.self_device_time_total for e in ks) / 1e3
-               / REPLAYS,
+    out = dict(kernels=sum(e.count for e in ks) / n,
+               tt=sum(e.count for e in ks if source in e.key) / n,
+               busy_ms=sum(e.self_device_time_total for e in ks) / 1e3 / n,
                tt_ms=sum(e.self_device_time_total for e in ks
-                         if source in e.key) / 1e3 / REPLAYS,
-               wall_ms=wall * 1e3 / REPLAYS)
+                         if source in e.key) / 1e3 / n,
+               wall_ms=wall * 1e3 / n)
     if also:
         out["also"] = {name: (
-            sum(e.count for e in ks if name in e.key) / REPLAYS,
+            sum(e.count for e in ks if name in e.key) / n,
             sum(e.self_device_time_total for e in ks if name in e.key)
-            / 1e3 / REPLAYS) for name in also}
+            / 1e3 / n) for name in also}
     if top:
         ks = sorted(ks, key=lambda e: -e.self_device_time_total)[:top]
-        out["top"] = [(e.key[:80], e.self_device_time_total / 1e3 / REPLAYS,
-                       e.count / REPLAYS) for e in ks]
+        out["top"] = [(e.key[:80], e.self_device_time_total / 1e3 / n,
+                       e.count / n) for e in ks]
     return out
 
 
@@ -1526,23 +1587,26 @@ def stagger_requests(vocab: int, lens=STAGGER_LENS, budgets=STAGGER_BUDGETS,
             for k in n], b
 
 
-def stagger_frames(model, count: int, F: int) -> list:
-    """The staggered run's speech frames [1, F, frontend_dim] bf16, one per
-    request, drawn by numpy from seed 1 (``serve.speech_frames``); empty
-    for a model without the speech front end."""
+def stagger_embeds(model, count: int, rows) -> list[dict]:
+    """The staggered run's front-end inputs, one dict a request, drawn by
+    numpy from seed 1 (``serve.random_embeds``): ``rows`` rows each (an
+    encoder-decoder's speech frames), or a tuple's counts by turns (a
+    vision-language model's images); empty for a model without a front
+    end."""
     rng = np.random.default_rng(1)
-    return [serve.speech_frames(model, rng, 1, F).get("speech_embeds")
-            for _ in range(count)] if model.cfg.enc_dec else []
+    counts = rows if isinstance(rows, tuple) else (rows,)
+    return [serve.random_embeds(model, rng, 1, counts[i % len(counts)])
+            for i in range(count)]
 
 
 def staggered_full(model, params, graph: bool, check=None,
                    stagger=(STAGGER_LENS, STAGGER_BUDGETS),
                    cache_len: int = 64 + PASSES, count: int = STAGGER_N,
-                   frames: int = 0, **paged) -> tuple[dict, dict]:
+                   rows=0, **paged) -> tuple[dict, dict]:
     """The step-indexed staggered run at full width: ``count`` requests
-    (``stagger_requests`` of the (lengths, budgets) ``stagger``; an
-    encoder-decoder's with ``frames`` speech frames each,
-    ``stagger_frames``) through a 4-slot pool over ``cache_len`` positions
+    (``stagger_requests`` of the (lengths, budgets) ``stagger``, with the
+    front end's inputs of ``rows``, ``stagger_embeds``) through a 4-slot
+    pool over ``cache_len`` positions
     (``paged``: the paged pool's and chunked prefill's ``Scheduler``
     arguments); four are submitted before the first ``step()``, then one
     before every third; ``check(sched)`` after every step.  A paged pool
@@ -1550,14 +1614,12 @@ def staggered_full(model, params, graph: bool, check=None,
     wall seconds and the MoE assignments dropped in the run)."""
     prompts, budgets = stagger_requests(model.cfg.vocab_size, *stagger,
                                         count)
-    speech = stagger_frames(model, count, frames)
+    embeds = stagger_embeds(model, count, rows)
     sched = Scheduler(model, params, num_slots=4, cache_len=cache_len,
                       graph=graph, **paged)
 
     def submit(i):
-        inputs = {"tokens": prompts[i]}
-        if speech:
-            inputs["speech_embeds"] = speech[i]
+        inputs = {"tokens": prompts[i], **embeds[i]}
         sched.submit(Request(uid=i, inputs=inputs,
                              max_new_tokens=int(budgets[i])))
 
@@ -2373,8 +2435,13 @@ RING_MODES = {"dense": {}, "paged": dict(paged=True, block_size=4),
               "chunk24 paged": dict(chunk_prefill=True, chunk_size=24,
                                     paged=True, block_size=8)}
 SSM_MODES = {"dense": {}, "paged": dict(paged=True, block_size=4)}
-# seamless's: no chunked prefill (refused), so the two pools
+# seamless's and internvl2's: no chunked prefill (refused), so the two
+# pools
 SEAMLESS_MODES = {"dense": {}, "paged": dict(paged=True, block_size=4)}
+# internvl2 SMOKE's image rows: the fixed batch's prompts of 24 and 40
+# tokens (16 decode steps fill each cache), and the scheduler's four
+# requests (the first fills its cache of 48)
+SMOKE_IMAGES, SMOKE_SCHED_IMAGES = (8, 5), (3, 16, 8, 5)
 for _c in (1, 5, 40):
     SSM_MODES[f"chunk{_c} dense"] = dict(chunk_prefill=True, chunk_size=_c,
                                          prefill_budget=2 * _c)
@@ -2393,7 +2460,11 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
     arenas with the SSD blocks' slot state; seamless: 2 non-causal encoder
     blocks and 2 cross-attending decoder blocks, every prompt with 12
     speech frames, with ``SEAMLESS_MODES``, and chunked prefill refused;
-    the staggered prompts share no prefix) on the card against the CPU,
+    internvl2: 2 GQA blocks after image embeddings of width 32 projected
+    and prepended to every prompt, ``SMOKE_IMAGES`` and
+    ``SMOKE_SCHED_IMAGES`` rows, with ``SEAMLESS_MODES``, chunked prefill
+    refused; the staggered prompts share no prefix) on the card against
+    the CPU,
     same weights, fp32 and int8 cores: the fixed batch (prompts of 24 and
     40 into caches of 48 and 64; gemma3's rings wrap): the prefill and 16
     decode steps fed the CPU's greedy tokens, eagerly and through the
@@ -2414,7 +2485,7 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
         tt_contract.reset_launch_counts()
         replayed0 = dict(gpu.replayed_launches)
         F = 12 if gpu.cfg.enc_dec else 0
-        if F:
+        if gpu.cfg.frontend:
             try:
                 Scheduler(gpu, p_gpu, num_slots=2, cache_len=48,
                           chunk_prefill=True)
@@ -2424,12 +2495,14 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
             else:
                 raise AssertionError(f"{arch}: chunked prefill was not "
                                      f"refused")
-        for S, T in ((24, 48), (40, 64)):
+        for (S, T), n in zip(((24, 48), (40, 64)), SMOKE_IMAGES):
             rng = np.random.default_rng(S)
             tokens = torch.from_numpy(rng.integers(0, 256, (2, S),
                                                    dtype=np.int64))
-            speech = serve.speech_frames(cpu, rng, 2, F)
-            frames = speech.get("speech_embeds")
+            speech = serve.random_embeds(cpu, rng, 2, F or n)
+            frames = cpu.front_embeds(speech)
+            rows = 0 if frames is None else int(frames.shape[1])
+            plen = S + cpu.image_rows(speech)
             lc, cc = cpu.prefill(p_cpu, {"tokens": tokens, "cache_len": T,
                                          **speech})
             want, forced = [lc], []
@@ -2437,11 +2510,11 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
                 forced.append(want[-1][:, -1].argmax(-1, keepdim=True))
                 lc, cc = cpu.decode_step(p_cpu, cc, forced[-1])
                 want.append(lc)
-            lg, cg = gpu.graphed_prefill(2, S, T, F)(
-                p_gpu, tokens.cuda(), S,
+            lg, cg = gpu.graphed_prefill(2, S, T, rows)(
+                p_gpu, tokens.cuda(), plen,
                 None if frames is None else frames.cuda())
             step = gpu.graphed_decode_step(2, T, enc_T=F)
-            step.load(p_gpu, cg, S)
+            step.load(p_gpu, cg, plen)
             got = [lg.clone()] + [step(t.cuda()).clone() for t in forced]
             worst = max(float((g.cpu() - w).abs().max())
                         for g, w in zip(got, want))
@@ -2457,7 +2530,8 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
                                               16).tokens.cpu(),
                                generate_fixed(cpu, p_cpu, batch, 16).tokens)
             print(f"small input, {arch} fixed batch ({weights} cores, prompt "
-                  f"{S}, cache {T}, windows {gpu.windows}): logits card "
+                  f"{S}{f' after {plen - S} image rows' if plen > S else ''}, "
+                  f"cache {T}, windows {gpu.windows}): logits card "
                   f"vs cpu max abs diff {worst:.3e} through the captured "
                   f"prefill and decode, {worst_eager:.3e} eager (tol 1e-4); "
                   f"greedy tokens {'=' if same else '!='} cpu", flush=True)
@@ -2470,9 +2544,10 @@ def small_ring_check(arch: str = "gemma3-4b", modes: dict = RING_MODES
         prompts = [torch.from_numpy(rng.integers(0, 256, (1, n),
                                                  dtype=np.int64))
                    for n in (40, 24, 8, 20)]
-        if F:
-            prompts = [{"tokens": p, **serve.speech_frames(cpu, rng, 1, F)}
-                       for p in prompts]
+        if gpu.cfg.frontend:
+            prompts = [{"tokens": p,
+                        **serve.random_embeds(cpu, rng, 1, F or n)}
+                       for p, n in zip(prompts, SMOKE_SCHED_IMAGES)]
         for mode, kw in modes.items():
             want = smoke_schedule(cpu, p_cpu, prompts, **kw)
             got = smoke_schedule(gpu, p_gpu, prompts, **kw)
@@ -3183,12 +3258,13 @@ def mamba2_path(smi: str) -> tuple[dict[str, int], dict]:
                                    probes=probes)
     rec = {"card": smi, "fixed": fixed}
 
-    model, params = serve.setup(serve.parse_args(MAMBA2_ARGS))
+    model, params, _ = cut_model(MAMBA2_ARGS, layers=MAMBA2_CUT_LAYERS)
     tt_contract.reset_launch_counts()
     replayed0 = dict(model.replayed_launches)
     paged = dict(paged=True, block_size=STAGGER_BLOCK)
     done, rec["staggered"] = staggered_block(
-        smi, "mamba2-2.7b", model, params, MAMBA2_STAGGER, MAMBA2_T,
+        smi, f"mamba2-2.7b at {MAMBA2_CUT_LAYERS} layers", model, params,
+        MAMBA2_STAGGER, MAMBA2_T,
         MAMBA2_N,
         {"dense graph": (True, {}), "dense eager": (False, {}),
          "paged graph": (True, paged),
@@ -3273,21 +3349,22 @@ def fixed_family(smi: str, name: str, argv: list, per: dict,
                  for k in set(dec) | set(pre)}
         also = sorted(set(names.values()) - {"tt_fused2_kernel"})
         batch = serve.prompt_batch(model, args)
-        frames, F = batch.get("speech_embeds"), frames_of(batch)
+        embeds = model.front_embeds(batch)
         T, tokens = batch["cache_len"], batch["tokens"]
         logits, cache = model.prefill(params, batch)
-        step = model.graphed_decode_step(args.batch, T, enc_T=F)
+        step = model.graphed_decode_step(args.batch, T,
+                                         enc_T=frames_of(batch))
         step.load(params, cache, args.prompt_len)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         rp = r["replay"] = replays_alone(lambda: step(tok),
                                          "tt_fused2_kernel", top=8,
                                          also=also)
-        pre_graph = model.graphed_prefill(*tokens.shape, T, F)
-        pre_graph(params, tokens, args.prompt_len, frames)  # cold run's
+        pre_graph = model.graphed_prefill(*prefill_key(model, args))
+        pre_graph(params, tokens, args.prompt_len, embeds)  # cold run's
         torch.cuda.synchronize()
         pp = r["prefill_replay"] = replays_alone(
-            lambda: pre_graph(params, tokens, args.prompt_len, frames),
-            "tt_fused2_kernel", top=8, also=also)
+            lambda: pre_graph(params, tokens, args.prompt_len, embeds),
+            "tt_fused2_kernel", top=8, also=also, n=PREFILL_REPLAYS)
 
         def tt(rep):
             """(launches, ms) of each TT kernel in a replay traced alone."""
@@ -3308,7 +3385,8 @@ def fixed_family(smi: str, name: str, argv: list, per: dict,
               f"{rp['wall_ms']:.3f} ms wall per replay; top: " +
               "; ".join(f"{k} {ms:.3f} ms x{n:g}" for k, ms, n in rp["top"])
               + f"; prefill replay of {args.batch} x {args.prompt_len} "
-              f"alone: {pp['kernels']:g} device kernels, "
+              f"alone ({PREFILL_REPLAYS} replays): {pp['kernels']:g} device "
+              f"kernels, "
               f"{pp['busy_ms']:.3f} ms busy, {tt_line(r['prefill_tt'])} (TT "
               f"{r['prefill_tt_share']:.1%}), {pp['wall_ms']:.3f} ms wall; "
               f"top: " + "; ".join(
@@ -3331,12 +3409,12 @@ def fixed_family(smi: str, name: str, argv: list, per: dict,
 
 def staggered_block(smi: str, name: str, model, params, stagger, T: int,
                     count: int, modes: dict, same: list, greedy_runs=(),
-                    hold: bool = True, frames: int = 0
-                    ) -> tuple[dict, dict]:
+                    hold: bool = True, rows=0) -> tuple[dict, dict]:
     """Phase 5's staggered run of one family: each of ``modes`` (label →
     (graph, the pool's and chunking's ``Scheduler`` arguments)) through
     ``staggered_full`` over ``count`` requests of ``stagger`` on 4 × ``T``
-    (an encoder-decoder's with ``frames`` frames each); the runs of each
+    (with the front end's inputs of ``rows``, ``stagger_embeds``); the
+    runs of each
     pair of ``same`` bit for bit, and the prefix counters 0 where the
     cache is not shareable.  Each request of each of ``greedy_runs``
     (none if the run dropped an MoE assignment) is held against
@@ -3345,8 +3423,10 @@ def staggered_block(smi: str, name: str, model, params, stagger, T: int,
     ``hold`` where ``generate_fixed`` dropped none either, measured
     otherwise.  Returns ({label: {uid: finished}}, the record)."""
     runs = {label: staggered_full(model, params, graph, None, stagger, T,
-                                  count, frames=frames, **kw)
+                                  count, rows=rows, **kw)
             for label, (graph, kw) in modes.items()}
+    # the captured prefills the runs left, before the checks below add theirs
+    prefill_keys = sorted(model.prefill_graphs)
     done = {k: v[0] for k, v in runs.items()}
     st = {k: v[1] for k, v in runs.items()}
     checks = {f"{a} = {b}": same_runs(done[a], done[b]) for a, b in same}
@@ -3355,7 +3435,7 @@ def staggered_block(smi: str, name: str, model, params, stagger, T: int,
             v.get("prefix_hit_tokens", 0) == v.get(
                 "prefill_tokens_skipped", 0) == 0 for v in st.values())
     prompts, _ = stagger_requests(model.cfg.vocab_size, *stagger, count)
-    speech = stagger_frames(model, count, frames)
+    embeds = stagger_embeds(model, count, rows)
     greedy, t0 = {}, time.perf_counter()
     for run in greedy_runs:
         greedy[run] = {}
@@ -3363,7 +3443,7 @@ def staggered_block(smi: str, name: str, model, params, stagger, T: int,
             moe.reset_drops()
             g = serve.greedy_against_fixed(
                 model, params, prompts[u].to(model.device), f, T,
-                speech[u] if speech else None)
+                model.front_embeds(embeds[u]))
             greedy[run][u] = dict(g, drops=moe.read_drops())
     t_greedy = time.perf_counter() - t0
 
@@ -3382,8 +3462,9 @@ def staggered_block(smi: str, name: str, model, params, stagger, T: int,
         f"{worst(gs, 'logprob_diff'):.3g} over the {len(gs)} measured"
         for run, gs in greedy.items())
     print(f"{name} staggered run ({count} requests, prompts {stagger[0]}, "
-          f"budgets {stagger[1]}, 4 x {T}"
-          f"{f', {frames} frames each' if frames else ''}; {smi}): " +
+          f"budgets {stagger[1]}, 4 x {T}" +
+          (f", {rows} {'frames' if model.cfg.enc_dec else 'image rows'}"
+           f" each" if rows else "") + f"; {smi}): " +
           ", ".join(f"{k} {v['wall_s']:.3f} s ({v['steps_run']} steps, "
                     f"{v['drops']} drops)" for k, v in st.items()) + "; " +
           ", ".join(f"{k} {'holds' if v else 'FAILS'}"
@@ -3397,7 +3478,8 @@ def staggered_block(smi: str, name: str, model, params, stagger, T: int,
         raise AssertionError(f"{name} staggered run: {checks}, drops "
                              f"{ {k: v['drops'] for k, v in st.items()} }, "
                              f"greedy {greedy}")
-    return done, dict(st, checks=checks, greedy=greedy)
+    return done, dict(st, checks=checks, greedy=greedy,
+                      prefill_keys=prefill_keys)
 
 
 def encoder_alone(model, params, args) -> dict:
@@ -3408,7 +3490,7 @@ def encoder_alone(model, params, args) -> dict:
     frames = serve.prompt_batch(model, args)["speech_embeds"]
     with torch.no_grad():
         return replays_alone(lambda: model._encode(params, frames),
-                             "tt_fused2_kernel", top=6)
+                             "tt_fused2_kernel", top=6, n=PREFILL_REPLAYS)
 
 
 def seamless_path(smi: str) -> tuple[dict[str, int], dict]:
@@ -3457,7 +3539,7 @@ def seamless_path(smi: str) -> tuple[dict[str, int], dict]:
          "paged graph": (True, paged), "paged eager": (False, paged)},
         [("dense graph", "dense eager"), ("paged graph", "dense graph"),
          ("paged eager", "paged graph")], ("dense graph",),
-        frames=SEAMLESS_FRAMES)
+        rows=SEAMLESS_FRAMES)
     counted = tt_contract.launch_counts()
     replayed = serve.since(replayed0, model.replayed_launches)
     launches["tt_fused2"] += counted.get("tt_fused2", 0) + replayed.get(
@@ -3466,6 +3548,113 @@ def seamless_path(smi: str) -> tuple[dict[str, int], dict]:
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"seamless-m4t-large-v2 phase 5: {rec['wall_s']:.1f} s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def internvl2_kernels(gen) -> list[dict]:
+    """``fused2_kernels`` at internvl2-2b's four shapes, bf16 activations,
+    fp and int8 cores, every one timed at ``INTERNVL2_ROWS`` (the records'
+    ``per_layer`` is launches a pass)."""
+    return fused2_kernels(gen, INTERNVL2_SHAPES, "internvl2-2b",
+                          INTERNVL2_ROWS, cases=BF16_CASES)
+
+
+def image_prefix(model, params, args, r) -> str:
+    """internvl2-2b's probe of ``fixed_family``, the image prefix's share
+    of the prefill replay: the projector of the fixed batch's image
+    embeddings (``Model._project``, eager) traced alone, and the captured
+    prefill of as many rows with the least image prefix a prompt takes
+    (one image row, the rest tokens) traced alone beside the fixed
+    batch's; adds them to ``r`` and returns a line to print."""
+    batch = serve.prompt_batch(model, args)
+    images, T = batch["image_embeds"], batch["cache_len"]
+    with torch.no_grad():
+        proj = r["projector"] = replays_alone(
+            lambda: model._project(params, images), "tt_fused2_kernel",
+            top=3)
+    B, S = args.batch, args.prompt_len
+    rng = np.random.default_rng(args.seed + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (B, S - 1), dtype=np.int64)).to(
+        model.device)
+    one = serve.random_embeds(model, rng, B, 1)["image_embeds"]
+    graph = model.graphed_prefill(B, S - 1, T, 1)
+    graph(params, tokens, S, one)                       # its capture
+    torch.cuda.synchronize()
+    text = r["text_prefill_replay"] = replays_alone(
+        lambda: graph(params, tokens, S, one), "tt_fused2_kernel",
+        n=PREFILL_REPLAYS)
+    full = r["prefill_replay"]["busy_ms"]
+    r["projector_share"] = proj["busy_ms"] / full
+    r["image_prefill_ratio"] = full / text["busy_ms"]
+    if proj["tt"] or text["tt"] != PROJ * model.cfg.num_layers:
+        raise AssertionError(f"{proj['tt']} tt_fused2_kernel in the "
+                             f"projector, {text['tt']} in the prefill of one "
+                             f"image row")
+    return (f"; the projector of {B} x {images.shape[1]} image rows alone "
+            f"(eager): {proj['kernels']:g} kernels, {proj['busy_ms']:.3f} "
+            f"ms busy ({r['projector_share']:.2%} of the prefill replay); "
+            f"the prefill replay of 1 image row and {S - 1} tokens alone: "
+            f"{text['kernels']:g} kernels, {text['busy_ms']:.3f} ms busy "
+            f"(the fixed batch's {r['image_prefill_ratio']:.4f} x it)")
+
+
+def internvl2_path(smi: str) -> tuple[dict[str, int], dict]:
+    """Phase 5, full-width internvl2-2b (bf16 params from seed 0, nothing
+    cut, TT on ffn+attn at rank 16, ``auto``: 168 ``tt_fused2`` a decode
+    and a prefill pass).
+
+    The fixed batch (``INTERNVL2_FIXED``: 4 prompts of 1,024 image
+    embeddings and 1,024 tokens, 64 new tokens) through ``fixed_family``,
+    fp then int8 cores, with the image prefix's share of the prefill
+    replay (``image_prefix``).  Then at ``INTERNVL2_CUT_LAYERS`` layers
+    (``cut_model``) the staggered run (``STAGGER_64_256``, 64 and 128
+    image rows by turns, on 4 × ``INTERNVL2_T``) dense and paged (blocks
+    of 16), graph and eager (``staggered_block``): dense graph ≡ eager ≡
+    paged bit for bit, prefix counters 0, the captured prefills keyed by
+    both image counts, and every request held against ``generate_fixed``
+    by ``serve.check_greedy``'s rule, asserted (no MoE, no SSD state).
+    Returns ``tt_fused2``'s and ``tt_fused2_int8``'s launches over the
+    fixed-batch calls and the staggered runs, and the record."""
+    t_phase = time.perf_counter()
+    launches, fixed = fixed_family(
+        smi, "internvl2-2b", INTERNVL2_ARGS + INTERNVL2_FIXED,
+        {"tt_fused2": PROJ * INTERNVL2_LAYERS}, probes=image_prefix)
+    rec = {"card": smi, "fixed": fixed}
+    model, params, _ = cut_model(INTERNVL2_ARGS, layers=INTERNVL2_CUT_LAYERS)
+    tt_contract.reset_launch_counts()
+    replayed0 = dict(model.replayed_launches)
+    paged = dict(paged=True, block_size=STAGGER_BLOCK)
+    _, rec["staggered"] = staggered_block(
+        smi, f"internvl2-2b at {INTERNVL2_CUT_LAYERS} layers", model, params,
+        STAGGER_64_256, INTERNVL2_T, STAGGER_N,
+        {"dense graph": (True, {}), "dense eager": (False, {}),
+         "paged graph": (True, paged), "paged eager": (False, paged)},
+        [("dense graph", "dense eager"), ("paged graph", "dense graph"),
+         ("paged eager", "paged graph")], ("dense graph",),
+        rows=INTERNVL2_IMAGES)
+    counted = tt_contract.launch_counts()
+    replayed = serve.since(replayed0, model.replayed_launches)
+    launches["tt_fused2"] += counted.get("tt_fused2", 0) + replayed.get(
+        "tt_fused2", 0)
+    # each admission's bucket leaves room for its image rows
+    prompts, _ = stagger_requests(model.cfg.vocab_size, *STAGGER_64_256,
+                                  STAGGER_N)
+    imgs = [INTERNVL2_IMAGES[i % len(INTERNVL2_IMAGES)]
+            for i in range(STAGGER_N)]
+    want = sorted({(1, bucket_length(int(p.shape[1]), INTERNVL2_T - n),
+                    INTERNVL2_T, n) for p, n in zip(prompts, imgs)})
+    keys = rec["staggered"]["prefill_keys"]
+    print(f"internvl2-2b staggered run: captured prefills (batch, tokens, "
+          f"cache, image rows) {keys}", flush=True)
+    if keys != want:
+        raise AssertionError(f"internvl2-2b staggered run: prefill graphs "
+                             f"{keys}, expected {want}")
+    del model, params
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"internvl2-2b phase 5: {rec['wall_s']:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rec
@@ -3583,6 +3772,10 @@ def main() -> int:
                             "seamless-m4t-large-v2", (4, 256, 4096),
                             per="pass")
     recs += e_recs
+    v_recs = timed("kernels internvl2", internvl2_kernels, gen)
+    layers += layer_summary(v_recs, ("tt_fused2", "tt_fused2_int8"),
+                            "internvl2-2b", INTERNVL2_ROWS, per="pass")
+    recs += v_recs
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3600,6 +3793,8 @@ def main() -> int:
     timed("smoke mamba2", small_ring_check, "mamba2-2.7b", SSM_MODES)
     timed("smoke jamba", small_ring_check, "jamba-v0.1-52b", SSM_MODES)
     timed("smoke seamless", small_ring_check, "seamless-m4t-large-v2",
+          SEAMLESS_MODES)
+    timed("smoke internvl2", small_ring_check, "internvl2-2b",
           SEAMLESS_MODES)
     launches, graph_recs = timed("deepseek fixed batch", main_paths, smi)
     fused2, sched_rec = timed("deepseek scheduler", scheduler_path, smi)
@@ -3622,13 +3817,17 @@ def main() -> int:
                                      smi)
     for k, v in e_launches.items():
         launches[k] += v
+    v_launches, internvl2_rec = timed("internvl2-2b", internvl2_path, smi)
+    for k, v in v_launches.items():
+        launches[k] += v
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps, "graph": graph_recs,
                    "scheduler": sched_rec, "gemma3": gemma3_rec,
                    **moe_recs, "qwen3-32b": qwen3_rec,
                    "mamba2-2.7b": mamba2_rec,
-                   "seamless-m4t-large-v2": seamless_rec, "walls": walls}, f,
+                   "seamless-m4t-large-v2": seamless_rec,
+                   "internvl2-2b": internvl2_rec, "walls": walls}, f,
                   indent=1, default=str)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s; by "
           f"phase: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()),

@@ -11,9 +11,11 @@ attention/SSM hybrid: periods of seven SSD blocks and one GQA block, each
 with a GLU MLP or (every other layer) a 16-expert MoE FFN; and
 seamless-m4t-large-v2, the encoder-decoder: a non-causal GQA encoder over
 speech-frame embeddings and a GQA decoder whose every layer cross-attends
-to the encoder's output.  Every other architecture of the reference
-registry raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+to the encoder's output; and internvl2-2b, the vision-language model: a
+GQA decoder with the GLU MLP (InternLM2) whose prompt starts with
+projected image embeddings (the InternViT stub).  That is every
+architecture of the reference registry; ``PENDING`` lists none left to
+port.
 """
 from __future__ import annotations
 
@@ -30,10 +32,10 @@ if TYPE_CHECKING:                      # avoid configs ↔ models import cycle
 
 PORTED = ("deepseek_7b", "gemma3_4b", "granite_8b", "mixtral_8x7b",
           "qwen3_32b", "deepseek_v2_lite_16b", "mamba2_2p7b",
-          "jamba_v0_1_52b", "seamless_m4t_large_v2")
+          "jamba_v0_1_52b", "seamless_m4t_large_v2", "internvl2_2b")
 
 # architectures of the reference registry that are not ported yet
-PENDING = ("internvl2_2b",)
+PENDING: tuple[str, ...] = ()
 
 _PENDING_MSG = ("architecture {!r} is not ported yet (ROADMAP.md Queue 1, "
                 "\"Remaining families\")")
@@ -74,11 +76,12 @@ def make_layer_plan(cfg: ModelConfig) -> list:
     (every layer the GLU MLP without ``first_dense_ff``); otherwise every
     layer is one GQA block (windowed when ``window`` is set) with a
     mixture-of-experts FFN when the config has experts, else the GLU
-    MLP.  The decoder of an encoder-decoder (seamless) is one GQA block per
-    layer that cross-attends to the encoder's output
+    MLP (the vision-language model, internvl2, falls through to this last
+    branch too).  The decoder of an encoder-decoder (seamless) is one GQA
+    block per layer that cross-attends to the encoder's output
     (``make_enc_layer_plan`` gives the encoder)."""
     from repro_torch.models.transformer import BlockDef
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") and not \
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm") and not \
             cfg.enc_dec:
         raise NotImplementedError(_PENDING_MSG.format(cfg.name))
     L = cfg.num_layers

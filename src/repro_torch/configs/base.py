@@ -8,9 +8,10 @@ layer every ``attn_every``, at ``attn_index``), and both FFNs, the GLU
 MLP and the mixture of experts (``MoEConfig``), and the encoder-decoder
 (``enc_dec``: ``num_enc_layers`` non-causal encoder layers over frame
 embeddings of width ``frontend_dim`` from the ``speech`` front end, whose
-output every decoder layer cross-attends to); ``frontend_tokens``, a
-field of the vision front end the port does not run yet, is left out
-until it is ported.
+output every decoder layer cross-attends to), and the ``vit`` front end
+(precomputed image embeddings of width ``frontend_dim``, projected and
+prepended to the token embeddings; ``frontend_tokens`` is the image rows
+the serve CLI draws at most).
 """
 from __future__ import annotations
 
@@ -114,8 +115,9 @@ class ModelConfig:
     enc_dec: bool = False
     num_enc_layers: int = 0
     # the front end's stub: precomputed embeddings of width frontend_dim
-    frontend: str | None = None              # 'speech'
+    frontend: str | None = None              # 'vit' | 'speech'
     frontend_dim: int = 0
+    frontend_tokens: int = 0
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     tt: TTConfig = TTConfig()

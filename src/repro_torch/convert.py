@@ -8,8 +8,9 @@ port's own specs and raises on any mismatch.  int8 bundles carry their
 ``[L, E, r0, n, m, r1]`` and router ``[L, d, E]``).  An encoder-decoder's
 tree also holds the dense ``frontend_proj``, ``enc_norm`` and the stacked
 encoder groups ``enc_g{gi}``, and its decoder blocks ``ln_x`` and
-``xattn``: the port's specs name them, so they cross as every other
-leaf, fp or int8.  Leaves arrive as numpy arrays (``jax.tree.map(np.asarray,
+``xattn``; a vision-language model's the dense ``projector`` ``{"w"}``:
+the port's specs name them, so they cross as every other leaf, fp or
+int8.  Leaves arrive as numpy arrays (``jax.tree.map(np.asarray,
 params)`` on the reference side), so this module needs no JAX.
 """
 from __future__ import annotations

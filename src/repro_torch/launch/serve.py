@@ -4,7 +4,7 @@ the continuous-batching scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-7b|gemma3-4b|granite-8b|qwen3-32b|mixtral-8x7b|\\
                deepseek-v2-lite-16b|mamba2-2.7b|jamba-v0.1-52b|\\
-               seamless-m4t-large-v2 \\
+               seamless-m4t-large-v2|internvl2-2b \\
         --variant full --batch 4 \\
         --prompt-len 64 --steps 32 --tt ffn,attn --tt-rank 16 \\
         --tt-backend auto [--tt-weights int8] [--device cpu] \\
@@ -44,6 +44,14 @@ layers × 11 (self- and cross-attention, MLP) at a prefill, and 24 × 9 at
 a decode step (the cross keys and values are the prefill's); its
 scheduler builds its pool at the first admission and serves one frame
 count, and refuses ``--chunk-prefill`` and ``--prefix-smoke``.
+internvl2-2b (the vision-language model) splits each prompt of
+``--prompt-len`` rows as the reference CLI does: S_img = min(1,024,
+``--prompt-len`` // 2) image embeddings (bf16, drawn by the prompts' numpy
+generator after the tokens; their projection is prepended to the token
+embeddings) and ``--prompt-len`` - S_img tokens, so the cache and a
+request's reservation count both; with ``--tt ffn,attn`` a pass is 24
+layers × 7 ``tt_fused2``; it refuses ``--chunk-prefill`` and
+``--prefix-smoke``.
 
 With ``--arrival-rate`` it runs ``simulate`` instead, the reference's
 arrival mode: a ``Scheduler`` of ``--slots`` slots over ``--prompt-len`` +
@@ -102,28 +110,50 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def speech_frames(model, rng: np.random.Generator, B: int, F: int
-                  ) -> dict:
-    """``{"speech_embeds": [B, F, frontend_dim] bf16}`` (standard normal,
-    drawn by ``rng``) for a model with the speech front end, else ``{}``:
-    the reference CLI's frames, F of them for a prompt of F tokens."""
-    if model.cfg.frontend != "speech":
+def random_embeds(model, rng: np.random.Generator, B: int, n: int) -> dict:
+    """The front end's embeddings of ``B`` prompts, ``n`` rows each, bf16
+    standard normal drawn by ``rng`` (the reference CLI's stub inputs),
+    under the model's ``front_input`` key: an encoder-decoder's speech
+    frames or a vision-language model's images; ``{}`` (nothing drawn) for
+    a model without a front end."""
+    if model.front_input is None:
         return {}
-    frames = rng.standard_normal((B, F, model.cfg.frontend_dim),
+    embeds = rng.standard_normal((B, n, model.cfg.frontend_dim),
                                  dtype=np.float32)
-    return {"speech_embeds": torch.from_numpy(frames).to(
+    return {model.front_input: torch.from_numpy(embeds).to(
         device=model.device, dtype=torch.bfloat16)}
 
 
-def prompt_batch(model, args) -> dict:
-    """``--batch`` prompts of ``--prompt-len`` tokens drawn by a numpy
-    generator seeded with ``--seed`` (an encoder-decoder's speech frames
-    after them, ``speech_frames``), and the cache length they need."""
-    rng = np.random.default_rng(args.seed)
-    tokens = rng.integers(0, model.cfg.vocab_size,
-                          (args.batch, args.prompt_len), dtype=np.int64)
+def image_split(model, prompt_len: int) -> int:
+    """The image rows of a prompt of ``prompt_len`` rows, the reference
+    CLI's split: min(``frontend_tokens``, prompt_len // 2) for a model with
+    the vision front end (its tokens are the rest), 0 for every other."""
+    if model.cfg.frontend != "vit":
+        return 0
+    return min(model.cfg.frontend_tokens, prompt_len // 2)
+
+
+def prompt_inputs(model, rng: np.random.Generator, B: int,
+                  prompt_len: int) -> dict:
+    """``B`` prompts of ``prompt_len`` rows drawn by ``rng`` on the
+    model's device: the tokens, then the front end's embeddings
+    (``random_embeds``): an encoder-decoder's speech frames, as many as
+    the tokens, or a vision-language model's images, ``image_split``'s
+    count, the tokens taking the rest."""
+    img = image_split(model, prompt_len)
+    n = img if model.cfg.frontend == "vit" else prompt_len
+    tokens = rng.integers(0, model.cfg.vocab_size, (B, prompt_len - img),
+                          dtype=np.int64)
     return {"tokens": torch.from_numpy(tokens).to(model.device),
-            **speech_frames(model, rng, args.batch, args.prompt_len),
+            **random_embeds(model, rng, B, n)}
+
+
+def prompt_batch(model, args) -> dict:
+    """``--batch`` prompts of ``--prompt-len`` rows drawn by a numpy
+    generator seeded with ``--seed`` (``prompt_inputs``), and the cache
+    length they need."""
+    rng = np.random.default_rng(args.seed)
+    return {**prompt_inputs(model, rng, args.batch, args.prompt_len),
             "cache_len": args.prompt_len + args.steps}
 
 
@@ -239,14 +269,11 @@ def _percentile(xs: list[float], q: float) -> float:
 
 
 def arrival_request(model, args, uid: int, seed: int) -> Request:
-    """One request of the arrival mode: ``--prompt-len`` tokens drawn by a
-    numpy generator seeded with ``seed`` (an encoder-decoder's speech
-    frames after them), ``--steps`` new tokens."""
-    rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, model.cfg.vocab_size, (1, args.prompt_len),
-                          dtype=np.int64)
-    inputs = {"tokens": torch.from_numpy(tokens),
-              **speech_frames(model, rng, 1, args.prompt_len)}
+    """One request of the arrival mode: a prompt of ``--prompt-len`` rows
+    drawn by a numpy generator seeded with ``seed`` (``prompt_inputs``),
+    ``--steps`` new tokens."""
+    inputs = prompt_inputs(model, np.random.default_rng(seed), 1,
+                           args.prompt_len)
     return Request(uid=uid, inputs=inputs,
                    max_new_tokens=args.steps, temperature=args.temperature,
                    top_k=args.top_k)
@@ -412,21 +439,23 @@ PREFIX_TAIL = 16
 
 def forced_logits(model, params, tokens: torch.Tensor,
                   forced: np.ndarray, T: int,
-                  frames: torch.Tensor | None = None) -> torch.Tensor:
+                  embeds: torch.Tensor | None = None) -> torch.Tensor:
     """``generate_fixed``'s logits [n, V] (fp32) for the one prompt ``tokens
-    [1, S]`` (an encoder-decoder's over ``frames [1, F, frontend_dim]``)
-    over a cache of ``T``, fed the ``n`` tokens ``forced`` (picked by
-    another path) in place of its own greedy picks: the prefill's, then
+    [1, S]`` (with the front end's ``embeds [1, n, frontend_dim]``: an
+    encoder-decoder's frames, a vision-language model's images before the
+    tokens) over a cache of ``T``, fed the ``n`` tokens ``forced`` (picked
+    by another path) in place of its own greedy picks: the prefill's, then
     each decode step's, through the same entries (the prefill at the
     prompt's length and, on a card, the fixed-batch decode graph of one
     row)."""
-    S = int(tokens.shape[1])
-    logits, cache = model.padded_prefill(params, tokens, S, T, True, frames)
+    rows = 0 if embeds is None else int(embeds.shape[1])
+    S = int(tokens.shape[1]) + (rows if model.cfg.frontend == "vit" else 0)
+    logits, cache = model.padded_prefill(params, tokens, S, T, True, embeds)
     out = [logits[0, -1].clone()]
     step = None
     if model.device.type == "cuda":
         step = model.graphed_decode_step(
-            1, T, enc_T=0 if frames is None else int(frames.shape[1]))
+            1, T, enc_T=rows if model.cfg.enc_dec else 0)
         step.load(params, cache, S)
     for tok in forced[:-1]:
         tok = torch.tensor([[int(tok)]], device=model.device)
@@ -439,10 +468,10 @@ def forced_logits(model, params, tokens: torch.Tensor,
 
 
 def greedy_against_fixed(model, params, prompt: torch.Tensor, got,
-                         T: int, frames: torch.Tensor | None = None) -> dict:
+                         T: int, embeds: torch.Tensor | None = None) -> dict:
     """A served request's greedy tokens and logprobs (``got``, a
     ``FinishedRequest``) against ``generate_fixed`` of its prompt alone
-    (an encoder-decoder's over its speech ``frames``):
+    (with the front end's ``embeds``: speech frames, or images):
     the tokens' identity, the smallest top-1/top-2 logit gap, along the
     served tokens (fed to ``generate_fixed``'s arithmetic,
     ``forced_logits``) the largest slack of a pick below that step's top
@@ -455,11 +484,11 @@ def greedy_against_fixed(model, params, prompt: torch.Tensor, got,
     batch shape may pick the other of two tied tokens)."""
     toks = np.asarray(got.tokens)
     batch = {"tokens": prompt, "cache_len": T}
-    if frames is not None:
-        batch["speech_embeds"] = frames
+    if embeds is not None:
+        batch[model.front_input] = embeds
     ref = generate_fixed(model, params, batch,
                          len(toks)).tokens.cpu().numpy()[0]
-    lg = forced_logits(model, params, prompt, toks, T, frames).float()
+    lg = forced_logits(model, params, prompt, toks, T, embeds).float()
     tol = (1e-4 if model.param_dtype == torch.float32
            else 2e-2 * float(lg.abs().max()))
     pick = torch.from_numpy(toks).to(lg.device)[:, None]
@@ -476,10 +505,10 @@ def greedy_against_fixed(model, params, prompt: torch.Tensor, got,
 
 
 def check_greedy(model, params, prompt: torch.Tensor, got, T: int,
-                 frames: torch.Tensor | None = None) -> dict:
+                 embeds: torch.Tensor | None = None) -> dict:
     """``greedy_against_fixed``, raising unless the request holds to the
     tolerance; returns its record."""
-    out = greedy_against_fixed(model, params, prompt, got, T, frames)
+    out = greedy_against_fixed(model, params, prompt, got, T, embeds)
     if not out["within"]:
         raise AssertionError(f"request {got.uid}: tokens {out['tokens']} "
                              f"against generate_fixed's "

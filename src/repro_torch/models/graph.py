@@ -27,13 +27,16 @@ graph's static cache holds the encoder's keys and values xk/xv [B, F, KV,
 hd] of every decoder layer, which its replays read and never write.
 
 A :class:`PrefillGraph` belongs to one model and one (batch, padded
-prompt length, cache length[, frame count]).  Its static buffers are the
-tokens [B,S], the true prompt length (0-d int32), an encoder-decoder's
-speech frames [B, F, frontend_dim] (in the parameters' dtype, as the
-eager prefill casts them), the logits [B,1,V] and an output cache that
-all prefill graphs of the model with the same (batch, cache length[,
-frame count]) share; its temporaries live in one memory pool shared by
-every prefill graph of the model (no output lives there, and one replays at a time).
+prompt length, cache length[, front-end rows]).  Its static buffers are
+the tokens [B,S], the true prompt length (0-d int32), the front end's
+embeddings [B, n, frontend_dim] of a model with one (an encoder-decoder's
+speech frames, a vision-language model's images; in the parameters'
+dtype, as the eager prefill casts them), the logits [B,1,V] and an
+output cache that all prefill graphs of the model with the same (batch,
+cache length[, frame count]) share (``Model.prefill_cache_key``: a
+vision-language model's image rows lie within the cache length); its
+temporaries live in one memory pool shared by every prefill graph of
+the model (no output lives there, and one replays at a time).
 
 Capture happens at a graph's first use (a decode graph's first ``load``
 or ``bind``, a prefill, resume or mixed graph's first call), and again when
@@ -329,29 +332,34 @@ class DecodeGraph:
 
 class PrefillGraph:
     """``Model.prefill`` of ``B`` prompts right-padded to ``S`` tokens
-    into a cache of ``T`` positions (an encoder-decoder's over ``enc_T``
-    speech frames), captured once and replayed for every prompt length up
-    to ``S`` (``Model.graphed_prefill``).
+    into a cache of ``T`` positions (a model with a front end's with ``n``
+    rows of its embeddings: an encoder-decoder's speech frames, or a
+    vision-language model's images, prepended to the tokens), captured
+    once and replayed for every prompt length up to ``S``
+    (``Model.graphed_prefill``).
 
-    ``graph(params, tokens, prompt_len, frames)`` copies ``tokens [B,S]``,
-    the true length and an encoder-decoder's ``frames [B, enc_T,
-    frontend_dim]`` into the static buffers (capturing first when there is
-    no graph for ``params`` yet) and replays: it returns the static logits
-    [B,1,V] of position prompt_len - 1 and the static output cache at
-    ``pos`` = prompt_len (xk/xv included), which the caller copies out (a
-    splice into the slot pool, ``DecodeGraph.load``) before the next
-    replay of a prefill graph of the same (B, T[, enc_T]).  The capture
-    touches nothing but the graph's own buffers, so it may run while a
-    slot pool holds live rows.
+    ``graph(params, tokens, prompt_len, embeds)`` copies ``tokens [B,S]``,
+    the true length (a vision-language model's counts its n image rows)
+    and the front end's ``embeds [B, n, frontend_dim]`` into the static
+    buffers (capturing first when there is no graph for ``params`` yet)
+    and replays: it returns the static logits [B,1,V] of position
+    prompt_len - 1 and the static output cache at ``pos`` = prompt_len
+    (xk/xv included), which the caller copies out (a splice into the slot
+    pool, ``DecodeGraph.load``) before the next replay of a prefill graph
+    of the same ``Model.prefill_cache_key``.  The capture touches nothing
+    but the graph's own buffers, so it may run while a slot pool holds
+    live rows.
     """
 
-    def __init__(self, model: "Model", B: int, S: int, T: int,
-                 enc_T: int = 0):
+    def __init__(self, model: "Model", B: int, S: int, T: int, n: int = 0):
         if model.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA model, not "
                              f"{model.device}: prefill eagerly on the CPU")
-        if S > T:
-            raise ValueError(f"prompt of {S} tokens exceeds the cache of {T}")
+        # a vision-language model's image rows come before the tokens
+        self.img = n if model.cfg.frontend == "vit" else 0
+        if self.img + S > T:
+            raise ValueError(f"prompt of {self.img} image rows and {S} "
+                             f"tokens exceeds the cache of {T}")
         dev = model.device
         self.model, self.B, self.S, self.T = model, B, S, T
         self.graph: torch.cuda.CUDAGraph | None = None
@@ -359,18 +367,18 @@ class PrefillGraph:
         # replay, so the graph keeps them alive
         self.params = None
         self.tokens = torch.zeros((B, S), dtype=torch.int64, device=dev)
-        self.prompt_len = torch.full((), S, dtype=torch.int32, device=dev)
-        self.enc_T = enc_T
-        self.frames = (torch.zeros((B, enc_T, model.cfg.frontend_dim),
+        self.prompt_len = torch.full((), self.img + S, dtype=torch.int32,
+                                     device=dev)
+        self.embeds = (torch.zeros((B, n, model.cfg.frontend_dim),
                                    dtype=model.param_dtype, device=dev)
-                       if enc_T else None)
+                       if model.front_input else None)
         self.logits = torch.empty((B, 1, model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
-        # made by the first prefill graph of (B, T[, enc_T]), outside any
-        # capture
-        key = (B, T) + model.enc_key(enc_T)
+        # made by the first prefill graph of its key, outside any capture
+        key = model.prefill_cache_key(B, S, T, n)
         if key not in model.prefill_caches:
-            model.prefill_caches[key] = model.init_cache(B, T, enc_T=enc_T)
+            model.prefill_caches[key] = model.init_cache(
+                B, T, enc_T=n if model.cfg.enc_dec else 0)
         self.cache = model.prefill_caches[key]
         # TT launches one replay makes, by kernel name
         self.captured: dict[str, int] = {}
@@ -378,8 +386,8 @@ class PrefillGraph:
     def _prefill(self) -> None:
         batch = {"tokens": self.tokens, "cache_len": self.T,
                  "prompt_len": self.prompt_len}
-        if self.frames is not None:
-            batch["speech_embeds"] = self.frames
+        if self.embeds is not None:
+            batch[self.model.front_input] = self.embeds
         logits, _ = self.model.prefill(self.params, batch, out=self.cache)
         self.logits.copy_(logits)
 
@@ -397,24 +405,25 @@ class PrefillGraph:
         model.prefill_builds += 1
 
     def __call__(self, params, tokens: torch.Tensor, prompt_len: int,
-                 frames: torch.Tensor | None = None
+                 embeds: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, dict]:
-        """Prefill ``tokens [B,S]``, right-padded past ``prompt_len`` (an
-        encoder-decoder's over ``frames [B, enc_T, frontend_dim]``);
-        returns the static (logits [B,1,V], cache)."""
+        """Prefill ``tokens [B,S]``, right-padded past ``prompt_len``
+        (which counts a vision-language model's image rows), with the
+        front end's ``embeds [B, n, frontend_dim]``; returns the static
+        (logits [B,1,V], cache)."""
         if tuple(tokens.shape) != (self.B, self.S):
             raise ValueError(f"tokens {tuple(tokens.shape)} for the prefill "
                              f"graph of {self.B} rows of {self.S}")
-        if not 0 < prompt_len <= self.S:
+        if not self.img < prompt_len <= self.img + self.S:
             raise ValueError(f"prompt_len {prompt_len} outside a prompt of "
-                             f"{self.S}")
-        want = None if self.frames is None else tuple(self.frames.shape)
-        got = None if frames is None else tuple(frames.shape)
+                             f"{self.img + self.S}")
+        want = None if self.embeds is None else tuple(self.embeds.shape)
+        got = None if embeds is None else tuple(embeds.shape)
         if got != want:
-            raise ValueError(f"frames {got} for the prefill graph of "
-                             f"frames {want}")
-        if frames is not None:
-            self.frames.copy_(frames)
+            raise ValueError(f"front-end embeddings {got} for the prefill "
+                             f"graph of {want}")
+        if embeds is not None:
+            self.embeds.copy_(embeds)
         self.tokens.copy_(tokens)
         self.prompt_len.fill_(prompt_len)
         if self.graph is None or params is not self.params:

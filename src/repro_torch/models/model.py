@@ -8,8 +8,10 @@ FFN, deepseek-v2's latent-cache MLA, mamba2's SSD mixer over a
 per-slot recurrent state, and jamba's hybrid of the two, included) and
 for seamless's encoder-decoder (``_encode`` over the speech frames the
 prefill takes as ``batch["speech_embeds"]``, the decoder cross-attending
-to the encoder's keys and values, kept per row in the cache); and
-for the
+to the encoder's keys and values, kept per row in the cache), and for
+internvl2's vision-language decoder (the image embeddings the prefill
+takes as ``batch["image_embeds"]``, projected and prepended to the
+prompt's token embeddings: plain k/v rows of its cache); and for the
 block-paged pool (DESIGN.md §7), ``init_cache(..., paged=True)``,
 ``splice_cache_paged`` and the prefix-reuse admission ``prefill_resume``
 (``resume_prefill`` buckets it and, on a card, replays it captured); and
@@ -22,7 +24,8 @@ Parameters are a dict tree of tensors: ``embed``, ``final_norm``,
 and one list per layer group ``g{gi}`` holding a dict ``{"b0": ..., "b1":
 ...}`` of block params per layer; an encoder-decoder also ``enc_norm``,
 one list per encoder group ``enc_g{gi}`` and the dense ``frontend_proj``
-[frontend_dim, d_model] of the speech frames.
+[frontend_dim, d_model] of the speech frames; a vision-language model the
+dense ``projector`` [frontend_dim, d_model] of the image embeddings.
 ``convert.from_jax_params`` builds this tree from the reference's stacked one.
 """
 from __future__ import annotations
@@ -82,7 +85,14 @@ class Model:
     cross-attention keys and values xk/xv [B, F, KV, hd] as 'slot' leaves:
     every cache, pool and graph of it is sized by a frame count F
     (``enc_T``), which the keys of its captured graphs and prefill caches
-    carry as their last element (``enc_key``)."""
+    carry as their last element (``enc_key``).
+
+    A vision-language model (``frontend="vit"``, internvl2) prepends its
+    prompt's projected image embeddings to the token embeddings: its
+    image rows are plain k/v rows at positions 0..S_img-1, so its caches,
+    pools and decode graphs are every decoder's, and only the prefill
+    counts them: its position, its bucket (``bucketed_prefill``) and the
+    key of its captured graph (``embeds_key``)."""
 
     def __init__(self, cfg: ModelConfig, groups: list[Group],
                  param_dtype: torch.dtype = torch.float32,
@@ -155,6 +165,9 @@ class Model:
             specs["enc_norm"] = rmsnorm_spec(cfg.d_model, dt)
             for gi, g in enumerate(self.enc_groups):
                 specs[f"enc_g{gi}"] = group_spec(cfg, g, dt)
+        if cfg.frontend == "vit":
+            specs["projector"] = linear_spec(cfg.frontend_dim, cfg.d_model,
+                                             None, "frontend", dt)
         if cfg.frontend == "speech":
             specs["frontend_proj"] = linear_spec(cfg.frontend_dim,
                                                  cfg.d_model, None,
@@ -181,6 +194,57 @@ class Model:
         cfg = self.cfg
         return embed_apply(params["embed"], tokens.to(self.device),
                            cfg.d_model, scale=cfg.tie_embeddings)
+
+    def _project(self, params, images: torch.Tensor) -> torch.Tensor:
+        """The dense ``projector`` of a vision-language model's image
+        embeddings ``images [B, S_img, frontend_dim]`` (the reference's
+        ``linear_apply`` outside any kernel), in the parameters' dtype: the
+        images take it first, as jnp promotes bf16 embeddings under fp32
+        parameters (exactly) and keeps them under bf16 ones."""
+        w = params["projector"]["w"]
+        return linear_apply(params["projector"],
+                            images.to(device=self.device, dtype=w.dtype))
+
+    @property
+    def front_input(self) -> str | None:
+        """The key of the front end's embeddings in a batch or a request's
+        inputs: ``"speech_embeds"`` (an encoder-decoder's frames),
+        ``"image_embeds"`` (a vision-language model's images) or None."""
+        return {"speech": "speech_embeds",
+                "vit": "image_embeds"}.get(self.cfg.frontend)
+
+    def front_embeds(self, inputs: dict) -> torch.Tensor | None:
+        """The front end's embeddings [B, n, frontend_dim] in ``inputs``,
+        None for a model without a front end; a model with one raises
+        ValueError without them."""
+        key = self.front_input
+        if key is None:
+            return None
+        if key not in inputs:
+            raise ValueError(f"{self.cfg.name} prefills its front end's "
+                             f"embeddings: {key} [B, n, "
+                             f"{self.cfg.frontend_dim}]")
+        return inputs[key]
+
+    def image_rows(self, inputs: dict) -> int:
+        """The image rows a vision-language model's prompt in ``inputs``
+        puts before its tokens (``image_embeds [B, S_img, frontend_dim]``),
+        which its cache position, its bucket and every bound on its prompt
+        count; 0 for every other model."""
+        if self.cfg.frontend != "vit":
+            return 0
+        return int(self.front_embeds(inputs).shape[1])
+
+    def embeds_key(self, n: int) -> tuple:
+        """The front end's part of a captured prefill's key: ``(n,)`` for
+        a model with a front end (the frames or images of its embeddings),
+        and ``()`` for every other model, which takes none."""
+        if self.cfg.frontend is None:
+            if n:
+                raise ValueError(f"{self.cfg.name} has no front end: {n} "
+                                 f"front-end rows")
+            return ()
+        return (n,)
 
     def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """The encoder over the speech frames ``frames [B, F,
@@ -234,7 +298,12 @@ class Model:
         An encoder-decoder first encodes ``batch["speech_embeds"] [B, F,
         frontend_dim]`` (``_encode``, at its own F whatever the tokens'
         padding); its cache keeps the encoder's keys and values of every
-        decoder layer, xk/xv [B, F, KV, hd].
+        decoder layer, xk/xv [B, F, KV, hd].  A vision-language model
+        prepends the projection of ``batch["image_embeds"] [B, S_img,
+        frontend_dim]`` (``_project``) to the token embeddings: the prompt
+        is S_img + S rows at positions 0..S_img+S-1, and ``prompt_len``
+        (default S_img + S) counts the image rows, as the reference's
+        does.
 
         ``out`` (a cache of ``init_cache(B, cache_len, enc_T=F)``'s layout)
         receives the result in place: its full-attention k/v rows 0..S-1
@@ -250,6 +319,9 @@ class Model:
                                  f"{self.cfg.frontend_dim}]")
             enc_out = self._encode(params, batch["speech_embeds"])
         x = self._embed(params, batch["tokens"])
+        if self.cfg.frontend == "vit":
+            img = self._project(params, self.front_embeds(batch))
+            x = torch.cat([img.to(x.dtype), x], 1)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         T = batch.get("cache_len", S)
@@ -275,29 +347,35 @@ class Model:
     @torch.no_grad()
     def padded_prefill(self, params, tokens: torch.Tensor, prompt_len: int,
                        T: int, graph: bool = True,
-                       frames: torch.Tensor | None = None
+                       embeds: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, dict]:
         """The prefill of ``tokens [B,S]`` (right-padded past
         ``prompt_len``) into a cache of ``T`` positions, one entry per
-        (B, S, T), and an encoder-decoder's per frame count F of its speech
-        ``frames [B, F, frontend_dim]``: the reference's
+        (B, S, T) and, for a model with a front end, per row count n of
+        its embeddings ``embeds [B, n, frontend_dim]`` (an
+        encoder-decoder's speech frames, or a vision-language model's
+        images, whose n rows ``prompt_len`` counts): the reference's
         ``jitted_prefill``.  On a CUDA model with ``graph``, a replay of
-        ``graphed_prefill(B, S, T, F)``: the logits and the cache it
+        ``graphed_prefill(B, S, T, n)``: the logits and the cache it
         returns are the graph's static buffers, which the next replay of
-        that graph (logits) or of any prefill graph of the same (B, T, F)
-        (cache) overwrites.  Otherwise the eager prefill, whose key counts
-        in ``prefill_builds`` when it is new to the LRU of eager keys."""
-        enc_T = 0 if frames is None else int(frames.shape[1])
-        key = (*tokens.shape, T) + self.enc_key(enc_T)
+        that graph (logits) or of any prefill graph of the same cache key
+        (``prefill_cache_key``) overwrites.  Otherwise the eager prefill,
+        whose key counts in ``prefill_builds`` when it is new to the LRU
+        of eager keys."""
+        n = 0 if embeds is None else int(embeds.shape[1])
+        key = (*tokens.shape, T) + self.embeds_key(n)
+        if self.front_input is not None and embeds is None:
+            raise ValueError(f"{self.cfg.name} prefills its front end's "
+                             f"embeddings: {self.front_input}")
         if graph and self.device.type == "cuda":
             return self.graphed_prefill(*key)(params, tokens, prompt_len,
-                                              frames)
+                                              embeds)
         if key not in self.eager_prefills:
             self.prefill_builds += 1
         _lru_put(self.eager_prefills, key, None)
         batch = {"tokens": tokens, "cache_len": T, "prompt_len": prompt_len}
-        if frames is not None:
-            batch["speech_embeds"] = frames
+        if embeds is not None:
+            batch[self.front_input] = embeds
         return self.prefill(params, batch)
 
     def bucketed_prefill(self, T: int, graph: bool = True):
@@ -308,34 +386,48 @@ class Model:
         varied-length traffic makes O(log T) prefill entries instead of
         one per prompt length.  An encoder-decoder's speech frames
         (``batch["speech_embeds"]``) are not padded: the encoder runs at
-        their own count."""
+        their own count.  Nor are a vision-language model's S_img image
+        rows (``batch["image_embeds"]``): the tokens are padded to
+        ``bucket_length(S, T - S_img)``, and the true length passed is
+        S_img + S, as the reference's."""
         def call(params, batch: dict) -> tuple[torch.Tensor, dict]:
             tokens = batch["tokens"]
             S = int(tokens.shape[1])
-            S_pad = bucket_length(S, T)
+            img = self.image_rows(batch)
+            S_pad = bucket_length(S, T - img)
             if S_pad != S:
                 tokens = F.pad(tokens, (0, S_pad - S))
-            return self.padded_prefill(params, tokens, S, T, graph,
-                                       batch.get("speech_embeds"))
+            return self.padded_prefill(params, tokens, img + S, T, graph,
+                                       self.front_embeds(batch))
         return call
 
-    def graphed_prefill(self, B: int, S: int, T: int, enc_T: int = 0
+    def graphed_prefill(self, B: int, S: int, T: int, n: int = 0
                         ) -> PrefillGraph:
         """The prefill of ``B`` prompts padded to ``S`` tokens into a cache
-        of ``T`` positions (an encoder-decoder's with ``enc_T`` frames) as
+        of ``T`` positions (with ``n`` rows of the front end's embeddings:
+        an encoder-decoder's frames, a vision-language model's images) as
         a CUDA graph (``models.graph.PrefillGraph``), captured at its first
         call and kept for the ``GRAPH_CACHE_SIZE`` keys used last.  Every
-        prefill graph of one (B, T[, enc_T]) writes the same output cache
-        (``prefill_caches``), dropped with the last of them."""
-        key = (B, S, T) + self.enc_key(enc_T)
+        prefill graph of one ``prefill_cache_key`` writes the same output
+        cache (``prefill_caches``), dropped with the last of them."""
+        key = (B, S, T) + self.embeds_key(n)
         graph = self.prefill_graphs.get(key)
         if graph is None:
-            graph = PrefillGraph(self, B, S, T, enc_T)
-        for b, _, *t in _lru_put(self.prefill_graphs, key, graph):
-            if not any((k[0], *k[2:]) == (b, *t)
+            graph = PrefillGraph(self, B, S, T, n)
+        for old in _lru_put(self.prefill_graphs, key, graph):
+            ck = self.prefill_cache_key(*old)
+            if not any(self.prefill_cache_key(*k) == ck
                        for k in self.prefill_graphs):
-                del self.prefill_caches[(b, *t)]
+                del self.prefill_caches[ck]
         return graph
+
+    def prefill_cache_key(self, B: int, S: int, T: int, n: int = 0
+                          ) -> tuple:
+        """The key of the output cache that the prefill graph of key (B,
+        S, T[, n]) writes: (B, T), and an encoder-decoder's frame count,
+        which sizes its xk/xv; a vision-language model's image rows lie
+        within its T positions."""
+        return (B, T) + self.enc_key(n if self.cfg.enc_dec else 0)
 
     @torch.no_grad()
     def decode_step(self, params, cache: dict, token: torch.Tensor,
@@ -620,9 +712,10 @@ class Model:
     def supports_chunked_prefill(self) -> bool:
         """Chunked prefill covers the ported mixers, GQA with full attention
         or a window ring, MLA and the SSM (``transformer.block_chunk``),
-        but not an encoder-decoder's cross-attention, whose admission stays
-        monolithic, as the reference's."""
-        return not self.cfg.enc_dec and all(
+        but no model with a front end: an encoder-decoder's
+        cross-attention and a vision-language model's image prefix keep
+        their admission monolithic, as the reference's."""
+        return self.cfg.frontend is None and not self.cfg.enc_dec and all(
             bd.mixer in ("gqa", "mla", "ssm")
             for period, _ in self.groups for bd in period)
 

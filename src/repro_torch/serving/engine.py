@@ -27,12 +27,15 @@ def generate(model: Model, params, batch: dict, steps: int,
              num_blocks: int | None = None,
              prefix_cache: bool = True) -> GenerateResult:
     """Decode ``steps`` tokens for every row of ``batch["tokens"] [B,S]``
-    (an encoder-decoder's over ``batch["speech_embeds"]``, split by row as
-    the tokens are) through the scheduler (``B`` slots; the first token
-    comes from each row's prefill logits), as the reference's
-    ``engine.generate``.  There
+    (with the front end's embeddings, an encoder-decoder's
+    ``batch["speech_embeds"]`` or a vision-language model's
+    ``batch["image_embeds"]``, split by row as the tokens are) through the
+    scheduler (``B`` slots; the first token comes from each row's prefill
+    logits), as the reference's ``engine.generate``.  There
     is no EOS, so the result is rectangular; a ragged one raises.
-    ``batch["cache_len"]`` defaults to S + ``steps``.  ``temperature`` and
+    ``batch["cache_len"]`` defaults to the prompt's length (a
+    vision-language model's S_img image rows and S tokens) + ``steps``.
+    ``temperature`` and
     ``top_k`` become every row's sampling parameters; with ``generator``
     each row draws from a generator of its own seeded from it, without it
     from the scheduler's default per-uid streams.  ``paged=True`` serves
@@ -44,6 +47,7 @@ def generate(model: Model, params, batch: dict, steps: int,
         return GenerateResult(
             torch.zeros((B, 0), dtype=torch.int64, device=model.device),
             torch.zeros((B, 0), dtype=torch.float32, device=model.device))
+    S += model.image_rows(batch)
     sched = Scheduler(model, params, num_slots=B,
                       cache_len=batch.get("cache_len", S + steps),
                       paged=paged, block_size=block_size,
@@ -71,8 +75,12 @@ def generate_fixed(model: Model, params, batch: dict, steps: int,
                    generator: torch.Generator | None = None,
                    graph: bool = True) -> GenerateResult:
     """Prefill ``batch["tokens"] [B,S]`` (an encoder-decoder's over
-    ``batch["speech_embeds"] [B, F, frontend_dim]``) and decode ``steps``
+    ``batch["speech_embeds"] [B, F, frontend_dim]``, a vision-language
+    model's after the projection of ``batch["image_embeds"] [B, S_img,
+    frontend_dim]``: a prompt of S_img + S rows) and decode ``steps``
     tokens per row (the first comes from the prefill logits).
+    ``batch["cache_len"]`` defaults to the prompt's rows + ``steps``, as
+    the reference's ``generate`` sizes its pool.
     ``temperature == 0``
     is greedy and uses no randomness; otherwise tokens are drawn from
     ``generator``, which must live on the model's device.
@@ -93,18 +101,20 @@ def generate_fixed(model: Model, params, batch: dict, steps: int,
             torch.zeros((B, 0), dtype=torch.float32, device=model.device))
     if temperature != 0.0 and generator is None:
         raise ValueError("temperature sampling needs a torch.Generator")
-    T = batch.get("cache_len", S)
+    img = model.image_rows(batch)
+    S += img
+    T = batch.get("cache_len", S + steps)
     if S + steps - 1 > T:
-        raise ValueError(f"a prompt of {S} tokens and {steps} new tokens "
-                         f"decode up to position {S + steps - 2}, outside "
-                         f"the cache of {T}")
+        raise ValueError(f"a prompt of {S} rows ({img} of them image rows) "
+                         f"and {steps} new tokens decode up to position "
+                         f"{S + steps - 2}, outside the cache of {T}")
     model.plan_book          # resolve all TT plans before the serving loop
-    frames = batch.get("speech_embeds")
+    embeds = model.front_embeds(batch)
     logits, cache = model.padded_prefill(params, batch["tokens"], S, T, graph,
-                                         frames)
+                                         embeds)
     if graph and model.device.type == "cuda":
         step = model.graphed_decode_step(
-            B, T, enc_T=0 if frames is None else int(frames.shape[1]))
+            B, T, enc_T=int(embeds.shape[1]) if model.cfg.enc_dec else 0)
         step.load(params, cache, S)
         cache = None                 # the graph decodes from its own copy
     else:

@@ -85,6 +85,14 @@ its admission (the reference fails inside its splice).  Chunked prefill
 and prefix reuse are off for it (``Model.supports_chunked_prefill``,
 ``supports_prefix_reuse``), as in the reference.
 
+A vision-language model (internvl2) takes each request's image
+embeddings (``inputs["image_embeds"] [1, S_img, frontend_dim]``) into its
+admission prefill, which prepends their projection to the prompt: its
+S_img rows are plain k/v rows of the slot, so the prompt length that the
+cache bound, the paged block reservation, the bucket and the slot's
+position use is S_img + S, as the reference's ``submit`` counts it.
+Chunked prefill and prefix reuse are off for it too.
+
 Not ported (ROADMAP.md Queue 1): preemption (mid-prefill included),
 deadlines, resize, snapshots (mid-prefill included), the mesh and
 ``drop``.  The constructor refuses the arguments.  With equal priorities the reference
@@ -114,7 +122,8 @@ NOT_PORTED = {"preempt": 6, "clock": 6, "mesh": 10}
 @dataclasses.dataclass
 class Request:
     """One generation request.  ``inputs`` holds ``tokens [1, S]`` (and an
-    encoder-decoder's ``speech_embeds [1, F, frontend_dim]``).
+    encoder-decoder's ``speech_embeds [1, F, frontend_dim]``, a
+    vision-language model's ``image_embeds [1, S_img, frontend_dim]``).
     ``temperature`` 0 is greedy (draws nothing), ``top_k`` 0 disables the
     top-k filter; ``key`` is the request's own sampling stream, a
     ``torch.Generator`` on the model's device.  ``priority`` orders
@@ -209,7 +218,9 @@ class Scheduler:
             if self.chunk_size < 1:
                 raise ValueError("chunk_size must be >= 1")
             if not model.supports_chunked_prefill:
-                raise ValueError("model does not support chunked prefill")
+                raise ValueError(
+                    "model does not support chunked prefill (encoder-decoder "
+                    "and frontend models prefill monolithically)")
         self.model = model
         self.params = params
         # every TT plan is resolved here, so admissions and decode steps
@@ -301,8 +312,11 @@ class Scheduler:
         """Queue a request.  Raises ValueError here when it could never be
         admitted: prompt and budget must fit the cache, and in a paged pool
         their blocks must fit the pool even when every other request has
-        retired."""
-        S = int(req.inputs["tokens"].shape[1])
+        retired.  A vision-language model's prompt is its image rows and
+        its tokens; a request of a model with a front end needs the front
+        end's embeddings."""
+        S = int(req.inputs["tokens"].shape[1]) + self.model.image_rows(
+            req.inputs)
         self._frames_of(req)
         if req.max_new_tokens < 0:
             raise ValueError("max_new_tokens must be >= 0")
@@ -496,12 +510,15 @@ class Scheduler:
         return True
 
     def _admit_inputs(self, q: _Queued) -> dict:
-        """The prefill's inputs: the prompt (and an encoder-decoder's speech
-        frames) on the model's device, into a cache of the pool's
+        """The prefill's inputs: the prompt (and the front end's
+        embeddings, an encoder-decoder's speech frames or a vision-language
+        model's images) on the model's device, into a cache of the pool's
         length."""
         dev, inputs = self.model.device, q.req.inputs
-        return {**{k: inputs[k].to(dev) for k in ("tokens", "speech_embeds")
-                   if k in inputs}, "cache_len": self.cache_len}
+        keys = ("tokens",) + ((self.model.front_input,)
+                              if self.model.front_input else ())
+        return {**{k: inputs[k].to(dev) for k in keys},
+                "cache_len": self.cache_len}
 
     def _row_prefill(self, inputs: dict) -> tuple[torch.Tensor, dict]:
         """The prompt alone, right-padded to its bucket or at its own
@@ -509,14 +526,15 @@ class Scheduler:
         ``graph=False``.  The cache it returns may be a prefill graph's
         static one: spliced before the next admission."""
         self.admissions += 1
+        model = self.model
         if self.bucket_prompts:
-            return self.model.bucketed_prefill(
+            return model.bucketed_prefill(
                 self.cache_len, self.graphed)(self.params, inputs)
         tokens = inputs["tokens"]
-        return self.model.padded_prefill(self.params, tokens,
-                                         int(tokens.shape[1]),
-                                         self.cache_len, self.graphed,
-                                         inputs.get("speech_embeds"))
+        return model.padded_prefill(
+            self.params, tokens, int(tokens.shape[1]) +
+            model.image_rows(inputs), self.cache_len, self.graphed,
+            model.front_embeds(inputs))
 
     def _req_key(self, req: Request) -> torch.Generator | None:
         if req.temperature <= 0.0:
@@ -869,8 +887,8 @@ def make_requests(batch: dict, max_new_tokens: int,
                   generator: torch.Generator | None = None,
                   temperature: float = 0.0, top_k: int = 0) -> list[Request]:
     """Split a batch (``engine.generate``'s contract) into one Request per
-    row, every input array of it (the tokens, an encoder-decoder's speech
-    frames) by row; the row index becomes the uid.  With ``generator``,
+    row, every input array of it (the tokens, the front end's embeddings)
+    by row; the row index becomes the uid.  With ``generator``,
     each row samples from a generator of its own on the same device,
     seeded by a draw from ``generator`` (the counterpart of ``fold_in(key,
     row)``)."""

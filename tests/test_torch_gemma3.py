@@ -10,8 +10,9 @@ the reference's Pallas kernels run in interpret mode.  Three variants:
 fp32 cores, int8 cores (both over fp32 parameters) and bf16 parameters.
 
 - The registry: FULL's two groups, ring leaves of min(1,024, T) rows, no
-  ``lm_head``, prefix reuse off and chunked prefill on; every other pending
-  family still raises.  FULL's converted spec shapes against the
+  ``lm_head``, prefix reuse off and chunked prefill on; every
+  architecture of the reference registry resolves in the port (none is
+  pending).  FULL's converted spec shapes against the
   reference's ``abstract_params`` (meta tensors: nothing is allocated).
 - ``embed_apply`` at d = 2560 in bf16 bit for bit (sqrt(d) is rounded to
   bf16 before the product, as the reference rounds it).
@@ -43,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import build as jbuild, get_config as jget_config
 from repro.configs.base import TTConfig as JTTConfig
 from repro.models.layers import embed_apply as jembed_apply
@@ -170,11 +172,13 @@ def test_full_config_builds_two_groups_of_rings():
     assert tm.windows == [0, 1024]
 
 
-@pytest.mark.parametrize("arch", PENDING)
+@pytest.mark.parametrize("arch", JARCH_IDS)
 def test_every_other_pending_family_still_raises(arch):
-    assert "gemma3_4b" not in PENDING
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tget_config(arch.replace("_", "-"))
+    """One case a reference architecture: none is pending, each resolves
+    in the port under its external id, as the reference's."""
+    assert PENDING == ()
+    cfg = tget_config(arch.replace("_", "-"))
+    assert cfg.name == jget_config(arch).name
 
 
 def test_converted_full_spec_shapes_are_the_references(monkeypatch):

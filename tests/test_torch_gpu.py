@@ -1779,3 +1779,105 @@ def test_seamless_scheduler_graph_is_eager_and_paged_is_dense(cuda):
         for uid in got:
             assert np.array_equal(got[uid].tokens, dense[uid].tokens)
             assert np.array_equal(got[uid].logprobs, dense[uid].logprobs)
+
+
+# internvl2-2b's four fused2 shapes at rank 16 (q/o, k/v, gate/up, down),
+# at decode, an admission and the prefill of 4 × 2,048 rows
+INTERNVL2_SHAPES = ((8, 256, 256, 8, 16), (8, 256, 128, 8, 16),
+                    (8, 256, 1024, 8, 16), (8, 1024, 256, 8, 16))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [4, 256, 8192])
+@pytest.mark.parametrize("dims", INTERNVL2_SHAPES,
+                         ids=["q_o", "k_v", "gate_up", "down"])
+def test_fused2_kernel_at_internvl2_shapes(cuda, dims, B, act, int8):
+    test_fused2_kernel_at_mamba2_shapes(cuda, dims, B, act, int8)
+
+
+def _internvl2(device, weights="fp32"):
+    """internvl2 SMOKE (2 GQA blocks, image embeddings of width 32), TT on
+    ffn+attn at rank 4, ``auto``."""
+    cfg = get_config("internvl2-2b", "smoke", tt=TTConfig(
+        enabled=True, families=("ffn", "attn"), rank=4, min_factor=2,
+        backend="auto", weights=weights))
+    model = build(cfg, device=device)
+    params = model.init(0)
+    if weights == "int8":
+        params = model.quantize_params(params)
+    return model, params
+
+
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("weights", ["fp32", "int8"])
+def test_internvl2_prefill_and_decode_replays_are_eager(cuda, weights, n):
+    """The captured prefill (``n`` image rows, then a prompt of 20 tokens
+    in the 32 bucket) and 8 decode replays against the eager prefill and
+    steps, bit for bit; the prefill's key carries the image rows, its
+    cache is at n + 20, and each pass records 14 ``tt_fused2`` (2 × 7)."""
+    model, params = _internvl2(cuda, weights)
+    T = 176
+    batch = _prompt(model, 5, B=2, S=20, T=T)
+    images = _speech(model, 6, 2, n)
+    tokens = torch.nn.functional.pad(batch["tokens"], (0, 12))
+    graph = model.graphed_prefill(2, 32, T, n)
+    graph(params, tokens, n + 20, images)              # the capture
+    g_logits, g_cache = graph(params, tokens, n + 20, images)
+    e_logits, e_cache = model.prefill(params, {
+        "tokens": tokens, "cache_len": T, "prompt_len": n + 20,
+        "image_embeds": images})
+    assert torch.equal(g_logits, e_logits)
+    assert int(g_cache["pos"]) == n + 20
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_cache),
+                                                 tree_leaves(e_cache)))
+    step = model.graphed_decode_step(2, T)
+    step.load(params, g_cache, n + 20)
+    tok = e_logits[:, -1].argmax(-1, keepdim=True)
+    for t in range(8):
+        want, e_cache = model.decode_step(params, e_cache, tok)
+        got = step(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {t}"
+        tok = want[:, -1].argmax(-1, keepdim=True)
+    sfx = "_int8" if weights == "int8" else ""
+    assert graph.captured == step.captured == {"tt_fused2" + sfx: 14}
+    assert (2, 32, T, n) in model.prefill_graphs
+    assert list(model.prefill_caches) == [(2, T)]
+
+
+def test_internvl2_scheduler_graph_is_eager_and_paged_is_dense(cuda):
+    """Prompts of 20, 13 and 24 tokens after 8, 5 and 16 image rows
+    through 2 slots over 56 positions: the dense pool through the graphs
+    against eager, and the paged pool through the graphs and eagerly,
+    tokens and logprobs bit for bit; every request's prompt length counts
+    its image rows."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    model, params = _internvl2(cuda)
+    prompts = [(_prompt(model, 90 + i, B=1, S=s)["tokens"],
+                _speech(model, 90 + i, 1, n))
+               for i, (s, n) in enumerate(((20, 8), (13, 5), (24, 16)))]
+
+    def run(**extra):
+        sched = Scheduler(model, params, num_slots=2, cache_len=56, **extra)
+        for uid, (tokens, images) in enumerate(prompts):
+            sched.submit(Request(uid=uid, inputs={
+                "tokens": tokens, "image_embeds": images},
+                max_new_tokens=5))
+            sched.step()
+        sched.run()
+        if sched.paged:
+            sched.allocator.assert_quiescent()
+            assert not sched.prefix_cache
+        return {f.uid: f for f in sched.finished}
+
+    dense = run()
+    assert [dense[u].prompt_len for u in range(3)] == [28, 18, 40]
+    for extra in (dict(graph=False), dict(paged=True, block_size=4),
+                  dict(paged=True, block_size=4, graph=False)):
+        got = run(**extra)
+        assert sorted(got) == sorted(dense) == [0, 1, 2]
+        for uid in got:
+            assert np.array_equal(got[uid].tokens, dense[uid].tokens)
+            assert np.array_equal(got[uid].logprobs, dense[uid].logprobs)
