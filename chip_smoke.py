@@ -93,10 +93,11 @@ Phases, each fatal on failure:
      beside each path one eager warm run (tok/s, decode step ms and peak
      memory, graph against eager; the prefill's logits and cache and the
      first decode step's logits bit for bit, and the greedy tokens) and
-     one more traced warm run of the graphs (``launch.profile_serve``:
-     device busy share, kernels per pass, the TT kernels in the trace
-     against the launches expected), then the decode step's and the
-     prefill's replays traced alone; then continuous batching at length 2,
+     one more traced warm run of the graphs, ``TRACE_PASSES`` passes
+     (``launch.profile_serve``: device busy share, kernels per pass, the TT
+     kernels in the trace against the launches expected), then the decode
+     step's and the prefill's replays traced alone; then continuous
+     batching at length 2,
      auto, fp cores, at ``CUT_LAYERS`` layers, on one slot-pool graph of 4
      slots × 96 positions, each
      admission a replay of its bucket's captured prefill: the arrival mode
@@ -184,13 +185,31 @@ Phases, each fatal on failure:
      continuous-batching paths run at ``CUT_LAYERS`` of its 30 layers;
      mixtral-8x7b's, deepseek-v2-lite-16b's and jamba-v0.1-52b's
      continuous-batching paths at ``MOE_CUT_LAYERS``, gemma3-4b's at
-     ``GEMMA3_CUT_LAYERS``.
+     ``GEMMA3_CUT_LAYERS``;
+  6. the request lifecycle (preemption, deadlines, live resize, snapshots,
+     the fault harness, the durable store and journal): on SMOKE
+     (``small_lifecycle_check``, run after phase 4) deepseek-7b's
+     ``launch.serve.fault_smoke`` over the dense, paged and chunked pools,
+     its ``durability_smoke`` with fp32 and int8 cores and jamba's paged
+     fault drill, each through the graphs and eagerly: bit for bit, every
+     survivor its uninterrupted run's, no leaked block, no plan
+     resolution, no capture by a restart or a recovery; then full-width
+     deepseek-7b (``lifecycle_path``, 30 layers, 4 slots × (64 + 32)):
+     the fault drill on 16 requests over the paged and the dense pool
+     (the resize to 5 slots binds a new decode graph; every capture of the
+     run is of a key its uninterrupted run did not meet; every survivor
+     within ``serve.check_greedy``, the bit-identical ones counted) and the
+     durability drill on 8 requests over the paged pool, a snapshot every 8
+     steps (kill and corrupting-kill survivors bit-identical), printing
+     the snapshot's bytes, ``snapshot()``, ``save_snapshot`` and the
+     recoveries' ms, the resize's ms and the prompt tokens preemption
+     prefilled again.
 Every fixed batch compares the greedy picks of 16 decode steps, graph
 against eager (``graph_against_eager``); beside it an eager warm run
 (eager tok/s and peak memory, its tokens against the graph's warm run)
-is made on deepseek-7b's paths with fp and int8 cores and on the other
-families' with fp cores only: their int8 eager warm runs would add a
-minute of host-bound steps to the script's wall.
+is made with fp cores only, on every family: the int8 eager warm runs
+would add a minute of host-bound steps to the script's wall (deepseek-7b
+made its three until the lifecycle phase joined the script).
 Kernel, plain and library times are device times of 50 calls enqueued
 while a spin kernel holds the stream (no host time between the calls),
 after two seconds of dense products have brought the card's clocks up;
@@ -200,7 +219,8 @@ the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
 together, gemma3-4b's, mixtral-8x7b's, deepseek-v2-lite-16b's,
 jamba-v0.1-52b's, qwen3-32b's, mamba2-2.7b's, seamless-m4t-large-v2's
-and internvl2-2b's included (``tt_fused2_int8``: their int8 fixed batches too; the expert kernels:
+and internvl2-2b's and phase 6's drills included (``tt_fused2_int8``:
+their int8 fixed batches and drills too; the expert kernels:
 mixtral's, deepseek-v2's and jamba's); its times are
 deepseek-7b's layer, and for the expert-batched kernels mixtral-8x7b's (3
 expert projections, 8 experts × 8 rows).
@@ -258,14 +278,22 @@ SHAPES3 = {
 }
 ROWS = (256, 4)          # prefill (batch 4 × prompt 64) and decode (batch 4)
 # the scheduler's one-row admission prefills at the buckets of a cache of
-# 96 (bucket_length): checked against the plain versions, not timed
-BUCKET_ROWS = (16, 32, 64)
+# 96 (bucket_length), and the decode of the pool resized to 5 slots (phase
+# 6): checked against the plain versions, not timed
+BUCKET_ROWS = (5, 16, 32, 64)
 LAYERS, PASSES = 30, 32  # full depth; 1 prefill + 31 decode forward passes
-REPLAYS = 8              # decode steps traced alone
+# decode steps traced alone, and host-clock calls of ``host_ms`` (8 until
+# the lifecycle phase joined the script: a trace's host cost grows with its
+# kernels, ~3,000 a replay of a full-width model)
+REPLAYS = 4
 # a family's prefill replays traced alone: each is 100–500 ms of device
 # time, so two give its mean, and a trace's host cost grows with its
 # kernels (eight took ~5 s of the script's wall each)
 PREFILL_REPLAYS = 2
+# forward passes of deepseek-7b's traced warm runs (of ``PASSES`` until
+# the lifecycle phase joined the script: a 32-pass trace of the 30-layer
+# model holds ~92,000 kernels, which the profiler is slow to summarise)
+TRACE_PASSES = 8
 # decode steps of the cold eager run before each path's warm one (of
 # ``--steps`` until mixtral-8x7b's phases joined the script)
 COLD_STEPS = 4
@@ -1386,23 +1414,27 @@ def graph_against_eager(label: str, model, params, args, out: dict,
 
 def traced(label: str, kernel: str, per_pass: int, model, params,
            args) -> dict:
-    """Trace one more warm run (``launch.profile_serve``): the TT kernels
-    found in the device trace must be the launches expected, the
-    prefill's and ``per_pass`` for each replay; then ``REPLAYS`` replays
-    alone (device kernels, busy and wall time per replay)."""
+    """Trace one more warm run of ``TRACE_PASSES`` forward passes over the
+    same cache (``launch.profile_serve``): the TT kernels found in the
+    device trace must be the launches expected, the prefill's and
+    ``per_pass`` for each replay; then ``REPLAYS`` decode replays and
+    ``PREFILL_REPLAYS`` prefill replays alone (device kernels, busy and
+    wall time per replay)."""
     print(f"profile ({label}):", flush=True)
-    prof = profile_serve.profile_fixed(model, params, args)
+    prof = profile_serve.profile_fixed(model, params, args,
+                                       steps=TRACE_PASSES)
     source = {"tt_fused2": "tt_fused2_kernel",
               "tt_fused_chain": "tt_chain_kernel",
               "tt_step": "tt_step_kernel"}[kernel.removesuffix("_int8")]
     tt = prof["tt_kernels"].get(source, {"found": 0, "expected": None})
-    per_replay = (tt["found"] - per_pass) / (PASSES - 1)
+    per_replay = (tt["found"] - per_pass) / (TRACE_PASSES - 1)
     print(f"profile ({label}): {source} in the trace {tt['found']} of "
           f"{tt['expected']} expected; {per_replay:g} per replay of "
           f"{per_pass}", flush=True)
-    if tt["found"] != tt["expected"] or tt["found"] != per_pass * PASSES:
+    if tt["found"] != tt["expected"] or \
+            tt["found"] != per_pass * TRACE_PASSES:
         raise AssertionError(f"{label}: {tt} {source} kernels in the trace, "
-                             f"expected {per_pass * PASSES}")
+                             f"expected {per_pass * TRACE_PASSES}")
     # replays alone, after a prefill outside the trace
     batch = serve.prompt_batch(model, args)
     logits, cache = model.prefill(params, batch)
@@ -1414,7 +1446,7 @@ def traced(label: str, kernel: str, per_pass: int, model, params,
                           batch["cache_len"], source)
     rec = dict(busy_s=prof["busy_s"], wall_s=prof["wall_s"],
                busy_share=prof["busy_s"] / prof["wall_s"],
-               kernels_per_pass=prof["launches"] / PASSES,
+               kernels_per_pass=prof["launches"] / TRACE_PASSES,
                tt_found=tt["found"], tt_expected=tt["expected"],
                tt_per_replay=per_replay,
                **{f"replay_{k}": v for k, v in alone.items()},
@@ -1491,7 +1523,8 @@ def prefill_replays(model, params, tokens, prompt_len: int, T: int,
     shape, untraced."""
     B, S = tokens.shape
     graph = model.graphed_prefill(B, S, T)
-    out = replays_alone(lambda: graph(params, tokens, prompt_len), source)
+    out = replays_alone(lambda: graph(params, tokens, prompt_len), source,
+                        n=PREFILL_REPLAYS)
     out.update(host_ms=host_ms(lambda: graph(params, tokens, prompt_len)),
                eager_host_ms=host_ms(lambda: model.prefill(params, {
                    "tokens": tokens, "cache_len": T,
@@ -1537,8 +1570,9 @@ def cut_model(argv, length: int = 2, layers: int = CUT_LAYERS):
 def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
     """Phase 5: every main path with fp then int8 cores, each decoding
     through its captured graph; returns each kernel's launches over its
-    path's call, and per path the graph against an eager warm run (made
-    before the capture, so that each has its own peak memory) and the
+    path's call, and per path the graph against an eager warm run (fp
+    cores; made before the capture, so that each has its own peak memory;
+    int8 cores: 16 decode picks only) and the
     trace of one more warm run of the graph, after the launches were
     read.  Length 2 ``auto`` serves all 30 layers; length 3 and
     ``cuda_step`` serve ``CUT_LAYERS``."""
@@ -1559,7 +1593,7 @@ def main_paths(smi: str) -> tuple[dict[str, int], list[dict]]:
         for label, kernel, n, built in paths:
             model, params, args = built()
             label = f"{label}, {weights}"
-            eager = eager_runs(model, params, args)
+            eager = eager_runs(model, params, args) if not sfx else None
             out, launches[kernel + sfx] = drive(label, kernel + sfx, n,
                                                 model, params, args)
             rec = dict(path=label, kernel=kernel + sfx,
@@ -3660,6 +3694,237 @@ def internvl2_path(smi: str) -> tuple[dict[str, int], dict]:
     return launches, rec
 
 
+# the lifecycle phase (6): SMOKE deepseek-7b (fp32, rank 4) drills on 2
+# slots over 8 + 6 positions, 6 requests, over the dense, paged (block 4)
+# and chunked (chunks of 3) pools, seed 5 (its plan preempts in every
+# pool, chunked a victim 6 tokens into its prompt, one block published);
+# jamba SMOKE's paged run; then full-width
+# deepseek-7b (``SERVE_ARGS``'s model, 30 layers) on 4 slots × (64 + 32):
+# the fault drill on 16 requests over the paged and the dense pool, the
+# durability drill on 8 requests over the paged pool, a snapshot every 8
+# decode steps (each ~0.2 GB)
+LIFE_SMOKE = ["--variant", "smoke", "--tt", "ffn,attn", "--tt-rank", "4",
+              "--tt-backend", "auto", "--slots", "2", "--max-requests", "6",
+              "--prompt-len", "8", "--steps", "6", "--seed", "5"]
+LIFE_SMOKE_POOLS = {"dense": [], "paged": ["--paged", "--block-size", "4"],
+                    "chunked": ["--paged", "--block-size", "4",
+                                "--chunk-prefill", "--chunk-size", "3"]}
+LIFE_JAMBA = ["--arch", "jamba-v0.1-52b", "--variant", "smoke", "--tt",
+              "ffn", "--tt-rank", "4", "--tt-backend", "auto", "--slots",
+              "2", "--max-requests", "6", "--prompt-len", "8", "--steps",
+              "6", "--seed", "5", "--paged", "--block-size", "4"]
+LIFE_ARGS = SERVE_ARGS + ["--tt-backend", "auto", "--slots", "4",
+                          "--max-requests", "16"]
+LIFE_DURABLE = PAGED_ARGS + ["--max-requests", "8", "--snapshot-every", "8"]
+
+
+def same_outcomes(a: dict, b: dict) -> bool:
+    """Two runs' finished requests: uids, reasons, tokens and logprobs
+    bit for bit."""
+    return sorted(a) == sorted(b) and all(
+        a[u].finish_reason == b[u].finish_reason and
+        np.array_equal(a[u].tokens, b[u].tokens) and
+        np.array_equal(a[u].logprobs, b[u].logprobs) for u in a)
+
+
+def drill_pair(label: str, drill, model, params, args) -> dict:
+    """``drill`` (``serve.fault_smoke`` or ``serve.durability_smoke``) on
+    the card through the graphs, then eagerly (``graph=False``): each run
+    holds its survivors to its uninterrupted run token for token, leaks no
+    block and resolves no plan (asserted inside); the two must agree bit
+    for bit, and the graphs' restarts and recoveries capture nothing.  The
+    graph run's record."""
+    out = {}
+    for graph in (True, False):
+        res = drill(model, params, args, graph=graph)
+        out[graph] = res["report"] if "report" in res else res["reports"]
+    reps = {g: (r if isinstance(r, tuple) else (r,))
+            for g, r in out.items()}
+    same = all(same_outcomes(a.finished, b.finished) and
+               same_outcomes(a.baseline, b.baseline)
+               for a, b in zip(reps[True], reps[False]))
+    rebuilt = [r.rebuild_captures for r in reps[True]]
+    g = reps[True][0]
+    print(f"{label}: graph {'=' if same else '!='} eager bit for bit; "
+          f"{g.steps} steps, {len(g.survivors)} survivors token-identical, "
+          f"{g.preemptions} preemptions ({g.recomputed_tokens} prompt tokens "
+          f"prefilled again), {g.cancelled} cancelled, {g.expired} expired, "
+          f"{g.restarts} restarts, {g.kills} kills; captures by restarts "
+          f"and recoveries {rebuilt}", flush=True)
+    # a fault drill's plan preempts (the durability drill's has only a
+    # kill)
+    if not same or any(rebuilt) or (g.restarts and not g.preemptions):
+        raise AssertionError(f"{label}: graph and eager agree {same}; "
+                             f"captures by restarts and recoveries "
+                             f"{rebuilt}; {g.preemptions} preemptions")
+    return {"steps": g.steps, "survivors": len(g.survivors),
+            "preemptions": g.preemptions, "restarts": g.restarts,
+            "kills": g.kills, "recomputed_tokens": g.recomputed_tokens}
+
+
+def small_lifecycle_check() -> tuple[dict[str, int], dict]:
+    """Phase 6 on SMOKE: deepseek-7b (fp32 cores) ``serve.fault_smoke``
+    over the dense, paged and chunked pools (``LIFE_SMOKE_POOLS``: a
+    deadline, allocation failures, a hold, a cancel, a resize to 3 slots,
+    a restart and a preemption; chunked, the victim may be mid-prefill)
+    and ``serve.durability_smoke`` over the paged pool, fp32 and int8
+    cores; jamba's paged fault drill (arenas and 'slot' leaves through the
+    resize and the restart): each through the graphs and eagerly,
+    ``drill_pair``.  Returns the TT launches of the drills and the
+    records."""
+    launches, rec = {}, {}
+
+    def run(label, drill, argv):
+        args = serve.parse_args(argv)
+        model, params = serve.setup(args)
+        tt_contract.reset_launch_counts()
+        t0 = serve.tally(model)
+        rec[label] = drill_pair(label, drill, model, params, args)
+        for k, v in serve.launches_between(t0, serve.tally(model)).items():
+            launches[k] = launches.get(k, 0) + v
+        del model, params
+        gc.collect()
+
+    for pool, extra in LIFE_SMOKE_POOLS.items():
+        run(f"SMOKE fault drill, {pool}", serve.fault_smoke,
+            LIFE_SMOKE + extra)
+    for weights in ("fp32", "int8"):
+        run(f"SMOKE durability drill, paged, {weights}",
+            serve.durability_smoke, LIFE_SMOKE + LIFE_SMOKE_POOLS["paged"] +
+            ["--tt-weights", weights])
+    run("jamba SMOKE fault drill, paged", serve.fault_smoke, LIFE_JAMBA)
+    print(f"SMOKE lifecycle drills: TT launches {launches}", flush=True)
+    return launches, rec
+
+
+def graph_keys(model) -> set:
+    """Every captured graph's key on ``model``: decode steps, prefills,
+    and each decode graph's resumes and mixed steps."""
+    keys = {("decode", k) for k in model.decode_graphs}
+    keys |= {("prefill", k) for k in model.prefill_graphs}
+    for k, g in model.decode_graphs.items():
+        keys |= {("resume", k, S) for S in g.resumes}
+        keys |= {("mixed", k, kc) for kc in g.mixed_graphs}
+    return keys
+
+
+def lifecycle_path(smi: str) -> tuple[dict[str, int], dict]:
+    """Phase 6 at full width: deepseek-7b as ``SERVE_ARGS`` builds it (30
+    layers, bf16, TT on ffn+attn at rank 16, length 2 ``auto``, fp
+    cores), 4 slots × (64 + 32).  ``serve.fault_smoke`` on 16 requests
+    over the paged (blocks of 16) and the dense pool, after their
+    uninterrupted run (whose keys it may not capture again): no leaked
+    block, no plan resolution, no lost request; every capture of the
+    faulted run is of a key the uninterrupted run did not meet (the
+    5-slot decode graph, new buckets of resume prompts), the restart
+    captures nothing; every survivor within ``serve.check_greedy`` of
+    ``generate_fixed``, how many are bit-identical to the uninterrupted
+    run printed (a 5-row batch or a preempted stream's re-prefill may
+    round otherwise in bf16).  Then ``serve.durability_smoke`` on 8
+    requests over the paged pool, a snapshot every 8 steps: the kill and
+    corrupting-kill drills' survivors bit-identical.  Prints the snapshot
+    bytes and ms, the recoveries' stages, the resize ms (capture and copy
+    included), the prompt tokens preemption prefilled again; returns the
+    drills' TT launches (counted + replayed) and the record."""
+    t_phase = time.perf_counter()
+    model, params, args = cli_model(LIFE_ARGS)
+    T = 64 + PASSES
+    rec = {"card": smi}
+    tt_contract.reset_launch_counts()
+    t0 = serve.tally(model)
+    for pool, extra in (("paged", PAGED_ARGS), ("dense", [])):
+        a = serve.parse_args(LIFE_ARGS + extra)
+        reqs, _ = serve.lifecycle_requests(model, a, priorities=True)
+        prompts = {r.uid: r.inputs["tokens"] for r in reqs}
+        ref = Scheduler(model, params,
+                        **serve.scheduler_kwargs(a, a.prompt_len + a.steps))
+        for r in reqs:
+            ref.submit(dataclasses.replace(r, deadline_s=None))
+        base = ref.run()
+        ref.close()
+        del ref
+        keys0, b0 = graph_keys(model), model.graph_captures + \
+            model.prefill_builds
+        # the survivors are held after the run, so that the checks'
+        # captures stay out of the run's
+        rep = serve.fault_smoke(model, params, a, check=lambda *_: None,
+                                baseline=base)["report"]
+        torch.cuda.synchronize()
+        new = sorted(graph_keys(model) - keys0, key=str)
+        captures = model.graph_captures + model.prefill_builds - b0
+        greedy = {u: serve.check_greedy(model, params, prompts[u],
+                                        rep.finished[u], T)
+                  for u in rep.survivors}
+        same = sum(np.array_equal(rep.finished[u].tokens, base[u].tokens)
+                   for u in rep.survivors)
+        five = ("decode", (5, T, True) + (
+            ((24, PAGED_BLOCK),) if pool == "paged" else ()))
+        resize_ms = [round(t * 1e3, 3) for t in rep.resize_s]
+        restart_ms = [(round(x * 1e3, 3), round(y * 1e3, 3))
+                      for x, y in rep.restart_s]
+        print(f"lifecycle, full width, {pool} pool ({smi}): {rep.steps} "
+              f"steps, {len(rep.survivors)} survivors within check_greedy's "
+              f"tolerance, {same} of them bit-identical to the "
+              f"uninterrupted run; {rep.preemptions} preemptions, "
+              f"{rep.recomputed_tokens} prompt tokens prefilled again; "
+              f"resize to 5 slots {resize_ms} ms (capture and copy); "
+              f"restart snapshot() / from_snapshot ms {restart_ms}; "
+              f"captures in the run {captures}, of new keys {new}; by the "
+              f"restart {rep.rebuild_captures}", flush=True)
+        if captures != len(new) or five not in new or rep.rebuild_captures \
+                or rep.restarts != 1 or len(rep.resize_s) != 1 or \
+                not rep.preemptions:
+            raise AssertionError(f"lifecycle {pool}: {captures} captures "
+                                 f"for the new keys {new}, {five} expected "
+                                 f"among them; {rep.rebuild_captures} by the"
+                                 f" restart; {rep.preemptions} preemptions")
+        rec[pool] = dict(steps=rep.steps, survivors=len(rep.survivors),
+                         identical=int(same), preemptions=rep.preemptions,
+                         recomputed_tokens=rep.recomputed_tokens,
+                         resize_ms=[t * 1e3 for t in rep.resize_s],
+                         restart_ms=[(x * 1e3, y * 1e3)
+                                     for x, y in rep.restart_s],
+                         captures=captures, new_keys=[str(k) for k in new],
+                         worst_slack=max(g["slack"] for g in greedy.values()),
+                         worst_logprob=max(g["logprob_diff"]
+                                           for g in greedy.values()))
+    a = serve.parse_args(LIFE_ARGS + LIFE_DURABLE)
+    dur = serve.durability_smoke(model, params, a)
+    reps = dur["reports"]
+    cps = [c for r in reps for c in r.checkpoints]
+    recs = [r.recoveries[0] for r in reps]
+    stages = ("load_s", "from_snapshot_s", "replay_s", "checkpoint_s")
+    recover_ms = [tuple(round(r[k] * 1e3, 1) for k in stages) for r in recs]
+    print(f"lifecycle durability, full width ({smi}): {len(cps)} snapshots "
+          f"of {cps[-1]['bytes']} bytes; snapshot() ms median "
+          f"{np.median([c['snapshot_s'] for c in cps]) * 1e3:.1f}, "
+          f"save_snapshot ms median "
+          f"{np.median([c['save_s'] for c in cps]) * 1e3:.1f}; recover ms "
+          f"(load_snapshot, from_snapshot, replay, checkpoint) "
+          f"{recover_ms}; survivors bit-identical "
+          f"{[len(r.survivors) for r in reps]}, captures by the recoveries "
+          f"{[r.rebuild_captures for r in reps]}", flush=True)
+    if any(r.rebuild_captures for r in reps):
+        raise AssertionError("lifecycle durability: a recovery captured")
+    rec["durable"] = dict(
+        snapshots=len(cps), snapshot_bytes=cps[-1]["bytes"],
+        snapshot_ms=[c["snapshot_s"] * 1e3 for c in cps],
+        save_ms=[c["save_s"] * 1e3 for c in cps],
+        recoveries=[{k: v * 1e3 if k.endswith("_s") else v
+                     for k, v in r.items()} for r in recs],
+        survivors=[len(r.survivors) for r in reps],
+        corruptions=dur["corruptions"])
+    launches = serve.launches_between(t0, serve.tally(model))
+    rec["launches"] = launches
+    del model, params
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"lifecycle phase 6 at full width: {rec['wall_s']:.1f} s; TT "
+          f"launches {launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def kernel_line(recs, launches) -> dict:
     """One entry per kernel: one decoder layer's launches of it (7
     projections, summed) at the decode batch in bf16, the main path's
@@ -3796,6 +4061,8 @@ def main() -> int:
           SEAMLESS_MODES)
     timed("smoke internvl2", small_ring_check, "internvl2-2b",
           SEAMLESS_MODES)
+    life_launches, life_smoke = timed("smoke lifecycle",
+                                      small_lifecycle_check)
     launches, graph_recs = timed("deepseek fixed batch", main_paths, smi)
     fused2, sched_rec = timed("deepseek scheduler", scheduler_path, smi)
     launches["tt_fused2"] += fused2
@@ -3820,6 +4087,11 @@ def main() -> int:
     v_launches, internvl2_rec = timed("internvl2-2b", internvl2_path, smi)
     for k, v in v_launches.items():
         launches[k] += v
+    f_launches, life_rec = timed("lifecycle", lifecycle_path, smi)
+    for part in (life_launches, f_launches):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    life_rec["smoke"] = life_smoke
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps, "graph": graph_recs,
@@ -3827,7 +4099,8 @@ def main() -> int:
                    **moe_recs, "qwen3-32b": qwen3_rec,
                    "mamba2-2.7b": mamba2_rec,
                    "seamless-m4t-large-v2": seamless_rec,
-                   "internvl2-2b": internvl2_rec, "walls": walls}, f,
+                   "internvl2-2b": internvl2_rec,
+                   "lifecycle": life_rec, "walls": walls}, f,
                   indent=1, default=str)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s; by "
           f"phase: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()),

@@ -108,18 +108,21 @@ def _report(kernels, wall: float, expected: dict, top: int) -> dict:
                         for e in kernels}}
 
 
-def profile_fixed(model, params, args, top: int = 12) -> dict:
+def profile_fixed(model, params, args, top: int = 12,
+                  steps: int | None = None) -> dict:
     """Profile one warm ``generate_fixed`` run of ``model`` with the batch,
-    prompt and steps of the serve flags ``args``: on a card the prefill
-    and the decode steps are replays of captured graphs, and the TT
-    kernels found in the trace are held against the launches expected
-    (counted by the wrappers, plus those each capture recorded times its
-    replays)."""
+    prompt and cache of the serve flags ``args`` and ``steps`` forward
+    passes (default ``--steps``; fewer keep the cache, so the same graphs,
+    and shorten the trace): on a card the prefill and the decode steps are
+    replays of captured graphs, and the TT kernels found in the trace are
+    held against the launches expected (counted by the wrappers, plus
+    those each capture recorded times its replays)."""
     cuda = model.device.type == "cuda"
     batch = serve.prompt_batch(model, args)
+    steps = args.steps if steps is None else steps
 
     def run():
-        generate_fixed(model, params, batch, steps=args.steps)
+        generate_fixed(model, params, batch, steps=steps)
         if cuda:
             torch.cuda.synchronize(model.device)
 
@@ -141,13 +144,12 @@ def profile_fixed(model, params, args, top: int = 12) -> dict:
     expected = serve.launches_between(before, serve.tally(model))
     kernels = device_kernels(prof)
     print(f"profiled warm run: wall {wall * 1e3:.3f} ms for "
-          f"{args.steps} forward passes of batch {args.batch}")
+          f"{steps} forward passes of batch {args.batch}")
     if not kernels:
         print("device kernel time: not measured")
         return {"wall_s": wall, "busy_s": None, "kernels": {}}
     out = _report(kernels, wall, expected, top)
-    print(f"{out['launches'] / args.steps:.0f} device kernels per forward "
-          f"pass")
+    print(f"{out['launches'] / steps:.0f} device kernels per forward pass")
     return out
 
 

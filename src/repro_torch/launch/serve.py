@@ -13,6 +13,9 @@ the continuous-batching scheduler.
          [--chunk-prefill [--chunk-size 64] [--prefill-budget 64]]]
         [--prefix-smoke --paged --block-size 16 --prefix-len 48
          [--chunk-prefill ...]]
+        [--fault-smoke | --durability-smoke [--snapshot-every 8]]
+        [--arrival-rate ... --durable DIR [--restore]
+         [--snapshot-every 32]]
 
 ``--tt-backend`` is one of ``kernels.plan.BACKENDS``: ``auto`` (d=2
 layers through the fused2 kernel), ``cuda_fused2``, ``cuda_fused`` (the
@@ -87,10 +90,31 @@ for that prompt alone, within the repo's tolerance where logits tie
 With
 ``--chunk-prefill`` each request is stepped until its prefill is done
 (its first token), and a hit skips the covered chunks.
+
+``--fault-smoke`` is the reference's fault drill (``serving.faults``):
+``--max-requests`` requests of mixed priority (uid 0 with a deadline of 3
+steps, the last at priority 9 arriving mid-stream) at Poisson arrival
+steps, under ``FaultPlan.random(--seed, resize_to=(slots + 1, None))``:
+forced allocation failures, an admission hold, a cancel, a live resize
+and a restart; no block may leak, no plan resolve, no request be lost,
+and every survivor's tokens must be the uninterrupted run's.
+``--durability-smoke`` is its durability drill: a ``kill -9`` at a seeded
+step recovered from the journal and the snapshot store (a snapshot
+every ``--snapshot-every`` decode steps, 2 by default), the same kill with
+the newest generation truncated or bit-flipped first, and the store's
+own fallback; it also prints the snapshots' bytes and the host ms of a
+snapshot, of its save and of a recovery's stages.  On a card every
+scheduler of both, the restored and recovered ones included, replays its
+slot-pool graph.  ``--durable DIR`` (arrival mode) journals every submit
+and retirement and commits a snapshot every ``--snapshot-every`` decode
+steps (32 by default); an interrupt checkpoints the in-flight work, and
+``--restore`` recovers it (newest clean snapshot + journal replay) and
+drains it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -103,6 +127,10 @@ from repro_torch.kernels import tt_contract
 from repro_torch.models import moe
 from repro_torch.serving.engine import generate_fixed
 from repro_torch.serving.scheduler import Request, Scheduler
+
+# --durability-smoke's snapshot cadence (the reference's), and the arrival
+# mode's with --durable, when --snapshot-every is not given
+DRILL_SNAPSHOT_EVERY, SNAPSHOT_EVERY = 2, 32
 
 
 def _sync(device: torch.device) -> None:
@@ -279,17 +307,20 @@ def arrival_request(model, args, uid: int, seed: int) -> Request:
                    top_k=args.top_k)
 
 
+def scheduler_kwargs(args, cache_len: int) -> dict:
+    """The ``Scheduler`` arguments of the serve flags: ``--slots`` slots
+    (default ``--batch``) over ``cache_len`` positions, paged with
+    ``--paged``, chunked with ``--chunk-prefill``."""
+    return dict(num_slots=args.slots or args.batch, cache_len=cache_len,
+                eos_id=args.eos_id, seed=args.seed + 1, paged=args.paged,
+                block_size=args.block_size, num_blocks=args.num_blocks,
+                chunk_prefill=args.chunk_prefill, chunk_size=args.chunk_size,
+                prefill_budget=args.prefill_budget)
+
+
 def make_scheduler(model, params, args, cache_len: int) -> Scheduler:
-    """A scheduler of ``--slots`` slots (default ``--batch``) over
-    ``cache_len`` positions, paged with ``--paged``, chunked with
-    ``--chunk-prefill``."""
-    return Scheduler(model, params, num_slots=args.slots or args.batch,
-                     cache_len=cache_len, eos_id=args.eos_id,
-                     seed=args.seed + 1, paged=args.paged,
-                     block_size=args.block_size, num_blocks=args.num_blocks,
-                     chunk_prefill=args.chunk_prefill,
-                     chunk_size=args.chunk_size,
-                     prefill_budget=args.prefill_budget)
+    """A scheduler of the serve flags (``scheduler_kwargs``)."""
+    return Scheduler(model, params, **scheduler_kwargs(args, cache_len))
 
 
 def print_pool_stats(sched: Scheduler) -> None:
@@ -333,8 +364,11 @@ def arrivals(sched: Scheduler, args) -> dict:
         torch.cuda.reset_peak_memory_stats(model.device)
     t0 = tally(model)
     start = time.perf_counter()
-    i = 0
-    interrupted = False
+    # --restore drains the recovered requests only: the synthetic workload
+    # would collide with the restored uids
+    durable = getattr(sched, "journal", None) is not None
+    i = args.max_requests if durable and args.restore else 0
+    interrupted = preserved = False
     try:
         while i < args.max_requests or not sched.idle:
             now = time.perf_counter() - start
@@ -348,14 +382,28 @@ def arrivals(sched: Scheduler, args) -> dict:
                 continue
             sched.step()
     except KeyboardInterrupt:
-        # drain: everything pending retires as cancelled, partial tokens
-        # kept, and the report below still prints
         interrupted = True
-        for q in list(sched.queue):
-            sched.cancel(q.req.uid)
-        for s in list(sched.slots):
-            if s is not None:
-                sched.cancel(s.uid)
+        if durable:
+            # a clean stop is a crash's recovery point: checkpoint the live
+            # state (a snapshot generation and a journal rotation) and
+            # keep the in-flight work for --restore
+            gen = sched.checkpoint()
+            sched.close()
+            preserved = True
+            print(f"\ninterrupted: state checkpointed to {args.durable} "
+                  f"(generation {gen}, {len(sched.queue)} queued, "
+                  f"{sched.num_active} active); resume with --restore")
+        else:
+            # drain: everything pending retires as cancelled, partial
+            # tokens kept, and the report below still prints
+            for q in list(sched.queue):
+                sched.cancel(q.req.uid)
+            for s in list(sched.slots):
+                if s is not None:
+                    sched.cancel(s.uid)
+    if durable and not preserved:
+        sched.checkpoint()                # the final snapshot of a drain
+        sched.close()
     _sync(model.device)
     wall = time.perf_counter() - start
     t1 = tally(model)
@@ -384,7 +432,8 @@ def arrivals(sched: Scheduler, args) -> dict:
            "launches": launches, "drops": t1["drops"] - t0["drops"],
            "counted": since(t0["counted"], t1["counted"]),
            "replayed": since(t0["replayed"], t1["replayed"]),
-           "peak_bytes": peak, "interrupted": interrupted, **st}
+           "peak_bytes": peak, "interrupted": interrupted,
+           "preserved": preserved, **st}
     chunked = (f" chunk={sched.chunk_size}x{sched.chunk_lanes}"
                if sched.chunk_prefill else "")
     print(f"arch={model.cfg.name} device={model.device} "
@@ -427,10 +476,214 @@ def arrivals(sched: Scheduler, args) -> dict:
 
 
 def simulate(model, params, args) -> dict:
-    """The arrival mode: a warm-up request, then the timed arrivals."""
+    """The arrival mode: a warm-up request, then the timed arrivals; with
+    ``--durable DIR`` through a ``DurableScheduler`` (``--restore``: the
+    one recovered from DIR, which drains what it holds; on a card it binds
+    the slot-pool graph the warm-up captured)."""
     sched, warm = arrival_scheduler(model, params, args)
     print(f"warm-up request: {warm:.3f}s (excluded below)")
+    if args.durable:
+        from repro_torch.serving.durable import DurableScheduler
+        every = args.snapshot_every or SNAPSHOT_EVERY
+        if args.restore:
+            sched.close()
+            sched = DurableScheduler.recover(
+                args.durable, model, params, rebase_clock=True,
+                snapshot_every=every, log=print)
+        else:
+            sched = DurableScheduler(sched, args.durable,
+                                     snapshot_every=every)
     return dict(arrivals(sched, args), warmup_s=warm, sched=sched)
+
+
+def _how(model, graph: bool) -> str:
+    return "graphs" if graph and model.device.type == "cuda" else "eager"
+
+
+def lifecycle_requests(model, args, priorities: bool) -> tuple[list, list]:
+    """The fault drills' ``--max-requests`` requests (uid i: a prompt
+    drawn by ``prompt_inputs`` from ``--seed`` + i, ``--steps`` new
+    tokens) and their arrival steps, the reference CLI's: with
+    ``priorities``, priorities ``integers(0, 3)`` and arrivals at the
+    cumulative Poisson(1) draws of a numpy generator seeded with
+    ``--seed``, uid 0 with a deadline of 3 steps and the last at priority 9
+    (so it preempts); otherwise all at step 0, priority 0."""
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    for uid in range(args.max_requests):
+        inputs = prompt_inputs(model, np.random.default_rng(args.seed + uid),
+                               1, args.prompt_len)
+        reqs.append(Request(
+            uid=uid, inputs=inputs, max_new_tokens=args.steps,
+            temperature=args.temperature, top_k=args.top_k,
+            priority=int(rng.integers(0, 3)) if priorities else 0,
+            deadline_s=3.0 if priorities and uid == 0 else None))
+    if not priorities:
+        return reqs, [0] * len(reqs)
+    arrive = np.cumsum(rng.poisson(1.0, size=len(reqs))).tolist()
+    reqs[-1] = dataclasses.replace(reqs[-1], priority=9, deadline_s=None)
+    return reqs, arrive
+
+
+def fault_smoke(model, params, args, graph: bool = True, check=None,
+                baseline: dict | None = None) -> dict:
+    """The fault drill (``--fault-smoke``): the requests of
+    ``lifecycle_requests`` under ``FaultPlan.random(--seed, horizon=max(4,
+    --steps), resize_to=(slots + 1, None))`` (the preemptor never
+    cancelled), through ``serving.faults.run_with_faults``: no leaked
+    block, no plan resolution, no lost request, every survivor's tokens
+    the uninterrupted run's (or, with ``check(uid, got, want)``, as it
+    decides; ``baseline``: the uninterrupted run's results, else it runs
+    here).  ``graph=False`` runs every scheduler eagerly on a card."""
+    from repro_torch.serving.faults import FaultPlan, run_with_faults
+
+    reqs, arrive = lifecycle_requests(model, args, priorities=True)
+    slots = args.slots or args.batch
+    kw = dict(scheduler_kwargs(args, args.prompt_len + args.steps),
+              graph=graph)
+    plan = FaultPlan.random(args.seed, horizon=max(4, args.steps),
+                            uids=[r.uid for r in reqs[:-1]],
+                            resize_to=(slots + 1, None))
+    print(f"arch={model.cfg.name} device={model.device} slots={slots} "
+          f"requests={len(reqs)} pool={'paged' if args.paged else 'dense'}"
+          f"{' chunked' if args.chunk_prefill else ''} "
+          f"{_how(model, graph)}")
+    print(f"fault plan: alloc_fail@{sorted(plan.alloc_fail_steps)} "
+          f"hold@{sorted(plan.hold_steps)} cancels={list(plan.cancels)} "
+          f"resizes={list(plan.resizes)} "
+          f"restart@{sorted(plan.restart_steps)} arrivals@{arrive}")
+    rep = run_with_faults(model, params, reqs, plan, sched_kwargs=kw,
+                          arrival_steps=arrive, check=check,
+                          baseline=baseline)
+    print(f"drained in {rep.steps} steps: restarts={rep.restarts} "
+          f"preemptions={rep.preemptions} cancelled={rep.cancelled} "
+          f"expired={rep.expired} replans={rep.replans}; resize ms "
+          f"{[round(t * 1e3, 3) for t in rep.resize_s]}; prompt tokens "
+          f"prefilled again by resumes {rep.recomputed_tokens}; captures by "
+          f"the restart {rep.rebuild_captures}")
+    print(f"fault-injection smoke OK ({len(rep.survivors)} survivors "
+          f"{'held by the check' if check else 'token-identical'} against "
+          f"the uninterrupted run)")
+    return {"report": rep, "plan": plan, "requests": reqs,
+            "arrivals": arrive, "steps": rep.steps,
+            "restarts": rep.restarts, "preemptions": rep.preemptions,
+            "cancelled": rep.cancelled, "expired": rep.expired,
+            "survivors": len(rep.survivors)}
+
+
+def durability_smoke(model, params, args, graph: bool = True,
+                     check=None) -> dict:
+    """The durability drill (``--durability-smoke``), the reference's three
+    drills: (1) a ``kill -9`` at a seeded step, journal and a snapshot
+    every ``--snapshot-every`` decode steps on a clean store, every
+    survivor the uninterrupted run's after the recovery, no leaked block,
+    no plan resolution; (2) the same kill with the newest committed
+    generation truncated or bit-flipped before the recovery, which must
+    fall back past it and replay forward; (3) the store alone: a truncated
+    newest generation falls back, a fully corrupt store raises.  Prints the
+    snapshots' bytes and the host ms of ``snapshot()``, of
+    ``save_snapshot`` (fsync included) and of each recovery's stages."""
+    import os
+    import tempfile
+
+    from repro_torch.core import durable
+    from repro_torch.serving.faults import (FaultPlan, load_snapshot,
+                                            run_with_faults, save_snapshot)
+
+    reqs, _ = lifecycle_requests(model, args, priorities=False)
+    slots = args.slots or args.batch
+    kw = dict(scheduler_kwargs(args, args.prompt_len + args.steps),
+              graph=graph)
+    every = args.snapshot_every or DRILL_SNAPSHOT_EVERY
+    plan = FaultPlan.random(args.seed, horizon=max(4, args.steps),
+                            n_alloc_fail=0, n_hold=0, n_cancel=0,
+                            with_restart=False, with_kill=True)
+    print(f"arch={model.cfg.name} device={model.device} slots={slots} "
+          f"requests={len(reqs)} pool={'paged' if args.paged else 'dense'} "
+          f"{_how(model, graph)} kill@{sorted(plan.kill_steps)} "
+          f"snapshot every {every} steps")
+
+    def costs(rep) -> str:
+        cp = rep.checkpoints
+        rc = rep.recoveries[0]
+        return (f"{len(cp)} snapshots of {cp[-1]['bytes']} bytes (largest "
+                f"{max(c['bytes'] for c in cp)}); snapshot() ms max "
+                f"{max(c['snapshot_s'] for c in cp) * 1e3:.3f}, "
+                f"save_snapshot ms max "
+                f"{max(c['save_s'] for c in cp) * 1e3:.3f}; recovery of "
+                f"generation {rc['generation']} ({rc['records']} journal "
+                f"records): load_snapshot {rc['load_s'] * 1e3:.3f} ms, "
+                f"from_snapshot {rc['from_snapshot_s'] * 1e3:.3f}, replay "
+                f"{rc['replay_s'] * 1e3:.3f}, checkpoint "
+                f"{rc['checkpoint_s'] * 1e3:.3f}; captures by the recovery "
+                f"{rep.rebuild_captures}")
+
+    with tempfile.TemporaryDirectory() as d:
+        rep = run_with_faults(model, params, reqs, plan, sched_kwargs=kw,
+                              durable_dir=d, snapshot_every=every,
+                              check=check)
+    assert rep.kills == 1, rep
+    print(f"kill drill OK: drained in {rep.steps} steps, "
+          f"{len(rep.survivors)} survivors "
+          f"{'held by the check' if check else 'token-identical'} after "
+          f"recovery; {costs(rep)}")
+
+    rng = np.random.default_rng(args.seed + 7)
+    corruptions: list[str] = []
+
+    def corruptor(root, step):
+        gens = durable.committed_generations(root)
+        if len(gens) < 2:
+            return                        # keep one good generation
+        p = os.path.join(root, f"gen_{gens[-1]:08d}", "arrays.bin")
+        size = os.path.getsize(p)
+        if rng.integers(0, 2) == 0:
+            with open(p, "r+b") as f:
+                f.truncate(int(rng.integers(0, size)))
+            corruptions.append(f"truncate gen {gens[-1]}")
+        else:
+            off = int(rng.integers(0, size))
+            with open(p, "r+b") as f:
+                f.seek(off)
+                b = f.read(1)
+                f.seek(off)
+                f.write(bytes([b[0] ^ (1 << int(rng.integers(0, 8)))]))
+            corruptions.append(f"bit-flip gen {gens[-1]}")
+
+    with tempfile.TemporaryDirectory() as d:
+        rep2 = run_with_faults(model, params, reqs, plan, sched_kwargs=kw,
+                               baseline=rep.baseline, durable_dir=d,
+                               snapshot_every=every, corruptor=corruptor,
+                               check=check)
+    assert rep2.kills == 1, rep2
+    print(f"corrupting-kill drill OK ({corruptions or 'nothing to corrupt'})"
+          f": recovery fell back past the damage, survivors "
+          f"{'held' if check else 'identical'}; {costs(rep2)}")
+
+    with tempfile.TemporaryDirectory() as d:
+        save_snapshot(d, {"version": 0, "gen": np.asarray([1], np.int32)})
+        save_snapshot(d, {"version": 0, "gen": np.asarray([2], np.int32)})
+        with open(os.path.join(d, "gen_00000002", "arrays.bin"),
+                  "r+b") as f:
+            f.truncate(2)
+        assert int(load_snapshot(d)["gen"][0]) == 1   # fell back
+        with open(os.path.join(d, "gen_00000001", "arrays.bin"),
+                  "r+b") as f:
+            f.seek(0)
+            b = f.read(1)
+            f.seek(0)
+            f.write(bytes([b[0] ^ 1]))
+        try:
+            load_snapshot(d)
+            raise AssertionError("fully-corrupt store must raise")
+        except durable.CorruptGenerationError:
+            pass
+    print("store drill OK: truncation falls back, full corruption raises "
+          "— a torn state is never returned")
+    print("durability smoke OK")
+    return {"reports": (rep, rep2), "requests": reqs,
+            "kills": rep.kills + rep2.kills, "corruptions": corruptions,
+            "survivors": len(rep.survivors)}
 
 
 # --prefix-smoke: each prompt's own tokens after the shared prefix
@@ -697,7 +950,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--assert-no-replan", action="store_true",
                     help="fail on a TT plan resolution or a capture (decode "
                          "or prefill) in the arrival mode's steady state")
-    return ap.parse_args(argv)
+    ap.add_argument("--fault-smoke", action="store_true",
+                    help="fault drill: a seeded FaultPlan (allocation "
+                         "failures, a hold, a cancel, a live resize, a "
+                         "restart) over mixed priorities; no leaked block, "
+                         "no replan, survivors token-identical")
+    ap.add_argument("--durability-smoke", action="store_true",
+                    help="durability drill: seeded kill -9 recovery (clean "
+                         "and corrupted store), truncation and bit-flip "
+                         "fallback")
+    ap.add_argument("--durable", default=None,
+                    help="journal + snapshot dir of the arrival mode: "
+                         "submits and retirements journaled, a snapshot "
+                         "every --snapshot-every steps; an interrupt keeps "
+                         "in-flight work for --restore")
+    ap.add_argument("--restore", action="store_true",
+                    help="recover the scheduler from --durable (newest "
+                         "clean snapshot + journal replay) and drain the "
+                         "restored requests")
+    ap.add_argument("--snapshot-every", type=int, default=None,
+                    help=f"decode steps between snapshot generations "
+                         f"(--durable: default {SNAPSHOT_EVERY}; "
+                         f"--durability-smoke: {DRILL_SNAPSHOT_EVERY})")
+    args = ap.parse_args(argv)
+    if args.restore and not args.durable:
+        ap.error("--restore requires --durable DIR")
+    return args
 
 
 def setup(args):
@@ -723,7 +1001,13 @@ def main(argv=None) -> dict:
     model, params = setup(args)
     if args.prefix_smoke:
         return prefix_smoke(model, params, args)
-    if args.arrival_rate:
+    if args.fault_smoke:
+        return fault_smoke(model, params, args)
+    if args.durability_smoke:
+        return durability_smoke(model, params, args)
+    if args.arrival_rate or args.restore:
+        if not args.arrival_rate:
+            args.arrival_rate = 1.0       # --restore drains, no arrivals
         return simulate(model, params, args)
     return fixed(model, params, args)
 

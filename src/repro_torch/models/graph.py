@@ -123,9 +123,10 @@ class DecodeGraph:
     bool buffer, its position is [B] int32, and its static KV cache is the
     pool of the scheduler that holds it.  ``bind(owner, params)`` captures
     (with the pool still empty) or takes over a graph whose holder has no
-    active row; ``splice(row_cache, slot, prompt_len)`` writes an admitted
-    row into the pool between replays; ``graph(token, active)`` decodes
-    one token for the active rows and leaves the others as they were.
+    active row or released it (``release``); ``splice(row_cache, slot,
+    prompt_len)`` writes an admitted row into the pool between replays;
+    ``graph(token, active)`` decodes one token for the active rows and
+    leaves the others as they were.
 
     Paged slot-pool mode (``paged`` = (num_blocks, block)): the pool is
     block-paged; ``splice_paged(row_cache, slot, prompt_len, table)``
@@ -225,12 +226,13 @@ class DecodeGraph:
         """Hand the slot-pool graph to the scheduler ``owner`` (anything
         with ``num_active``), capturing first when there is no graph for
         ``params`` yet: the pool is then zeros, before any row is spliced.
-        Refused while the scheduler that holds the graph has active rows:
-        they live in the pool, which a recapture would zero."""
+        Refused while another scheduler that holds the graph has active
+        rows: they live in the pool, which a recapture would zero.  Its own
+        holder may bind it again."""
         if not self.masked:
             raise ValueError("only a slot-pool graph is bound to a scheduler")
-        held = self.owner() if self.owner is not None else None
-        if held is not None and held.num_active:
+        held = self.holder()
+        if held is not None and held is not owner and held.num_active:
             raise RuntimeError(
                 f"the decode graph of {self.B} slots over {self.T} positions "
                 f"is held by a scheduler with {held.num_active} active rows")
@@ -246,6 +248,19 @@ class DecodeGraph:
             self._capture(params, pool)
             self.pos[:] = 0
         self.owner = weakref.ref(owner)
+
+    def holder(self):
+        """The scheduler the slot-pool graph is bound to, or None (never
+        bound, released, or dropped)."""
+        return self.owner() if self.owner is not None else None
+
+    def release(self, owner) -> None:
+        """Unbind ``owner`` (a scheduler that closed, or moved its pool to
+        another graph at a resize): the next ``bind`` takes the graph over
+        whatever rows ``owner`` left in it.  A graph bound to another
+        holder is left alone."""
+        if self.holder() is owner:
+            self.owner = None
 
     def splice(self, row_cache: dict, slot: int, prompt_len: int) -> None:
         """Write a one-row prefill cache at ``prompt_len`` into row ``slot``

@@ -85,11 +85,11 @@ class BlockAllocator:
         # completes via finalize_shrink() (the scheduler slices the device
         # arenas in the same breath)
         self._target: int | None = None
-        # fault injection (the reference's serving.faults; not ported yet,
-        # ROADMAP.md Queue 1 "Lifecycle and durability"): while set, the
-        # allocator reports zero availability and prefix lookups miss, so
-        # admissions defer exactly as under real pool exhaustion — no
-        # mid-admission exception, nothing to roll back
+        # fault injection (``serving.faults.run_with_faults`` sets it on a
+        # FaultPlan's alloc_fail_steps): while set, the allocator reports
+        # zero availability and prefix lookups miss, so admissions defer
+        # exactly as under real pool exhaustion — no mid-admission
+        # exception, nothing to roll back
         self.refuse_fresh = False
 
     # ------------------------------------------------------------- accounting

@@ -1881,3 +1881,160 @@ def test_internvl2_scheduler_graph_is_eager_and_paged_is_dense(cuda):
         for uid in got:
             assert np.array_equal(got[uid].tokens, dense[uid].tokens)
             assert np.array_equal(got[uid].logprobs, dense[uid].logprobs)
+
+
+# ------------------------------------------------------------- the lifecycle
+def _life_requests(model, n=4, S=8, steps=6):
+    from repro_torch.serving.scheduler import Request
+    return [Request(uid=u, inputs={"tokens": _prompt(
+        model, 120 + u, B=1, S=S)["tokens"]}, max_new_tokens=steps)
+        for u in range(n)]
+
+
+def test_bind_refuses_a_live_holder_until_it_closes(cuda):
+    """A scheduler with active rows holds its slot-pool graph: a second
+    scheduler of the same geometry cannot bind it; once the first closes
+    (``Scheduler.close``, a dead holder's release) it can, and the closed
+    one steps no more."""
+    from repro_torch.serving.scheduler import Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+    a = Scheduler(model, params, num_slots=2, cache_len=16)
+    a.submit(_life_requests(model, 1)[0])
+    a.step()
+    assert a.num_active == 1 and a.graph.holder() is a
+    with pytest.raises(RuntimeError, match="1 active rows"):
+        Scheduler(model, params, num_slots=2, cache_len=16)
+    a.close()
+    b = Scheduler(model, params, num_slots=2, cache_len=16)
+    assert b.graph is a.graph and b.graph.holder() is b
+    assert model.graph_captures == 1                 # taken over, no capture
+    with pytest.raises(RuntimeError, match="closed"):
+        a.step()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_resize_binds_the_new_geometry_and_matches_eager(cuda, paged):
+    """A grow (2 → 3 slots; paged also 8 → 12 blocks) mid-stream binds
+    the slot-pool graph of the new key (one capture over zeros), copies the
+    pool into it and releases the old one; a shrink back lands once the
+    tail drained, binding the first graph again (no capture).  Every token
+    and logprob is the eager scheduler's, bit for bit."""
+    from repro_torch.serving.scheduler import Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+    kw = dict(paged=True, block_size=4, num_blocks=8) if paged else {}
+    out = {}
+    for graph in (True, False):
+        sched = Scheduler(model, params, num_slots=2, cache_len=16,
+                          graph=graph, **kw)
+        reqs = _life_requests(model, 4)
+        sched.submit(reqs[0])
+        sched.step()
+        first = sched.graph
+        sched.resize(3, 12 if paged else None)
+        if graph:
+            assert sched.graph is not first and first.holder() is None
+            assert sched.graph.B == 3 and model.graph_captures == 2
+        for r in reqs[1:]:
+            sched.submit(r)
+        sched.step()
+        sched.resize(2, 8 if paged else None)    # lands once drained
+        sched.run()
+        assert sched.num_slots == 2
+        if graph:
+            assert sched.graph is first and model.graph_captures == 2
+        if paged:
+            sched.allocator.assert_quiescent()
+        out[graph] = {f.uid: f for f in sched.finished}
+        sched.close()
+    assert sorted(out[True]) == sorted(out[False]) == [0, 1, 2, 3]
+    for u, f in out[True].items():
+        assert np.array_equal(f.tokens, out[False][u].tokens)
+        assert np.array_equal(f.logprobs, out[False][u].logprobs)
+
+
+def test_from_snapshot_binds_without_capture_and_continues(cuda):
+    """A snapshot mid-stream (paged, generators of sampled requests
+    included), the scheduler closed, ``from_snapshot`` on the card: it
+    binds the same graph (no capture), restores the pool and the host
+    positions, and the streams end as an uninterrupted run's, bit for
+    bit."""
+    import dataclasses
+    from repro_torch.serving import faults
+    from repro_torch.serving.scheduler import Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+    reqs = [dataclasses.replace(r, temperature=0.8)
+            for r in _life_requests(model, 3)]
+    kw = dict(num_slots=2, cache_len=16, paged=True, block_size=4, seed=5)
+    ref = Scheduler(model, params, **kw)
+    for r in reqs:
+        ref.submit(r)
+    want = ref.run()
+    ref.close()
+    clk = {"t": 0.0}
+    sched = Scheduler(model, params, clock=faults.step_clock(clk), **kw)
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(3):
+        clk["t"] += 1
+        sched.step()
+    snap = sched.snapshot()
+    sched.close()
+    captures = model.graph_captures
+    back = Scheduler.from_snapshot(model, params, snap,
+                                   clock=faults.step_clock(clk))
+    assert back.graph is sched.graph and model.graph_captures == captures
+    assert back.graph.pos.tolist() == snap["cache"]["pos"].tolist()
+    got = back.run()
+    got.update({f.uid: f for f in back.finished})
+    for u, f in want.items():
+        assert np.array_equal(got[u].tokens, f.tokens)
+        assert np.array_equal(got[u].logprobs, f.logprobs)
+    back.allocator.assert_quiescent()
+
+
+def test_bound_graph_evicted_from_the_lru_stays_alive(cuda):
+    """``GRAPH_CACHE_SIZE`` decode graphs of other keys push the bound
+    slot-pool graph out of the model's LRU; the scheduler still holds it
+    and keeps replaying it."""
+    from repro_torch.models.model import GRAPH_CACHE_SIZE
+    from repro_torch.serving.scheduler import Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+    sched = Scheduler(model, params, num_slots=2, cache_len=16)
+    reqs = _life_requests(model, 2)
+    sched.submit(reqs[0])
+    sched.step()
+    graph = sched.graph
+    for B in range(3, 3 + GRAPH_CACHE_SIZE):
+        model.graphed_decode_step(B, 16, masked=True)
+    assert graph not in model.decode_graphs.values()
+    sched.submit(reqs[1])
+    out = sched.run()
+    assert sched.graph is graph and graph.holder() is sched
+    assert sorted(out) == [0, 1] and all(len(f.tokens) == 6
+                                         for f in out.values())
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged", "chunked"])
+def test_fault_drill_graph_is_eager_bit_for_bit(cuda, pool):
+    """``serve.fault_smoke`` on SMOKE (seed 5: a preemption in every pool)
+    through the graphs and eagerly: the same finished requests, tokens
+    and logprobs; survivors identical to the uninterrupted run (asserted
+    inside); the restart captures nothing."""
+    from repro_torch.launch import serve
+    argv = ["--variant", "smoke", "--tt", "ffn,attn", "--tt-rank", "4",
+            "--tt-backend", "auto", "--slots", "2", "--max-requests", "6",
+            "--prompt-len", "8", "--steps", "6", "--seed", "5"] + {
+        "dense": [], "paged": ["--paged", "--block-size", "4"],
+        "chunked": ["--paged", "--block-size", "4", "--chunk-prefill",
+                    "--chunk-size", "3"]}[pool]
+    args = serve.parse_args(argv)
+    model, params = serve.setup(args)
+    g = serve.fault_smoke(model, params, args)["report"]
+    e = serve.fault_smoke(model, params, args, graph=False)["report"]
+    assert g.rebuild_captures == 0 and g.restarts == 1
+    assert g.preemptions >= 1 and len(g.resize_s) == 1
+    assert sorted(g.finished) == sorted(e.finished)
+    for u, f in g.finished.items():
+        assert f.finish_reason == e.finished[u].finish_reason
+        assert np.array_equal(f.tokens, e.finished[u].tokens)
+        assert np.array_equal(f.logprobs, e.finished[u].logprobs)

@@ -1,6 +1,6 @@
-"""The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch`` or ``chip_smoke.py``, and its entry points refuse to
-fall back to the CPU when a GPU was asked for."""
+"""The port stands alone: no JAX, no ``ml_dtypes`` and nothing of
+``repro`` in ``src/repro_torch`` or ``chip_smoke.py``, and its entry points
+refuse to fall back to the CPU when a GPU was asked for."""
 import os
 import pathlib
 import re
@@ -13,8 +13,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)(\.|\s|$)",
+    re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -33,7 +34,7 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -332,8 +332,15 @@ def test_splice_cache_writes_what_the_reference_writes(pair2):
 
 def test_scheduler_refuses_what_is_not_ported(pair2):
     _, _, tm, tp, _ = pair2
-    with pytest.raises(NotImplementedError, match="preempt"):
-        Scheduler(tm, tp, num_slots=2, cache_len=T, preempt=True)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Scheduler(tm, tp, num_slots=2, cache_len=T, mesh=object())
+    # the lifecycle's arguments are ported
+    for kw in ({"preempt": True}, {"preempt": False},
+               {"clock": lambda: 0.0}):
+        sched = Scheduler(tm, tp, num_slots=2, cache_len=T, **kw)
+        assert sched.preempt is kw.get("preempt", True)
+    assert Scheduler(tm, tp, num_slots=2, cache_len=T,
+                     clock=lambda: 7.0)._now() == 7.0
     with pytest.raises(TypeError, match="unexpected keyword"):
         Scheduler(tm, tp, num_slots=2, cache_len=T, bogus=1)
     with pytest.raises(ValueError, match="num_slots"):
