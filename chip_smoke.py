@@ -103,7 +103,7 @@ Phases, each fatal on failure:
      admission a replay of its bucket's captured prefill: the arrival mode
      through ``launch.serve.simulate`` (16 requests at 50/s; 0 captures of
      either kind and 0 plan resolutions in the steady state, ``tt_fused2``
-     replayed 70 times per admission and per decode step), a
+     replayed 56 times per admission and per decode step), a
      step-indexed staggered run of 12 requests (prompts of 16 to 64
      tokens) through the graphs and eagerly (bit-identical; one prefill
      capture per new bucket), each bucket's prefill replays traced alone
@@ -113,8 +113,8 @@ Phases, each fatal on failure:
      then chunked prefill on that model: the arrival mode with
      ``--chunk-prefill`` (chunks of 64, one lane) over the dense and the
      paged pool beside the monolithic runs (0 captures and plan
-     resolutions steady, 16 chunks, ``tt_fused2`` replayed 140 times per
-     mixed step and 70 per plain step), the staggered run at chunks of 16
+     resolutions steady, 16 chunks, ``tt_fused2`` replayed 112 times per
+     mixed step and 56 per plain step), the staggered run at chunks of 16
      over 2 lanes, both pools, graph and eager (bit-identical; held
      against ``generate_fixed`` by ``serve.check_greedy``), serve's prefix
      smoke chunked, and the mixed replays traced alone; then full-width
@@ -203,7 +203,23 @@ Phases, each fatal on failure:
      steps (kill and corrupting-kill survivors bit-identical), printing
      the snapshot's bytes, ``snapshot()``, ``save_snapshot`` and the
      recoveries' ms, the resize's ms and the prompt tokens preemption
-     prefilled again.
+     prefilled again;
+  7. the streaming front end on phase 6's model (``streaming_path``):
+     ``launch.serve.serve_smoke`` over the paged pool with chunked
+     prefill (chunks of 64), through the captured graphs, the mixed step
+     captured by the engine's loop thread while the HTTP handlers wait:
+     two overlapping streams of 32 tokens after 64-token prompts, a
+     reconnect from 16, /stats, /shutdown, 0 plan resolutions; the
+     streamed tokens and logprobs a synchronous ``Scheduler.run``'s bit
+     for bit and within ``serve.check_greedy`` of ``generate_fixed``;
+     each stream's time to first token and inter-token p50; the
+     journal-aware reconnect (``journal_reconnect``: a snapshot every
+     step, the engine stopped after 3 tokens, ``recover`` binding the same
+     graph, a replay from index 2 equal to the crash-free run); then
+     (``cold_start_probe``) two fresh ``serve --first-token
+     --compile-cache DIR`` processes at full width, cold (``nvcc``
+     builds into DIR) and warm (``--assert-cache-hits``: nothing built),
+     printing both ``COLD_START`` lines.
 Every fixed batch compares the greedy picks of 16 decode steps, graph
 against eager (``graph_against_eager``); beside it an eager warm run
 (eager tok/s and peak memory, its tokens against the graph's warm run)
@@ -219,7 +235,8 @@ the kernel line's ``tt_fused2`` launches are those of the fixed-batch
 calls, the dense arrival-mode call, the paged runs and the chunked runs
 together, gemma3-4b's, mixtral-8x7b's, deepseek-v2-lite-16b's,
 jamba-v0.1-52b's, qwen3-32b's, mamba2-2.7b's, seamless-m4t-large-v2's
-and internvl2-2b's and phase 6's drills included (``tt_fused2_int8``:
+and internvl2-2b's, phase 6's drills and phase 7's streams included
+(``tt_fused2_int8``:
 their int8 fixed batches and drills too; the expert kernels:
 mixtral's, deepseek-v2's and jamba's); its times are
 deepseek-7b's layer, and for the expert-batched kernels mixtral-8x7b's (3
@@ -277,10 +294,11 @@ SHAPES3 = {
     "ffn down 11008->4096": (((8, 8, 172), (64, 8, 8), (1, 16, 16, 1)), 1),
 }
 ROWS = (256, 4)          # prefill (batch 4 × prompt 64) and decode (batch 4)
-# the scheduler's one-row admission prefills at the buckets of a cache of
-# 96 (bucket_length), and the decode of the pool resized to 5 slots (phase
-# 6): checked against the plain versions, not timed
-BUCKET_ROWS = (5, 16, 32, 64)
+# the one-row decode of ``serve.check_greedy``'s ``generate_fixed``, the
+# scheduler's one-row admission prefills at the buckets of a cache of 96
+# (bucket_length, and a chunk of 64), and the decode of the pool resized to
+# 5 slots (phase 6): checked against the plain versions, not timed
+BUCKET_ROWS = (1, 5, 16, 32, 64)
 LAYERS, PASSES = 30, 32  # full depth; 1 prefill + 31 decode forward passes
 # decode steps traced alone, and host-clock calls of ``host_ms`` (8 until
 # the lifecycle phase joined the script: a trace's host cost grows with its
@@ -291,9 +309,10 @@ REPLAYS = 4
 # kernels (eight took ~5 s of the script's wall each)
 PREFILL_REPLAYS = 2
 # forward passes of deepseek-7b's traced warm runs (of ``PASSES`` until
-# the lifecycle phase joined the script: a 32-pass trace of the 30-layer
-# model holds ~92,000 kernels, which the profiler is slow to summarise)
-TRACE_PASSES = 8
+# the lifecycle phase joined the script, 8 until the streaming phase did:
+# a 32-pass trace of the 30-layer model holds ~92,000 kernels, which the
+# profiler is slow to summarise)
+TRACE_PASSES = 4
 # decode steps of the cold eager run before each path's warm one (of
 # ``--steps`` until mixtral-8x7b's phases joined the script)
 COLD_STEPS = 4
@@ -591,8 +610,9 @@ INTERNVL2_IMAGES, INTERNVL2_T, INTERNVL2_CUT_LAYERS = (64, 128), 416, 8
 # continuous-batching paths (dense, paged, chunked) run at this depth (of
 # 30), to keep the script within its time on a slower host with the two
 # families above (806.7 s on one host, 1,055.0 on another, before the
-# continuous-batching paths were cut)
-CUT_LAYERS = 10
+# continuous-batching paths were cut; 10 until the streaming phase joined
+# the script, which took 937.4 s on a slow host before)
+CUT_LAYERS = 8
 # mixtral-8x7b's and deepseek-v2-lite-16b's continuous-batching paths
 # (arrivals, prefix smoke, staggered runs) run at this depth (of 32 and
 # 27), to keep the script within its time with mamba2-2.7b's phases (the
@@ -1686,8 +1706,8 @@ def scheduler_path(smi: str) -> tuple[int, dict]:
     default) and each a replay of the captured prefill of its bucket.  The
     arrival mode through ``launch.serve.simulate`` (launch counts set to 0
     just before, read just after): 0 captures of either kind and 0 plan
-    resolutions in the steady state, and ``tt_fused2`` launched 70 times
-    per admission prefill plus 70 per decode step, all replayed (none
+    resolutions in the steady state, and ``tt_fused2`` launched 56 times
+    per admission prefill plus 56 per decode step, all replayed (none
     counted).  Then the step-indexed staggered run (prompts of 16 to 64
     tokens) through the graphs and eagerly (``graph=False``), both
     bucketed: every token and logprob bit for bit, one prefill capture per
@@ -1838,7 +1858,7 @@ def paged_path(smi: str, model, params, args, dense: dict, dense_done: dict,
     model of ``scheduler_path``, whose dense runs are ``dense`` (arrival
     mode) and ``dense_done`` (staggered, graphs): the arrival mode with
     ``--paged`` (0 captures and plan resolutions in the steady state,
-    ``tt_fused2`` replayed 70 × (admissions + steps), no leaked block);
+    ``tt_fused2`` replayed 56 × (admissions + steps), no leaked block);
     the staggered run paged through the graphs against the dense one and
     against paged eager, bit for bit; the staggered run over 12 blocks
     (admission by memory: live blocks within the pool after every step, a
@@ -2197,7 +2217,7 @@ def chunked_path(smi: str, model, params, dense: dict, paged: dict,
     run is ``dense_done``: the arrival mode with ``--chunk-prefill`` at
     the reference's defaults (chunks of 64, one lane) over the dense and
     the paged pool (0 captures and plan resolutions in the steady state,
-    16 chunks, ``tt_fused2`` replayed 140 times per mixed step and 70 per
+    16 chunks, ``tt_fused2`` replayed 112 times per mixed step and 56 per
     plain step, none counted, no leaked block), beside the monolithic run;
     the staggered run at chunks of 16 over 2 lanes (budget 32) over both
     pools, through the graphs and eagerly: graph ≡ eager and paged ≡ dense
@@ -3808,10 +3828,11 @@ def graph_keys(model) -> set:
     return keys
 
 
-def lifecycle_path(smi: str) -> tuple[dict[str, int], dict]:
-    """Phase 6 at full width: deepseek-7b as ``SERVE_ARGS`` builds it (30
-    layers, bf16, TT on ffn+attn at rank 16, length 2 ``auto``, fp
-    cores), 4 slots × (64 + 32).  ``serve.fault_smoke`` on 16 requests
+def lifecycle_path(smi: str, model, params) -> tuple[dict[str, int], dict]:
+    """Phase 6 at full width: deepseek-7b as ``LIFE_ARGS`` builds it
+    (``model``, ``params``: 30 layers, bf16, TT on ffn+attn at rank 16,
+    length 2 ``auto``, fp cores), 4 slots × (64 + 32).
+    ``serve.fault_smoke`` on 16 requests
     over the paged (blocks of 16) and the dense pool, after their
     uninterrupted run (whose keys it may not capture again): no leaked
     block, no plan resolution, no lost request; every capture of the
@@ -3827,7 +3848,6 @@ def lifecycle_path(smi: str) -> tuple[dict[str, int], dict]:
     included), the prompt tokens preemption prefilled again; returns the
     drills' TT launches (counted + replayed) and the record."""
     t_phase = time.perf_counter()
-    model, params, args = cli_model(LIFE_ARGS)
     T = 64 + PASSES
     rec = {"card": smi}
     tt_contract.reset_launch_counts()
@@ -3916,13 +3936,217 @@ def lifecycle_path(smi: str) -> tuple[dict[str, int], dict]:
         corruptions=dur["corruptions"])
     launches = serve.launches_between(t0, serve.tally(model))
     rec["launches"] = launches
-    del model, params
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"lifecycle phase 6 at full width: {rec['wall_s']:.1f} s; TT "
           f"launches {launches}", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
     return launches, rec
+
+
+# the streaming phase (7): phase 6's model behind serve's --serve-smoke over
+# the paged pool (blocks of 16) with chunked prefill (chunks of 64, one
+# lane): two overlapping streams of PASSES tokens after 64-token prompts
+STREAM_ARGS = LIFE_ARGS + PAGED_ARGS + ["--chunk-prefill", "--serve-smoke",
+                                        "--assert-no-replan"]
+# the journal-aware reconnect: the engine stops after this many tokens
+CRASH_AFTER = 3
+# the cold/warm start probe: two fresh ``--first-token`` processes (one
+# request of 64 + 32 through a 4-slot scheduler), each bounded
+COLD_ARGS = LIFE_ARGS
+COLD_TIMEOUT = 600
+# the bound of every wait of the phase (a stream's next token, a join)
+STREAM_WAIT = 300.0
+
+
+def journal_reconnect(model, params, args, req: Request, want) -> dict:
+    """The journal-aware reconnect at full width: a ``DurableScheduler``
+    (a snapshot every step) over the serve flags' pool behind a
+    ``StreamEngine``, which stops with ``close(drain=False)`` once
+    ``CRASH_AFTER`` tokens streamed (its loop steps no more past them, so
+    the request is mid-stream); ``DurableScheduler.recover`` (the same
+    graph bound, nothing captured) and a new engine, whose
+    ``stream(0, start=2)`` and full replay must be ``want``'s tokens and
+    logprobs (the crash-free run), bit for bit.  Returns the record."""
+    import tempfile
+
+    from repro_torch.serving.durable import DurableScheduler
+    from repro_torch.serving.engine import StreamEngine
+
+    T = args.prompt_len + args.steps
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        ds = DurableScheduler(serve.make_scheduler(model, params, args, T),
+                              d, snapshot_every=1)
+        step = ds.step
+
+        def held():
+            deadline = time.perf_counter() + STREAM_WAIT
+            while ds.sched.tokens_out >= CRASH_AFTER and not eng._stop and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.001)
+            return [] if ds.sched.tokens_out >= CRASH_AFTER else step()
+
+        ds.step = held
+        eng = StreamEngine(ds)
+        eng.submit(req)
+        seen = []
+        for ev in eng.stream(0, timeout=STREAM_WAIT):
+            seen.append(ev)
+            if len(seen) >= CRASH_AFTER:
+                break
+        eng.close(drain=False, timeout=STREAM_WAIT)
+        snaps = len(ds.checkpoints)
+        builds = model.graph_captures + model.prefill_builds
+        t = time.perf_counter()
+        ds2 = DurableScheduler.recover(d, model, params)
+        recover_s = time.perf_counter() - t
+        eng2 = StreamEngine(ds2)
+        try:
+            seeded = len(eng2._buffers[0])
+            t = time.perf_counter()
+            evs, first_s = [], None
+            for ev in eng2.stream(0, start=2, timeout=STREAM_WAIT):
+                if first_s is None:
+                    first_s = time.perf_counter() - t
+                evs.append(ev)
+            rest_s = time.perf_counter() - t
+            full = list(eng2.stream(0, timeout=STREAM_WAIT))
+        finally:
+            eng2.close(timeout=STREAM_WAIT)
+        rebuilt = model.graph_captures + model.prefill_builds - builds
+
+    def same(events, lo):
+        return ([e["token"] for e in events[:-1]] == want.tokens[lo:].tolist()
+                and np.array_equal(np.float32([e["lp"] for e in events[:-1]]),
+                                   want.logprobs[lo:])
+                and events[-1] == {"uid": 0, "done": "length"})
+
+    ok = {"before the crash": [e["token"] for e in seen] ==
+          want.tokens[:CRASH_AFTER].tolist(),
+          "from 2": same(evs, 2), "from 0": same(full, 0),
+          "seeded": 1 <= seeded <= CRASH_AFTER, "no capture": rebuilt == 0}
+    return {"ok": ok, "snapshots_before_crash": snaps, "seeded": seeded,
+            "recover_s": recover_s, "replay_first_event_s": first_s,
+            "replay_rest_s": rest_s, "replayed": len(evs) - 1,
+            "captures_by_recovery": rebuilt}
+
+
+def streaming_path(smi: str, model, params) -> tuple[dict[str, int], dict]:
+    """Phase 7 at full width on phase 6's model (deepseek-7b, 30 layers,
+    bf16, TT on ffn+attn at rank 16, length 2 ``auto``, fp cores: every
+    projection through ``tt_fused2.cu``): ``serve.serve_smoke`` over the
+    paged pool with chunked prefill through the captured graphs
+    (``STREAM_ARGS``: the loop thread replays the bound decode graph and
+    captures the mixed step at its first use while the HTTP handler
+    threads wait): two overlapping streams of 32 tokens, a reconnect from
+    16, /stats, /shutdown, 0 plan resolutions.  The streamed tokens and
+    logprobs must be a synchronous ``Scheduler.run``'s of the same
+    requests on the same pool geometry, bit for bit, and within
+    ``serve.check_greedy`` of ``generate_fixed``.  Then the journal-aware
+    reconnect (``journal_reconnect``).  Returns the phase's TT launches
+    (counted + replayed) and the record."""
+    t_phase = time.perf_counter()
+    a = serve.parse_args(STREAM_ARGS)
+    T = a.prompt_len + a.steps
+    tt_contract.reset_launch_counts()
+    t0 = serve.tally(model)
+    out = serve.serve_smoke(model, params, a)
+    reqs = [serve.arrival_request(model, a, u, a.seed + u) for u in (0, 1)]
+    sync = Scheduler(model, params, **serve.scheduler_kwargs(a, T))
+    for r in reqs:
+        sync.submit(r)
+    want = sync.run()
+    sync.close()
+    same = {u: bool(np.array_equal(out["streamed"][u][0], want[u].tokens)
+                    and np.array_equal(out["streamed"][u][1],
+                                       want[u].logprobs)) for u in (0, 1)}
+    greedy = {u: serve.check_greedy(model, params, reqs[u].inputs["tokens"],
+                                    want[u], T) for u in (0, 1)}
+    ms = [round(x * 1e3, 3) for x in out["ttft_s"]]
+    itl = [round(x * 1e3, 3) for x in out["itl_p50_s"]]
+    print(f"streaming, full width, paged + chunked ({smi}): 2 x {a.steps} "
+          f"tokens; ttft ms {ms}, inter-token p50 ms {itl}; reconnect from "
+          f"{out['replay_from']}: {out['replay_events']} events in "
+          f"{out['replay_s'] * 1e3:.3f} ms; streams bit-identical to the "
+          f"synchronous scheduler {same}; against generate_fixed identical "
+          f"{[g['identical'] for g in greedy.values()]}, logprobs within "
+          f"{max(g['logprob_diff'] for g in greedy.values()):.3g} (tol "
+          f"{greedy[0]['tol']:.3g}); while serving {out['replans']} plan "
+          f"resolutions, {out['captures']} captures of decode or mixed "
+          f"steps, {out['prefill_captures']} of prefills or resumes",
+          flush=True)
+    if not all(same.values()) or out["replans"]:
+        raise AssertionError(f"streaming: streams equal to the synchronous "
+                             f"scheduler {same}, {out['replans']} plan "
+                             f"resolutions")
+    req = Request(uid=0, inputs={"tokens": reqs[0].inputs["tokens"].cpu()},
+                  max_new_tokens=a.steps)
+    rc = journal_reconnect(model, params, a, req, want[0])
+    print(f"journal-aware reconnect, full width ({smi}): crash after "
+          f"{CRASH_AFTER} tokens ({rc['snapshots_before_crash']} snapshots), "
+          f"recover {rc['recover_s'] * 1e3:.1f} ms, {rc['seeded']} tokens "
+          f"seeded; stream(0, start=2): first event in "
+          f"{rc['replay_first_event_s'] * 1e3:.3f} ms, {rc['replayed']} "
+          f"events in {rc['replay_rest_s'] * 1e3:.1f} ms; checks "
+          f"{rc['ok']}", flush=True)
+    if not all(rc["ok"].values()):
+        raise AssertionError(f"journal-aware reconnect: {rc['ok']}")
+    launches = serve.launches_between(t0, serve.tally(model))
+    rec = {"card": smi, "ttft_s": out["ttft_s"], "itl_p50_s":
+           out["itl_p50_s"], "replay_s": out["replay_s"],
+           "replay_events": out["replay_events"], "identical": same,
+           "greedy": {u: {k: g[k] for k in ("identical", "gap", "slack",
+                                             "logprob_diff", "tol")}
+                      for u, g in greedy.items()},
+           "replans": out["replans"], "captures": out["captures"],
+           "prefill_captures": out["prefill_captures"], "stats": out["stats"],
+           "reconnect": rc, "launches": launches}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"streaming phase 7 at full width: {rec['wall_s']:.1f} s; TT "
+          f"launches {launches}", flush=True)
+    return launches, rec
+
+
+def cold_start_probe(smi: str) -> dict:
+    """Phase 7's cold and warm start: two fresh ``python -m
+    repro_torch.launch.serve --first-token --compile-cache DIR``
+    processes (``COLD_ARGS``), the first from an empty DIR (``nvcc``
+    builds the kernel library into it), the second with
+    ``--assert-cache-hits`` (it must build nothing).  Prints both
+    ``COLD_START`` lines; returns them with each process's wall."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        for kind in ("cold", "warm"):
+            cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+                   *COLD_ARGS, "--first-token", "--compile-cache", d]
+            if kind == "warm":
+                cmd.append("--assert-cache-hits")
+            t = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  env=env, cwd=ROOT, timeout=COLD_TIMEOUT)
+            wall = time.perf_counter() - t
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("COLD_START ")]
+            if proc.returncode or len(lines) != 1:
+                raise AssertionError(
+                    f"{kind} start: exit {proc.returncode}\n"
+                    f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            print(f"{kind} start ({smi}; process wall {wall:.1f} s): "
+                  f"{lines[0]}", flush=True)
+            out[kind] = dict(json.loads(lines[0][len("COLD_START "):]),
+                             process_wall_s=wall)
+    cold, warm = out["cold"], out["warm"]
+    if not (cold["nvcc_s"] > 0 and warm["nvcc_s"] == 0 and
+            cold["cache_entries"] == warm["cache_entries"] == 1):
+        raise AssertionError(f"cold/warm start: {out}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"cold/warm start probe: {out['wall_s']:.1f} s; start to first "
+          f"token {cold['start_to_first_token_s']:.3f} s cold (nvcc "
+          f"{cold['nvcc_s']:.1f} s), {warm['start_to_first_token_s']:.3f} s "
+          f"warm", flush=True)
+    return out
 
 
 def kernel_line(recs, launches) -> dict:
@@ -4087,11 +4311,20 @@ def main() -> int:
     v_launches, internvl2_rec = timed("internvl2-2b", internvl2_path, smi)
     for k, v in v_launches.items():
         launches[k] += v
-    f_launches, life_rec = timed("lifecycle", lifecycle_path, smi)
-    for part in (life_launches, f_launches):
+    # phases 6 and 7 share one full-width deepseek-7b
+    model, params, _ = timed("lifecycle model", cli_model, LIFE_ARGS)
+    f_launches, life_rec = timed("lifecycle", lifecycle_path, smi, model,
+                                 params)
+    s_launches, stream_rec = timed("streaming", streaming_path, smi, model,
+                                   params)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for part in (life_launches, f_launches, s_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     life_rec["smoke"] = life_smoke
+    stream_rec["cold_start"] = timed("cold start", cold_start_probe, smi)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "records": recs, "layers": layers,
                    "steps": steps, "graph": graph_recs,
@@ -4100,7 +4333,8 @@ def main() -> int:
                    "mamba2-2.7b": mamba2_rec,
                    "seamless-m4t-large-v2": seamless_rec,
                    "internvl2-2b": internvl2_rec,
-                   "lifecycle": life_rec, "walls": walls}, f,
+                   "lifecycle": life_rec, "streaming": stream_rec,
+                   "walls": walls}, f,
                   indent=1, default=str)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s; by "
           f"phase: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()),

@@ -14,8 +14,9 @@ Each wrapper replaces one Pallas kernel of ``repro.kernels.tt_contract``:
                            (``csrc/tt_step.cu``; ``tt_step[_int8]_pallas``)
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one library
-under ``build/`` at the repository root at first use, keyed by a hash of
-the sources, and loaded with ctypes.
+under ``build/`` at the repository root (``BUILD_DIR``, which
+``launch.cache.enable_compile_cache`` points elsewhere) at first use,
+keyed by a hash of the sources, and loaded with ctypes.
 
 A wrapper given CPU tensors runs the kernel's plain version
 (``kernels.ref``); given CUDA tensors it launches the kernel or raises.
@@ -35,6 +36,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 import torch
 
@@ -51,7 +53,10 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 CAPTURE_COUNTS: collections.Counter = collections.Counter()
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+# where ``build`` puts the library, under a directory per source hash;
+# ``launch.cache.enable_compile_cache`` points it elsewhere
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
+LIBRARY_NAME = "libtt_kernels.so"
 SOURCES = ("tt_fused2.cu", "tt_chain.cu", "tt_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -90,6 +95,9 @@ STEP_SLOT_BYTES = 48 * 1024
 
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
+# host seconds of this process's ``nvcc`` runs (0 when every build found
+# its library already built)
+BUILD_SECONDS = 0.0
 
 
 def reset_launch_counts() -> None:
@@ -137,12 +145,14 @@ def build() -> tuple[pathlib.Path, str]:
     Returns (library path, compiler log).  The library is written under a
     temporary name and renamed, so a concurrent build never loads a
     partial file."""
+    global BUILD_SECONDS
     out_dir = BUILD_DIR / source_hash()
-    lib = out_dir / "libtt_kernels.so"
+    lib = out_dir / LIBRARY_NAME
     log = out_dir / "build.log"
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
         objs = [os.path.join(work, name + ".o") for name in SOURCES]
@@ -164,7 +174,13 @@ def build() -> tuple[pathlib.Path, str]:
             raise RuntimeError(f"nvcc link failed:\n{text}")
         log.write_text(text)
         os.replace(tmp, lib)
+    BUILD_SECONDS += time.perf_counter() - t0
     return lib, text
+
+
+def library_loaded() -> bool:
+    """Whether this process has loaded the kernel library."""
+    return _LIB is not None
 
 
 def _lib() -> ctypes.CDLL:

@@ -16,6 +16,9 @@ the continuous-batching scheduler.
         [--fault-smoke | --durability-smoke [--snapshot-every 8]]
         [--arrival-rate ... --durable DIR [--restore]
          [--snapshot-every 32]]
+        [--serve [--host 127.0.0.1] [--port 8763]
+         [--durable DIR [--restore]] | --serve-smoke]
+        [--first-token [--compile-cache DIR [--assert-cache-hits]]]
 
 ``--tt-backend`` is one of ``kernels.plan.BACKENDS``: ``auto`` (d=2
 layers through the fused2 kernel), ``cuda_fused2``, ``cuda_fused`` (the
@@ -110,23 +113,54 @@ and retirement and commits a snapshot every ``--snapshot-every`` decode
 steps (32 by default); an interrupt checkpoints the in-flight work, and
 ``--restore`` recovers it (newest clean snapshot + journal replay) and
 drains it.
+
+Streaming (DESIGN.md §15): ``--serve`` starts the stdlib HTTP/SSE server
+(``serving.server``) over a ``StreamEngine`` on ``--host``:``--port``:
+POST /generate streams per-token events, GET /stream/<uid>?from=N resumes
+a dropped stream (journal-aware with ``--durable DIR``, whose ``--restore``
+recovers the in-flight work first), GET /stats, and POST /shutdown (or an
+interrupt) drains and exits.  ``--serve-smoke`` is its check: an
+in-process server, two overlapping streaming requests of ``--steps``
+tokens (prompts of ``--prompt-len`` tokens drawn as the arrival mode
+draws uid 0's and 1's) whose ordered events interleave, a reconnect that
+replays uid 0 from ``--steps`` // 2, /stats and a graceful /shutdown;
+``--assert-no-replan`` fails on a plan resolution while serving.  A
+model that needs its front end's embeddings (seamless, internvl2) takes
+no request from tokens alone and refuses both.
+
+Cold start (DESIGN.md §13): ``--first-token`` serves one request through
+the scheduler and prints a ``COLD_START`` JSON line with the seconds from
+the process's start (stamped before ``import torch``) to its first token,
+and the seconds this process spent in ``nvcc``.  ``--compile-cache DIR``
+(or ``$REPRO_COMPILE_CACHE``) builds the kernel library under DIR
+(``launch.cache``), so a second process builds nothing;
+``--assert-cache-hits`` fails a run that built a library into DIR or
+found none there.  Run it twice against one DIR for the cold and the warm
+start.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
-import numpy as np
-import torch
+# stamped before the torch import below, so that --first-token's "process
+# start to first token" counts the framework's start-up, the kernel build
+# and every capture: the costs a warm build cache and a warm host remove
+_PROC_T0 = time.perf_counter()
 
-from repro_torch.configs import build, get_config
-from repro_torch.configs.base import TTConfig
-from repro_torch.kernels import plan as ttplan
-from repro_torch.kernels import tt_contract
-from repro_torch.models import moe
-from repro_torch.serving.engine import generate_fixed
-from repro_torch.serving.scheduler import Request, Scheduler
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.configs import build, get_config  # noqa: E402
+from repro_torch.configs.base import TTConfig  # noqa: E402
+from repro_torch.kernels import plan as ttplan  # noqa: E402
+from repro_torch.kernels import tt_contract  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.serving.engine import generate_fixed  # noqa: E402
+from repro_torch.serving.scheduler import Request, Scheduler  # noqa: E402
+from .cache import cache_entries, enable_compile_cache  # noqa: E402
 
 # --durability-smoke's snapshot cadence (the reference's), and the arrival
 # mode's with --durable, when --snapshot-every is not given
@@ -483,17 +517,23 @@ def simulate(model, params, args) -> dict:
     sched, warm = arrival_scheduler(model, params, args)
     print(f"warm-up request: {warm:.3f}s (excluded below)")
     if args.durable:
-        from repro_torch.serving.durable import DurableScheduler
-        every = args.snapshot_every or SNAPSHOT_EVERY
-        if args.restore:
-            sched.close()
-            sched = DurableScheduler.recover(
-                args.durable, model, params, rebase_clock=True,
-                snapshot_every=every, log=print)
-        else:
-            sched = DurableScheduler(sched, args.durable,
-                                     snapshot_every=every)
+        sched = make_durable(sched, model, params, args)
     return dict(arrivals(sched, args), warmup_s=warm, sched=sched)
+
+
+def make_durable(sched: Scheduler, model, params, args):
+    """``sched`` behind the journal of ``--durable DIR`` (a snapshot every
+    ``--snapshot-every`` decode steps, ``SNAPSHOT_EVERY`` by default), or
+    with ``--restore`` the scheduler recovered from DIR (``sched`` closed
+    first, so the recovery binds its slot-pool graph)."""
+    from repro_torch.serving.durable import DurableScheduler
+    every = args.snapshot_every or SNAPSHOT_EVERY
+    if args.restore:
+        sched.close()
+        return DurableScheduler.recover(
+            args.durable, model, params, rebase_clock=True,
+            snapshot_every=every, log=print)
+    return DurableScheduler(sched, args.durable, snapshot_every=every)
 
 
 def _how(model, graph: bool) -> str:
@@ -897,6 +937,246 @@ def prefix_smoke(model, params, args) -> dict:
             "prompts": prompts, **sched.stats()}
 
 
+def first_token(model, params, args) -> dict:
+    """The cold-start probe (``--first-token``): one request (uid 0, drawn
+    as the arrival mode draws it from ``--seed``) through a scheduler of
+    the serve flags, printing a ``COLD_START`` JSON line with the seconds
+    from the process's start to its first token (``_PROC_T0``: the
+    framework's start-up, the model's build, on a card the kernel build
+    and the captures of the slot-pool decode step and the prompt's
+    prefill), this process's ``nvcc`` seconds and the build cache's
+    libraries.  Run twice against one ``--compile-cache`` DIR: the second
+    (warm) run builds nothing."""
+    sched = make_scheduler(model, params, args, args.prompt_len + args.steps)
+    sched.submit(arrival_request(model, args, 0, args.seed))
+    while sched.tokens_out < 1:
+        sched.step()
+    t_first = time.perf_counter() - _PROC_T0
+    sched.run()                           # drain the rest of the budget
+    sched.close()
+    out = {"arch": model.cfg.name, "device": str(model.device),
+           "prompt_len": args.prompt_len, "steps": args.steps,
+           "start_to_first_token_s": t_first,
+           "nvcc_s": tt_contract.BUILD_SECONDS,
+           "compile_cache": args.compile_cache,
+           "cache_entries": (cache_entries(args.compile_cache)
+                             if args.compile_cache else None)}
+    print("COLD_START " + json.dumps(out), flush=True)
+    return out
+
+
+def serve_mode(model, params, args, on_ready=None) -> dict:
+    """HTTP/SSE serving (``--serve``, DESIGN.md §15): a ``StreamEngine``
+    step loop behind the stdlib SSE front end on ``--host``:``--port``
+    (0: an ephemeral port), until POST /shutdown or an interrupt, then the
+    engine drains.  ``--durable DIR`` journals every submit and
+    retirement (``--restore`` recovers after a crash, its in-flight token
+    streams replayable through GET /stream/<uid>?from=N: the journal-aware
+    reconnect).  ``on_ready(server)`` is called once the server listens.
+    Returns the engine's stats."""
+    from repro_torch.serving.engine import StreamEngine
+    from repro_torch.serving.server import make_server
+
+    cache_len = args.prompt_len + args.steps
+    sched = make_scheduler(model, params, args, cache_len)
+    if args.durable:
+        sched = make_durable(sched, model, params, args)
+    eng = StreamEngine(sched)
+    srv = make_server(eng, host=args.host, port=args.port, quiet=False)
+    host, port = srv.server_address[:2]
+    print(f"serving on http://{host}:{port}: POST /generate, "
+          f"GET /stream/<uid>?from=N, GET /stats, POST /shutdown "
+          f"(cache_len={cache_len}, device={model.device}, "
+          f"chunked={'on' if args.chunk_prefill else 'off'})", flush=True)
+    if on_ready is not None:
+        on_ready(srv)
+    try:
+        srv.serve_forever()
+        print("shutdown requested: draining")
+    except KeyboardInterrupt:
+        print("\ninterrupted: draining")
+    finally:
+        srv.server_close()
+        eng.close()
+    st = eng.stats()
+    print(f"served {st['requests_done']} requests, "
+          f"{st['tokens_out']} tokens")
+    return st
+
+
+# --serve-smoke's bound on every wait: a client's connection, a token, the
+# server's and the engine's stops (a card's first captures included)
+SMOKE_TIMEOUT = 300.0
+
+
+def sse_events(resp):
+    """The ``data:`` events of an SSE response, decoded, as they arrive."""
+    buf = b""
+    while True:
+        chunk = resp.read1(4096)
+        if not chunk:
+            return
+        buf += chunk
+        while b"\n\n" in buf:
+            raw, buf = buf.split(b"\n\n", 1)
+            for line in raw.split(b"\n"):
+                if line.startswith(b"data: "):
+                    yield json.loads(line[6:])
+
+
+def serve_smoke(model, params, args) -> dict:
+    """The streaming check (``--serve-smoke``): an in-process SSE server
+    over a ``StreamEngine`` on a scheduler of the serve flags, two
+    *overlapping* streaming requests of ``--steps`` tokens (uid 1 is sent
+    once uid 0's first event arrived; prompts drawn as the arrival mode
+    draws uids 0 and 1) whose per-token events must arrive in order, end
+    ``"length"``, equal the engine's results and interleave in time; a
+    reconnect that replays uid 0 from ``--steps`` // 2; /stats; a graceful
+    POST /shutdown; and, with ``--assert-no-replan``, no plan resolution
+    while serving.  Every wait is bounded (``SMOKE_TIMEOUT``).  Returns
+    each stream's tokens and logprobs as streamed, the results, time to
+    first token and inter-token p50 per stream, the replay, the captures
+    while serving and the engine's stats."""
+    import http.client
+    import threading
+
+    from repro_torch.serving.engine import StreamEngine
+    from repro_torch.serving.server import make_server
+
+    if model.front_input is not None:
+        raise SystemExit(f"--serve-smoke sends token prompts; "
+                         f"{model.cfg.name} also needs its front end's "
+                         f"{model.front_input}")
+    steps = args.steps
+    sched = make_scheduler(model, params, args, args.prompt_len + steps)
+    eng = StreamEngine(sched)
+    t0 = tally(model)
+    srv = make_server(eng)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    # the tokens ``arrival_request`` draws for uids 0 and 1, on the host
+    prompts = [np.random.default_rng(args.seed + i).integers(
+        0, model.cfg.vocab_size, (1, args.prompt_len),
+        dtype=np.int64)[0].tolist() for i in range(2)]
+    outs: list[list] = [[], []]
+    sent = [0.0, 0.0]
+    first = threading.Event()
+
+    def client(uid):
+        c = http.client.HTTPConnection("127.0.0.1", port,
+                                       timeout=SMOKE_TIMEOUT)
+        sent[uid] = time.perf_counter()
+        c.request("POST", "/generate",
+                  json.dumps({"tokens": prompts[uid],
+                              "max_new_tokens": steps, "uid": uid}),
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        assert r.status == 200, r.status
+        for ev in sse_events(r):
+            outs[uid].append((time.perf_counter(), ev))
+            first.set()
+            if "done" in ev or "error" in ev:
+                break
+        c.close()
+
+    try:
+        threads = [threading.Thread(target=client, args=(u,), daemon=True)
+                   for u in range(2)]
+        threads[0].start()
+        first.wait(SMOKE_TIMEOUT)
+        threads[1].start()
+        for t in threads:
+            t.join(SMOKE_TIMEOUT)
+            assert not t.is_alive(), "streaming client timed out"
+        for uid, out in enumerate(outs):
+            assert out and out[-1][1].get("done") == "length", out[-1:]
+            idx = [ev["i"] for _, ev in out[:-1]]
+            assert idx == list(range(steps)), \
+                f"uid {uid}: events out of order: {idx}"
+        # the two streams overlap in wall time (continuous batching, not
+        # serial): each starts before the other finishes
+        starts = [out[0][0] for out in outs]
+        ends = [out[-1][0] for out in outs]
+        assert max(starts) < min(ends), "request streams did not overlap"
+        print(f"overlapping streams OK: 2 x {steps} ordered per-token "
+              f"events")
+
+        # reconnect mid-stream: replay uid 0 from an arbitrary index
+        frm = max(1, steps // 2)
+        c = http.client.HTTPConnection("127.0.0.1", port,
+                                       timeout=SMOKE_TIMEOUT)
+        t_replay = time.perf_counter()
+        c.request("GET", f"/stream/0?from={frm}")
+        replay = []
+        for ev in sse_events(c.getresponse()):
+            replay.append(ev)
+            if "done" in ev or "error" in ev:
+                break
+        replay_s = time.perf_counter() - t_replay
+        c.close()
+        want = [ev["token"] for _, ev in outs[0][frm:-1]]
+        got = [ev["token"] for ev in replay[:-1]]
+        assert got == want and replay[-1].get("done") == "length", \
+            (replay, want)
+        print(f"reconnect OK: replayed {len(got)} events from index {frm} "
+              f"in {replay_s * 1e3:.1f} ms")
+
+        c = http.client.HTTPConnection("127.0.0.1", port,
+                                       timeout=SMOKE_TIMEOUT)
+        c.request("GET", "/stats")
+        st = json.loads(c.getresponse().read())
+        c.close()
+        c = http.client.HTTPConnection("127.0.0.1", port,
+                                       timeout=SMOKE_TIMEOUT)
+        c.request("POST", "/shutdown", "{}")
+        assert json.loads(c.getresponse().read())["ok"]
+        c.close()
+        th.join(SMOKE_TIMEOUT)
+        assert not th.is_alive(), "server did not shut down"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        eng.close(timeout=SMOKE_TIMEOUT)
+    t1 = tally(model)
+    finished = {u: eng.result(u, timeout=0) for u in range(2)}
+    streamed = {}
+    for uid, out in enumerate(outs):
+        toks = np.asarray([ev["token"] for _, ev in out[:-1]], np.int64)
+        lps = np.asarray([ev["lp"] for _, ev in out[:-1]], np.float32)
+        assert np.array_equal(toks, finished[uid].tokens) and \
+            np.array_equal(lps, finished[uid].logprobs), \
+            f"uid {uid}: the streamed events are not the engine's result"
+        streamed[uid] = (toks, lps)
+    ttft = [out[0][0] - sent[u] for u, out in enumerate(outs)]
+    itl = [float(np.median(np.diff([t for t, _ in out[:-1]])))
+           if steps > 1 else float("nan") for out in outs]
+    replans = t1["plans"] - t0["plans"]
+    captures = t1["captures"] - t0["captures"]
+    prefills = t1["prefills"] - t0["prefills"]
+    print(f"arch={model.cfg.name} device={model.device} "
+          f"pool={'paged' if sched.paged else 'dense'}"
+          f"{' chunked' if sched.chunk_prefill else ''} prompt="
+          f"{args.prompt_len} steps={steps}: ttft ms "
+          f"{[round(x * 1e3, 3) for x in ttft]}, inter-token p50 ms "
+          f"{[round(x * 1e3, 3) for x in itl]}; while serving "
+          f"{captures} captures of decode or mixed steps, {prefills} "
+          f"prefill or resume builds, TT "
+          f"launches {launches_between(t0, t1)}")
+    print(f"graceful shutdown OK; plan resolutions during serving: "
+          f"{replans}")
+    if args.assert_no_replan and replans != 0:
+        raise AssertionError(
+            f"{replans} TT plan resolutions during streaming serving")
+    print("streaming smoke OK")
+    return {"requests": 2, "steps": steps, "replans": replans,
+            "captures": captures, "prefill_captures": prefills,
+            "launches": launches_between(t0, t1), "prompts": prompts,
+            "streamed": streamed, "finished": finished, "ttft_s": ttft,
+            "itl_p50_s": itl, "replay_from": frm, "replay_events": len(got),
+            "replay_s": replay_s, "stats": st}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
@@ -972,6 +1252,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help=f"decode steps between snapshot generations "
                          f"(--durable: default {SNAPSHOT_EVERY}; "
                          f"--durability-smoke: {DRILL_SNAPSHOT_EVERY})")
+    ap.add_argument("--serve", action="store_true",
+                    help="start the HTTP/SSE streaming server "
+                         "(serving/server.py) over a StreamEngine; stop "
+                         "with POST /shutdown or an interrupt")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8763,
+                    help="--serve port (0 = ephemeral)")
+    ap.add_argument("--serve-smoke", action="store_true",
+                    help="streaming check: in-process SSE server, two "
+                         "overlapping streaming requests with ordered "
+                         "per-token events, a mid-stream reconnect replay "
+                         "and a graceful shutdown")
+    ap.add_argument("--first-token", action="store_true",
+                    help="print a COLD_START line with process start -> "
+                         "first token; run twice against one "
+                         "--compile-cache dir for cold vs. warm")
+    ap.add_argument("--compile-cache", default=None,
+                    help="kernel build directory kept across processes "
+                         "(also via $REPRO_COMPILE_CACHE): a restarted "
+                         "process builds nothing")
+    ap.add_argument("--assert-cache-hits", action="store_true",
+                    help="fail if this run builds a kernel library into "
+                         "--compile-cache, or finds none there (the warm "
+                         "start must build nothing)")
     args = ap.parse_args(argv)
     if args.restore and not args.durable:
         ap.error("--restore requires --durable DIR")
@@ -998,18 +1302,47 @@ def setup(args):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    # before the first kernel load, so the library is built (or found)
+    # under the cache
+    cache_dir = enable_compile_cache(args.compile_cache)
+    args.compile_cache = cache_dir        # resolves $REPRO_COMPILE_CACHE
+    n_cache0 = cache_entries(cache_dir)
     model, params = setup(args)
-    if args.prefix_smoke:
-        return prefix_smoke(model, params, args)
-    if args.fault_smoke:
-        return fault_smoke(model, params, args)
-    if args.durability_smoke:
-        return durability_smoke(model, params, args)
-    if args.arrival_rate or args.restore:
-        if not args.arrival_rate:
-            args.arrival_rate = 1.0       # --restore drains, no arrivals
-        return simulate(model, params, args)
-    return fixed(model, params, args)
+    try:
+        if args.prefix_smoke:
+            out = prefix_smoke(model, params, args)
+        elif args.fault_smoke:
+            out = fault_smoke(model, params, args)
+        elif args.durability_smoke:
+            out = durability_smoke(model, params, args)
+        elif args.first_token:
+            out = first_token(model, params, args)
+        elif args.serve_smoke:
+            out = serve_smoke(model, params, args)
+        elif args.serve:
+            out = serve_mode(model, params, args)
+        elif args.arrival_rate or args.restore:
+            if not args.arrival_rate:
+                args.arrival_rate = 1.0   # --restore drains, no arrivals
+            out = simulate(model, params, args)
+        else:
+            out = fixed(model, params, args)
+    except KeyboardInterrupt:
+        # the arrival mode and --serve drain on their own; this is the
+        # safety net of the other modes: exit 0 without a traceback
+        print("\ninterrupted: exiting")
+        return {"interrupted": True}
+    if cache_dir:
+        n1 = cache_entries(cache_dir)
+        print(f"build cache {cache_dir}: {n_cache0} -> {n1} kernel "
+              f"libraries ({n1 - n_cache0} built by this run, nvcc "
+              f"{tt_contract.BUILD_SECONDS:.1f} s)")
+        if args.assert_cache_hits and (n1 != n_cache0 or n_cache0 == 0):
+            raise AssertionError(
+                f"warm start built {n1 - n_cache0} kernel libraries (the "
+                f"cache had {n_cache0}): the build cache must make a "
+                f"restart build nothing")
+    return out
 
 
 if __name__ == "__main__":

@@ -167,7 +167,12 @@ class Request:
     ``torch.Generator`` on the model's device.  ``priority`` orders
     admission and preemption (higher wins; ties go to the older request);
     ``deadline_s`` is a TTL from submit after which the request retires
-    with ``finish_reason="deadline"``."""
+    with ``finish_reason="deadline"``.  ``on_token`` (optional callable
+    ``(uid, index, token, logprob)``) streams each generated token as it is
+    picked, on the thread that steps the scheduler: the streaming front
+    end's hook (``serving.engine.StreamEngine``).  It is host-side state,
+    left out of snapshots and journals (a reconnecting client replays the
+    engine's buffers instead)."""
     uid: int
     inputs: dict
     max_new_tokens: int
@@ -176,6 +181,8 @@ class Request:
     top_k: int = 0
     priority: int = 0
     deadline_s: float | None = None
+    on_token: object | None = dataclasses.field(default=None, repr=False,
+                                                compare=False)
 
 
 @dataclasses.dataclass
@@ -809,13 +816,20 @@ class Scheduler:
         return s
 
     def _emit(self, slot: _Slot, tok: int, lp: float) -> None:
-        """Append one generated token to a slot, stamping the first."""
+        """Append one generated token to a slot, stamping the first, and
+        hand it to the request's ``on_token``.  The single funnel of
+        generated tokens: admission first tokens, chunk-completion first
+        tokens and decode steps all come through here; a resumed slot
+        continues from its requeued tokens, so none is emitted twice."""
         slot.tokens.append(tok)
         slot.logprobs.append(lp)
         slot.last_tok = tok
         self.tokens_out += 1
         if slot.first_token_time is None:
             slot.first_token_time = self._now()
+        cb = slot.req.on_token
+        if cb is not None:
+            cb(slot.uid, len(slot.tokens) - 1, tok, lp)
 
     def _admit_dense(self, q: _Queued, slot_idx: int,
                      done: list[FinishedRequest]) -> None:

@@ -2038,3 +2038,115 @@ def test_fault_drill_graph_is_eager_bit_for_bit(cuda, pool):
         assert f.finish_reason == e.finished[u].finish_reason
         assert np.array_equal(f.tokens, e.finished[u].tokens)
         assert np.array_equal(f.logprobs, e.finished[u].logprobs)
+
+
+# ---------------------------------------------------------- the streaming
+STREAM_POOLS = {"dense": {}, "paged": dict(paged=True, block_size=4),
+                "chunked": dict(paged=True, block_size=4,
+                                chunk_prefill=True, chunk_size=3)}
+
+
+def _host_requests(model, n, S=8, steps=6):
+    """``_life_requests`` with the prompts on the host, as a server hands
+    them to ``StreamEngine.submit``."""
+    from repro_torch.serving.scheduler import Request
+    return [Request(uid=u, inputs={"tokens": _prompt(
+        model, 120 + u, B=1, S=S)["tokens"].cpu()}, max_new_tokens=steps)
+        for u in range(n)]
+
+
+@pytest.mark.parametrize("pool", list(STREAM_POOLS))
+def test_stream_engine_over_graphs_is_the_scheduler(cuda, pool):
+    """``StreamEngine`` over the captured graphs (its loop thread binds
+    and replays them, the admissions move host prompts to the card) gives
+    the synchronous scheduler's tokens and logprobs over the same graphs,
+    bit for bit, and its events are those results."""
+    from repro_torch.serving.engine import StreamEngine
+    from repro_torch.serving.scheduler import Scheduler
+    model, params = _smoke("fused2", "fp32", cuda)
+    kw = dict(num_slots=2, cache_len=16, **STREAM_POOLS[pool])
+    sync = Scheduler(model, params, **kw)
+    for r in _host_requests(model, 4):
+        sync.submit(r)
+    want = sync.run()
+    sync.close()
+    captures = model.graph_captures
+    eng = StreamEngine(Scheduler(model, params, **kw))
+    try:
+        for r in _host_requests(model, 4):
+            eng.submit(r)
+        for u, f in want.items():
+            got = eng.result(u, timeout=120)
+            assert np.array_equal(got.tokens, f.tokens)
+            assert np.array_equal(got.logprobs, f.logprobs)
+            evs = list(eng.stream(u, timeout=120))[:-1]
+            assert [e["token"] for e in evs] == f.tokens.tolist()
+    finally:
+        eng.close(timeout=120)
+    assert model.graph_captures == captures       # the same decode graph
+
+
+def test_capture_while_a_client_streams(cuda):
+    """A prompt of a new bucket arrives while another request streams over
+    HTTP: the loop thread captures its prefill while the first handler
+    thread writes events, the capture succeeds, and both streams are the
+    synchronous scheduler's."""
+    import http.client
+    import json
+    import threading
+    from repro_torch.launch.serve import sse_events
+    from repro_torch.serving.engine import StreamEngine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    from repro_torch.serving.server import make_server
+    model, params = _smoke("fused2", "fp32", cuda)
+    kw = dict(num_slots=2, cache_len=32)
+    long = _prompt(model, 7, B=1, S=8)["tokens"].cpu()
+    other = _prompt(model, 8, B=1, S=13)["tokens"].cpu()   # bucket 16
+    eng = StreamEngine(Scheduler(model, params, **kw))
+    srv = make_server(eng)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    outs = {0: [], 1: []}
+    started = threading.Event()
+
+    def client(uid, toks, steps):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        c.request("POST", "/generate", json.dumps(
+            {"tokens": toks.tolist(), "max_new_tokens": steps, "uid": uid}))
+        for ev in sse_events(c.getresponse()):
+            outs[uid].append(ev)
+            started.set()
+            if "done" in ev or "error" in ev:
+                break
+        c.close()
+
+    try:
+        builds = model.prefill_builds
+        a = threading.Thread(target=client, args=(0, long, 20))
+        a.start()
+        assert started.wait(120)
+        b = threading.Thread(target=client, args=(1, other, 6))
+        b.start()
+        # /stats from a handler thread while the loop may be capturing
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        c.request("GET", "/stats")
+        assert json.loads(c.getresponse().read())["kv_pool_bytes"] > 0
+        c.close()
+        for t in (a, b):
+            t.join(120)
+            assert not t.is_alive()
+        assert model.prefill_builds > builds     # the new bucket captured
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        eng.close(timeout=120)
+    sync = Scheduler(model, params, **kw)
+    for uid, toks, steps in ((0, long, 20), (1, other, 6)):
+        sync.submit(Request(uid=uid, inputs={"tokens": toks},
+                            max_new_tokens=steps))
+    want = sync.run()
+    sync.close()
+    for uid, evs in outs.items():
+        assert evs[-1].get("done") == "length", evs[-1]
+        assert [e["token"] for e in evs[:-1]] == want[uid].tokens.tolist()
